@@ -1,0 +1,91 @@
+"""Weights carried across from the JAX package, and random int8 weights.
+
+:func:`params_from_jax` takes the JAX package's ragged-Llama param tree —
+nested dicts of numpy arrays (``np.asarray`` of a JAX array is one) — and
+returns the same tree of torch tensors.  Every weight keeps the JAX
+package's ``[K, N]`` (``[in, out]``) layout: an int8 record
+``{"q": int8 [K, N], "scale": fp32 [G]}`` is exactly what the int8 matmul
+kernel reads, and a plain projection kernel is stored ``[K, N]`` too, NOT
+transposed to ``nn.Linear``'s ``[out, in]`` (the forward computes
+``x @ w``).
+
+:func:`random_int8_llama_params` is the counterpart of
+``bench_serving.py:_random_int8_llama_params``: the same tree with every
+matmul weight an int8 record, drawn on the device from a seeded
+``torch.Generator`` (its numbers differ from ``jax.random``'s).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
+from deepspeed_tpu_torch.models.llama import LlamaConfig
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":         # ml_dtypes bf16: no torch twin
+        t = torch.from_numpy(np.array(arr.view(np.uint16))).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    return t.to(device)
+
+
+def params_from_jax(tree: Any, device=None) -> Any:
+    """The JAX param tree as torch tensors on ``device`` (default CUDA),
+    same nesting, same dtypes, same ``[K, N]`` layouts."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _to_tensor(node, dev)
+
+    return conv(tree)
+
+
+def random_int8_llama_params(cfg: LlamaConfig, groups: int = 16,
+                             seed: int = 0, device=None) -> Any:
+    """Random Llama params with every matmul weight an int8 ``{"q",
+    "scale"}`` record, made directly on ``device`` — the full-precision
+    tree never exists.  Scales target the usual 1/sqrt(fan_in) weight
+    magnitude so logits stay finite."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    H, I, V, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                  cfg.num_hidden_layers)
+    kv = cfg.num_key_value_heads * cfg.head_dim
+
+    def rec(k_dim, n_dim):
+        q = torch.randint(-127, 128, (k_dim, n_dim), generator=gen,
+                          dtype=torch.int8, device=dev)
+        # int8 uniform(-127,127) std ~73.3; scale for weight std 1/sqrt(K)
+        scale = torch.full((groups,), 1.0 / (73.3 * math.sqrt(k_dim)),
+                           dtype=torch.float32, device=dev)
+        return {"kernel": {"q": q, "scale": scale}}
+
+    def ones():
+        return {"scale": torch.ones((H,), dtype=torch.float32, device=dev)}
+
+    model = {}
+    for i in range(L):
+        model[f"layers_{i}"] = {
+            "self_attn": {"q_proj": rec(H, H), "k_proj": rec(H, kv),
+                          "v_proj": rec(H, kv), "o_proj": rec(H, H)},
+            "mlp": {"gate_proj": rec(H, I), "up_proj": rec(H, I),
+                    "down_proj": rec(I, H)},
+            "input_layernorm": ones(),
+            "post_attention_layernorm": ones(),
+        }
+    emb = torch.randn((V, H), generator=gen, dtype=cfg.dtype,
+                      device=dev) * 0.02
+    model["embed_tokens"] = {"embedding": emb}
+    model["norm"] = ones()
+    return {"model": model, "lm_head": rec(H, V)}

@@ -23,6 +23,12 @@ jax.config.update("jax_platforms", "cpu")
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA "
+        "kernels); skips where torch.cuda.is_available() is false")
+
+
 @pytest.fixture(autouse=True)
 def _reset_global_mesh():
     """Each test starts with a fresh global topology."""

@@ -1,0 +1,104 @@
+"""The port stands alone and never runs on the CPU by accident.
+
+* ``deepspeed_tpu_torch/`` and ``chip_smoke.py`` import neither ``jax`` nor
+  anything of ``deepspeed_tpu`` (checked on the source with ``ast``, and by
+  importing every module in a fresh interpreter);
+* importing the package builds nothing;
+* an entry point called without ``device="cpu"`` on a machine without a
+  GPU raises instead of running on the CPU, and a kernel build without
+  ``nvcc`` raises.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "deepspeed_tpu_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.")
+            or name == "deepspeed_tpu" or name.startswith("deepspeed_tpu."))
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            if node.level == 0 and _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_importing_every_module_loads_no_jax_and_builds_nothing(tmp_path):
+    modules = [".".join(p.relative_to(ROOT).with_suffix("").parts)
+               for p in sorted(PORT.rglob("*.py"))]
+    modules = [m[:-len(".__init__")] if m.endswith(".__init__") else m
+               for m in modules]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "from deepspeed_tpu_torch.ops import _build\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'deepspeed_tpu' or m.startswith('deepspeed_tpu.')]\n"
+        "assert not bad, bad\n"
+        "assert not _build._LIBS\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.checkpoint import (params_from_jax,
+                                                random_int8_llama_params)
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.model_implementations import (
+        RaggedLlama)
+    from deepspeed_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    params = random_int8_llama_params(cfg, groups=2, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngineV2(RaggedLlama(cfg, 8), params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        random_int8_llama_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({"w": [1.0]})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_accelerator()
+    assert get_accelerator("cpu").device() == torch.device("cpu")
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from deepspeed_tpu_torch.ops import _build
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "build").exists()
+    # the library name follows the source text: an edit forces a rebuild
+    assert _build.library_path("blocked_flash").name.startswith(
+        "libblocked_flash-")
