@@ -19,8 +19,24 @@ Phases, each fatal on failure:
 5. the served run: the 32-layer Llama-2-7B geometry with random int8 weights
    and a bf16 KV cache (block 128, token budget 512) answers 8 requests of
    256-token prompts: ``put`` → ``decode_loop`` of 48 tokens → ``flush``.
-   Every kernel's launch count is set to 0 just before and must be > 0
-   just after.
+   Every serving kernel's launch count is set to 0 just before and must be
+   > 0 just after;
+6. the flash-attention kernels (forward, dQ, dK/dV) against their plain
+   versions in bf16 at four shapes — the bench model's, Llama-2-70B's head
+   geometry, a sliding window, a rectangular end-aligned case — o, lse,
+   dq, dk, dv each within 3e-2 of the plain version's largest magnitude,
+   timed beside the plain versions, ``F.scaled_dot_product_attention``
+   (a yardstick only) and the bound;
+7. the training slice: the bench Llama (hidden 768, 12 heads, vocab 32000)
+   at 2 layers, batch 8 x 1024, 3 engine steps through the kernels and 3
+   through the plain versions from the same init and ids: losses within
+   3e-2, only the kernel path launching the flash kernels;
+8. the trained run: the bench model at 12 layers with the bench ds_config
+   (ZeRO-1, bf16, AdamW 1e-4, clip 1.0) through
+   ``deepspeed_tpu_torch.initialize``: 3 warm-up and 20 timed steps of
+   ``engine(ids, ids)`` / ``backward`` / ``step`` on one batch from SEED;
+   finite, falling loss and exactly 12 launches a step of each flash
+   kernel (counts set to 0 just before the timed steps).
 
 The second-to-last lines are the ``kernels`` JSON record and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -258,20 +274,25 @@ def make_engine(torch, cfg, params, max_ctx, use_kernels):
                              params, eng_cfg)
 
 
-def reset_launches():
+def _launch_counters():
     from deepspeed_tpu_torch.inference.v2.kernels import blocked_flash as bf
+    from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import quantized_matmul as qm
 
-    for counts in (qm.LAUNCHES, bf.LAUNCHES):
+    return qm.LAUNCHES, bf.LAUNCHES, fa.LAUNCHES
+
+
+def reset_launches():
+    for counts in _launch_counters():
         for k in counts:
             counts[k] = 0
 
 
-def read_launches():
-    from deepspeed_tpu_torch.inference.v2.kernels import blocked_flash as bf
-    from deepspeed_tpu_torch.ops import quantized_matmul as qm
-
-    return {**qm.LAUNCHES, **bf.LAUNCHES}
+def read_launches(serving: bool = True):
+    """The serving path's counts, or (``serving=False``) the training
+    path's."""
+    qm, bf, fa = _launch_counters()
+    return {**qm, **bf} if serving else dict(fa)
 
 
 def slice_kernel_vs_plain(torch, np, prompts):
@@ -374,10 +395,295 @@ def served_run(torch, prompts, gen_tokens=48):
     }
 
 
-def profile_window(torch, fn, steps):
+# --------------------------------------------------------------------- #
+# Phases 6-8: the training path
+# --------------------------------------------------------------------- #
+FLASH_CASES = (
+    # name, B, Sq, Sk, H, Hkv, D, window
+    ("bench B8 S1024 H12 D64", 8, 1024, 1024, 12, 12, 64, None),
+    ("70B heads B2 S2048 H64/8 D128", 2, 2048, 2048, 64, 8, 128, None),
+    ("window 256 B2 S2048 H8 D64", 2, 2048, 2048, 8, 8, 64, 256),
+    ("rect Sq512 Sk1024 B2 H8 D64", 2, 512, 1024, 8, 8, 64, None),
+)
+
+
+def visible_pairs(sq, sk, window):
+    """(row, column) pairs a causal end-aligned mask keeps."""
+    off = sk - sq
+    total = 0
+    for r in range(sq):
+        hi = min(sk - 1, r + off)
+        lo = 0 if window is None else max(0, r + off - window + 1)
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_case(torch, gen, dev, name, b, sq, sk, h, hkv, d, window):
+    """One phase-6 case: each kernel against its plain version, timed
+    beside it, the SDPA yardstick and the bound."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    scale = d ** -0.5
+    call_bytes = 2 * (2 * b * sq * h * d + 2 * b * sk * hkv * d)
+    sets = n_sets(call_bytes)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=bf16)
+
+    ops = []
+    for _ in range(sets):
+        q, k, v, do = (rand(b, sq, h, d), rand(b, sk, hkv, d),
+                       rand(b, sk, hkv, d), rand(b, sq, h, d))
+        qs = (q.float() * scale).to(bf16)
+        o, lse = fa.flash_attention_fwd(qs, k, v, True, window)
+        _, delta = fa.flash_attention_bwd_dq(qs, k, v, o, do, lse, scale,
+                                             True, window)
+        ops.append(dict(q=q, k=k, v=v, do=do, qs=qs, o=o, lse=lse,
+                        delta=delta))
+    x = ops[0]
+    got = {"o": x["o"], "lse": x["lse"], "delta": x["delta"]}
+    got["dq"], _ = fa.flash_attention_bwd_dq(
+        x["qs"], x["k"], x["v"], x["o"], x["do"], x["lse"], scale, True,
+        window)
+    got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(
+        x["qs"], x["k"], x["v"], x["do"], x["lse"], x["delta"], True, window)
+    want = {}
+    want["o"], want["lse"] = fa.flash_attention_plain_fwd(
+        x["qs"], x["k"], x["v"], causal=True, window=window)
+    want["dq"], want["delta"] = fa.flash_attention_plain_bwd_dq(
+        x["qs"], x["k"], x["v"], want["o"], x["do"], want["lse"],
+        scale=scale, causal=True, window=window)
+    want["dk"], want["dv"] = fa.flash_attention_plain_bwd_dkv(
+        x["qs"], x["k"], x["v"], x["do"], want["lse"], want["delta"],
+        causal=True, window=window)
+    torch.cuda.synchronize()
+    rel, abs_err = {}, {}
+    for key in want:
+        diff = (got[key].float() - want[key].float()).abs().max().item()
+        abs_err[key] = diff
+        rel[key] = diff / max(want[key].float().abs().max().item(), 1e-30)
+        if not torch.isfinite(got[key].float()).all():
+            rel[key] = float("inf")
+
+    n_vis = b * h * visible_pairs(sq, sk, window)
+    fwd_flops = 4.0 * n_vis * d
+    q_bytes, kv_bytes, row_bytes = b * sq * h * d * 2, b * sk * hkv * d * 2, \
+        b * h * sq * 4
+    bounds = {
+        # q, k, v read; o, lse written: S = qk^T, PV
+        "fwd": bound(2 * q_bytes + 2 * kv_bytes + row_bytes, fwd_flops),
+        # q, k, v, o, do, lse read; dq, delta written: S, dP, dQ
+        "bwd_dq": bound(4 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
+                        1.5 * fwd_flops),
+        # q, k, v, do, lse, delta read; dk, dv written: S, dP, dV, dK
+        "bwd_dkv": bound(2 * q_bytes + 4 * kv_bytes + 2 * row_bytes,
+                         2.0 * fwd_flops),
+        # forward + backward by the usual count (backward 2.5x forward):
+        # q, k, v, do read; o, lse, dq, dk, dv written
+        "fwd+bwd": bound(4 * q_bytes + 4 * kv_bytes + row_bytes,
+                         3.5 * fwd_flops),
+    }
+    iters = 20
+    t = {
+        "fwd": time_ms(lambda i: fa.flash_attention_fwd(
+            ops[i]["qs"], ops[i]["k"], ops[i]["v"], True, window),
+            sets, iters),
+        "bwd_dq": time_ms(lambda i: fa.flash_attention_bwd_dq(
+            ops[i]["qs"], ops[i]["k"], ops[i]["v"], ops[i]["o"],
+            ops[i]["do"], ops[i]["lse"], scale, True, window),
+            sets, iters),
+        "bwd_dkv": time_ms(lambda i: fa.flash_attention_bwd_dkv(
+            ops[i]["qs"], ops[i]["k"], ops[i]["v"], ops[i]["do"],
+            ops[i]["lse"], ops[i]["delta"], True, window), sets, iters),
+    }
+
+    def kernel_fwd_bwd(i):
+        y = ops[i]
+        o, lse = fa.flash_attention_fwd(y["qs"], y["k"], y["v"], True,
+                                        window)
+        fa.flash_attention_bwd(y["qs"], y["k"], y["v"], o, lse, y["do"],
+                               scale, True, window)
+
+    t["fwd+bwd"] = time_ms(kernel_fwd_bwd, sets, iters)
+    plain = {
+        "fwd": time_ms(lambda i: fa.flash_attention_plain_fwd(
+            ops[i]["qs"], ops[i]["k"], ops[i]["v"], causal=True,
+            window=window), 1, 3),
+        "bwd_dq": time_ms(lambda i: fa.flash_attention_plain_bwd_dq(
+            ops[i]["qs"], ops[i]["k"], ops[i]["v"], ops[i]["o"],
+            ops[i]["do"], ops[i]["lse"], scale=scale, causal=True,
+            window=window), 1, 3),
+        "bwd_dkv": time_ms(lambda i: fa.flash_attention_plain_bwd_dkv(
+            ops[i]["qs"], ops[i]["k"], ops[i]["v"], ops[i]["do"],
+            ops[i]["lse"], ops[i]["delta"], causal=True, window=window),
+            1, 3),
+    }
+    plain["fwd+bwd"] = plain["fwd"] + plain["bwd_dq"] + plain["bwd_dkv"]
+
+    # yardstick: SDPA on the same inputs in its [B, H, S, D] layout (the
+    # transposes are outside the timed calls); an explicit end-aligned
+    # mask where SDPA's is_causal (top-left aligned) does not fit
+    masked = window is not None or sq != sk
+    mask = None
+    if masked:
+        r = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+        c = torch.arange(sk, device=dev)[None, :]
+        mask = r >= c
+        if window is not None:
+            mask &= c > r - window
+    lib = [tuple(ops[i][n].transpose(1, 2).contiguous().requires_grad_()
+                 for n in ("q", "k", "v")) + (
+                     ops[i]["do"].transpose(1, 2).contiguous(),)
+           for i in range(sets)]
+
+    def sdpa(i):
+        qq, kk, vv, _ = lib[i]
+        return F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mask, is_causal=not masked,
+            enable_gqa=h != hkv)
+
+    def sdpa_fwd_bwd(i):
+        torch.autograd.grad(sdpa(i), lib[i][:3], lib[i][3])
+
+    with torch.no_grad():
+        lib_fwd = time_ms(sdpa, sets, iters)
+    lib_fwd_bwd = time_ms(sdpa_fwd_bwd, sets, iters)
+    return {
+        "name": name, "shape": [b, sq, sk, h, hkv, d, window],
+        "rel_err": rel, "abs_err": abs_err, "ms": t, "plain_ms": plain,
+        "library_ms": {"fwd": lib_fwd, "fwd+bwd": lib_fwd_bwd},
+        "bound_ms": {k: v[0] for k, v in bounds.items()},
+        "bound_by": {k: v[1] for k, v in bounds.items()},
+    }
+
+
+BENCH_DS_CONFIG = {
+    # bench.py:88-100, the JAX package's headline training config
+    "train_micro_batch_size_per_gpu": 8,
+    "gradient_accumulation_steps": 1,
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+    "zero_optimization": {"stage": 1},
+    "bf16": {"enabled": True},
+    "gradient_clipping": 1.0,
+    "attention_layout": "bshd",
+}
+
+
+def bench_llama(torch, layers):
+    """The bench model (bench.py:84-87): vocab 32000, hidden 768,
+    intermediate 2048, 12 heads, 12 KV heads, max positions 2048, bf16."""
+    from deepspeed_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig(vocab_size=32000, hidden_size=768,
+                       intermediate_size=2048, num_hidden_layers=layers,
+                       num_attention_heads=12, num_key_value_heads=12,
+                       max_position_embeddings=2048, dtype=torch.bfloat16)
+
+
+def bench_ids(torch, np, dev, vocab):
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.integers(0, vocab, size=(8, 1024))
+                            .astype(np.int32)).to(dev)
+
+
+def train_engine(torch, cfg, dev, use_kernels=True):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import LlamaForCausalLM
+
+    model = LlamaForCausalLM(cfg, seed=SEED, device=dev,
+                             use_kernels=use_kernels)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config=BENCH_DS_CONFIG, device=dev)
+    return engine
+
+
+def train_step(engine, ids):
+    loss = engine(ids, ids)
+    engine.backward(loss)
+    engine.step()
+    return loss.detach()
+
+
+def training_kernel_vs_plain(torch, np, dev, steps=3):
+    """Phase 7: 2 layers of the bench model, the same init and ids, 3
+    engine steps through the kernels and 3 through the plain versions."""
+    cfg = bench_llama(torch, 2)
+    ids = bench_ids(torch, np, dev, cfg.vocab_size)
+    res = {}
+    for mode in ("kernel", "plain"):
+        engine = train_engine(torch, cfg, dev, use_kernels=mode == "kernel")
+        reset_launches()
+        losses = [train_step(engine, ids) for _ in range(steps)]
+        torch.cuda.synchronize()
+        res[mode] = ([float(x) for x in losses], read_launches(False))
+        del engine
+        torch.cuda.empty_cache()
+    k_loss, k_launch = res["kernel"]
+    p_loss, p_launch = res["plain"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss))
+    return {"layers": 2, "kernel_losses": k_loss, "plain_losses": p_loss,
+            "loss_rel_err": rel, "kernel_launches": k_launch,
+            "plain_launches": p_launch}
+
+
+def trained_run(torch, np, dev, warmup=3, steps=20):
+    """Phase 8: the 12-layer bench model through initialize -> engine."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = bench_llama(torch, 12)
+    ids = bench_ids(torch, np, dev, cfg.vocab_size)
+    t0 = time.perf_counter()
+    engine = train_engine(torch, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses = [train_step(engine, ids) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses += [train_step(engine, ids) for _ in range(steps)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    launches = read_launches(False)
+    losses = [float(x) for x in losses]
+    trace = profile_window(torch, lambda: [train_step(engine, ids)
+                                           for _ in range(2)], 2, top=12)
+    if trace is not None:
+        # the tracer inflates the wall: the idle share of an untraced step
+        # sets the traced device time against the untraced step time
+        trace["device_idle_share_untraced"] = \
+            1.0 - trace["device_busy_ms_per_step"] / (step_s * 1e3)
+    tokens = ids.numel()
+    n_matmul = sum(p.numel() for n, p in engine.module.named_parameters()
+                   if "embed_tokens" not in n)
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    # causal attention: 4 B H S^2 D / 2 forward, 2.5x that backward
+    attn = 3.5 * 4.0 * ids.shape[0] * cfg.num_attention_heads * \
+        visible_pairs(ids.shape[1], ids.shape[1], None) * hd * \
+        cfg.num_hidden_layers
+    flops = 6.0 * n_matmul * tokens + attn
+    return {
+        "layers": cfg.num_hidden_layers, "batch": list(ids.shape),
+        "params": sum(m.numel() for m in engine.master),
+        "matmul_params": n_matmul, "engine_init_s": init_s,
+        "ms_per_step": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "mfu": flops / step_s / BF16_FLOPS, "flops_per_step": flops,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+        "launches": launches,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "finite": all(math.isfinite(x) for x in losses),
+        "trace": trace,
+    }
+
+
+def profile_window(torch, fn, steps, top=6):
     """Device busy time (sum of kernel durations on the one stream) against
-    host wall time over ``fn``, per step, with the kernels that take the
-    most device time; None where the tracer records no device activity."""
+    host wall time over ``fn``, per step, with the ``top`` kernels that take
+    the most device time; None where the tracer records no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -395,12 +701,31 @@ def profile_window(torch, fn, steps):
     busy_us = sum(by_name.values())
     if busy_us == 0:
         return None
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    by_kind = {}
+    for kname, us in by_name.items():
+        kind = next((kind for kind, keys in KERNEL_KINDS
+                     if any(key in kname.lower() for key in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / steps / 1e3
     return {"wall_ms_per_step": wall_us / steps / 1e3,
             "device_busy_ms_per_step": busy_us / steps / 1e3,
             "device_idle_share": 1.0 - busy_us / wall_us,
+            "kind_ms_per_step": by_kind,
             "top_kernels_ms_per_step": {k[:70]: v / steps / 1e3
                                         for k, v in top}}
+
+
+# device kernels by kind, first match wins: the port's own kernels, the
+# library GEMMs, then PyTorch's elementwise / reduction / copy kernels
+KERNEL_KINDS = (
+    ("flash_attention", ("flash_fwd", "flash_bwd")),
+    ("port_serving", ("qmm", "paged_")),
+    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+    ("elementwise", ("elementwise", "foreach", "multi_tensor")),
+    ("reduce", ("reduce", "norm", "softmax", "logsumexp")),
+    ("copy/index", ("copy", "index", "gather", "scatter", "embedding",
+                    "cat")),
+)
 
 
 # --------------------------------------------------------------------- #
@@ -477,28 +802,95 @@ def main() -> int:
             and served["tokens_shape"] == [8, 48]):
         return fail(f"served output malformed: {served}")
 
-    sources = {"quantized_matmul": "deepspeed_tpu_torch/csrc/quantized_matmul.cu",
-               "paged_attention": "deepspeed_tpu_torch/csrc/blocked_flash.cu",
-               "paged_decode_attention":
-                   "deepspeed_tpu_torch/csrc/blocked_flash.cu"}
-    replaces = {"quantized_matmul":
-                    "deepspeed_tpu/ops/quantized_matmul.py:47",
+    # 6. flash-attention kernels against their plain versions
+    flash = [flash_case(torch, gen, dev, *c) for c in FLASH_CASES]
+    for c in flash:
+        print(f"[flash] {c['name']}: rel err "
+              f"{ {k: float(f'{v:.3g}') for k, v in c['rel_err'].items()} }"
+              f" | ms fwd {c['ms']['fwd']:.4f} fwd+bwd "
+              f"{c['ms']['fwd+bwd']:.4f} (dq {c['ms']['bwd_dq']:.4f} dkv "
+              f"{c['ms']['bwd_dkv']:.4f}) | plain fwd "
+              f"{c['plain_ms']['fwd']:.3f} fwd+bwd "
+              f"{c['plain_ms']['fwd+bwd']:.3f} | library fwd "
+              f"{c['library_ms']['fwd']:.4f} fwd+bwd "
+              f"{c['library_ms']['fwd+bwd']:.4f} | bound fwd "
+              f"{c['bound_ms']['fwd']:.4f} fwd+bwd "
+              f"{c['bound_ms']['fwd+bwd']:.4f} "
+              f"({c['bound_by']['fwd+bwd']})", flush=True)
+    bad = [c["name"] for c in flash
+           if not all(v <= TOL for v in c["rel_err"].values())]
+    if bad:
+        return fail(f"flash kernels disagree with their plain versions: "
+                    f"{bad}")
+
+    # 7. the training slice: kernels vs plain versions, 2 layers
+    t_slice = training_kernel_vs_plain(torch, np, dev)
+    print(f"[train-slice] {json.dumps(t_slice)}", flush=True)
+    if not t_slice["loss_rel_err"] <= TOL or not all(
+            math.isfinite(x) for x in t_slice["kernel_losses"]):
+        return fail(f"kernel-path losses differ from the plain path: "
+                    f"{t_slice}")
+    if any(v == 0 for v in t_slice["kernel_launches"].values()) or any(
+            t_slice["plain_launches"].values()):
+        return fail(f"launch counts: kernel path "
+                    f"{t_slice['kernel_launches']}, plain path "
+                    f"{t_slice['plain_launches']}")
+
+    # 8. the trained run (counts reset just before the timed steps)
+    trained = trained_run(torch, np, dev)
+    print(f"[trained] {json.dumps(trained)}", flush=True)
+    if not (trained["finite"]
+            and trained["last_loss"] < trained["first_loss"]):
+        return fail(f"training did not converge: {trained['losses']}")
+    if any(v != 12 for v in trained["launches_per_step"].values()):
+        return fail(f"flash kernel launches per step are not 12 each: "
+                    f"{trained['launches_per_step']}")
+
+    src = "deepspeed_tpu_torch/csrc/"
+    ref = "deepspeed_tpu/"
+    sources = {"quantized_matmul": src + "quantized_matmul.cu",
+               "paged_attention": src + "blocked_flash.cu",
+               "paged_decode_attention": src + "blocked_flash.cu"}
+    replaces = {"quantized_matmul": ref + "ops/quantized_matmul.py:47",
                 "paged_attention":
-                    "deepspeed_tpu/inference/v2/kernels/blocked_flash.py:35",
+                    ref + "inference/v2/kernels/blocked_flash.py:35",
                 "paged_decode_attention":
-                    "deepspeed_tpu/inference/v2/kernels/blocked_flash.py:118"}
-    record = {"kernels": [{
+                    ref + "inference/v2/kernels/blocked_flash.py:118"}
+    kernels = [{
         "name": c["name"], "route": "cuda", "source": sources[c["kernel"]],
         "replaces": replaces[c["kernel"]],
         "launches": launches[c["kernel"]], "max_abs_err": c["max_abs_err"],
         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-    } for c in cases]}
+    } for c in cases]
+    flash_kernels = {
+        "fwd": (("o", "lse"), ref + "ops/flash_attention.py:119"),
+        "bwd_dq": (("dq", "delta"), ref + "ops/flash_attention.py:260"),
+        "bwd_dkv": (("dk", "dv"), ref + "ops/flash_attention.py:302"),
+    }
+    for c in flash:
+        for kname, (outs, where) in flash_kernels.items():
+            kernels.append({
+                "name": f"flash_attention_{kname}[{c['name']}]",
+                "route": "cuda", "source": src + "flash_attention.cu",
+                "replaces": where,
+                "launches": trained["launches"][f"flash_attention_{kname}"],
+                "max_abs_err": max(c["abs_err"][o] for o in outs),
+                "ms": c["ms"][kname], "plain_ms": c["plain_ms"][kname],
+                "bound_ms": c["bound_ms"][kname],
+                "bound_by": c["bound_by"][kname],
+                # SDPA's forward computes o; no one PyTorch call computes
+                # dQ or dK/dV alone (its fwd+bwd is in chip_smoke.json)
+                "library_ms": c["library_ms"]["fwd"] if kname == "fwd"
+                else None,
+            })
+    record = {"kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "build_s": secs,
-         "cases": cases, "slice": e2e, "served": served}, indent=1))
+         "cases": cases, "slice": e2e, "served": served, "flash": flash,
+         "train_slice": t_slice, "trained": trained}, indent=1))
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,23 @@ class Accelerator:
             return torch.device("cuda", torch.cuda.current_device())
         return torch.device("cpu")
 
+    def synchronize(self) -> None:
+        """Wait for the device's queued work (a no-op on the CPU, which
+        runs eagerly)."""
+        if self._name == "cuda":
+            torch.cuda.synchronize()
+
+    def max_memory_allocated(self) -> int:
+        """Peak bytes held by the CUDA allocator since the last reset; the
+        CPU has no such counter and reports 0."""
+        if self._name == "cuda":
+            return torch.cuda.max_memory_allocated()
+        return 0
+
+    def reset_peak_memory_stats(self) -> None:
+        if self._name == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+
 
 def get_accelerator(device: DeviceLike = None) -> Accelerator:
     """``device=None`` means CUDA; ``"cpu"`` must be asked for by name."""

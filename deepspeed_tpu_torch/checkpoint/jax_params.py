@@ -13,12 +13,21 @@ transposed to ``nn.Linear``'s ``[out, in]`` (the forward computes
 ``bench_serving.py:_random_int8_llama_params``: the same tree with every
 matmul weight an int8 record, drawn on the device from a seeded
 ``torch.Generator`` (its numbers differ from ``jax.random``'s).
+
+:func:`llama_state_dict_from_flax` turns the Flax *training* param tree of
+``LlamaForCausalLM`` (fp32 ``[in, out]`` Dense kernels,
+``embed_tokens/embedding``, norm ``scale``) into the ``state_dict`` of the
+port's ``LlamaForCausalLM``: each Dense kernel is transposed to
+``nn.Linear``'s ``[out, in]`` (the transform ``checkpoint/hf_loader.py:9``
+documents), ``layers_{i}`` becomes ``layers.{i}``.
+:func:`flax_params_from_llama_state_dict` is its inverse.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any
+import re
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -89,3 +98,53 @@ def random_int8_llama_params(cfg: LlamaConfig, groups: int = 16,
     model["embed_tokens"] = {"embedding": emb}
     model["norm"] = ones()
     return {"model": model, "lm_head": rec(H, V)}
+
+
+def _flat(tree, prefix=()):
+    for key, node in tree.items():
+        if isinstance(node, dict):
+            yield from _flat(node, prefix + (key,))
+        else:
+            yield prefix + (key,), node
+
+
+def llama_state_dict_from_flax(params: Any,
+                               device=None) -> Dict[str, torch.Tensor]:
+    """The Flax ``LlamaForCausalLM`` params (``{"params": ...}`` or the
+    bare tree, numpy leaves) as the port's ``state_dict`` on ``device``
+    (default CUDA)."""
+    dev = resolve_device(device)
+    params = params.get("params", params)
+    out = {}
+    for path, leaf in _flat(params):
+        *mods, leaf_name = path
+        name = ".".join(re.sub(r"^layers_(\d+)$", r"layers.\1", m)
+                        for m in mods)
+        t = _to_tensor(leaf, dev)
+        if leaf_name == "kernel":
+            out[f"{name}.weight"] = t.t().contiguous()
+        elif leaf_name == "embedding":
+            out[f"{name}.weight"] = t
+        else:
+            out[f"{name}.{leaf_name}"] = t
+    return out
+
+
+def flax_params_from_llama_state_dict(state_dict) -> Dict[str, Any]:
+    """The inverse of :func:`llama_state_dict_from_flax`: a nested dict of
+    fp32 numpy arrays in the Flax layout."""
+    tree: Dict[str, Any] = {}
+    for name, t in state_dict.items():
+        *mods, leaf_name = name.split(".")
+        mods = re.sub(r"layers\.(\d+)", r"layers_\1",
+                      ".".join(mods)).split(".")
+        arr = t.detach().float().cpu().numpy()
+        if leaf_name == "weight" and mods[-1] == "embed_tokens":
+            leaf_name = "embedding"
+        elif leaf_name == "weight":
+            leaf_name, arr = "kernel", arr.T.copy()
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf_name] = arr
+    return tree

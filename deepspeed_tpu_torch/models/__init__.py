@@ -1,3 +1,6 @@
-from deepspeed_tpu_torch.models.llama import LlamaConfig, apply_rotary
+from deepspeed_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                              apply_rotary,
+                                              cross_entropy_loss)
 
-__all__ = ["LlamaConfig", "apply_rotary"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "apply_rotary",
+           "cross_entropy_loss"]

@@ -17,6 +17,7 @@ from deepspeed_tpu_torch.inference.v2.kernels import blocked_flash as tbf
 from deepspeed_tpu_torch.inference.v2.model_implementations import (
     RaggedLlama)
 from deepspeed_tpu_torch.models import LlamaConfig
+from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import quantized_matmul as tqm
 from torch_port_common import cuda_device  # noqa: F401  (fixture)
 
@@ -78,6 +79,77 @@ def test_paged_attention_kernels(cuda_device, head_dim, window):
         assert got[pad].abs().max().item() == 0.0
 
 
+def _rel(got, want):
+    scale = want.float().abs().max().item()
+    return (got.float() - want.float()).abs().max().item() / max(scale, 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal,window", [
+    (8, 1024, 1024, 12, 12, 64, True, None),     # the bench model
+    (2, 2048, 2048, 64, 8, 128, True, None),     # Llama-2-70B heads
+    (2, 2048, 2048, 8, 8, 64, True, 256),        # sliding window
+    (2, 512, 1024, 8, 8, 64, True, None),        # rectangular, end-aligned
+    (1, 200, 200, 4, 2, 64, True, None),         # S not a multiple of 64
+    (1, 130, 300, 4, 2, 128, False, None),       # non-causal, ragged
+    (2, 333, 333, 4, 1, 128, True, 77),          # window, GQA 4, ragged
+])
+def test_flash_attention_kernels(cuda_device, b, sq, sk, h, hkv, d, causal,
+                                 window):
+    """Forward, dQ and dK/dV kernels against their plain versions on the
+    same bf16 inputs: o, lse, delta, dq, dk, dv each within 3e-2 of the
+    plain version's largest magnitude."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sq + h + d)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device,
+                           dtype=torch.bfloat16)
+
+    q, k, v, do = (randn(b, sq, h, d), randn(b, sk, hkv, d),
+                   randn(b, sk, hkv, d), randn(b, sq, h, d))
+    scale = d ** -0.5
+    qs = (q.float() * scale).to(q.dtype)
+    before = dict(tfa.LAUNCHES)
+    o, lse = tfa.flash_attention_fwd(qs, k, v, causal, window)
+    dq, delta = tfa.flash_attention_bwd_dq(qs, k, v, o, do, lse, scale,
+                                           causal, window)
+    dk, dv = tfa.flash_attention_bwd_dkv(qs, k, v, do, lse, delta, causal,
+                                         window)
+    assert all(tfa.LAUNCHES[n] == before[n] + 1 for n in before)
+    po, plse = tfa.flash_attention_plain_fwd(qs, k, v, causal=causal,
+                                             window=window)
+    pdq, pdelta = tfa.flash_attention_plain_bwd_dq(
+        qs, k, v, po, do, plse, scale=scale, causal=causal, window=window)
+    pdk, pdv = tfa.flash_attention_plain_bwd_dkv(
+        qs, k, v, do, plse, pdelta, causal=causal, window=window)
+    torch.cuda.synchronize()
+    for name, got, want in zip(("o", "lse", "delta", "dq", "dk", "dv"),
+                               (o, lse, delta, dq, dk, dv),
+                               (po, plse, pdelta, pdq, pdk, pdv)):
+        assert torch.isfinite(got.float()).all(), name
+        assert _rel(got, want) <= TOL, (name, _rel(got, want))
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_launches_kernels(cuda_device):
+    """``flash_attention`` on CUDA tensors: one launch of each kernel per
+    forward + backward, gradients of every input; an unsupported head dim
+    raises instead of taking the plain path."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn((2, 96, h, 64), generator=gen, device=cuda_device,
+                           dtype=torch.bfloat16).requires_grad_()
+               for h in (4, 2, 2))
+    before = dict(tfa.LAUNCHES)
+    tfa.flash_attention(q, k, v).float().square().sum().backward()
+    assert all(tfa.LAUNCHES[n] == before[n] + 1 for n in before)
+    assert all(t.grad is not None and t.grad.shape == t.shape
+               for t in (q, k, v))
+    bad = torch.zeros((1, 8, 2, 80), device=cuda_device,
+                      dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention(bad, bad, bad)
+
+
 @pytest.mark.cuda
 def test_engine_kernels_match_plain_paths(cuda_device):
     """A small int8 Llama (head_dim 64, GQA) served in bf16 through the
@@ -108,3 +180,39 @@ def test_engine_kernels_match_plain_paths(cuda_device):
         logits[use_kernels] = np.stack([first[0], first[1]])
     scale = np.abs(logits[False]).max()
     assert np.abs(logits[True] - logits[False]).max() / scale <= TOL
+
+
+@pytest.mark.cuda
+def test_training_engine_kernels_match_plain_path(cuda_device):
+    """A 2-layer Llama (head_dim 64, GQA) trained 3 steps in bf16 through
+    ``initialize`` on the card: the kernel path's losses match the plain
+    path's, and only the kernel path launches the flash kernels."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=384,
+                           num_attention_heads=4, num_key_value_heads=2,
+                           max_position_embeddings=512, dtype=torch.bfloat16)
+    ds = {"train_micro_batch_size_per_gpu": 2,
+          "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+          "bf16": {"enabled": True}, "gradient_clipping": 1.0}
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(2, 200)).astype(np.int32))
+    losses = {}
+    for use_kernels in (True, False):
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=LlamaForCausalLM(cfg, seed=1, use_kernels=use_kernels),
+            config=ds)
+        before = dict(tfa.LAUNCHES)
+        out = []
+        for _ in range(3):
+            loss = engine(ids, ids)
+            engine.backward(loss)
+            engine.step()
+            out.append(float(loss))
+        launched = {k: tfa.LAUNCHES[k] - before[k] for k in before}
+        assert all(v == (6 if use_kernels else 0) for v in launched.values())
+        losses[use_kernels] = np.array(out)
+    assert np.isfinite(losses[True]).all()
+    assert np.abs(losses[True] - losses[False]).max() \
+        / np.abs(losses[False]).max() <= TOL

@@ -5,7 +5,8 @@
   importing every module in a fresh interpreter);
 * importing the package builds nothing;
 * an entry point called without ``device="cpu"`` on a machine without a
-  GPU raises instead of running on the CPU, and a kernel build without
+  GPU raises instead of running on the CPU (the serving engine, the
+  training ``initialize``, the weight bridges), and a kernel build without
   ``nvcc`` raises.
 """
 
@@ -87,7 +88,22 @@ def test_entry_points_raise_without_a_gpu():
         params_from_jax({"w": [1.0]})
     with pytest.raises(RuntimeError, match="CUDA"):
         get_accelerator()
-    assert get_accelerator("cpu").device() == torch.device("cpu")
+    cpu = get_accelerator("cpu")
+    assert cpu.device() == torch.device("cpu")
+    cpu.synchronize()
+    cpu.reset_peak_memory_stats()
+    assert cpu.max_memory_allocated() == 0
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.checkpoint import llama_state_dict_from_flax
+    from deepspeed_tpu_torch.models import LlamaForCausalLM
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deepspeed_tpu_torch.initialize(
+            model=LlamaForCausalLM(cfg),
+            config={"train_micro_batch_size_per_gpu": 1})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llama_state_dict_from_flax({"lm_head": {"kernel": [[1.0]]}})
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -102,3 +118,5 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     # the library name follows the source text: an edit forces a rebuild
     assert _build.library_path("blocked_flash").name.startswith(
         "libblocked_flash-")
+    assert set(_build.SOURCES) == {p.stem for p in (PORT / "csrc").glob(
+        "*.cu")}
