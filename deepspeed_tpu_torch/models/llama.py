@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
 from deepspeed_tpu_torch.ops.attention import (dot_product_attention,
                                                folded_attention,
                                                paired_attention,
@@ -238,15 +239,14 @@ class LlamaForCausalLM(nn.Module):
     else the logits [B, S, V] in ``config.dtype``."""
 
     def __init__(self, config: LlamaConfig, seed: int = 0,
-                 device: Optional[torch.device] = None,
-                 use_kernels: bool = True):
-        """Built on ``device`` (the CPU by default: the training engine
-        moves the module to its own device).  ``use_kernels=False`` runs
+                 device=None, use_kernels: bool = True):
+        """Built on ``device``: CUDA unless ``device="cpu"`` is asked for
+        (it raises when no GPU is visible).  ``use_kernels=False`` runs
         attention through the flash functions' plain versions even on
         CUDA (the on-card comparison path)."""
         super().__init__()
         self.config = config
-        with torch.device(device if device is not None else "cpu"):
+        with torch.device(resolve_device(device)):
             self.model = LlamaModel(config, use_kernels)
             if not config.tie_word_embeddings:
                 self.lm_head = Dense(config.hidden_size, config.vocab_size,
@@ -255,18 +255,18 @@ class LlamaForCausalLM(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
-        """Random fp32 weights from a ``torch.Generator`` seeded with
-        ``seed`` on the parameters' device: each projection ~ N(0,
-        1/fan_in), embeddings ~ N(0, 1/hidden), norms 1.  The numbers
-        differ from Flax's initialisers; the parity tests carry weights
-        across instead."""
-        dev = next(self.parameters()).device
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        """Random fp32 weights from a CPU ``torch.Generator`` seeded with
+        ``seed``, so that a seed gives the same weights on every device:
+        each projection ~ N(0, 1/fan_in), embeddings ~ N(0, 1/hidden),
+        norms 1.  The numbers differ from Flax's initialisers; the parity
+        tests carry weights across instead."""
+        gen = torch.Generator().manual_seed(seed)
         for name, p in self.named_parameters():
             if name.endswith("scale"):
                 p.fill_(1.0)
             else:           # [out, in] projections and [vocab, hidden]
-                p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen)
+                p.copy_(torch.empty(p.shape).normal_(
+                    0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen))
 
     def forward(self, input_ids, labels=None, positions=None, cache=None,
                 cache_index=None):

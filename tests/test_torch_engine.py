@@ -49,7 +49,8 @@ def _llama_pair(seed=0, **geom_kw):
     jmodel = JLlama(JLlamaConfig(**geom, dtype=jnp.float32))
     ids = np.zeros((1, 8), np.int32)
     params = jax.device_get(jmodel.init(jax.random.key(seed), ids))["params"]
-    tmodel = LlamaForCausalLM(LlamaConfig(**geom, dtype=torch.float32))
+    tmodel = LlamaForCausalLM(LlamaConfig(**geom, dtype=torch.float32),
+                              device="cpu")
     return jmodel, tmodel, params
 
 

@@ -99,8 +99,10 @@ def test_entry_points_raise_without_a_gpu():
     from deepspeed_tpu_torch.models import LlamaForCausalLM
 
     with pytest.raises(RuntimeError, match="CUDA"):
+        LlamaForCausalLM(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
         deepspeed_tpu_torch.initialize(
-            model=LlamaForCausalLM(cfg),
+            model=LlamaForCausalLM(cfg, device="cpu"),
             config={"train_micro_batch_size_per_gpu": 1})
     with pytest.raises(RuntimeError, match="CUDA"):
         llama_state_dict_from_flax({"lm_head": {"kernel": [[1.0]]}})

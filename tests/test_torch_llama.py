@@ -31,7 +31,8 @@ def _pair(**kw):
     ids = np.random.default_rng(1).integers(
         0, geom["vocab_size"], size=(2, 64)).astype(np.int32)
     params = jax.device_get(jmodel.init(jax.random.key(0), ids))
-    tmodel = LlamaForCausalLM(LlamaConfig(**geom, dtype=torch.float32))
+    tmodel = LlamaForCausalLM(LlamaConfig(**geom, dtype=torch.float32),
+                              device="cpu")
     tmodel.load_state_dict(llama_state_dict_from_flax(params, device="cpu"))
     return jmodel, tmodel, params, ids
 
@@ -96,14 +97,30 @@ def test_state_dict_bridge_round_trips():
 
 def test_kv_cache_branch_and_unported_layouts_raise():
     cfg = LlamaConfig.tiny(dtype=torch.float32)
-    model = LlamaForCausalLM(cfg)
+    model = LlamaForCausalLM(cfg, device="cpu")
     ids = torch.zeros((1, 8), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="A9"):
         model(ids, cache={})
     folded = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32,
-                                               attention_layout="folded"))
+                                               attention_layout="folded"),
+                              device="cpu")
     with pytest.raises(NotImplementedError, match="B7"):
         folded(ids)
+
+
+def test_seed_fixes_the_weights():
+    """A seed draws its weights from a CPU generator, whatever the device:
+    the same seed gives the same weights, another seed others."""
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    a, b, c = (LlamaForCausalLM(cfg, seed=s, device="cpu").state_dict()
+               for s in (4, 4, 5))
+    assert all(torch.equal(a[n], b[n]) for n in a)
+    assert not torch.equal(a["lm_head.weight"], c["lm_head.weight"])
+    gen = torch.Generator().manual_seed(4)
+    first = torch.empty(a["model.embed_tokens.weight"].shape).normal_(
+        0.0, cfg.hidden_size ** -0.5, generator=gen)
+    torch.testing.assert_close(a["model.embed_tokens.weight"], first,
+                               rtol=0, atol=0)
 
 
 def test_llama2_70b_geometry():
