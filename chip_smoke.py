@@ -12,13 +12,18 @@ Phases, each fatal on failure:
    serving path's shapes (max abs error <= 3e-2), each timed with CUDA
    events beside its plain version, one PyTorch library call computing the
    same function (a yardstick only; the port never calls it) and its bound
-   (the larger of bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s);
+   (the larger of bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s); the paged
+   kernels over bf16 and over int8 KV pools (with their fp32 scales):
+   generic attention at a 2 x 256 prefill, decode at S=8 and contexts of
+   257-330, verify at S=8, K=5 and contexts ~300;
 4. the serving slice end to end at full Llama-2-7B width and 2 layers,
    through the kernels and through the plain paths on the card: first-step
    logits must agree within 3e-2 of their largest magnitude;
 5. the served run: the 32-layer Llama-2-7B geometry with random int8 weights
    and a bf16 KV cache (block 128, token budget 512) answers 8 requests of
-   256-token prompts: ``put`` → ``decode_loop`` of 48 tokens → ``flush``.
+   256-token prompts: ``put`` → ``decode_loop`` of 48 tokens → one
+   speculative round (n-gram drafts, ``verify_step``, ``commit_verified``)
+   → ``flush``.
    Every serving kernel's launch count is set to 0 just before and must be
    > 0 just after;
 6. the flash-attention kernels (forward, dQ, dK/dV) against their plain
@@ -40,7 +45,23 @@ Phases, each fatal on failure:
    ``deepspeed_tpu_torch.initialize``: 3 warm-up and 20 timed steps of
    ``engine(ids, ids)`` / ``backward`` / ``step`` on one batch from SEED;
    finite, falling loss and exactly 12 launches a step of each flash
-   kernel (counts set to 0 just before the timed steps).
+   kernel (counts set to 0 just before the timed steps);
+9. the speculative slice at 7B width and 2 layers, int8 weights and an int8
+   KV cache: ``put`` of 8 x 256-token prompts, then 3 ``verify_step``
+   passes at K=5 fed the plain path's own sequential greedy tokens,
+   through the kernels and through the plain paths: kernel-path verify
+   logits within 3e-2 of the plain path's largest magnitude and of the
+   kernel path's sequential ``decode_step`` rows; a pass of wrong drafts
+   committed as its fed token alone leaves ``free_blocks`` where a
+   never-drafted engine is; the plain path launches no kernel;
+10. the speculative served run: the 32-layer Llama-2-7B geometry, int8
+   weights, int8 KV (block 128, budget 512), 8 requests whose prompts are
+   a 32-token seeded phrase repeated 8 times; 48 greedy tokens a request by
+   rounds of ``NgramDrafter`` (4 drafts) → ``verify_step(greedy=True)`` →
+   ``accept_drafts`` → ``commit_verified``, and the same prompts through
+   ``decode_loop`` on a fresh int8-KV engine as the yardstick.  Finite
+   logits, tokens in the vocabulary, every int8 / verify kernel launched
+   (counts set to 0 just before), every block free after ``flush``.
 
 The second-to-last lines are the ``kernels`` JSON record and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -174,20 +195,31 @@ def qmm_cases(torch, gen, dev):
     return out
 
 
-def _attention_inputs(torch, gen, dev, slots, q_pos):
+def _attention_inputs(torch, gen, dev, slots, q_pos, int8=False):
     """Pools of ``slots`` sequences at the served table width (3 blocks of
     128, 7B KV heads, tables scattered over the pool) — as many pool
-    copies as keep each call cold in L2 — and query rows at the positions
-    ``q_pos[s]`` (a list per slot)."""
+    copies as keep each call cold in L2, each ``(k, v, scales)``: bf16, or
+    int8 with its ``k_scale`` / ``v_scale`` — and query rows at the
+    positions ``q_pos[s]`` (a list per slot)."""
+    from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import quantize_kv
+
     bs, hkv, d = 128, 32, 128
     width = 3                                    # the served table width
     nb = slots * width + 1
     perm = torch.randperm(nb - 1, generator=gen, device=dev)[:slots * width]
     tables = (perm + 1).to(torch.int32).reshape(slots, width)
     live = sum(max(p) + 1 for p in q_pos if p)
-    pools = [tuple(torch.randn((nb * bs, hkv, d), generator=gen, device=dev,
-                               dtype=torch.bfloat16) for _ in range(2))
-             for _ in range(n_sets(2 * live * hkv * d * 2))]
+
+    def pool_set():
+        k, v = (torch.randn((nb * bs, hkv, d), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        if not int8:
+            return k, v, {}
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        return kq, vq, {"k_scale": ks, "v_scale": vs}
+
+    pools = [pool_set() for _ in range(n_sets(2 * live * hkv * d
+                                              * (1 if int8 else 2)))]
     slot_ids = [s for s in range(slots) for _ in q_pos[s]]
     pos = [p for s in range(slots) for p in q_pos[s]]
     token_slot = torch.tensor(slot_ids, dtype=torch.int32, device=dev)
@@ -198,35 +230,43 @@ def _attention_inputs(torch, gen, dev, slots, q_pos):
 
 
 def attention_case(torch, name, fn, q, pools, tables, token_slot, token_pos,
-                   iters):
+                   iters, **kw):
+    """One phase-3 case: the wrapper ``fn`` (``kw``: its own arguments, such
+    as verify's ``k_tokens``) against the plain version on the first pool
+    set, then timed over all of them."""
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.inference.v2.kernels.blocked_flash import (
         paged_attention_plain)
+    from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import (
+        dequantize_kv)
 
     bs = 128
     sets = len(pools)
-    k_pool, v_pool = pools[0]
-    got = fn(q, k_pool, v_pool, tables, token_slot, token_pos, block_size=bs)
+    k_pool, v_pool, scales = pools[0]
+    got = fn(q, k_pool, v_pool, tables, token_slot, token_pos, block_size=bs,
+             **scales, **kw)
     want = paged_attention_plain(q, k_pool, v_pool, tables, token_slot,
-                                 token_pos, block_size=bs)
+                                 token_pos, block_size=bs, **scales)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     t, h, d = q.shape
     hkv = k_pool.shape[1]
     pos = token_pos.tolist()
     slots = token_slot.tolist()
-    # bytes: q and out once, each slot's visible K/V rows once
+    # bytes: q and out once, each slot's visible K/V rows once (int8: a
+    # byte an element plus the fp32 scale of each row and head)
     ctx = {}
     for s, p in zip(slots, pos):
         ctx[s] = max(ctx.get(s, -1), p)
     kv_rows = sum(p + 1 for p in ctx.values())
-    nbytes = 2 * t * h * d * 2 + 2 * kv_rows * hkv * d * 2
+    row_bytes = d + 4 if scales else 2 * d
+    nbytes = 2 * t * h * d * 2 + 2 * kv_rows * hkv * row_bytes
     flops = sum(4.0 * (p + 1) * h * d for p in pos)
     b_ms, b_by = bound(nbytes, flops)
 
-    # yardstick: SDPA over the gathered per-slot context with a position
-    # mask (the gather is outside the timed call)
+    # yardstick: SDPA over the gathered (and dequantized) per-slot context
+    # with a position mask (the gather is outside the timed call)
     width = tables.shape[1]
     c_len = width * bs
     rows = (tables.long()[:, :, None] * bs
@@ -243,17 +283,24 @@ def attention_case(torch, name, fn, q, pools, tables, token_slot, token_pos,
         qs[i, :, :len(idx)] = q[idx].transpose(0, 1)
         mask[i, 0, :len(idx)] = key[None, :] <= token_pos[idx].long()[:, None]
         mask[i, 0, len(idx):, 0] = True           # pad rows: see key 0
-    gathered = [tuple(p[rows[uniq]].permute(0, 2, 1, 3).contiguous()
-                      for p in pair) for pair in pools]
+    r = rows[uniq]
+
+    def ctx_of(pool, sc):
+        x = pool[r] if sc is None else dequantize_kv(pool[r], sc[r], q.dtype)
+        return x.permute(0, 2, 1, 3).contiguous()
+
+    gathered = [(ctx_of(kp, sc.get("k_scale")), ctx_of(vp, sc.get("v_scale")))
+                for kp, vp, sc in pools]
     return {
         "name": name,
-        "kernel": fn.__name__,
+        "kernel": fn.__name__ + ("_int8" if scales else ""),
         "max_abs_err": err,
-        "ms": time_ms(lambda i: fn(q, *pools[i], tables, token_slot,
-                                   token_pos, block_size=bs), sets, iters),
+        "ms": time_ms(lambda i: fn(q, pools[i][0], pools[i][1], tables,
+                                   token_slot, token_pos, block_size=bs,
+                                   **pools[i][2], **kw), sets, iters),
         "plain_ms": time_ms(lambda i: paged_attention_plain(
-            q, *pools[i], tables, token_slot, token_pos, block_size=bs),
-            1, 3),
+            q, pools[i][0], pools[i][1], tables, token_slot, token_pos,
+            block_size=bs, **pools[i][2]), 1, 3),
         "library_ms": time_ms(lambda i: F.scaled_dot_product_attention(
             qs, *gathered[i], attn_mask=mask), sets, iters),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -279,13 +326,34 @@ def attention_cases(torch, gen, dev):
     args = _attention_inputs(torch, gen, dev, 8, [[p] for p in dpos])
     out.append(attention_case(torch, "paged_decode_attention[S=8, ctx~300]",
                               bf.paged_decode_attention, *args, iters=48))
+    # the int8 KV pool: the served prefill and decode shapes again
+    args = _attention_inputs(torch, gen, dev, 8,
+                             [list(range(256))] * 2 + [[]] * 6, int8=True)
+    out.append(attention_case(
+        torch, "paged_attention int8[T=512, 2x256 prefill]",
+        bf.paged_attention, *args, iters=16))
+    args = _attention_inputs(torch, gen, dev, 8, [[p] for p in dpos],
+                             int8=True)
+    out.append(attention_case(
+        torch, "paged_decode_attention int8[S=8, ctx~300]",
+        bf.paged_decode_attention, *args, iters=48))
+    # verify: S = 8 slots, K = 5 rows each from positions 257..326
+    vpos = torch.randint(257, 327, (8,), generator=gen, device=dev).tolist()
+    for int8 in (False, True):
+        args = _attention_inputs(torch, gen, dev, 8,
+                                 [list(range(p, p + 5)) for p in vpos],
+                                 int8=int8)
+        out.append(attention_case(
+            torch, f"paged_verify_attention{' int8' if int8 else ''}"
+                   f"[S=8, K=5, ctx~300]",
+            bf.paged_verify_attention, *args, iters=48, k_tokens=5))
     return out
 
 
 # --------------------------------------------------------------------- #
 # Phases 4 and 5
 # --------------------------------------------------------------------- #
-def make_engine(torch, cfg, params, max_ctx, use_kernels):
+def make_engine(torch, cfg, params, max_ctx, use_kernels, kv_dtype=None):
     from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                                   RaggedInferenceEngineConfig)
     from deepspeed_tpu_torch.inference.v2.model_implementations import (
@@ -295,7 +363,7 @@ def make_engine(torch, cfg, params, max_ctx, use_kernels):
         "state_manager": {"max_ragged_batch_size": 512,
                           "max_ragged_sequence_count": 8,
                           "max_context": max_ctx},
-        "kv_cache": {"block_size": 128},
+        "kv_cache": {"block_size": 128, "dtype": kv_dtype},
     })
     return InferenceEngineV2(RaggedLlama(cfg, 128, use_kernels=use_kernels),
                              params, eng_cfg)
@@ -315,11 +383,22 @@ def reset_launches():
             counts[k] = 0
 
 
-def read_launches(serving: bool = True):
-    """The serving path's counts, or (``serving=False``) the training
-    path's."""
-    qm, bf, fa = _launch_counters()
-    return {**qm, **bf} if serving else dict(fa)
+#: the kernels each path launches, by their LAUNCHES keys
+BF16_PUT_DECODE = ("quantized_matmul", "paged_attention",
+                   "paged_decode_attention")
+BF16_SERVING = BF16_PUT_DECODE + ("paged_verify_attention",)
+INT8_SPECULATIVE = ("quantized_matmul", "paged_attention_int8",
+                    "paged_decode_attention_int8",
+                    "paged_verify_attention_int8")
+TRAINING = ("flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")
+ALL_KERNELS = tuple(dict.fromkeys(BF16_SERVING + INT8_SPECULATIVE
+                                  + TRAINING))
+
+
+def read_launches(keys=ALL_KERNELS):
+    counts = {k: v for c in _launch_counters() for k, v in c.items()}
+    return {k: counts[k] for k in keys}
 
 
 def slice_kernel_vs_plain(torch, np, prompts):
@@ -342,7 +421,8 @@ def slice_kernel_vs_plain(torch, np, prompts):
         toks = eng.decode_loop(uids, start, 8)
         eng.flush(uids)
         torch.cuda.synchronize()
-        res[mode] = (logits, toks, read_launches())
+        res[mode] = (logits, toks, read_launches(
+            BF16_PUT_DECODE if use_kernels else ALL_KERNELS))
         del eng
     k_logits, k_toks, k_launch = res["kernel"]
     p_logits, p_toks, p_launch = res["plain"]
@@ -359,6 +439,8 @@ def slice_kernel_vs_plain(torch, np, prompts):
 
 def served_run(torch, prompts, gen_tokens=48):
     from deepspeed_tpu_torch.checkpoint import random_int8_llama_params
+    from deepspeed_tpu_torch.inference.v2.speculative import (NgramDrafter,
+                                                              accept_drafts)
     from deepspeed_tpu_torch.models import LlamaConfig
 
     torch.cuda.empty_cache()
@@ -368,7 +450,7 @@ def served_run(torch, prompts, gen_tokens=48):
     params = random_int8_llama_params(cfg, groups=16, seed=SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    max_ctx = 256 + 1 + gen_tokens + 8
+    max_ctx = 256 + 1 + gen_tokens + 8      # room for one K=5 verify pass
     eng = make_engine(torch, cfg, params, max_ctx, True)
     uids = list(range(len(prompts)))
     # warm: one request of the served size through prefill and decode, so
@@ -397,9 +479,22 @@ def served_run(torch, prompts, gen_tokens=48):
     t1 = time.perf_counter()
     toks = eng.decode_loop(uids, start, gen_tokens)
     decode_s = time.perf_counter() - t1
+    # one speculative round over the bf16 pool: n-gram drafts of each
+    # request's history, scored in one verify pass, the accepted prefix
+    # committed
+    drafter = NgramDrafter()
+    hist = [p + [s] + t.tolist() for p, s, t in zip(prompts, start, toks)]
+    drafts = [(drafter.draft(h, 4) + [h[-1]] * 4)[:4] for h in hist]
+    feeds = [[h[-1]] + d for h, d in zip(hist, drafts)]
+    v_logits, v_next = eng.verify_step(uids, feeds, greedy=True)
+    accepted = [accept_drafts(v_next[i].tolist(), drafts[i])[1]
+                for i in range(len(uids))]
+    for u, f, a in zip(uids, feeds, accepted):
+        eng.commit_verified(u, f[:a + 1])
+    finite &= bool(torch.isfinite(v_logits).all())
     eng.flush(uids)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = read_launches(BF16_SERVING)
     # where the time goes: a traced prefill put (2 prompts) and 4 decode
     # steps; the tracer's own cost inflates the wall times
     trace = {"prefill": profile_window(
@@ -416,8 +511,214 @@ def served_run(torch, prompts, gen_tokens=48):
         "decode_tokens_per_s": len(uids) * gen_tokens / decode_s,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "finite": finite,
+        "verify_round_accepted": accepted,
         "tokens_shape": list(toks.shape),
         "tokens_in_vocab": bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+        "trace": trace,
+    }
+
+
+# --------------------------------------------------------------------- #
+# Phases 9 and 10: speculative verify over an int8 KV cache
+# --------------------------------------------------------------------- #
+def speculative_kernel_vs_plain(torch, np, prompts, k_tokens=5, passes=3):
+    """Phase 9: 2 layers of the 7B geometry, int8 weights and int8 KV from
+    SEED.  Per path (plain first, then kernels) one engine decodes the
+    prompts sequentially with ``decode_step`` — the plain path its own
+    greedy tokens, the kernel path the same tokens — and another runs
+    ``verify_step`` passes of ``k_tokens`` over those tokens, commits them,
+    then one pass of wrong drafts committed as its fed token alone."""
+    from deepspeed_tpu_torch.checkpoint import random_int8_llama_params
+    from deepspeed_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype=torch.bfloat16)
+    params = random_int8_llama_params(cfg, groups=16, seed=SEED)
+    steps = k_tokens * passes
+    max_ctx = len(prompts[0]) + steps + k_tokens + 8
+    uids = list(range(len(prompts)))
+    n = len(uids)
+    chain = None          # the plain path's greedy tokens, [step][uid]
+    res = {}
+    for mode, use_kernels in (("plain", False), ("kernel", True)):
+        seq_eng = make_engine(torch, cfg, params, max_ctx, use_kernels,
+                              "int8")
+        ver_eng = make_engine(torch, cfg, params, max_ctx, use_kernels,
+                              "int8")
+        reset_launches()
+        first = seq_eng.put(uids, prompts)
+        ver_eng.put(uids, prompts)
+        if chain is None:
+            chain = [[int(first[u].argmax()) for u in uids]]
+        seq_rows = []
+        for i in range(steps + 1):
+            logits = seq_eng.decode_step(uids, chain[i])[:n].float()
+            seq_rows.append(logits)
+            if len(chain) == i + 1:
+                chain.append(logits.argmax(-1).tolist())
+        ver_rows = []
+        for j in range(passes):
+            feeds = [[chain[j * k_tokens + k][s] for k in range(k_tokens)]
+                     for s in range(n)]
+            ver_rows.append(ver_eng.verify_step(uids, feeds)[:n].float())
+            for s, u in enumerate(uids):
+                ver_eng.commit_verified(u, feeds[s])
+        fed = chain[steps]
+        wrong = [[fed[s]] + [(fed[s] + 1 + k) % cfg.vocab_size
+                             for k in range(k_tokens - 1)] for s in range(n)]
+        ver_eng.verify_step(uids, wrong)
+        for s, u in enumerate(uids):
+            ver_eng.commit_verified(u, [fed[s]])
+        torch.cuda.synchronize()
+        res[mode] = {
+            "seq": torch.stack(seq_rows[:steps], 1).cpu(),   # [n, steps, V]
+            "ver": torch.cat(ver_rows, 1).cpu(),
+            "launches": read_launches(INT8_SPECULATIVE if use_kernels
+                                      else ALL_KERNELS),
+            "free_blocks": [ver_eng.state_manager.free_blocks,
+                            seq_eng.state_manager.free_blocks],
+        }
+        seq_eng.flush(uids)
+        ver_eng.flush(uids)
+        del seq_eng, ver_eng
+    k, p = res["kernel"], res["plain"]
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    nxt = torch.tensor(chain[1:steps + 1]).T            # [n, steps]
+    return {"layers": 2, "k_tokens": k_tokens, "passes": passes,
+            "verify_rel_err": rel(k["ver"], p["ver"]),
+            "verify_vs_decode_rel_err": rel(k["ver"], k["seq"]),
+            "plain_verify_vs_decode_rel_err": rel(p["ver"], p["seq"]),
+            "plain_verify_accept_rate": float(
+                (p["ver"].argmax(-1) == nxt).float().mean()),
+            "kernel_verify_accept_rate": float(
+                (k["ver"].argmax(-1) == nxt).float().mean()),
+            "free_blocks_after_reject": {m: res[m]["free_blocks"]
+                                         for m in res},
+            "kernel_launches": k["launches"],
+            "plain_launches": p["launches"],
+            "finite": bool(torch.isfinite(k["ver"]).all())}
+
+
+def speculative_generate(torch, eng, uids, prompts, gen_tokens, draft_k):
+    """Greedy speculative decoding through the engine's public calls: put,
+    then rounds of n-gram drafts → ``verify_step(greedy=True)`` →
+    ``accept_drafts`` → ``commit_verified`` until every request has
+    ``gen_tokens`` tokens.  Returns the tokens, the stats, the rounds' wall
+    time and whether every verify pass's logits were finite."""
+    from deepspeed_tpu_torch.inference.v2.speculative import (
+        NgramDrafter, SpeculativeStats, accept_drafts)
+
+    drafter = NgramDrafter()
+    stats = SpeculativeStats()
+    first = {}
+    for i in range(0, len(uids), 2):          # two prompts fill the budget
+        first.update(eng.put(uids[i:i + 2], prompts[i:i + 2]))
+    gen = {u: [int(first[u].argmax())] for u in uids}
+    finite = torch.ones((), dtype=torch.bool, device=eng.device)
+    t0 = time.perf_counter()
+    while True:
+        live = [u for u in uids if len(gen[u]) < gen_tokens]
+        if not live:
+            break
+        drafts = []
+        for u, p in zip(uids, prompts):
+            if u in live:
+                d = drafter.draft(p + gen[u], draft_k)
+                drafts.append((d + [gen[u][-1]] * draft_k)[:draft_k])
+        feeds = [[gen[u][-1]] + d for u, d in zip(live, drafts)]
+        logits, nxt = eng.verify_step(live, feeds, greedy=True)
+        finite &= torch.isfinite(logits[:len(live)]).all()
+        nxt = nxt[:len(live)].tolist()                  # the pass's sync
+        stats.ticks += 1
+        stats.k_sum += draft_k * len(live)
+        stats.k_requests += len(live)
+        for i, u in enumerate(live):
+            emitted, acc = accept_drafts(nxt[i], drafts[i])
+            stats.drafted += draft_k
+            stats.accepted += acc
+            stats.emitted += len(emitted)
+            eng.commit_verified(u, feeds[i][:acc + 1])
+            gen[u].extend(emitted)
+    torch.cuda.synchronize()
+    return ({u: gen[u][:gen_tokens] for u in uids}, stats,
+            time.perf_counter() - t0, bool(finite.item()))
+
+
+def speculative_served_run(torch, np, gen_tokens=48, draft_k=4):
+    """Phase 10: the 32-layer 7B geometry over an int8 KV cache, served
+    speculatively, with ``decode_loop`` on a fresh engine as the
+    yardstick."""
+    from deepspeed_tpu_torch.checkpoint import random_int8_llama_params
+    from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import (
+        BlockedKVCache)
+    from deepspeed_tpu_torch.models import LlamaConfig
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = LlamaConfig.llama2_7b(dtype=torch.bfloat16)     # 32 layers
+    params = random_int8_llama_params(cfg, groups=16, seed=SEED)
+    rng = np.random.default_rng(SEED + 10)
+    prompts = [rng.integers(0, cfg.vocab_size, 32).tolist() * 8
+               for _ in range(8)]
+    uids = list(range(len(prompts)))
+    max_ctx = len(prompts[0]) + gen_tokens + 2 * (draft_k + 1) + 8
+    spec_eng = make_engine(torch, cfg, params, max_ctx, True, "int8")
+    ref_eng = make_engine(torch, cfg, params, max_ctx, True, "int8")
+    for eng in (spec_eng, ref_eng):       # warm: allocator buffers made
+        eng.put([100, 101], prompts[:2])
+        eng.verify_step([100, 101], [[1] * (draft_k + 1)] * 2)
+        eng.decode_loop([100, 101], [1, 1], 2)
+        eng.flush([100, 101])
+    torch.cuda.synchronize()
+
+    reset_launches()
+    toks, stats, spec_s, finite = speculative_generate(
+        torch, spec_eng, uids, prompts, gen_tokens, draft_k)
+    spec_launches = read_launches(INT8_SPECULATIVE)
+    # where the time goes: one traced verify pass over the 8 live requests
+    trace = profile_window(torch, lambda: spec_eng.verify_step(
+        uids, [[toks[u][-1]] * (draft_k + 1) for u in uids]), 1)
+    spec_eng.flush(uids)
+    sm = spec_eng.state_manager
+    all_free = sm.free_blocks == sm.allocator.num_blocks - 1
+    first = {}
+    for i in range(0, len(uids), 2):
+        first.update(ref_eng.put(uids[i:i + 2], prompts[i:i + 2]))
+    start = [int(first[u].argmax()) for u in uids]
+    t0 = time.perf_counter()
+    ref = ref_eng.decode_loop(uids, start, gen_tokens - 1)
+    ref_s = time.perf_counter() - t0
+    ref_eng.flush(uids)
+    torch.cuda.synchronize()
+    launches = read_launches(INT8_SPECULATIVE)
+    sm = ref_eng.state_manager
+    all_free &= sm.free_blocks == sm.allocator.num_blocks - 1
+    got = np.asarray([toks[u] for u in uids])
+    want = np.concatenate([np.asarray(start)[:, None], ref], axis=1)
+    new = len(uids) * (gen_tokens - 1)     # tokens after the put's first
+    bf16_bytes = BlockedKVCache(cfg.num_hidden_layers, 0, 128,
+                                cfg.num_key_value_heads, cfg.head_dim,
+                                "bf16").per_token_bytes
+    return {
+        "layers": cfg.num_hidden_layers, "requests": len(uids),
+        "prompt_len": len(prompts[0]), "gen_tokens": gen_tokens,
+        "draft_k": draft_k, "verify_passes": stats.ticks,
+        "ms_per_verify_pass": spec_s / stats.ticks * 1e3,
+        "speculative_tokens_per_s": new / spec_s,
+        "decode_loop_tokens_per_s": new / ref_s,
+        "decode_loop_ms_per_step": ref_s / (gen_tokens - 1) * 1e3,
+        "spec_stats": stats.as_dict(),
+        # a pass serves every live request: tokens one request gets a pass
+        "tokens_per_request_pass": stats.emitted / stats.k_requests,
+        "token_agreement_with_decode_loop": float((got == want).mean()),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "per_token_bytes": {"int8": spec_eng.state_manager.kv_cache
+                            .per_token_bytes, "bf16": bf16_bytes},
+        "spec_launches": spec_launches, "launches": launches,
+        "finite": finite, "all_blocks_free": bool(all_free),
+        "tokens_in_vocab": bool(((got >= 0) & (got < cfg.vocab_size)).all()),
         "trace": trace,
     }
 
@@ -671,7 +972,7 @@ def training_kernel_vs_plain(torch, np, dev, steps=3):
                   for i in range(1 if mode == "fp32" else steps)]
         torch.cuda.synchronize()
         res[mode] = ([float(x) for x in losses], logits, grads,
-                     read_launches(False))
+                     read_launches(TRAINING))
         del engine
         torch.cuda.empty_cache()
     k_loss, k_logits, k_grads, k_launch = res.pop("kernel")
@@ -712,7 +1013,7 @@ def trained_run(torch, np, dev, warmup=3, steps=20):
     losses += [train_step(engine, ids) for _ in range(steps)]
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
-    launches = read_launches(False)
+    launches = read_launches(TRAINING)
     losses = [float(x) for x in losses]
     trace = profile_window(torch, lambda: [train_step(engine, ids)
                                            for _ in range(2)], 2, top=12)
@@ -860,7 +1161,7 @@ def main() -> int:
     # 5. the served run (counts reset just before, read just after)
     served = served_run(torch, prompts)
     print(f"[served] {json.dumps(served)}", flush=True)
-    launches = served["launches"]
+    launches = dict(served["launches"])
     if any(v == 0 for v in launches.values()):
         return fail(f"a kernel of the serving path never launched: "
                     f"{launches}")
@@ -923,18 +1224,50 @@ def main() -> int:
         return fail(f"flash kernel launches per step are not 12 each: "
                     f"{trained['launches_per_step']}")
 
+    # 9. the speculative slice: kernels vs plain paths, 2 layers, int8 KV
+    spec = speculative_kernel_vs_plain(torch, np, prompts)
+    print(f"[spec-slice] {json.dumps(spec)}", flush=True)
+    if not (spec["verify_rel_err"] <= TOL
+            and spec["verify_vs_decode_rel_err"] <= TOL and spec["finite"]):
+        return fail(f"kernel-path verify logits differ from the plain path "
+                    f"or from sequential decode: {spec}")
+    if any(v == 0 for v in spec["kernel_launches"].values()) or any(
+            spec["plain_launches"].values()):
+        return fail(f"launch counts: kernel path {spec['kernel_launches']}, "
+                    f"plain path {spec['plain_launches']}")
+    if any(a != b for a, b in spec["free_blocks_after_reject"].values()):
+        return fail(f"a rejected verify pass left blocks behind: "
+                    f"{spec['free_blocks_after_reject']}")
+
+    # 10. the speculative served run (counts reset just before, read after)
+    spec_run = speculative_served_run(torch, np)
+    print(f"[spec-served] {json.dumps(spec_run)}", flush=True)
+    if any(v == 0 for v in spec_run["launches"].values()) \
+            or spec_run["spec_launches"]["paged_verify_attention_int8"] == 0:
+        return fail(f"a kernel of the speculative path never launched: "
+                    f"{spec_run['launches']}")
+    if not (spec_run["finite"] and spec_run["tokens_in_vocab"]
+            and spec_run["all_blocks_free"]):
+        return fail(f"speculative served output malformed: {spec_run}")
+    for key, n in spec_run["launches"].items():     # the int8 kernels'
+        launches.setdefault(key, n)
+
     src = "deepspeed_tpu_torch/csrc/"
     ref = "deepspeed_tpu/"
-    sources = {"quantized_matmul": src + "quantized_matmul.cu",
-               "paged_attention": src + "blocked_flash.cu",
-               "paged_decode_attention": src + "blocked_flash.cu"}
+    bf_py = ref + "inference/v2/kernels/blocked_flash.py:"
+    sources = {"quantized_matmul": src + "quantized_matmul.cu"}
     replaces = {"quantized_matmul": ref + "ops/quantized_matmul.py:47",
-                "paged_attention":
-                    ref + "inference/v2/kernels/blocked_flash.py:35",
-                "paged_decode_attention":
-                    ref + "inference/v2/kernels/blocked_flash.py:118"}
+                "paged_attention": bf_py + "35",
+                "paged_decode_attention": bf_py + "118",
+                "paged_decode_attention_int8": bf_py + "118",
+                "paged_verify_attention": bf_py + "301",
+                "paged_verify_attention_int8": bf_py + "301",
+                # no TPU kernel: int8 prefill is an XLA path there
+                "paged_attention_int8": ref + "inference/v2/"
+                "model_implementations/ragged_llama.py:263"}
     kernels = [{
-        "name": c["name"], "route": "cuda", "source": sources[c["kernel"]],
+        "name": c["name"], "route": "cuda",
+        "source": sources.get(c["kernel"], src + "blocked_flash.cu"),
         "replaces": replaces[c["kernel"]],
         "launches": launches[c["kernel"]], "max_abs_err": c["max_abs_err"],
         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
@@ -967,7 +1300,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "build_s": secs,
          "cases": cases, "slice": e2e, "served": served, "flash": flash,
-         "train_slice": t_slice, "trained": trained}, indent=1))
+         "train_slice": t_slice, "trained": trained, "spec_slice": spec,
+         "spec_served": spec_run}, indent=1))
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

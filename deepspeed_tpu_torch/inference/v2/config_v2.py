@@ -4,8 +4,8 @@ inference/v2/config_v2.py ``RaggedInferenceEngineConfig``,
 ``DSStateManagerConfig`` ragged/manager_configs.py).
 
 The same dict keys as the JAX package.  Options whose paths are not ported
-yet (tensor parallelism, int8 KV, the host cold tier) raise
-``NotImplementedError`` when set, rather than being ignored.
+yet (tensor parallelism, the host cold tier) raise ``NotImplementedError``
+when set, rather than being ignored.
 """
 
 from __future__ import annotations
@@ -40,8 +40,9 @@ class KVCacheConfig(DeepSpeedConfigModel):
     block_size: int = 64
     num_blocks: Optional[int] = None     # None -> derived from max_context
     cache_dtype: Any = None
-    #: pool storage dtype ``"bf16" | "f32" | "f16"``; takes precedence
-    #: over the legacy ``cache_dtype`` (``"int8"`` is a later slice)
+    #: pool storage dtype ``"bf16" | "f32" | "f16" | "int8"`` (int8:
+    #: block-quantized payload + fp32 scale per row and KV head); takes
+    #: precedence over the legacy ``cache_dtype``
     dtype: Optional[str] = None
     #: radix prefix cache over the block pool (ref-counted, LRU-evicted
     #: under pressure, copy-on-write on shared-block writes)
@@ -54,11 +55,11 @@ class KVCacheConfig(DeepSpeedConfigModel):
             from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import (
                 resolve_kv_dtype)
 
-            resolve_kv_dtype(self.dtype)   # raises on unknown / int8
+            resolve_kv_dtype(self.dtype)   # raises on an unknown dtype
         if self.host_tier:
             raise NotImplementedError(
                 "kv_cache.host_tier (host-memory cold tier) is not ported "
-                "to deepspeed_tpu_torch yet")
+                "to deepspeed_tpu_torch yet (ROADMAP A4, open item 2)")
 
 
 @dataclasses.dataclass

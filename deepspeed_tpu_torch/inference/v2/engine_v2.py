@@ -16,10 +16,16 @@ the next-token logits per *fully scheduled* sequence; prompts longer than
 the remaining budget are chunked (SplitFuse) and continue on the next round
 via the sequence's ``pending`` queue.
 
-Not ported yet (each raises ``NotImplementedError``): speculative
-``verify_step`` / ``commit_verified``, the ``include_kv`` host handoff of
-``flush_to_host`` / ``resume``, ``serialize`` / ``from_hf``, and the memory
-ledger.
+Speculative decoding: ``verify_step`` scores K fed tokens per sequence (the
+next input and K-1 drafts) in one forward and returns all K logits rows;
+``commit_verified`` advances a sequence past the accepted prefix and frees
+the lookahead blocks it no longer needs.  ``kv_cache.dtype="int8"`` keeps
+the pool block-quantized (fp32 scale per row and KV head).
+``flush_to_host(include_kv=True)`` / ``resume(kv_state=...)`` carry a
+sequence's KV rows (scales included) from one engine to another.
+
+Not ported yet (each raises ``NotImplementedError``): ``serialize`` /
+``from_hf`` and the memory ledger.
 """
 
 from __future__ import annotations
@@ -61,6 +67,33 @@ def _device_decode_batch(tables, pos, tok, block_size: int, max_blocks: int):
         "block_tables": tables,
         "context_lens": pos + 1,
         "logits_idx": slot,
+    }
+
+
+def _device_verify_batch(tables, pos, tok, block_size: int, max_blocks: int,
+                         k_tokens: int):
+    """Ragged batch dict for a speculative verify round: ``k_tokens``
+    consecutive-position tokens per slot (the fed token plus the drafted
+    lookahead), rows slot-major, with ``logits_idx`` selecting every row so
+    the forward returns all K candidate logits per sequence."""
+    S = tables.shape[0]
+    dev = tables.device
+    slot = torch.arange(S, dtype=torch.int32,
+                        device=dev).repeat_interleave(k_tokens)
+    p2 = pos[:, None] + torch.arange(k_tokens, dtype=torch.int32,
+                                     device=dev)[None, :]
+    blk = torch.gather(tables, 1,
+                       torch.clamp(p2 // block_size, 0, max_blocks - 1).long())
+    p = p2.reshape(-1)
+    return {
+        "token_ids": tok.reshape(-1),
+        "token_slot": slot,
+        "token_pos": p,
+        "kv_dest": blk.reshape(-1) * block_size + p % block_size,
+        "block_tables": tables,
+        "context_lens": pos + k_tokens,
+        "logits_idx": torch.arange(S * k_tokens, dtype=torch.int32,
+                                   device=dev),
     }
 
 
@@ -106,6 +139,18 @@ class InferenceEngineV2:
             sm_cfg, kv_cfg, num_layers=model.num_layers,
             num_kv_heads=model.num_kv_heads, head_dim=model.head_dim,
             dtype=getattr(model.config, "dtype", None), device=self.device)
+        if self.state_manager.kv_cache.quantized:
+            if not getattr(model, "supports_quantized_kv", False):
+                raise ValueError(
+                    f"kv_cache.dtype=int8 needs a model whose attention "
+                    f"path quantizes on insert and fuses the dequant "
+                    f"(RaggedLlama family); {type(model).__name__} would "
+                    f"silently write float KV into an int8 pool")
+            if getattr(model, "tp", 1) > 1:
+                raise ValueError(
+                    "int8 KV does not compose with tensor parallelism "
+                    "yet — the scale records need their own kv-head "
+                    "partition spec")
         self._max_blocks = -(-sm_cfg.max_context // kv_cfg.block_size)
         self._batch = RaggedBatchWrapper(
             token_budget=sm_cfg.max_ragged_batch_size,
@@ -372,15 +417,107 @@ class InferenceEngineV2:
         return torch.from_numpy(
             np.pad(np.asarray(tokens, np.int32), (0, S - n))).to(self.device)
 
-    def verify_step(self, uids, tokens, greedy: bool = False):
-        raise NotImplementedError(
-            "speculative verify_step is not ported to deepspeed_tpu_torch "
-            "yet (it needs the paged verify kernel)")
+    # ------------------------------------------------------------------ #
+    # Speculative decoding: one forward scores K candidate positions per
+    # sequence — the fed token plus K-1 drafted lookahead tokens — and
+    # returns all K logits rows, so the caller accepts the longest matching
+    # draft prefix plus one bonus/correction token.  KV for every fed token
+    # is written at its position; a rejected lookahead row is overwritten by
+    # the next real feed at that position (the causal mask never lets a
+    # row see it before then), and a lookahead block past what the accepted
+    # tokens need is freed by commit_verified.
+    # ------------------------------------------------------------------ #
+    def verify_step(self, uids: Sequence[int],
+                    tokens: Sequence[Sequence[int]], greedy: bool = False):
+        """Score ``tokens[i]`` (K fed tokens for ``uids[i]``: its next input
+        token followed by K-1 drafts) in one forward.
 
-    def commit_verified(self, uid, accepted_tokens):
-        raise NotImplementedError(
-            "commit_verified belongs to speculative decoding, which is not "
-            "ported to deepspeed_tpu_torch yet")
+        Every row must have the same length K.  Each sequence must be live
+        with no pending prompt tokens.  Neither ``seen_tokens`` nor the host
+        token record advances here — the caller decides acceptance from the
+        returned logits and then calls :meth:`commit_verified` with the
+        accepted feed prefix.
+
+        Returns logits ``[max_seqs, K, vocab]`` as a device tensor without a
+        host sync (rows ``>= len(uids)`` are padding): row ``[i, k]`` is the
+        distribution after consuming ``tokens[i][:k+1]`` — what K sequential
+        :meth:`decode_step` calls would return while the drafts match.
+        ``greedy=True`` returns ``(logits, next_tokens [max_seqs, K] int32)``
+        with the argmax taken on the device.
+        """
+        sm = self.state_manager
+        S, B = self._batch.max_seqs, self._max_blocks
+        n = len(uids)
+        if n == 0 or n != len(tokens):
+            raise ValueError(
+                f"verify_step: {n} uids but {len(tokens)} token rows")
+        K = len(tokens[0])
+        if K < 1 or any(len(t) != K for t in tokens):
+            raise ValueError(
+                "verify_step: all rows must share one draft length K >= 1")
+        if n > S:
+            raise ValueError(f"verify_step: {n} sequences exceed "
+                             f"max_seqs {S}")
+        max_context = self.config.state_manager.max_context
+        seqs = []
+        for uid in uids:
+            seq = sm.get_sequence(uid)
+            if seq is None or seq.pending:
+                raise RuntimeError(
+                    f"verify_step: sequence {uid} missing or has pending "
+                    f"prompt tokens — run put() first")
+            if seq.seen_tokens + K > max_context:
+                raise RuntimeError(
+                    f"verify_step: sequence {uid} would exceed "
+                    f"max_context {max_context} with {K} lookahead slots")
+            sm.maybe_allocate_kv(seq, K)      # K lookahead KV slots
+            seqs.append(seq)
+
+        tables, pos = _pack_tables_positions(seqs, S, B)
+        tok = np.zeros((S, K), np.int32)
+        tok[:n] = np.asarray([[int(t) for t in row] for row in tokens],
+                             np.int32)
+        packed = torch.from_numpy(np.concatenate(
+            [tables.ravel(), pos, tok.ravel()])).to(self.device)  # one upload
+        batch = _device_verify_batch(
+            packed[:S * B].reshape(S, B), packed[S * B:S * B + S],
+            packed[S * B + S:].reshape(S, K), sm.block_size, B, K)
+        logits, new_cache = self.model(self.params, sm.kv_cache.cache, batch,
+                                       verify_k=K)
+        sm.kv_cache.update(new_cache)
+        logits = logits.reshape(S, K, -1)
+        # lookahead positions moved under any cached decode tables
+        self._dev_decode_state = None
+        if greedy:
+            return logits, torch.argmax(logits, dim=-1).to(torch.int32)
+        return logits
+
+    def commit_verified(self, uid: int,
+                        accepted_tokens: Sequence[int]) -> None:
+        """Advance ``uid`` past the accepted prefix of its last
+        :meth:`verify_step` feed (KV for those tokens is already written),
+        and roll back the rejected lookahead: blocks allocated past what
+        ``seen_tokens`` now needs are freed, so the allocator and refcounts
+        end exactly where a never-drafted run would.  Accepted tokens are
+        recorded host-side and full blocks register into the radix prefix
+        cache, as for any other fed token."""
+        sm = self.state_manager
+        seq = sm.get_sequence(uid)
+        if seq is None:
+            raise ValueError(f"commit_verified: unknown sequence {uid}")
+        a = len(accepted_tokens)
+        if a < 1:
+            raise ValueError(
+                "commit_verified: at least the fed input token is always "
+                "accepted (verify emits >= 1 token)")
+        sm.record_fed_tokens(seq, accepted_tokens)
+        seq.seen_tokens += a
+        need = -(-seq.seen_tokens // sm.block_size)
+        if len(seq.blocks) > need:
+            sm.allocator.free(seq.blocks[need:])
+            del seq.blocks[need:]
+        sm.register_prefix(seq)
+        self._dev_decode_state = None
 
     # ------------------------------------------------------------------ #
     # Device-resident greedy decode: the JAX package runs each chunk as
@@ -475,41 +612,88 @@ class InferenceEngineV2:
     # ------------------------------------------------------------------ #
     # Preemption support: flush_to_host releases a sequence's device
     # blocks and hands back a host snapshot; resume() re-admits by
-    # RECOMPUTE — re-prefilling the full token history the caller kept.
+    # RECOMPUTE — re-prefilling the full token history the caller kept —
+    # or, given a snapshot with the KV rows, by scattering them back.
     # ------------------------------------------------------------------ #
     def flush_to_host(self, uids: Sequence[int],
                       include_kv: bool = False) -> Dict[int, Dict[str, Any]]:
         """Release device KV for ``uids`` (preemption).  Returns per-uid
         host snapshots ``{"seen_tokens", "pending_tokens"}`` — the caller
-        owns the token history and re-admits via :meth:`resume`."""
-        if include_kv:
-            raise NotImplementedError(
-                "flush_to_host(include_kv=True) (the KV handoff) is not "
-                "ported to deepspeed_tpu_torch yet; resume recomputes")
+        owns the token history and re-admits via :meth:`resume`.
+
+        ``include_kv=True`` also copies each sequence's KV rows to the host
+        (``"kv"``: a per-layer tree of ``[blocks * block_size, ...]`` CPU
+        tensors in block-table order, int8 scales included) so another
+        engine over the same model can :meth:`resume` without the
+        recompute — the disaggregated prefill → decode handoff."""
         out: Dict[int, Dict[str, Any]] = {}
         for uid in uids:
             seq = self.state_manager.get_sequence(uid)
             if seq is None:
                 raise ValueError(f"flush_to_host: unknown sequence {uid}")
-            out[uid] = {"seen_tokens": seq.seen_tokens,
-                        "pending_tokens": len(seq.pending)}
+            snap: Dict[str, Any] = {"seen_tokens": seq.seen_tokens,
+                                    "pending_tokens": len(seq.pending)}
+            if include_kv and seq.blocks:
+                snap["kv"] = self.state_manager.kv_cache.gather_blocks(
+                    seq.blocks)
+                snap["block_size"] = self.state_manager.block_size
+            out[uid] = snap
         self.flush(uids)
         return out
 
     def resume(self, uid: int, tokens: Sequence[int], sync: bool = True,
                kv_state: Optional[Dict[str, Any]] = None) -> Dict[int, Any]:
-        """Re-admit a flushed sequence by recompute: re-prefill the full
-        token history (prompt + tokens generated before preemption) and
-        return the last token's logits, exactly as :meth:`put` would."""
-        if self.state_manager.get_sequence(uid) is not None:
+        """Re-admit a flushed sequence (it must not be live).
+
+        Without ``kv_state``: recompute — re-prefill the full token history
+        (prompt + tokens generated before preemption) and return the last
+        token's logits, exactly as :meth:`put` would.
+
+        With ``kv_state`` (a :meth:`flush_to_host` ``include_kv=True``
+        snapshot, possibly from another engine of identical geometry):
+        allocate fresh blocks, scatter the carried KV rows in, and mark
+        ``tokens[:seen_tokens]`` as already seen — no recompute.  Only the
+        tail ``tokens[seen_tokens:]`` (if any) runs through :meth:`put`;
+        when the tail is empty the return is ``{}`` and the next
+        :meth:`decode_step` / ``put`` feeds from position ``seen_tokens``.
+        """
+        sm = self.state_manager
+        if sm.get_sequence(uid) is not None:
             raise RuntimeError(
                 f"resume: sequence {uid} is still live — it was never "
                 f"flushed, or the uid was reused")
-        if kv_state is not None and "kv" in kv_state:
-            raise NotImplementedError(
-                "resume from a KV snapshot is not ported to "
-                "deepspeed_tpu_torch yet; resume without kv_state recomputes")
-        return self.put([uid], [tokens], sync=sync)
+        if kv_state is None or "kv" not in kv_state:
+            return self.put([uid], [tokens], sync=sync)
+        seen = int(kv_state["seen_tokens"])
+        if not 0 < seen <= len(tokens):
+            raise ValueError(
+                f"resume: kv_state covers {seen} tokens but {len(tokens)} "
+                f"token values were supplied")
+        if kv_state.get("block_size", sm.block_size) != sm.block_size:
+            raise ValueError(
+                f"resume: kv_state block_size "
+                f"{kv_state.get('block_size')} != {sm.block_size}")
+        n_blocks = -(-seen // sm.block_size)
+        seq = sm.get_or_create_sequence(uid)
+        try:
+            seq.blocks = sm._allocate(n_blocks)
+            need_rows = n_blocks * sm.block_size
+            payload = {lname: {leaf: h[:need_rows] for leaf, h in lv.items()}
+                       for lname, lv in kv_state["kv"].items()}
+            sm.kv_cache.scatter_blocks(seq.blocks, payload)
+        except Exception:
+            if seq.blocks:
+                sm.allocator.free(seq.blocks)
+            del sm._seqs[uid]
+            raise
+        seq.seen_tokens = seen
+        sm.record_fed_tokens(seq, tokens[:seen])
+        sm.register_prefix(seq)
+        # freshly scattered blocks invalidate any cached decode tables
+        self._dev_decode_state = None
+        if len(tokens) > seen:
+            return self.put([uid], [list(tokens)[seen:]], sync=sync)
+        return {}
 
     def serialize(self, save_path: str) -> None:
         raise NotImplementedError(

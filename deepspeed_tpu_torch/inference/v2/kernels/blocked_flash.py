@@ -2,19 +2,25 @@
 ``deepspeed_tpu/inference/v2/kernels/blocked_flash.py``; reference:
 inference/v2/kernels/ragged_ops/blocked_flash/).
 
-Two wrappers, each over a hand-written CUDA kernel in
-``deepspeed_tpu_torch/csrc/blocked_flash.cu``:
+Three wrappers, each over hand-written CUDA kernels in
+``deepspeed_tpu_torch/csrc/blocked_flash.cu``, in a bf16 mode and an int8
+mode (``k_scale`` / ``v_scale`` given: int8 pools with fp32 scales
+``[rows, Hkv]``, dequantized on the block walk):
 
 * :func:`paged_attention` — every token of a ragged batch attends over its
   sequence's paged context up to its own position (the JAX package's
-  generic grid kernel ``_kernel``);
+  generic grid kernel ``_kernel``; its int8 mode computes the JAX package's
+  XLA gather + dequant path, which has no TPU kernel);
 * :func:`paged_decode_attention` — one query per slot walking only that
-  slot's live blocks (the JAX package's ``_decode_kernel``, bf16 mode).
+  slot's live blocks (the JAX package's ``_decode_kernel``);
+* :func:`paged_verify_attention` — K query rows per slot (speculative
+  verify) sharing one walk of the slot's blocks (``_verify_kernel``).
 
-Both compute the same function; their plain PyTorch version,
+All three compute the same function; their one plain PyTorch version,
 :func:`paged_attention_plain`, sits below.  A wrapper takes the plain
 version only for tensors on the CPU; for CUDA tensors it launches its
-kernel or raises.  ``LAUNCHES`` counts the kernel launches.
+kernel or raises.  ``LAUNCHES`` counts the kernel launches per kernel and
+mode.
 """
 
 from __future__ import annotations
@@ -28,19 +34,24 @@ import torch
 
 from deepspeed_tpu_torch.ops import _build
 
-#: kernel launches per wrapper (plain CPU calls do not count)
-LAUNCHES = {"paged_attention": 0, "paged_decode_attention": 0}
+_KERNELS = ("paged_attention", "paged_decode_attention",
+            "paged_verify_attention")
+#: kernel launches per kernel and mode (plain CPU calls do not count)
+LAUNCHES = {f"{name}{mode}": 0 for name in _KERNELS
+            for mode in ("", "_int8")}
 
 _HEAD_DIMS = (64, 128)
 _MAX_GROUP = 8
-_C_NAMES = {"paged_attention": "dstt_paged_attention_bf16",
-            "paged_decode_attention": "dstt_paged_decode_attention_bf16"}
+#: query rows (k_tokens x query heads per KV head) one verify block holds:
+#: each keeps a D-wide fp32 accumulator in registers
+MAX_VERIFY_ROWS = 16
 
 
 def paged_attention_usable(q, k_pool, block_size: int) -> bool:
-    """Whether the wrappers take these shapes: on CUDA, bf16 with a head
-    dim of 64 or 128 and at most 8 query heads per KV head; on the CPU
-    (the plain version), any whole GQA grouping."""
+    """Whether the wrappers take these shapes: on CUDA, bf16 queries over
+    bf16 or int8 pools with a head dim of 64 or 128 and at most 8 query
+    heads per KV head; on the CPU (the plain version), any whole GQA
+    grouping."""
     h, d = q.shape[1], q.shape[2]
     hkv = k_pool.shape[1]
     if h % hkv or block_size <= 0:
@@ -48,16 +59,19 @@ def paged_attention_usable(q, k_pool, block_size: int) -> bool:
     if not q.is_cuda:
         return True
     return (d in _HEAD_DIMS and h // hkv <= _MAX_GROUP
-            and q.dtype == k_pool.dtype == torch.bfloat16)
+            and q.dtype == torch.bfloat16
+            and k_pool.dtype in (torch.bfloat16, torch.int8))
 
 
 def paged_attention_plain(q, k_pool, v_pool, block_tables, token_slot,
                           token_pos, *, block_size: int,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None,
+                          k_scale=None, v_scale=None) -> torch.Tensor:
     """The kernels' function in plain PyTorch: gather each token's context
-    through its slot's block table, mask by position (and window), softmax
-    in fp32.  Rows with no visible key (pads, position -1) are zeros, as in
-    the kernels (``l == 0 -> 1``)."""
+    through its slot's block table (dequantizing the gathered rows of an
+    int8 pool), mask by position (and window), softmax in fp32.  Rows with
+    no visible key (pads, position -1) are zeros, as in the kernels
+    (``l == 0 -> 1``)."""
     t_count, h, d = q.shape
     hkv = k_pool.shape[1]
     s_count, b_per_seq = block_tables.shape
@@ -69,6 +83,9 @@ def paged_attention_plain(q, k_pool, v_pool, block_tables, token_slot,
     idx = rows[token_slot.long()]                              # [T, C]
     k = k_pool[idx].float()                                    # [T, C, Hkv, D]
     v = v_pool[idx].float()
+    if k_scale is not None:
+        k = k * k_scale[idx].float()[..., None]
+        v = v * v_scale[idx].float()[..., None]
     qg = q.float().reshape(t_count, hkv, h // hkv, d)
     s = torch.einsum("tkgd,tckd->tkgc", qg, k) * (1.0 / math.sqrt(d))
     key_pos = torch.arange(c_len, device=dev)[None, :]
@@ -86,42 +103,84 @@ def paged_attention_plain(q, k_pool, v_pool, block_tables, token_slot,
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, token_slot, token_pos,
-                    *, block_size: int,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    *, block_size: int, window: Optional[int] = None,
+                    k_scale=None, v_scale=None) -> torch.Tensor:
     """q: [T, H, D]; k/v_pool: [num_blocks*block_size, Hkv, D];
-    block_tables: [S, B] int32; token_slot/token_pos: [T] int32.
-    Returns [T, H, D]: each token attends over its sequence's paged
+    block_tables: [S, B] int32; token_slot/token_pos: [T] int32;
+    ``k_scale``/``v_scale``: [num_blocks*block_size, Hkv] fp32 for int8
+    pools.  Returns [T, H, D]: each token attends over its sequence's paged
     context up to its own position (``window``: the last ``window``
     positions only)."""
-    if not q.is_cuda:
-        return paged_attention_plain(q, k_pool, v_pool, block_tables,
-                                     token_slot, token_pos,
-                                     block_size=block_size, window=window)
-    return _launch("paged_attention", q, k_pool, v_pool, block_tables,
-                   token_slot, token_pos, block_size, window)
+    return _route("paged_attention", 1, q, k_pool, v_pool, block_tables,
+                  token_slot, token_pos, block_size, window, k_scale,
+                  v_scale)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, token_slot,
                            token_pos, *, block_size: int,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None,
+                           k_scale=None, v_scale=None) -> torch.Tensor:
     """Decode-shaped paged attention: q [S, H, D], one token per slot,
     each walking only its slot's live blocks.  Returns [S, H, D]; pad
     slots (pos < 0) give zeros."""
+    return _route("paged_decode_attention", 1, q, k_pool, v_pool,
+                  block_tables, token_slot, token_pos, block_size, window,
+                  k_scale, v_scale)
+
+
+def paged_verify_attention(q, k_pool, v_pool, block_tables, token_slot,
+                           token_pos, *, block_size: int, k_tokens: int,
+                           window: Optional[int] = None,
+                           k_scale=None, v_scale=None) -> torch.Tensor:
+    """Multi-query paged attention for speculative verify batches.
+
+    q: [T, H, D] with ``T = S * k_tokens``, rows slot-major — row
+    ``s * k_tokens + k`` is slot ``s``'s k-th fed token, at position
+    ``token_pos[s * k_tokens] + k``; token_slot/token_pos are the row-level
+    [T] arrays the other wrappers take.  The kernel reads each slot's
+    context once for all its rows (``k_tokens * H / Hkv`` of them per KV
+    head, at most :data:`MAX_VERIFY_ROWS`).  Returns [T, H, D]."""
+    if k_tokens < 1 or q.shape[0] % k_tokens:
+        raise ValueError(f"paged_verify_attention: {q.shape[0]} rows are "
+                         f"not a whole number of {k_tokens}-token slots")
+    rows = k_tokens * (q.shape[1] // k_pool.shape[1])
+    if q.is_cuda and rows > MAX_VERIFY_ROWS:
+        raise ValueError(
+            f"paged_verify_attention: k_tokens {k_tokens} x {q.shape[1]} "
+            f"query heads / {k_pool.shape[1]} KV heads = {rows} query rows "
+            f"per KV head; the CUDA kernel holds at most MAX_VERIFY_ROWS = "
+            f"{MAX_VERIFY_ROWS} (their accumulators live in registers)")
+    return _route("paged_verify_attention", k_tokens, q, k_pool, v_pool,
+                  block_tables, token_slot, token_pos, block_size, window,
+                  k_scale, v_scale)
+
+
+def _route(name, k_tokens, q, k_pool, v_pool, block_tables, token_slot,
+           token_pos, block_size, window, k_scale, v_scale):
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: pass both k_scale and v_scale, or "
+                         f"neither")
     if not q.is_cuda:
-        return paged_attention_plain(q, k_pool, v_pool, block_tables,
-                                     token_slot, token_pos,
-                                     block_size=block_size, window=window)
-    return _launch("paged_decode_attention", q, k_pool, v_pool,
-                   block_tables, token_slot, token_pos, block_size, window)
+        return paged_attention_plain(
+            q, k_pool, v_pool, block_tables, token_slot, token_pos,
+            block_size=block_size, window=window, k_scale=k_scale,
+            v_scale=v_scale)
+    return _launch(name, k_tokens, q, k_pool, v_pool, block_tables,
+                   token_slot, token_pos, block_size, window, k_scale,
+                   v_scale)
 
 
-def _launch(name, q, k_pool, v_pool, block_tables, token_slot, token_pos,
-            block_size, window):
+def _launch(name, k_tokens, q, k_pool, v_pool, block_tables, token_slot,
+            token_pos, block_size, window, k_scale, v_scale):
     t_count, h, d = q.shape
     hkv = k_pool.shape[1]
+    quantized = k_scale is not None
+    pool_dtype = torch.int8 if quantized else torch.bfloat16
     tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
                "block_tables": block_tables, "token_slot": token_slot,
                "token_pos": token_pos}
+    if quantized:
+        tensors.update(k_scale=k_scale, v_scale=v_scale)
     for key, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name}: {key} is on {t.device}, q on "
@@ -132,13 +191,14 @@ def _launch(name, q, k_pool, v_pool, block_tables, token_slot, token_pos,
         if tensors[key].data_ptr() % 16:
             raise ValueError(f"{name}: {key} must be 16-byte aligned")
     if not paged_attention_usable(q, k_pool, block_size) \
-            or v_pool.dtype != torch.bfloat16:
+            or k_pool.dtype != pool_dtype or v_pool.dtype != pool_dtype:
         raise ValueError(
-            f"{name}: the CUDA kernel takes bf16 q/pools, head_dim in "
-            f"{_HEAD_DIMS} and at most {_MAX_GROUP} query heads per KV head "
-            f"(got {q.dtype} q {tuple(q.shape)}, {k_pool.dtype} pools "
-            f"{tuple(k_pool.shape)}); RaggedLlama(use_kernels=False) takes "
-            f"the plain path")
+            f"{name}: the CUDA kernel takes bf16 q over bf16 pools, or over "
+            f"int8 pools with k_scale/v_scale, head_dim in {_HEAD_DIMS} and "
+            f"at most {_MAX_GROUP} query heads per KV head (got {q.dtype} q "
+            f"{tuple(q.shape)}, {k_pool.dtype} pools {tuple(k_pool.shape)}, "
+            f"scales {'given' if quantized else 'absent'}); "
+            f"RaggedLlama(use_kernels=False) takes the plain path")
     for key in ("block_tables", "token_slot", "token_pos"):
         if tensors[key].dtype != torch.int32:
             raise TypeError(f"{name}: {key} must be int32")
@@ -149,28 +209,38 @@ def _launch(name, q, k_pool, v_pool, block_tables, token_slot, token_pos,
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, pools "
                          f"{tuple(k_pool.shape)}, tables "
                          f"{tuple(block_tables.shape)} do not fit")
+    if quantized and (
+            k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
+            or k_scale.shape != k_pool.shape[:2]
+            or v_scale.shape != k_pool.shape[:2]):
+        raise ValueError(f"{name}: k_scale/v_scale must be fp32 "
+                         f"{tuple(k_pool.shape[:2])}")
     out = torch.empty_like(q)
     if t_count == 0:
         return out
+    mode = "int8" if quantized else "bf16"
     with torch.cuda.device(q.device):      # the launch goes to q's GPU
-        rc = _kernel(name)(
+        rc = _kernel(name, mode)(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if quantized else None,
+            v_scale.data_ptr() if quantized else None,
             block_tables.data_ptr(), token_slot.data_ptr(),
-            token_pos.data_ptr(), out.data_ptr(), t_count, h, hkv, d,
-            block_tables.shape[1], block_size,
-            int(window) if window is not None else 0, 1.0 / math.sqrt(d),
+            token_pos.data_ptr(), out.data_ptr(), t_count // k_tokens, h,
+            hkv, d, block_tables.shape[1], block_size,
+            int(window) if window is not None else 0, k_tokens,
+            1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed with error "
-                           f"{rc}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{name} ({mode}): CUDA kernel launch failed "
+                           f"with error {rc}")
+    LAUNCHES[name + ("_int8" if quantized else "")] += 1
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(name: str):
-    fn = getattr(_build.load("blocked_flash"), _C_NAMES[name])
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+def _kernel(name: str, mode: str):
+    fn = getattr(_build.load("blocked_flash"), f"dstt_{name}_{mode}")
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

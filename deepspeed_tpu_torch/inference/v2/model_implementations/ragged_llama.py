@@ -11,31 +11,35 @@ S, block-table width B) and the flat paged KV pool of
   tokens from different sequences are just rows of the same matmul; every
   int8 projection goes through the int8-weight matmul kernel (``qmm``);
 * KV writes are one ``index_copy_`` into the pool, in place (pad lanes write
-  to the trash block);
+  to the trash block); an int8 pool quantizes on insert, writing payload and
+  scales in the same step;
 * attention reads each token's context through its block table.  On CUDA
-  tensors a decode batch takes the paged decode kernel and every other batch
-  the generic paged attention kernel; on the CPU (or with
+  tensors a decode batch takes the paged decode kernel, a speculative verify
+  batch the paged verify kernel and every other batch the generic paged
+  attention kernel, each in its bf16 or int8 mode; on the CPU (or with
   ``use_kernels=False``) the plain gather / dense paths below run — the JAX
-  package's XLA paths, ported one for one.
+  package's XLA paths, ported one for one, dequantizing at their read sites.
 
 The param tree is the JAX package's: ``params["model"]["layers_{i}"]...``
 with every projection a ``[K, N]`` kernel or an int8 ``{"q", "scale"}``
-record.  Tensor parallelism, speculative verify batches and int8 KV pools
-are later slices of the port.
+record.  Tensor parallelism is a later slice of the port.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.inference.v2.kernels import (paged_attention,
-                                                      paged_decode_attention)
+                                                      paged_decode_attention,
+                                                      paged_verify_attention)
 from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import (
     BlockedAllocator)
+from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import (dequantize_kv,
+                                                              quantize_kv)
 from deepspeed_tpu_torch.models.llama import LlamaConfig, apply_rotary
 from deepspeed_tpu_torch.ops.quantized_matmul import qmm
 
@@ -57,32 +61,45 @@ def _rotary(positions, head_dim, theta):
 
 
 def _paged_attention(q, k_pool, v_pool, batch, block_size, use_kernel=None,
-                     window=None, decode_mode=False):
+                     window=None, decode_mode=False, verify_k=None,
+                     k_scale=None, v_scale=None):
     """Paged attention over the blocked KV pool.
 
     q: [T, H, D]; k_pool/v_pool: [num_blocks*bs, Hkv, D].  Returns
     [T, H, D].  ``window`` = Mistral sliding-window width.
+    ``k_scale``/``v_scale`` (int8 pools; ``[rows, Hkv]`` fp32) select the
+    block-quantized mode.
 
     ``use_kernel`` (default: whether q lies on a GPU) routes to the CUDA
-    kernels: ``decode_mode`` batches (T == S with ``token_slot == arange``,
-    set by the engine's decode programs) to :func:`paged_decode_attention`,
-    every other batch to :func:`paged_attention`.  The JAX package decodes
-    through its masked dense XLA path whenever the pool holds at most
-    2·S·C rows — always so for the default pool — but that rule was a TPU
-    measurement; here the decode kernel is the decode path.  Shapes the
+    kernels: ``verify_k`` batches (K consecutive-position tokens per slot,
+    rows slot-major) to :func:`paged_verify_attention`, ``decode_mode``
+    batches (T == S with ``token_slot == arange``, set by the engine's
+    decode programs) to :func:`paged_decode_attention`, every other batch
+    to :func:`paged_attention` — in int8 mode too, where the JAX package
+    takes its XLA gather + dequant path for prefill.  The JAX package
+    decodes through its masked dense XLA path whenever a bf16 pool holds at
+    most 2·S·C rows — always so for the default pool — but that rule was a
+    TPU measurement; here the decode kernel is the decode path.  Shapes the
     kernels do not take raise (in the wrappers) rather than fall back.
 
     ``use_kernel=False`` (and every CPU call) takes the plain paths below:
-    the JAX package's gather / dense compositions, one for one.
+    the JAX package's gather / dense compositions, one for one, each
+    dequantizing an int8 pool at its read site.
     """
     if use_kernel is None:
         use_kernel = q.is_cuda
     if use_kernel:
+        kw = {"block_size": block_size, "k_scale": k_scale,
+              "v_scale": v_scale,
+              "window": int(window) if window is not None else None}
+        args = (q, k_pool, v_pool, batch["block_tables"],
+                batch["token_slot"], batch["token_pos"])
+        if verify_k:
+            return paged_verify_attention(*args, k_tokens=int(verify_k),
+                                          **kw)
         fn = paged_decode_attention if decode_mode else paged_attention
-        return fn(q, k_pool, v_pool, batch["block_tables"],
-                  batch["token_slot"], batch["token_pos"],
-                  block_size=block_size,
-                  window=int(window) if window is not None else None)
+        return fn(*args, **kw)
+    quantized = k_scale is not None
     block_tables = batch["block_tables"].long()   # [S, B]
     token_slot = batch["token_slot"].long()       # [T]
     token_pos = batch["token_pos"].long()         # [T]
@@ -101,6 +118,11 @@ def _paged_attention(q, k_pool, v_pool, batch, block_size, use_kernel=None,
         # under the prefix cache where one warm block legitimately sits in
         # several sequences' tables.
         trash = BlockedAllocator.TRASH_BLOCK
+        if quantized:
+            # pool-wide dequant matches this branch's pool-wide read (it
+            # runs only when rows <= 2*S*C, i.e. pool ~ live)
+            k_pool = dequantize_kv(k_pool, k_scale)
+            v_pool = dequantize_kv(v_pool, v_scale)
         rows = k_pool.shape[0]
         ar = torch.arange(rows, device=dev)
         rowblk = ar // block_size
@@ -134,6 +156,10 @@ def _paged_attention(q, k_pool, v_pool, batch, block_size, use_kernel=None,
                 ).reshape(S, C)
     k_ctx = k_pool[flat_idx]                      # [S, C, Hkv, D]
     v_ctx = v_pool[flat_idx]
+    if quantized:
+        # dequantize the GATHERED slice — O(S*C), never the whole pool
+        k_ctx = dequantize_kv(k_ctx, k_scale[flat_idx])
+        v_ctx = dequantize_kv(v_ctx, v_scale[flat_idx])
     key_pos = torch.arange(C, device=dev)[None, :]
 
     if decode_mode:
@@ -174,11 +200,11 @@ def _paged_attention(q, k_pool, v_pool, batch, block_size, use_kernel=None,
 
 def ragged_attention_block(lp_attn, xa, layer_cache, batch, block_size, cfg,
                            h, hkv, d, cos, sin, kv_dest, decode_mode=False,
-                           kernels=True):
+                           kernels=True, verify_k=None):
     """Per-layer attention body: qkv proj → rotary → paged-KV write (in
-    place, rows ``kv_dest``) → paged attention → o_proj.  ``kernels``:
-    the CUDA kernels (on CUDA tensors) or the plain paths.  Returns
-    ``attn_out [T, H_model]``."""
+    place, rows ``kv_dest``; an int8 pool quantizes on insert) → paged
+    attention → o_proj.  ``kernels``: the CUDA kernels (on CUDA tensors) or
+    the plain paths.  Returns ``attn_out [T, H_model]``."""
     dt = cfg.dtype
     q = qmm(xa, lp_attn["q_proj"]["kernel"], dt, kernels).reshape(-1, h, d)
     k = qmm(xa, lp_attn["k_proj"]["kernel"], dt, kernels).reshape(-1, hkv, d)
@@ -187,11 +213,25 @@ def ragged_attention_block(lp_attn, xa, layer_cache, batch, block_size, cfg,
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
     k_pool, v_pool = layer_cache["k"], layer_cache["v"]
-    k_pool.index_copy_(0, kv_dest, k.to(k_pool.dtype))
-    v_pool.index_copy_(0, kv_dest, v.to(v_pool.dtype))
+    k_scale = layer_cache.get("k_scale")
+    v_scale = layer_cache.get("v_scale")
+    if k_scale is not None:
+        # payload and scales in the same step: the cache stays
+        # self-describing for every reader (kernels, COW copy, handoff)
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        k_pool.index_copy_(0, kv_dest, kq)
+        v_pool.index_copy_(0, kv_dest, vq)
+        k_scale.index_copy_(0, kv_dest, ks)
+        v_scale.index_copy_(0, kv_dest, vs)
+    else:
+        k_pool.index_copy_(0, kv_dest, k.to(k_pool.dtype))
+        v_pool.index_copy_(0, kv_dest, v.to(v_pool.dtype))
     out = _paged_attention(q, k_pool, v_pool, batch, block_size,
                            use_kernel=bool(kernels) and q.is_cuda,
-                           window=cfg.sliding_window, decode_mode=decode_mode)
+                           window=cfg.sliding_window, decode_mode=decode_mode,
+                           verify_k=verify_k, k_scale=k_scale,
+                           v_scale=v_scale)
     return qmm(out.reshape(-1, h * d), lp_attn["o_proj"]["kernel"], dt,
                kernels)
 
@@ -203,6 +243,10 @@ class RaggedLlama:
     runs the plain PyTorch paths on any device (the on-card comparison
     path).  CPU tensors always take the plain paths.
     """
+
+    #: the attention write path quantizes on insert and threads the scales:
+    #: int8 KV (``kv_cache.dtype="int8"``) is supported
+    supports_quantized_kv = True
 
     def __init__(self, config: LlamaConfig, block_size: int,
                  use_kernels: bool = True):
@@ -224,14 +268,17 @@ class RaggedLlama:
 
     @torch.no_grad()
     def __call__(self, params: Dict[str, Any], kv_cache: Dict[str, Any],
-                 batch: Dict[str, torch.Tensor], decode: bool = False):
+                 batch: Dict[str, torch.Tensor], decode: bool = False,
+                 verify_k: Optional[int] = None):
         """Run one ragged forward.
 
         Returns ``(logits [S, vocab], kv_cache)`` where row ``s`` holds the
         logits of slot ``s``'s LAST scheduled token; the pools in
         ``kv_cache`` are updated in place.  ``decode`` marks a
         one-token-per-slot batch with ``token_slot == arange`` (the decode
-        attention path).
+        attention path); ``verify_k`` a speculative verify batch — K
+        consecutive-position tokens per slot, rows slot-major, whose
+        ``logits_idx`` selects every row (the verify attention path).
         """
         cfg = self.config
         m = params["model"]
@@ -253,7 +300,7 @@ class RaggedLlama:
             x = x + ragged_attention_block(
                 lp["self_attn"], xa, kv_cache[f"layer_{i}"], batch,
                 self.block_size, cfg, h, hkv, d, cos, sin, kv_dest,
-                decode_mode=decode, kernels=kernels)
+                decode_mode=decode, kernels=kernels, verify_k=verify_k)
             xm = _rms_norm(x, lp["post_attention_layernorm"]["scale"],
                            cfg.rms_norm_eps)
             gate = qmm(xm, mlp["gate_proj"]["kernel"], dt, kernels)

@@ -3,7 +3,8 @@
 
 from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import (
     BlockedAllocator)
-from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache
+from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import (
+    BlockedKVCache, dequantize_kv, quantize_kv)
 from deepspeed_tpu_torch.inference.v2.ragged.prefix_cache import (
     PrefixCacheStats, RadixPrefixCache)
 from deepspeed_tpu_torch.inference.v2.ragged.ragged_manager import (
@@ -16,4 +17,4 @@ from deepspeed_tpu_torch.inference.v2.ragged.sequence_descriptor import (
 
 __all__ = ["BlockedAllocator", "BlockedKVCache", "DSStateManager",
            "PrefixCacheStats", "RadixPrefixCache", "RaggedBatchWrapper",
-           "DSSequenceDescriptor"]
+           "DSSequenceDescriptor", "dequantize_kv", "quantize_kv"]

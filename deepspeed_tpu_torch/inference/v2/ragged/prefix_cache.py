@@ -116,15 +116,57 @@ class RadixPrefixCache:
             node = child
         return path
 
-    def match_blocks(self, tokens: Sequence[int]) -> List[int]:
+    def match_blocks(self, tokens: Sequence[int],
+                     touch: bool = True) -> List[int]:
         """Pool block ids covering the longest cached prefix of ``tokens``
-        (full blocks only); refreshes the path's LRU stamps."""
+        (full blocks only).  ``touch`` refreshes the path's LRU stamps —
+        :meth:`match_len` probes with ``touch=False`` (a probe is not a
+        use)."""
         path = self._walk(tokens)
-        if path:
+        if touch and path:
             stamp = next(self._clock)
             for n in path:
                 n.stamp = stamp
         return [n.block for n in path]
+
+    def match_len(self, tokens: Sequence[int]) -> int:
+        """Longest cached prefix of ``tokens`` in tokens, without touching
+        LRU state."""
+        return len(self.match_blocks(tokens, touch=False)) * self.block_size
+
+    def lookup_continuation(self, tokens: Sequence[int],
+                            k: int) -> List[int]:
+        """Up to ``k`` cached token values that follow ``tokens`` along the
+        tree — the speculative drafter's probe: if an earlier request
+        already generated through this exact history, the deeper edge
+        labels predict the continuation verbatim.
+
+        ``tokens`` must lie entirely on a cached path (full blocks plus a
+        partial tail that prefix-matches one child's edge label); otherwise
+        returns ``[]``.  Never touches LRU stamps.
+        """
+        if k <= 0:
+            return []
+        bs = self.block_size
+        toks = [int(t) for t in tokens]
+        path = self._walk(toks)
+        if len(path) < len(toks) // bs:
+            return []                  # the history leaves the cached paths
+        node = path[-1] if path else self._root
+        tail = tuple(toks[(len(toks) // bs) * bs:])
+        out: List[int] = []
+        while len(out) < k:
+            nxt = None
+            for key, child in node.children.items():
+                if key[:len(tail)] == tail:
+                    nxt = (key[len(tail):], child)
+                    break
+            if nxt is None:
+                break
+            label_rest, node = nxt
+            out.extend(label_rest)
+            tail = ()
+        return out[:k]
 
     # ------------------------------------------------------------------ #
     # Insert

@@ -259,7 +259,8 @@ def test_engine_kernels_match_plain_paths(cuda_device):
         before = dict(tbf.LAUNCHES)
         first = eng.put([0, 1], prompts)
         eng.decode_loop([0, 1], [int(first[u].argmax()) for u in (0, 1)], 4)
-        launched = {k: tbf.LAUNCHES[k] - before[k] for k in before}
+        launched = {k: tbf.LAUNCHES[k] - before[k]
+                    for k in ("paged_attention", "paged_decode_attention")}
         assert all(launched.values()) == use_kernels
         logits[use_kernels] = np.stack([first[0], first[1]])
     scale = np.abs(logits[False]).max()
@@ -341,3 +342,155 @@ def test_llama_seed_gives_the_same_weights_on_every_device(cuda_device):
     for name, w in on_gpu.items():
         assert w.is_cuda, name
         assert torch.equal(w.cpu(), on_cpu[name]), name
+
+
+def _paged_inputs(rng, dev, bs, h, hkv, d, slots, width, int8):
+    """bf16 queries' pools (or int8 pools with their scales) over ``slots``
+    tables of ``width`` scattered blocks; slots 0 and 1 share a block."""
+    from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import quantize_kv
+
+    nb = slots * width + 1
+    pools = [torch.from_numpy(rng.standard_normal((nb * bs, hkv, d)).astype(
+        np.float32)).to(dev) for _ in range(2)]
+    scales = {}
+    if int8:
+        (kq, ks), (vq, vs) = (quantize_kv(p) for p in pools)
+        pools, scales = [kq, vq], {"k_scale": ks, "v_scale": vs}
+    else:
+        pools = [p.to(torch.bfloat16) for p in pools]
+    tables = (rng.permutation(slots * width) + 1).reshape(slots, width)
+    tables[1, 0] = tables[0, 0]
+    return pools, scales, torch.from_numpy(tables.astype(np.int32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_paged_attention_int8_kernels(cuda_device, head_dim, window):
+    """The decode and generic kernels over an int8 pool with its scales:
+    GQA, a block edge, a pad row (position -1 -> zeros), a shared block."""
+    bs, h, hkv = 128, 4, 2
+    rng = np.random.default_rng(head_dim + 1)
+    (kp, vp), scales, tb = _paged_inputs(rng, cuda_device, bs, h, hkv,
+                                         head_dim, 5, 4, True)
+    for name, slot, pos in (
+            ("paged_decode_attention", [0, 1, 2, 3, 4],
+             [bs - 1, bs, -1, 2 * bs + 5, 450]),
+            ("paged_attention", [0, 0, 1, 3, 0], [0, 200, 130, 300, -1])):
+        q = torch.from_numpy(rng.standard_normal(
+            (len(pos), h, head_dim))).to(cuda_device, torch.bfloat16)
+        ts, tp = (torch.tensor(a, dtype=torch.int32, device=cuda_device)
+                  for a in (slot, pos))
+        before = dict(tbf.LAUNCHES)
+        got = getattr(tbf, name)(q, kp, vp, tb, ts, tp, block_size=bs,
+                                 window=window, **scales)
+        assert tbf.LAUNCHES[name + "_int8"] == before[name + "_int8"] + 1
+        assert tbf.LAUNCHES[name] == before[name]
+        want = tbf.paged_attention_plain(q, kp, vp, tb, ts, tp,
+                                         block_size=bs, window=window,
+                                         **scales)
+        assert (got.float() - want.float()).abs().max().item() <= TOL
+        assert got[pos.index(-1)].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("head_dim,h,hkv,k_tokens", [
+    (128, 4, 4, 5), (64, 8, 2, 4), (128, 8, 2, 3)])
+def test_paged_verify_kernel(cuda_device, head_dim, h, hkv, k_tokens,
+                             window, int8):
+    """K rows per slot against the plain version (the generic function):
+    two slots share a block, one is a pad slot (position 0 over trash
+    tables, which must come out finite), contexts cross block edges."""
+    bs = 16
+    rng = np.random.default_rng(head_dim + k_tokens)
+    (kp, vp), scales, tb = _paged_inputs(rng, cuda_device, bs, h, hkv,
+                                         head_dim, 4, 6, int8)
+    tb[3] = 0                                    # the pad slot: all trash
+    pos0 = np.asarray([37, 5, 61 + 16 - k_tokens, 0])
+    ts = torch.from_numpy(np.repeat(np.arange(4), k_tokens).astype(
+        np.int32)).to(cuda_device)
+    tp = torch.from_numpy((pos0[:, None] + np.arange(k_tokens)).reshape(
+        -1).astype(np.int32)).to(cuda_device)
+    q = torch.from_numpy(rng.standard_normal(
+        (4 * k_tokens, h, head_dim))).to(cuda_device, torch.bfloat16)
+    key = "paged_verify_attention" + ("_int8" if int8 else "")
+    before = tbf.LAUNCHES[key]
+    got = tbf.paged_verify_attention(q, kp, vp, tb, ts, tp, block_size=bs,
+                                     k_tokens=k_tokens, window=window,
+                                     **scales)
+    torch.cuda.synchronize()
+    assert tbf.LAUNCHES[key] == before + 1
+    want = tbf.paged_attention_plain(q, kp, vp, tb, ts, tp, block_size=bs,
+                                     window=window, **scales)
+    assert (got.float() - want.float()).abs().max().item() <= TOL
+    assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.cuda
+def test_paged_kernel_refusals_raise(cuda_device, monkeypatch):
+    """Shapes a kernel does not take raise in the wrapper, and a launch the
+    kernel refuses raises too (no fall-back to the plain version): past
+    MAX_VERIFY_ROWS query rows per KV head, with the wrapper's own check
+    lifted, the C entry point returns cudaErrorInvalidValue."""
+    rng = np.random.default_rng(9)
+    (kp, vp), scales, tb = _paged_inputs(rng, cuda_device, 16, 8, 2, 64, 2,
+                                         2, True)
+    q = torch.zeros((2 * 5, 8, 64), device=cuda_device, dtype=torch.bfloat16)
+    idx = torch.zeros((10,), dtype=torch.int32, device=cuda_device)
+    kw = dict(block_size=16, k_tokens=5, **scales)   # 5 x 4 = 20 rows
+    with pytest.raises(ValueError, match="MAX_VERIFY_ROWS"):
+        tbf.paged_verify_attention(q, kp, vp, tb, idx, idx, **kw)
+    monkeypatch.setattr(tbf, "MAX_VERIFY_ROWS", 64)
+    before = dict(tbf.LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tbf.paged_verify_attention(q, kp, vp, tb, idx, idx, **kw)
+    assert tbf.LAUNCHES == before
+    with pytest.raises(ValueError, match="int8 pools with k_scale"):
+        tbf.paged_decode_attention(q[:2], kp, vp, tb, idx[:2], idx[:2],
+                                   block_size=16)
+
+
+@pytest.mark.cuda
+def test_int8_engine_kernels_match_plain_paths(cuda_device):
+    """A small int8-weight Llama (head_dim 64, GQA) served over an int8 KV
+    pool: put, decode_step and verify_step through the kernels and through
+    the plain paths on the same card.  The kernel path launches each int8
+    kernel and no bf16 attention kernel; the plain path launches none."""
+    from deepspeed_tpu_torch.checkpoint import random_int8_llama_params
+
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=384,
+                           num_attention_heads=4, num_key_value_heads=2,
+                           dtype=torch.bfloat16)
+    params = random_int8_llama_params(cfg, groups=4, seed=1,
+                                      device=cuda_device)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (9, 40)]
+    out = {}
+    for use_kernels in (True, False):
+        eng = InferenceEngineV2(
+            RaggedLlama(cfg, 16, use_kernels=use_kernels), params,
+            RaggedInferenceEngineConfig.from_dict({
+                "state_manager": {"max_ragged_batch_size": 64,
+                                  "max_ragged_sequence_count": 4,
+                                  "max_context": 96},
+                "kv_cache": {"block_size": 16, "dtype": "int8"}}))
+        before = dict(tbf.LAUNCHES)
+        first = eng.put([0, 1], prompts)
+        start = [int(first[u].argmax()) for u in (0, 1)]
+        dec = eng.decode_step([0, 1], start)
+        ver = eng.verify_step([0, 1], [[5, 6, 7], [8, 9, 10]])
+        torch.cuda.synchronize()
+        launched = {k: tbf.LAUNCHES[k] - before[k] for k in before}
+        if use_kernels:
+            assert all(launched[k] > 0 for k in launched if "int8" in k)
+            assert not any(launched[k] for k in launched if "int8" not in k)
+        else:
+            assert not any(launched.values())
+        out[use_kernels] = [np.stack([first[0], first[1]]),
+                            dec[:2].float().cpu().numpy(),
+                            ver[:2].float().cpu().numpy()]
+    for got, want in zip(out[True], out[False]):
+        assert np.isfinite(got).all()
+        assert np.abs(got - want).max() / np.abs(want).max() <= TOL

@@ -121,7 +121,8 @@ def test_state_manager_and_kv_cache():
 
 
 @pytest.mark.parametrize("cfg", [
-    {"kv_cache": {"dtype": "int8"}},
+    {"kv_cache": {"dtype": "int8", "enable_prefix_cache": True,
+                  "host_tier": True}},
     {"kv_cache": {"enable_prefix_cache": True, "host_tier": True}},
     {"tensor_parallel": {"tp_size": 2}},
 ])
