@@ -9,7 +9,8 @@ Phases, each fatal on failure:
 2. build: every CUDA kernel of the serving path, from the sources in this
    checkout, one ``nvcc`` per source, all at once;
 3. kernels against their plain PyTorch versions on the card, in bf16 at the
-   serving path's shapes (max abs error <= 3e-2), each timed with CUDA
+   serving path's shapes (max abs error <= 3e-2 and, over the whole
+   output, |got - want|_2 / |want|_2 <= 1e-2), each timed with CUDA
    events beside its plain version, one PyTorch library call computing the
    same function (a yardstick only; the port never calls it) and its bound
    (the larger of bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s); the paged
@@ -60,8 +61,10 @@ Phases, each fatal on failure:
    rounds of ``NgramDrafter`` (4 drafts) → ``verify_step(greedy=True)`` →
    ``accept_drafts`` → ``commit_verified``, and the same prompts through
    ``decode_loop`` on a fresh int8-KV engine as the yardstick.  Finite
-   logits, tokens in the vocabulary, every int8 / verify kernel launched
-   (counts set to 0 just before), every block free after ``flush``.
+   logits, tokens in the vocabulary, every block free after ``flush``;
+   counts set to 0 just before each run and read just after it: the
+   speculative run launches the int8 prefill and verify kernels, the
+   ``decode_loop`` run the int8 prefill and decode kernels.
 
 The second-to-last lines are the ``kernels`` JSON record and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -83,7 +86,8 @@ ROOT = Path(__file__).resolve().parent
 TOL = 3e-2                   # the reference's on-chip kernel tolerance
 # |got - want|_2 / |want|_2 over a whole flash-attention output: its
 # largest magnitude sits on the first rows (row 0 sees one key), so a bar
-# relative to that alone is loose for the late rows
+# relative to that alone is loose for the late rows; the same holds for a
+# paged kernel whose fault touches a few keys of some rows (phase 3)
 NORM_TOL = 1e-2
 # phase 7, kernel path vs plain path (bars ~3x the noise the card shows):
 # each loss, relative; the logits before the first step and the first
@@ -173,13 +177,14 @@ def qmm_cases(torch, gen, dev):
             want = qm.quantized_matmul_plain(x, recs[0])
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
+            norm_err = rel_norm(got, want)
             iters = 48 if m == 8 else 16
             nbytes = m * k * 2 + k * n + 16 * 4 + m * n * 2
             b_ms, b_by = bound(nbytes, 2.0 * m * k * n)
             case = {
                 "name": f"quantized_matmul[M={m},K={k},N={n}]",
                 "kernel": "quantized_matmul",
-                "max_abs_err": err,
+                "max_abs_err": err, "norm_rel_err": norm_err,
                 "ms": time_ms(lambda i: qm.quantized_matmul(x, recs[i]),
                               sets, iters),
                 "plain_ms": time_ms(
@@ -250,6 +255,7 @@ def attention_case(torch, name, fn, q, pools, tables, token_slot, token_pos,
                                  token_pos, block_size=bs, **scales)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
+    norm_err = rel_norm(got, want)
     t, h, d = q.shape
     hkv = k_pool.shape[1]
     pos = token_pos.tolist()
@@ -294,7 +300,7 @@ def attention_case(torch, name, fn, q, pools, tables, token_slot, token_pos,
     return {
         "name": name,
         "kernel": fn.__name__ + ("_int8" if scales else ""),
-        "max_abs_err": err,
+        "max_abs_err": err, "norm_rel_err": norm_err,
         "ms": time_ms(lambda i: fn(q, pools[i][0], pools[i][1], tables,
                                    token_slot, token_pos, block_size=bs,
                                    **pools[i][2], **kw), sets, iters),
@@ -390,6 +396,10 @@ BF16_SERVING = BF16_PUT_DECODE + ("paged_verify_attention",)
 INT8_SPECULATIVE = ("quantized_matmul", "paged_attention_int8",
                     "paged_decode_attention_int8",
                     "paged_verify_attention_int8")
+INT8_SPEC_RUN = ("quantized_matmul", "paged_attention_int8",
+                 "paged_verify_attention_int8")
+INT8_DECODE_RUN = ("quantized_matmul", "paged_attention_int8",
+                   "paged_decode_attention_int8")
 TRAINING = ("flash_attention_fwd", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv")
 ALL_KERNELS = tuple(dict.fromkeys(BF16_SERVING + INT8_SPECULATIVE
@@ -439,8 +449,7 @@ def slice_kernel_vs_plain(torch, np, prompts):
 
 def served_run(torch, prompts, gen_tokens=48):
     from deepspeed_tpu_torch.checkpoint import random_int8_llama_params
-    from deepspeed_tpu_torch.inference.v2.speculative import (NgramDrafter,
-                                                              accept_drafts)
+    from deepspeed_tpu_torch.inference.v2.speculative import NgramDrafter
     from deepspeed_tpu_torch.models import LlamaConfig
 
     torch.cuda.empty_cache()
@@ -482,15 +491,10 @@ def served_run(torch, prompts, gen_tokens=48):
     # one speculative round over the bf16 pool: n-gram drafts of each
     # request's history, scored in one verify pass, the accepted prefix
     # committed
-    drafter = NgramDrafter()
     hist = [p + [s] + t.tolist() for p, s, t in zip(prompts, start, toks)]
-    drafts = [(drafter.draft(h, 4) + [h[-1]] * 4)[:4] for h in hist]
-    feeds = [[h[-1]] + d for h, d in zip(hist, drafts)]
-    v_logits, v_next = eng.verify_step(uids, feeds, greedy=True)
-    accepted = [accept_drafts(v_next[i].tolist(), drafts[i])[1]
-                for i in range(len(uids))]
-    for u, f, a in zip(uids, feeds, accepted):
-        eng.commit_verified(u, f[:a + 1])
+    v_logits, rounds = speculative_round(torch, eng, NgramDrafter(), uids,
+                                         hist, 4)
+    accepted = [acc for _, acc in rounds]
     finite &= bool(torch.isfinite(v_logits).all())
     eng.flush(uids)
     torch.cuda.synchronize()
@@ -601,17 +605,38 @@ def speculative_kernel_vs_plain(torch, np, prompts, k_tokens=5, passes=3):
             "finite": bool(torch.isfinite(k["ver"]).all())}
 
 
+def speculative_round(torch, eng, drafter, uids, hists, draft_k):
+    """One greedy speculative round through the engine's public calls:
+    each request's drafts of its history ``hists[i]`` (padded to
+    ``draft_k`` with its last token) → ``verify_step(greedy=True)`` →
+    ``accept_drafts`` → ``commit_verified``.  Returns the requests' verify
+    logits and, for each, its emitted tokens and accepted count."""
+    from deepspeed_tpu_torch.inference.v2.speculative import accept_drafts
+
+    drafts = [(drafter.draft(h, draft_k) + [h[-1]] * draft_k)[:draft_k]
+              for h in hists]
+    feeds = [[h[-1]] + d for h, d in zip(hists, drafts)]
+    logits, nxt = eng.verify_step(uids, feeds, greedy=True)
+    nxt = nxt[:len(uids)].tolist()                      # the pass's sync
+    out = []
+    for u, f, d, n in zip(uids, feeds, drafts, nxt):
+        emitted, acc = accept_drafts(n, d)
+        eng.commit_verified(u, f[:acc + 1])
+        out.append((emitted, acc))
+    return logits[:len(uids)], out
+
+
 def speculative_generate(torch, eng, uids, prompts, gen_tokens, draft_k):
-    """Greedy speculative decoding through the engine's public calls: put,
-    then rounds of n-gram drafts → ``verify_step(greedy=True)`` →
-    ``accept_drafts`` → ``commit_verified`` until every request has
-    ``gen_tokens`` tokens.  Returns the tokens, the stats, the rounds' wall
-    time and whether every verify pass's logits were finite."""
+    """Greedy speculative decoding: put, then :func:`speculative_round`
+    with n-gram drafts until every request has ``gen_tokens`` tokens.
+    Returns the tokens, the stats, the rounds' wall time and whether every
+    verify pass's logits were finite."""
     from deepspeed_tpu_torch.inference.v2.speculative import (
-        NgramDrafter, SpeculativeStats, accept_drafts)
+        NgramDrafter, SpeculativeStats)
 
     drafter = NgramDrafter()
     stats = SpeculativeStats()
+    prompt = dict(zip(uids, prompts))
     first = {}
     for i in range(0, len(uids), 2):          # two prompts fill the budget
         first.update(eng.put(uids[i:i + 2], prompts[i:i + 2]))
@@ -622,24 +647,17 @@ def speculative_generate(torch, eng, uids, prompts, gen_tokens, draft_k):
         live = [u for u in uids if len(gen[u]) < gen_tokens]
         if not live:
             break
-        drafts = []
-        for u, p in zip(uids, prompts):
-            if u in live:
-                d = drafter.draft(p + gen[u], draft_k)
-                drafts.append((d + [gen[u][-1]] * draft_k)[:draft_k])
-        feeds = [[gen[u][-1]] + d for u, d in zip(live, drafts)]
-        logits, nxt = eng.verify_step(live, feeds, greedy=True)
-        finite &= torch.isfinite(logits[:len(live)]).all()
-        nxt = nxt[:len(live)].tolist()                  # the pass's sync
+        logits, rounds = speculative_round(
+            torch, eng, drafter, live, [prompt[u] + gen[u] for u in live],
+            draft_k)
+        finite &= torch.isfinite(logits).all()
         stats.ticks += 1
         stats.k_sum += draft_k * len(live)
         stats.k_requests += len(live)
-        for i, u in enumerate(live):
-            emitted, acc = accept_drafts(nxt[i], drafts[i])
+        for u, (emitted, acc) in zip(live, rounds):
             stats.drafted += draft_k
             stats.accepted += acc
             stats.emitted += len(emitted)
-            eng.commit_verified(u, feeds[i][:acc + 1])
             gen[u].extend(emitted)
     torch.cuda.synchronize()
     return ({u: gen[u][:gen_tokens] for u in uids}, stats,
@@ -678,11 +696,13 @@ def speculative_served_run(torch, np, gen_tokens=48, draft_k=4):
         torch, spec_eng, uids, prompts, gen_tokens, draft_k)
     spec_launches = read_launches(INT8_SPECULATIVE)
     # where the time goes: one traced verify pass over the 8 live requests
+    # (outside both counted runs)
     trace = profile_window(torch, lambda: spec_eng.verify_step(
         uids, [[toks[u][-1]] * (draft_k + 1) for u in uids]), 1)
     spec_eng.flush(uids)
     sm = spec_eng.state_manager
     all_free = sm.free_blocks == sm.allocator.num_blocks - 1
+    reset_launches()
     first = {}
     for i in range(0, len(uids), 2):
         first.update(ref_eng.put(uids[i:i + 2], prompts[i:i + 2]))
@@ -692,7 +712,7 @@ def speculative_served_run(torch, np, gen_tokens=48, draft_k=4):
     ref_s = time.perf_counter() - t0
     ref_eng.flush(uids)
     torch.cuda.synchronize()
-    launches = read_launches(INT8_SPECULATIVE)
+    ref_launches = read_launches(INT8_SPECULATIVE)
     sm = ref_eng.state_manager
     all_free &= sm.free_blocks == sm.allocator.num_blocks - 1
     got = np.asarray([toks[u] for u in uids])
@@ -716,7 +736,7 @@ def speculative_served_run(torch, np, gen_tokens=48, draft_k=4):
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "per_token_bytes": {"int8": spec_eng.state_manager.kv_cache
                             .per_token_bytes, "bf16": bf16_bytes},
-        "spec_launches": spec_launches, "launches": launches,
+        "spec_launches": spec_launches, "decode_loop_launches": ref_launches,
         "finite": finite, "all_blocks_free": bool(all_free),
         "tokens_in_vocab": bool(((got >= 0) & (got < cfg.vocab_size)).all()),
         "trace": trace,
@@ -1138,10 +1158,11 @@ def main() -> int:
     cases = qmm_cases(torch, gen, dev) + attention_cases(torch, gen, dev)
     for c in cases:
         print(f"[kernel] {c['name']}: err {c['max_abs_err']:.3g} "
-              f"ms {c['ms']:.4f} plain {c['plain_ms']:.4f} "
+              f"norm err {c['norm_rel_err']:.3g} ms {c['ms']:.4f} plain {c['plain_ms']:.4f} "
               f"library {c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
               f"({c['bound_by']})", flush=True)
-    bad = [c["name"] for c in cases if not c["max_abs_err"] <= TOL]
+    bad = [c["name"] for c in cases if not (c["max_abs_err"] <= TOL
+                                            and c["norm_rel_err"] <= NORM_TOL)]
     if bad:
         return fail(f"kernels disagree with their plain versions: {bad}")
 
@@ -1242,15 +1263,20 @@ def main() -> int:
     # 10. the speculative served run (counts reset just before, read after)
     spec_run = speculative_served_run(torch, np)
     print(f"[spec-served] {json.dumps(spec_run)}", flush=True)
-    if any(v == 0 for v in spec_run["launches"].values()) \
-            or spec_run["spec_launches"]["paged_verify_attention_int8"] == 0:
+    spec_l, ref_l = spec_run["spec_launches"], spec_run["decode_loop_launches"]
+    if any(spec_l[k] == 0 for k in INT8_SPEC_RUN) \
+            or any(ref_l[k] == 0 for k in INT8_DECODE_RUN):
         return fail(f"a kernel of the speculative path never launched: "
-                    f"{spec_run['launches']}")
+                    f"speculative run {spec_l}, decode_loop run {ref_l}")
     if not (spec_run["finite"] and spec_run["tokens_in_vocab"]
             and spec_run["all_blocks_free"]):
         return fail(f"speculative served output malformed: {spec_run}")
-    for key, n in spec_run["launches"].items():     # the int8 kernels'
-        launches.setdefault(key, n)
+    # each int8 kernel's count from a run that serves with it: prefill and
+    # verify from the speculative run, decode from the decode_loop run
+    launches.update({k: spec_l[k] for k in ("paged_attention_int8",
+                                            "paged_verify_attention_int8")})
+    launches["paged_decode_attention_int8"] = ref_l[
+        "paged_decode_attention_int8"]
 
     src = "deepspeed_tpu_torch/csrc/"
     ref = "deepspeed_tpu/"

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on a GPU, in
 bf16 (bar 3e-2 of the largest magnitude, the reference's on-chip
-tolerance; flash attention and the training path also 1e-2 in norm,
-|got - want|_2 / |want|_2).  Every test here is marked ``cuda`` and skips
+tolerance; flash attention, the int8 and verify paged kernels and the
+training path also 1e-2 in norm, |got - want|_2 / |want|_2).  Every test here is marked ``cuda`` and skips
 where ``torch.cuda.is_available()`` is false.  The file imports neither JAX
 nor ``deepspeed_tpu``, so on a GPU machine without the JAX package's
 dependencies it runs as
@@ -390,6 +390,7 @@ def test_paged_attention_int8_kernels(cuda_device, head_dim, window):
                                          block_size=bs, window=window,
                                          **scales)
         assert (got.float() - want.float()).abs().max().item() <= TOL
+        assert _norm_rel(got, want) <= NORM_TOL
         assert got[pos.index(-1)].abs().max().item() == 0.0
 
 
@@ -425,7 +426,75 @@ def test_paged_verify_kernel(cuda_device, head_dim, h, hkv, k_tokens,
     want = tbf.paged_attention_plain(q, kp, vp, tb, ts, tp, block_size=bs,
                                      window=window, **scales)
     assert (got.float() - want.float()).abs().max().item() <= TOL
+    assert _norm_rel(got, want) <= NORM_TOL
     assert torch.isfinite(got.float()).all()
+
+
+# A fault planted in a copy of csrc/blocked_flash.cu: each verify row's
+# causal frontier one key too far, so row k also sees row k + 1's key (the
+# walk stops at pos0 + K - 1: the last row, and every decode and generic
+# row, stay right).
+_VERIFY_FRONTIER = ("const bool vis = valid && c <= pr &&",
+                    "const bool vis = valid && c <= pr + 1 &&")
+
+
+@pytest.mark.cuda
+def test_paged_norm_bar_catches_planted_verify_frontier(cuda_device,
+                                                        tmp_path,
+                                                        monkeypatch):
+    """At chip_smoke.py's phase-3 verify shape (S=8, K=5, contexts
+    257-330, 32 heads, D=128, block 128), bf16 and int8 pools: the kernel
+    as built passes both bars, and the planted frontier fault, built from
+    a copy of the source in a temporary directory, reads above the norm
+    bar."""
+    bs, k_tokens = 128, 5
+    rng = np.random.default_rng(17)
+    pos0 = rng.integers(257, 327, size=8)
+    ts = torch.from_numpy(np.repeat(np.arange(8), k_tokens).astype(
+        np.int32)).to(cuda_device)
+    tp = torch.from_numpy((pos0[:, None] + np.arange(k_tokens)).reshape(
+        -1).astype(np.int32)).to(cuda_device)
+    q = torch.from_numpy(rng.standard_normal(
+        (8 * k_tokens, 32, 128))).to(cuda_device, torch.bfloat16)
+    cases = {}
+    for int8 in (False, True):
+        (kp, vp), scales, tb = _paged_inputs(rng, cuda_device, bs, 32, 32,
+                                             128, 8, 3, int8)
+        want = tbf.paged_attention_plain(q, kp, vp, tb, ts, tp,
+                                         block_size=bs, **scales)
+        cases["int8" if int8 else "bf16"] = (kp, vp, scales, tb, want)
+
+    def errors():
+        out = {}
+        for mode, (kp, vp, scales, tb, want) in cases.items():
+            got = tbf.paged_verify_attention(q, kp, vp, tb, ts, tp,
+                                             block_size=bs,
+                                             k_tokens=k_tokens, **scales)
+            out[mode] = ((got.float() - want.float()).abs().max().item(),
+                         _norm_rel(got, want))
+        return out
+
+    built = errors()
+    src = (_build.CSRC / "blocked_flash.cu").read_text()
+    assert src.count(_VERIFY_FRONTIER[0]) == 1
+    cu, so = tmp_path / "frontier.cu", tmp_path / "libfrontier.so"
+    cu.write_text(src.replace(*_VERIFY_FRONTIER))
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    assert proc.returncode == 0, proc.stdout.decode()[-2000:]
+    monkeypatch.setitem(_build._LIBS, "blocked_flash", ctypes.CDLL(str(so)))
+    tbf._kernel.cache_clear()
+    try:
+        planted = errors()
+    finally:
+        tbf._kernel.cache_clear()
+    for label, errs in (("built", built), ("planted frontier", planted)):
+        print(f"verify {label}: " + ", ".join(
+            f"{m} max-abs {a:.3g} norm-rel {n:.3g}"
+            for m, (a, n) in errs.items()))
+    assert all(a <= TOL and n <= NORM_TOL for a, n in built.values()), built
+    assert all(n > NORM_TOL for _, n in planted.values()), planted
 
 
 @pytest.mark.cuda
