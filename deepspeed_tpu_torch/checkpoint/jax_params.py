@@ -1,6 +1,6 @@
 """Weights carried across from the JAX package, and random int8 weights.
 
-:func:`params_from_jax` takes the JAX package's ragged-Llama param tree —
+:func:`params_from_jax` takes a JAX param tree (ragged Llama, Mixtral) —
 nested dicts of numpy arrays (``np.asarray`` of a JAX array is one) — and
 returns the same tree of torch tensors.  Every weight keeps the JAX
 package's ``[K, N]`` (``[in, out]``) layout: an int8 record
@@ -13,6 +13,12 @@ transposed to ``nn.Linear``'s ``[out, in]`` (the forward computes
 ``bench_serving.py:_random_int8_llama_params``: the same tree with every
 matmul weight an int8 record, drawn on the device from a seeded
 ``torch.Generator`` (its numbers differ from ``jax.random``'s).
+
+:func:`random_mixtral_params` makes the flat ``MixtralForCausalLM`` tree
+of ``ragged_mixtral.py`` with bf16 (``cfg.dtype``) weights and an fp32
+router, one tensor at a time on the device from a ``torch.Generator``: a
+full-width Mixtral-8x7B layer holds 2.8 GB of experts, and no weight ever
+passes through the host.
 
 :func:`llama_state_dict_from_flax` turns the Flax *training* param tree of
 ``LlamaForCausalLM`` (fp32 ``[in, out]`` Dense kernels,
@@ -27,13 +33,14 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
 from deepspeed_tpu_torch.models.llama import LlamaConfig
+from deepspeed_tpu_torch.models.mixtral import MixtralConfig
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -98,6 +105,48 @@ def random_int8_llama_params(cfg: LlamaConfig, groups: int = 16,
     model["embed_tokens"] = {"embedding": emb}
     model["norm"] = ones()
     return {"model": model, "lm_head": rec(H, V)}
+
+
+def random_mixtral_params(cfg: MixtralConfig, device=None,
+                          generator: Optional[torch.Generator] = None) -> Any:
+    """Random Mixtral params in the JAX package's flat tree, made directly
+    on ``device`` (default CUDA) from ``generator`` (default: seeded with
+    0 on that device): every projection and expert weight ``[K, N]`` (or
+    ``[E, K, N]``) in ``cfg.dtype`` with std 1/sqrt(K), the router ``wg``
+    ``[H, E]`` in fp32, RMSNorm scales of ones."""
+    dev = resolve_device(device)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+    H, I, V, L, E = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                     cfg.num_hidden_layers, cfg.num_local_experts)
+    kv = cfg.num_key_value_heads * cfg.head_dim
+
+    def w(*shape, dtype=cfg.dtype, std=None):
+        t = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+        return t.mul_(std if std is not None else 1.0 / math.sqrt(shape[-2]))
+
+    def ones():
+        return {"scale": torch.ones((H,), dtype=torch.float32, device=dev)}
+
+    params = {"embed_tokens": {"embedding": w(V, H, std=0.02)}}
+    for i in range(L):
+        params[f"layers_{i}"] = {
+            "self_attn": {"q_proj": {"kernel": w(H, H)},
+                          "k_proj": {"kernel": w(H, kv)},
+                          "v_proj": {"kernel": w(H, kv)},
+                          "o_proj": {"kernel": w(H, H)}},
+            "block_sparse_moe": {"deepspeed_moe": {
+                "gate": {"wg": {"kernel": w(H, E, dtype=torch.float32)}},
+                "experts": {"w_gate": w(E, H, I), "w_up": w(E, H, I),
+                            "w_down": w(E, I, H)}}},
+            "input_layernorm": ones(),
+            "post_attention_layernorm": ones(),
+        }
+    params["norm"] = ones()
+    params["lm_head"] = {"kernel": w(H, V)}
+    return params
 
 
 def _flat(tree, prefix=()):

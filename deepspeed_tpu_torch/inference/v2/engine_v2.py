@@ -19,8 +19,10 @@ via the sequence's ``pending`` queue.
 Speculative decoding: ``verify_step`` scores K fed tokens per sequence (the
 next input and K-1 drafts) in one forward and returns all K logits rows;
 ``commit_verified`` advances a sequence past the accepted prefix and frees
-the lookahead blocks it no longer needs.  ``kv_cache.dtype="int8"`` keeps
-the pool block-quantized (fp32 scale per row and KV head).
+the lookahead blocks it no longer needs; a model without a verify path
+(``RaggedMixtral``) raises ``NotImplementedError`` there.
+``kv_cache.dtype="int8"`` keeps the pool block-quantized (fp32 scale per
+row and KV head).
 ``flush_to_host(include_kv=True)`` / ``resume(kv_state=...)`` carry a
 sequence's KV rows (scales included) from one engine to another.
 
@@ -30,6 +32,7 @@ Not ported yet (each raises ``NotImplementedError``): ``serialize`` /
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -38,8 +41,6 @@ import torch
 from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
 from deepspeed_tpu_torch.inference.v2.config_v2 import (
     RaggedInferenceEngineConfig)
-from deepspeed_tpu_torch.inference.v2.model_implementations.ragged_llama import (
-    RaggedLlama)
 from deepspeed_tpu_torch.inference.v2.ragged import (DSStateManager,
                                                      RaggedBatchWrapper)
 from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import (
@@ -116,17 +117,18 @@ def _tree_to(tree, device):
 
 
 class InferenceEngineV2:
-    """reference engine_v2.py:30.  ``device=None`` runs on CUDA (and raises
+    """reference engine_v2.py:30.  ``model``: a :class:`RaggedLlama` or
+    :class:`RaggedMixtral`.  ``device=None`` runs on CUDA (and raises
     without a GPU); pass ``device="cpu"`` for the plain PyTorch paths."""
 
-    #: q-tile of the JAX package's tiled prefill kernel: chunks pack
-    #: tile-aligned when every scheduled chunk is at least this long (kept
-    #: so both engines build the same batches)
+    #: q-tile of the tiled prefill kernel: chunks pack tile-aligned when
+    #: every scheduled chunk is at least this long (both engines build the
+    #: same batches)
     PREFILL_TILE = 128
     #: decode_loop chunk sizes (the JAX package's scan-length buckets)
     DECODE_CHUNKS = (64, 16, 4, 1)
 
-    def __init__(self, model: RaggedLlama, params: Any,
+    def __init__(self, model: Any, params: Any,
                  config: Optional[RaggedInferenceEngineConfig] = None,
                  device=None):
         self.config = config or RaggedInferenceEngineConfig()
@@ -277,8 +279,8 @@ class InferenceEngineV2:
         self._batch.clear()
         # tile-aligned packing when every live chunk is long enough that
         # aligning each to a PREFILL_TILE boundary wastes < half the budget
-        # (pads then carry position -1).  The JAX model never forwards the
-        # tile to its tiled prefill kernel, so only the packing is kept.
+        # (pads then carry position -1); the model gets the tile, and one
+        # that forwards it (Mixtral) takes the tiled prefill kernel
         tile = self.PREFILL_TILE
         pend = [len(sm.get_sequence(u).pending) for u in uids
                 if sm.get_sequence(u) is not None
@@ -317,7 +319,9 @@ class InferenceEngineV2:
         packed = torch.from_numpy(pack_metadata(meta)).to(self.device)
         batch = unpack_metadata(packed, bucket, self._batch.max_seqs,
                                 self._max_blocks)
-        logits, new_cache = self.model(self.params, sm.kv_cache.cache, batch)
+        kwargs = {"prefill_tile": tile} if use_tiles else {}
+        logits, new_cache = self.model(self.params, sm.kv_cache.cache, batch,
+                                       **kwargs)
         sm.kv_cache.update(new_cache)
 
         out: Dict[int, Any] = {}
@@ -458,6 +462,11 @@ class InferenceEngineV2:
         if n > S:
             raise ValueError(f"verify_step: {n} sequences exceed "
                              f"max_seqs {S}")
+        if "verify_k" not in inspect.signature(
+                self.model.__call__).parameters:
+            raise NotImplementedError(
+                f"verify_step: {type(self.model).__name__} has no "
+                f"speculative verify path (its forward takes no verify_k)")
         max_context = self.config.state_manager.max_context
         seqs = []
         for uid in uids:

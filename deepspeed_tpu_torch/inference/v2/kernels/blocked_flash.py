@@ -17,10 +17,16 @@ mode (``k_scale`` / ``v_scale`` given: int8 pools with fp32 scales
   verify) sharing one walk of the slot's blocks (``_verify_kernel``).
 
 All three compute the same function; their one plain PyTorch version,
-:func:`paged_attention_plain`, sits below.  A wrapper takes the plain
-version only for tensors on the CPU; for CUDA tensors it launches its
-kernel or raises.  ``LAUNCHES`` counts the kernel launches per kernel and
-mode.
+:func:`paged_attention_plain`, sits below.
+
+:func:`paged_prefill_attention` — the tiled prefill over a tile-aligned
+token buffer, bf16 only (the JAX package's ``_prefill_kernel``), over its
+own kernel in ``deepspeed_tpu_torch/csrc/paged_prefill.cu``; its plain
+version is :func:`paged_prefill_attention_plain`.
+
+A wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches its kernel or raises.  ``LAUNCHES`` counts the kernel
+launches per kernel and mode.
 """
 
 from __future__ import annotations
@@ -39,12 +45,16 @@ _KERNELS = ("paged_attention", "paged_decode_attention",
 #: kernel launches per kernel and mode (plain CPU calls do not count)
 LAUNCHES = {f"{name}{mode}": 0 for name in _KERNELS
             for mode in ("", "_int8")}
+LAUNCHES["paged_prefill_attention"] = 0
 
 _HEAD_DIMS = (64, 128)
 _MAX_GROUP = 8
 #: query rows (k_tokens x query heads per KV head) one verify block holds:
 #: each keeps a D-wide fp32 accumulator in registers
 MAX_VERIFY_ROWS = 16
+#: rows of the prefill kernel's q tile: the stripes (tile_q) it takes are
+#: a multiple of it
+_PREFILL_ROWS = 64
 
 
 def paged_attention_usable(q, k_pool, block_size: int) -> bool:
@@ -155,6 +165,77 @@ def paged_verify_attention(q, k_pool, v_pool, block_tables, token_slot,
                   k_scale, v_scale)
 
 
+def _stripe_slots(token_slot, tile_q: int):
+    """Every row's slot as the tiled kernel reads it: its stripe's first
+    row's (pad rows may carry another)."""
+    t_count = token_slot.shape[0]
+    if tile_q < 1 or t_count % tile_q:
+        raise ValueError(f"paged_prefill_attention: {t_count} rows are not "
+                         f"a whole number of {tile_q}-row stripes")
+    return token_slot.reshape(-1, tile_q)[:, :1].expand(
+        -1, tile_q).reshape(-1)
+
+
+def paged_prefill_attention_plain(q, k_pool, v_pool, block_tables,
+                                  token_slot, token_pos, *, block_size: int,
+                                  tile_q: int,
+                                  window: Optional[int] = None
+                                  ) -> torch.Tensor:
+    """The tiled prefill kernel's function in plain PyTorch: each
+    ``tile_q``-row stripe attends through its first row's slot; pad rows
+    (position -1) are exact zeros, as in the kernel (the model's gather
+    path gives them the mean of V instead)."""
+    return paged_attention_plain(
+        q, k_pool, v_pool, block_tables, _stripe_slots(token_slot, tile_q),
+        token_pos, block_size=block_size, window=window)
+
+
+def paged_prefill_attention(q, k_pool, v_pool, block_tables, token_slot,
+                            token_pos, *, block_size: int, tile_q: int,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """Tiled paged attention for TILE-ALIGNED token buffers over a bf16
+    pool: q [T, H, D] with every ``tile_q``-row stripe single-slot (the
+    slot of its first row), token_pos [T] int32 with -1 on pad rows.
+    Returns [T, H, D], pad rows exact zeros.  The CUDA kernel takes
+    ``tile_q`` a multiple of 64."""
+    if not q.is_cuda:
+        return paged_prefill_attention_plain(
+            q, k_pool, v_pool, block_tables, token_slot, token_pos,
+            block_size=block_size, tile_q=tile_q, window=window)
+    name = "paged_prefill_attention"
+    t_count, h, d = q.shape
+    _stripe_slots(token_slot, tile_q)               # the shape check
+    _check_layout(name, {"q": q, "k_pool": k_pool, "v_pool": v_pool,
+                         "block_tables": block_tables,
+                         "token_slot": token_slot, "token_pos": token_pos},
+                  block_size)
+    if not (q.dtype == k_pool.dtype == v_pool.dtype == torch.bfloat16
+            and d in _HEAD_DIMS and h % k_pool.shape[1] == 0
+            and tile_q % _PREFILL_ROWS == 0):
+        raise ValueError(
+            f"{name}: the CUDA kernel takes bf16 q and pools, head_dim in "
+            f"{_HEAD_DIMS}, whole GQA groups and tile_q a multiple of "
+            f"{_PREFILL_ROWS} (got {q.dtype} q {tuple(q.shape)}, "
+            f"{k_pool.dtype} pools {tuple(k_pool.shape)}, tile_q {tile_q}); "
+            f"int8 pools take paged_attention")
+    out = torch.empty_like(q)
+    if t_count == 0:
+        return out
+    with torch.cuda.device(q.device):      # the launch goes to q's GPU
+        rc = _prefill_kernel()(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), token_slot.data_ptr(),
+            token_pos.data_ptr(), out.data_ptr(), t_count, h,
+            k_pool.shape[1], d, block_tables.shape[1], block_size, tile_q,
+            int(window) if window is not None else 0, 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with error "
+                           f"{rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
 def _route(name, k_tokens, q, k_pool, v_pool, block_tables, token_slot,
            token_pos, block_size, window, k_scale, v_scale):
     if (k_scale is None) != (v_scale is None):
@@ -181,15 +262,7 @@ def _launch(name, k_tokens, q, k_pool, v_pool, block_tables, token_slot,
                "token_pos": token_pos}
     if quantized:
         tensors.update(k_scale=k_scale, v_scale=v_scale)
-    for key, t in tensors.items():
-        if t.device != q.device:
-            raise ValueError(f"{name}: {key} is on {t.device}, q on "
-                             f"{q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
-    for key in ("q", "k_pool", "v_pool"):       # read in 16-byte vectors
-        if tensors[key].data_ptr() % 16:
-            raise ValueError(f"{name}: {key} must be 16-byte aligned")
+    _check_layout(name, tensors, block_size)
     if not paged_attention_usable(q, k_pool, block_size) \
             or k_pool.dtype != pool_dtype or v_pool.dtype != pool_dtype:
         raise ValueError(
@@ -199,16 +272,6 @@ def _launch(name, k_tokens, q, k_pool, v_pool, block_tables, token_slot,
             f"{tuple(q.shape)}, {k_pool.dtype} pools {tuple(k_pool.shape)}, "
             f"scales {'given' if quantized else 'absent'}); "
             f"RaggedLlama(use_kernels=False) takes the plain path")
-    for key in ("block_tables", "token_slot", "token_pos"):
-        if tensors[key].dtype != torch.int32:
-            raise TypeError(f"{name}: {key} must be int32")
-    if (k_pool.shape != v_pool.shape or k_pool.dim() != 3
-            or k_pool.shape[2] != d or k_pool.shape[0] % block_size
-            or token_slot.shape != (t_count,)
-            or token_pos.shape != (t_count,) or block_tables.dim() != 2):
-        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, pools "
-                         f"{tuple(k_pool.shape)}, tables "
-                         f"{tuple(block_tables.shape)} do not fit")
     if quantized and (
             k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
             or k_scale.shape != k_pool.shape[:2]
@@ -237,10 +300,49 @@ def _launch(name, k_tokens, q, k_pool, v_pool, block_tables, token_slot,
     return out
 
 
+def _check_layout(name, tensors, block_size):
+    """What every paged kernel reads: one device, contiguous, q and pools
+    16-byte aligned, int32 metadata, [rows, Hkv, D] pools of whole blocks
+    and one slot and position a row of q."""
+    q, k_pool, v_pool = tensors["q"], tensors["k_pool"], tensors["v_pool"]
+    for key, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, q on "
+                             f"{q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    for key in ("q", "k_pool", "v_pool"):       # read in 16-byte vectors
+        if tensors[key].data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
+    for key in ("block_tables", "token_slot", "token_pos"):
+        if tensors[key].dtype != torch.int32:
+            raise TypeError(f"{name}: {key} must be int32")
+    rows = (q.shape[0],)
+    if (k_pool.shape != v_pool.shape or k_pool.dim() != 3 or q.dim() != 3
+            or k_pool.shape[2] != q.shape[2] or block_size <= 0
+            or k_pool.shape[0] % block_size
+            or tensors["token_slot"].shape != rows
+            or tensors["token_pos"].shape != rows
+            or tensors["block_tables"].dim() != 2):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pool.shape)}, tables "
+                         f"{tuple(tensors['block_tables'].shape)} do not "
+                         f"fit")
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str, mode: str):
     fn = getattr(_build.load("blocked_flash"), f"dstt_{name}_{mode}")
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _prefill_kernel():
+    fn = _build.load("paged_prefill").dstt_paged_prefill_attention_bf16
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

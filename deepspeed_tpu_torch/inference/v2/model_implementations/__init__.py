@@ -4,5 +4,8 @@
 from deepspeed_tpu_torch.inference.v2.model_implementations.ragged_llama import (
     RaggedLlama,
 )
+from deepspeed_tpu_torch.inference.v2.model_implementations.ragged_mixtral import (
+    RaggedMixtral,
+)
 
-__all__ = ["RaggedLlama"]
+__all__ = ["RaggedLlama", "RaggedMixtral"]

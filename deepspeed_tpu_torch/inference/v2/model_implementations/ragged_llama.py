@@ -15,8 +15,10 @@ S, block-table width B) and the flat paged KV pool of
   scales in the same step;
 * attention reads each token's context through its block table.  On CUDA
   tensors a decode batch takes the paged decode kernel, a speculative verify
-  batch the paged verify kernel and every other batch the generic paged
-  attention kernel, each in its bf16 or int8 mode; on the CPU (or with
+  batch the paged verify kernel, a tile-aligned prefill over a bf16 pool
+  whose model forwards ``prefill_tile`` (Mixtral; Llama does not, as in the
+  JAX package) the tiled prefill kernel, and every other batch the generic
+  paged attention kernel, each in its bf16 or int8 mode; on the CPU (or with
   ``use_kernels=False``) the plain gather / dense paths below run — the JAX
   package's XLA paths, ported one for one, dequantizing at their read sites.
 
@@ -33,9 +35,9 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.inference.v2.kernels import (paged_attention,
-                                                      paged_decode_attention,
-                                                      paged_verify_attention)
+from deepspeed_tpu_torch.inference.v2.kernels import (
+    paged_attention, paged_decode_attention, paged_prefill_attention,
+    paged_verify_attention)
 from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import (
     BlockedAllocator)
 from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import (dequantize_kv,
@@ -61,8 +63,8 @@ def _rotary(positions, head_dim, theta):
 
 
 def _paged_attention(q, k_pool, v_pool, batch, block_size, use_kernel=None,
-                     window=None, decode_mode=False, verify_k=None,
-                     k_scale=None, v_scale=None):
+                     window=None, prefill_tile=None, decode_mode=False,
+                     verify_k=None, k_scale=None, v_scale=None):
     """Paged attention over the blocked KV pool.
 
     q: [T, H, D]; k_pool/v_pool: [num_blocks*bs, Hkv, D].  Returns
@@ -74,9 +76,13 @@ def _paged_attention(q, k_pool, v_pool, batch, block_size, use_kernel=None,
     kernels: ``verify_k`` batches (K consecutive-position tokens per slot,
     rows slot-major) to :func:`paged_verify_attention`, ``decode_mode``
     batches (T == S with ``token_slot == arange``, set by the engine's
-    decode programs) to :func:`paged_decode_attention`, every other batch
-    to :func:`paged_attention` — in int8 mode too, where the JAX package
-    takes its XLA gather + dequant path for prefill.  The JAX package
+    decode programs) to :func:`paged_decode_attention`, a ``prefill_tile``
+    batch over a bf16 pool (packed tile-aligned by the engine, T a multiple
+    of the tile) to :func:`paged_prefill_attention`, every other batch to
+    :func:`paged_attention` — in int8 mode too, where the JAX package
+    takes its XLA gather + dequant path for prefill (its tiled kernel has
+    no int8 mode, so int8 prefill keeps the generic kernel here as well).
+    The JAX package
     decodes through its masked dense XLA path whenever a bf16 pool holds at
     most 2·S·C rows — always so for the default pool — but that rule was a
     TPU measurement; here the decode kernel is the decode path.  Shapes the
@@ -97,6 +103,11 @@ def _paged_attention(q, k_pool, v_pool, batch, block_size, use_kernel=None,
         if verify_k:
             return paged_verify_attention(*args, k_tokens=int(verify_k),
                                           **kw)
+        if (not decode_mode and k_scale is None and prefill_tile
+                and q.shape[0] % prefill_tile == 0):
+            return paged_prefill_attention(
+                *args, block_size=block_size, tile_q=int(prefill_tile),
+                window=kw["window"])
         fn = paged_decode_attention if decode_mode else paged_attention
         return fn(*args, **kw)
     quantized = k_scale is not None
@@ -199,12 +210,13 @@ def _paged_attention(q, k_pool, v_pool, batch, block_size, use_kernel=None,
 
 
 def ragged_attention_block(lp_attn, xa, layer_cache, batch, block_size, cfg,
-                           h, hkv, d, cos, sin, kv_dest, decode_mode=False,
-                           kernels=True, verify_k=None):
-    """Per-layer attention body: qkv proj → rotary → paged-KV write (in
-    place, rows ``kv_dest``; an int8 pool quantizes on insert) → paged
-    attention → o_proj.  ``kernels``: the CUDA kernels (on CUDA tensors) or
-    the plain paths.  Returns ``attn_out [T, H_model]``."""
+                           h, hkv, d, cos, sin, kv_dest, prefill_tile=None,
+                           decode_mode=False, kernels=True, verify_k=None):
+    """Per-layer attention body (RaggedLlama and RaggedMixtral): qkv proj →
+    rotary → paged-KV write (in place, rows ``kv_dest``; an int8 pool
+    quantizes on insert) → paged attention → o_proj.  ``kernels``: the CUDA
+    kernels (on CUDA tensors) or the plain paths.  Returns
+    ``attn_out [T, H_model]``."""
     dt = cfg.dtype
     q = qmm(xa, lp_attn["q_proj"]["kernel"], dt, kernels).reshape(-1, h, d)
     k = qmm(xa, lp_attn["k_proj"]["kernel"], dt, kernels).reshape(-1, hkv, d)
@@ -229,7 +241,8 @@ def ragged_attention_block(lp_attn, xa, layer_cache, batch, block_size, cfg,
         v_pool.index_copy_(0, kv_dest, v.to(v_pool.dtype))
     out = _paged_attention(q, k_pool, v_pool, batch, block_size,
                            use_kernel=bool(kernels) and q.is_cuda,
-                           window=cfg.sliding_window, decode_mode=decode_mode,
+                           window=cfg.sliding_window,
+                           prefill_tile=prefill_tile, decode_mode=decode_mode,
                            verify_k=verify_k, k_scale=k_scale,
                            v_scale=v_scale)
     return qmm(out.reshape(-1, h * d), lp_attn["o_proj"]["kernel"], dt,
@@ -268,8 +281,8 @@ class RaggedLlama:
 
     @torch.no_grad()
     def __call__(self, params: Dict[str, Any], kv_cache: Dict[str, Any],
-                 batch: Dict[str, torch.Tensor], decode: bool = False,
-                 verify_k: Optional[int] = None):
+                 batch: Dict[str, torch.Tensor], prefill_tile=None,
+                 decode: bool = False, verify_k: Optional[int] = None):
         """Run one ragged forward.
 
         Returns ``(logits [S, vocab], kv_cache)`` where row ``s`` holds the
@@ -279,6 +292,9 @@ class RaggedLlama:
         attention path); ``verify_k`` a speculative verify batch — K
         consecutive-position tokens per slot, rows slot-major, whose
         ``logits_idx`` selects every row (the verify attention path).
+        ``prefill_tile`` is accepted and NOT forwarded to the attention, as
+        in the JAX package (``ragged_llama.py:485-488``): Llama's prefill
+        keeps the generic kernel.
         """
         cfg = self.config
         m = params["model"]

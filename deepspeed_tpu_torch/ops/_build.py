@@ -26,7 +26,8 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "deepspeed_tpu_torch"
-SOURCES = ("quantized_matmul", "blocked_flash", "flash_attention")
+SOURCES = ("quantized_matmul", "blocked_flash", "flash_attention",
+           "paged_prefill", "grouped_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on a GPU, in
 bf16 (bar 3e-2 of the largest magnitude, the reference's on-chip
-tolerance; flash attention, the int8 and verify paged kernels and the
-training path also 1e-2 in norm, |got - want|_2 / |want|_2).  Every test here is marked ``cuda`` and skips
+tolerance; flash attention, the int8, verify and tiled prefill paged
+kernels, the grouped expert GEMM and the training path also 1e-2 in norm,
+|got - want|_2 / |want|_2).  Every test here is marked ``cuda`` and skips
 where ``torch.cuda.is_available()`` is false.  The file imports neither JAX
 nor ``deepspeed_tpu``, so on a GPU machine without the JAX package's
 dependencies it runs as
@@ -20,10 +21,11 @@ from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                               RaggedInferenceEngineConfig)
 from deepspeed_tpu_torch.inference.v2.kernels import blocked_flash as tbf
 from deepspeed_tpu_torch.inference.v2.model_implementations import (
-    RaggedLlama)
-from deepspeed_tpu_torch.models import LlamaConfig
+    RaggedLlama, RaggedMixtral)
+from deepspeed_tpu_torch.models import LlamaConfig, MixtralConfig
 from deepspeed_tpu_torch.ops import _build
 from deepspeed_tpu_torch.ops import flash_attention as tfa
+from deepspeed_tpu_torch.ops import grouped_gemm as tgg
 from deepspeed_tpu_torch.ops import quantized_matmul as tqm
 from torch_port_common import cuda_device  # noqa: F401  (fixture)
 
@@ -560,6 +562,186 @@ def test_int8_engine_kernels_match_plain_paths(cuda_device):
         out[use_kernels] = [np.stack([first[0], first[1]]),
                             dec[:2].float().cpu().numpy(),
                             ver[:2].float().cpu().numpy()]
+    for got, want in zip(out[True], out[False]):
+        assert np.isfinite(got).all()
+        assert np.abs(got - want).max() / np.abs(want).max() <= TOL
+
+
+def _prefill_inputs(rng, dev, h, hkv, d, window_case=False, bs=128):
+    """A tile-aligned 512-row buffer over a bf16 pool (tables of 384
+    positions in scattered blocks of ``bs``): four 128-row stripes of slots
+    3, 3, 5 and 6 with pad rows (position -1; the pads of slot 5's stripe
+    carry slot 0) and prompts that start mid-context."""
+    (kp, vp), _, tb = _paged_inputs(rng, dev, bs, h, hkv, d, 8, 384 // bs,
+                                    False)
+    slot = np.zeros(512, np.int32)
+    pos = np.full(512, -1, np.int32)
+    slot[:256], pos[:200] = 3, np.arange(40, 240)
+    slot[256:300], pos[256:300] = 5, np.arange(0, 44)
+    slot[384:], pos[384:] = 6, np.arange(100 if window_case else 0, 228
+                                         if window_case else 128)
+    q = torch.from_numpy(rng.standard_normal((512, h, d))).to(
+        dev, torch.bfloat16)
+    ts, tp = (torch.from_numpy(a).to(dev) for a in (slot, pos))
+    return q, kp, vp, tb, ts, tp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,h,hkv,window,bs,tile", [
+    (128, 32, 8, None, 128, 128), (128, 32, 8, 100, 128, 128),
+    (64, 8, 2, None, 128, 128), (64, 4, 4, 40, 128, 128),
+    (64, 4, 2, None, 16, 64), (128, 8, 2, 30, 32, 64)])
+def test_paged_prefill_kernel(cuda_device, head_dim, h, hkv, window, bs,
+                              tile):
+    """The tiled prefill kernel against its plain version: Mixtral's G = 4
+    at D = 128, G = 4 at D = 64, MHA with a window, blocks smaller than a
+    64-key tile and 64-row stripes; pad rows exact zeros."""
+    rng = np.random.default_rng(head_dim + h + (window or 0) + bs)
+    q, kp, vp, tb, ts, tp = _prefill_inputs(rng, cuda_device, h, hkv,
+                                            head_dim, window is not None, bs)
+    before = tbf.LAUNCHES["paged_prefill_attention"]
+    got = tbf.paged_prefill_attention(q, kp, vp, tb, ts, tp, block_size=bs,
+                                      tile_q=tile, window=window)
+    assert tbf.LAUNCHES["paged_prefill_attention"] == before + 1
+    want = tbf.paged_prefill_attention_plain(q, kp, vp, tb, ts, tp,
+                                             block_size=bs, tile_q=tile,
+                                             window=window)
+    assert (got.float() - want.float()).abs().max().item() <= TOL
+    assert _norm_rel(got, want) <= NORM_TOL
+    assert got[tp < 0].abs().max().item() == 0.0
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tbf.paged_prefill_attention(q, kp, vp, tb, ts, tp, block_size=bs,
+                                    tile_q=32)
+
+
+def _gmm_inputs(gen, dev, m, k, n, sizes):
+    lhs = torch.randn((m, k), generator=gen, device=dev, dtype=torch.bfloat16)
+    rhs = (torch.randn((len(sizes), k, n), generator=gen, device=dev)
+           / k ** 0.5).to(torch.bfloat16)
+    return lhs, rhs, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,sizes", [
+    (16, 4096, 14336, [2, 3, 0, 1, 4, 2, 2, 2]),      # decode, 16-row tiles
+    (16, 14336, 4096, [0, 5, 0, 0, 4, 2, 2, 1]),      # 2 rows past the sum
+    (100, 256, 136, [10, 0, 33, 40, 0, 0, 7, 0]),     # ragged M, N edge
+    (1024, 512, 1024, [200, 130, 0, 180, 100, 150, 120, 144]),
+    (70, 64, 64, [0, 0, 0, 0]),                       # no rows: zeros
+    (200, 64, 256, [64, 1, 0, 60]),                   # 75 rows past
+])
+def test_grouped_gemm_kernel(cuda_device, m, k, n, sizes):
+    """The grouped GEMM against its plain version: empty groups, boundary
+    m-tiles shared by two groups, M = 16, an M that is no multiple of the
+    tile, rows past the groups exact zeros; forward only."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    lhs, rhs, gs = _gmm_inputs(gen, cuda_device, m, k, n, sizes)
+    before = tgg.LAUNCHES["grouped_gemm"]
+    got = tgg.gmm(lhs, rhs, gs)
+    assert tgg.LAUNCHES["grouped_gemm"] == before + 1
+    want = tgg.gmm_plain(lhs, rhs, gs)
+    assert (got.float() - want.float()).abs().max().item() <= TOL
+    if sum(sizes):
+        assert _norm_rel(got, want) <= NORM_TOL
+    if sum(sizes) < m:
+        assert got[sum(sizes):].abs().max().item() == 0.0
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        tgg.gmm(lhs, rhs.clone().requires_grad_(), gs)
+
+
+# A fault planted in a copy of csrc/grouped_gemm.cu: the first row of a
+# group that starts inside an m-tile is written by the previous group's
+# unit, with the previous group's weights.
+_GMM_BOUNDARY = (("u.lo = start;", "u.lo = start + (start % BM != 0);"),
+                 ("u.hi = end;", "u.hi = end + (end % BM != 0 && end < m);"))
+
+
+@pytest.mark.cuda
+def test_gmm_norm_bar_catches_planted_boundary_row(cuda_device, tmp_path,
+                                                   monkeypatch):
+    """At chip_smoke.py's phase-3 prefill shape (M = 1024 routed rows,
+    4096 -> 14336, 8 experts, one empty): the kernel as built passes both
+    bars, and the planted boundary-row fault, built from a copy of the
+    source in a temporary directory, reads above the norm bar."""
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    lhs, rhs, gs = _gmm_inputs(gen, cuda_device, 1024, 4096, 14336,
+                               [200, 130, 0, 180, 100, 150, 120, 144])
+    want = tgg.gmm_plain(lhs, rhs, gs)
+
+    def errors():
+        got = tgg.gmm(lhs, rhs, gs)
+        return ((got.float() - want.float()).abs().max().item(),
+                _norm_rel(got, want))
+
+    built = errors()
+    src = (_build.CSRC / "grouped_gemm.cu").read_text()
+    for old, new in _GMM_BOUNDARY:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    cu, so = tmp_path / "boundary.cu", tmp_path / "libboundary.so"
+    cu.write_text(src)
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    assert proc.returncode == 0, proc.stdout.decode()[-2000:]
+    monkeypatch.setitem(_build._LIBS, "grouped_gemm", ctypes.CDLL(str(so)))
+    tgg._kernel.cache_clear()
+    try:
+        planted = errors()
+    finally:
+        tgg._kernel.cache_clear()
+    for label, (a, n) in (("built", built), ("planted boundary row",
+                                             planted)):
+        print(f"gmm {label}: max-abs {a:.3g} norm-rel {n:.3g}")
+    assert built[0] <= TOL and built[1] <= NORM_TOL, built
+    assert planted[1] > NORM_TOL, planted
+
+
+@pytest.mark.cuda
+def test_mixtral_engine_kernels_match_plain_paths(cuda_device):
+    """A small bf16 Mixtral (head_dim 64, 4 query heads over 2 KV heads, 4
+    experts, top-2) served through the kernels and through the plain paths
+    on the same card, with a 64-row prefill tile so that put() takes the
+    tiled prefill kernel.  The kernel path launches the tiled prefill, the
+    decode kernel and the grouped GEMM; the plain path launches nothing;
+    verify_step raises."""
+    from deepspeed_tpu_torch.checkpoint import random_mixtral_params
+
+    cfg = MixtralConfig.tiny(hidden_size=256, intermediate_size=384,
+                             num_attention_heads=4, num_key_value_heads=2,
+                             dtype=torch.bfloat16)
+    params = random_mixtral_params(
+        cfg, cuda_device, torch.Generator(device=cuda_device).manual_seed(1))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (70, 90)]
+    out = {}
+    for use_kernels in (True, False):
+        eng = InferenceEngineV2(
+            RaggedMixtral(cfg, 16, use_kernels=use_kernels), params,
+            RaggedInferenceEngineConfig.from_dict({
+                "state_manager": {"max_ragged_batch_size": 256,
+                                  "max_ragged_sequence_count": 4,
+                                  "max_context": 128},
+                "kv_cache": {"block_size": 16}}))
+        eng.PREFILL_TILE = 64
+        before = {**tbf.LAUNCHES, **tgg.LAUNCHES}
+        first = eng.put([0, 1], prompts)
+        start = [int(first[u].argmax()) for u in (0, 1)]
+        dec = eng.decode_step([0, 1], start)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k]
+                    for k, v in {**tbf.LAUNCHES, **tgg.LAUNCHES}.items()}
+        if use_kernels:
+            assert launched["paged_prefill_attention"] == cfg.num_hidden_layers
+            assert launched["paged_decode_attention"] == cfg.num_hidden_layers
+            assert launched["grouped_gemm"] == 6 * cfg.num_hidden_layers
+            assert launched["paged_attention"] == 0
+        else:
+            assert not any(launched.values())
+        with pytest.raises(NotImplementedError, match="verify"):
+            eng.verify_step([0, 1], [[1, 2], [3, 4]])
+        out[use_kernels] = [np.stack([first[0], first[1]]),
+                            dec[:2].float().cpu().numpy()]
     for got, want in zip(out[True], out[False]):
         assert np.isfinite(got).all()
         assert np.abs(got - want).max() / np.abs(want).max() <= TOL

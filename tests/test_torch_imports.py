@@ -72,11 +72,12 @@ def test_entry_points_raise_without_a_gpu():
         pytest.skip("a GPU is present: the default device is usable")
     from deepspeed_tpu_torch.accelerator import get_accelerator
     from deepspeed_tpu_torch.checkpoint import (params_from_jax,
-                                                random_int8_llama_params)
+                                                random_int8_llama_params,
+                                                random_mixtral_params)
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
     from deepspeed_tpu_torch.inference.v2.model_implementations import (
-        RaggedLlama)
-    from deepspeed_tpu_torch.models import LlamaConfig
+        RaggedLlama, RaggedMixtral)
+    from deepspeed_tpu_torch.models import LlamaConfig, MixtralConfig
 
     cfg = LlamaConfig.tiny(dtype=torch.float32)
     params = random_int8_llama_params(cfg, groups=2, device="cpu")
@@ -84,6 +85,12 @@ def test_entry_points_raise_without_a_gpu():
         InferenceEngineV2(RaggedLlama(cfg, 8), params)
     with pytest.raises(RuntimeError, match="CUDA"):
         random_int8_llama_params(cfg)
+    mcfg = MixtralConfig.tiny(dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngineV2(RaggedMixtral(mcfg, 8),
+                          random_mixtral_params(mcfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        random_mixtral_params(mcfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"w": [1.0]})
     with pytest.raises(RuntimeError, match="CUDA"):
