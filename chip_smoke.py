@@ -74,15 +74,17 @@ Phases, each fatal on failure:
 11. Mixtral-8x7B at full width and 2 layers, random bf16 weights from SEED
    made on the card, bf16 KV (block 128, budget 512), through the kernels
    and through the plain paths: ``put`` of the 8 prompts, two a forward,
-   then, from the plain path's prompt KV handed to both engines
-   (``flush_to_host`` / ``resume``), 4 ``decode_step`` rounds fed the
-   plain path's greedy tokens: put and decode logits each within 3e-2 of
-   the plain path's largest magnitude, the put's within 1e-2 in norm, and,
-   set against the same model in fp32, the kernel path's put and decode
-   logits no more than 5% farther off in norm than the plain path's (the
-   two bf16 paths' decode logits sit ~1% apart in norm, each ~1% from
-   fp32); the kernel path launches the tiled prefill, decode and grouped
-   GEMM kernels and nothing else, the plain path nothing;
+   one ``decode_step`` from each engine's own prompt KV, then, from the
+   plain path's KV handed to both engines (``flush_to_host`` /
+   ``resume``), 4 ``decode_step`` rounds fed the plain path's greedy
+   tokens: put, own-KV and shared-KV decode logits each within 3e-2 of the
+   plain path's largest magnitude, the put's within 1e-2 in norm and the
+   shared-KV decode's within 1.5e-2 (the two bf16 paths' decode logits sit
+   ~1.1% apart in norm, each ~1% from fp32), and, set against the same
+   model in fp32, the kernel path's put and decode logits no more than 5%
+   farther off in norm than the plain path's; the kernel path launches the
+   tiled prefill, decode and grouped GEMM kernels and nothing else, the
+   plain path nothing;
 12. Mixtral served: full width, 16 of its 32 layers (the bf16 weights of
    all 32, ~93.5 GB, do not fit the card's 80 GB), engine as in phase 11:
    8 requests of 256-token prompts, 48 greedy tokens through ``put`` and
@@ -129,6 +131,11 @@ GRAD_TOL = 5e-2
 # logits and gradients may be at most 5% farther off than the plain
 # path's (on the card the two distances agree to 0.1%)
 FP32_RATIO = 1.05
+# phase 11, Mixtral's decode logits from shared KV, kernel path vs plain
+# path in norm: the two bf16 paths sit 1.09% apart there (the plain decode
+# path rounds P to bf16, the kernel does not, and the random router carries
+# it into the logits), so the bar sits ~1.4x above that reading
+MIXTRAL_DECODE_NORM_TOL = 1.5e-2
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12          # H100 SXM dense bf16, NVIDIA data sheet
 SEED = 0
@@ -927,10 +934,12 @@ def mixtral_kernel_vs_plain(torch, np, prompts, steps=4):
     through the plain paths in fp32.
 
     Put: the 8 prompts, two a forward, on each path; their logits are
-    compared.  Decode: each engine then takes up the bf16 plain path's KV
-    of the prompts (``flush_to_host(include_kv=True)`` ->
+    compared.  Own-KV decode: one ``decode_step`` from each engine's own
+    prompt KV, fed the plain path's greedy tokens.  Shared-KV decode: each
+    engine then takes up the bf16 plain path's KV of the prompts and that
+    first token (``flush_to_host(include_kv=True)`` ->
     ``resume(kv_state=)``) and runs ``steps`` ``decode_step`` rounds fed
-    the plain path's greedy tokens, so that the decode logits compare the
+    the plain path's greedy tokens, so that these logits compare the
     decode step itself: two bf16 paths' prompt KV differ by more than any
     kernel's error, because a top-2 router near-tie flips under the least
     change of its input and the flipped token's K/V move every later row.
@@ -938,8 +947,8 @@ def mixtral_kernel_vs_plain(torch, np, prompts, steps=4):
     norm, each ~1% from fp32: the plain decode path rounds P to bf16 (the
     JAX package's XLA path), the decode kernel keeps it in fp32, and the
     router carries a 0.1% change of its input into the logits undamped
-    (PERF.md, Findings).  So the decode norm criterion is the yardstick's:
-    the kernel path no farther from fp32 than the plain path."""
+    (PERF.md, Findings).  :func:`mixtral_slice_failures` holds the result
+    to the phase's bars."""
     cfg, params = mixtral_params(torch, 2)
     max_ctx = len(prompts[0]) + steps + 8
     uids = list(range(len(prompts)))
@@ -954,36 +963,43 @@ def mixtral_kernel_vs_plain(torch, np, prompts, steps=4):
         for i in range(0, n, 2):
             first.update(eng.put(uids[i:i + 2], prompts[i:i + 2]))
         put = torch.from_numpy(np.stack([first[u] for u in uids]))
+        chain = state["chain"] = (state["chain"]
+                                  or [[int(first[u].argmax()) for u in uids]])
+        own = eng.decode_step(uids, chain[0])[:n].float().cpu()
+        if len(chain) == 1:
+            chain.append(own.argmax(-1).tolist())
         kv = eng.flush_to_host(uids, include_kv=state["snap"] is None)
         state["snap"] = state["snap"] or kv
         for u in uids:
-            eng.resume(u, prompts[u], kv_state=state["snap"][u])
-        chain = state["chain"] = (state["chain"]
-                                  or [[int(first[u].argmax()) for u in uids]])
+            eng.resume(u, prompts[u] + [chain[0][u]],
+                       kv_state=state["snap"][u])
         rows = []
-        for i in range(steps):
+        for i in range(1, steps + 1):
             logits = eng.decode_step(uids, chain[i])[:n].float().cpu()
             rows.append(logits)
             if len(chain) == i + 1:
                 chain.append(logits.argmax(-1).tolist())
         eng.flush(uids)
         torch.cuda.synchronize()
-        return put, torch.stack(rows, 1), read_launches(ALL_KERNELS)
+        return put, own, torch.stack(rows, 1), read_launches(ALL_KERNELS)
 
-    p_put, p_dec, p_launch = run(cfg, params, False)
-    k_put, k_dec, k_launch = run(cfg, params, True)
+    p_put, p_own, p_dec, p_launch = run(cfg, params, False)
+    k_put, k_own, k_dec, k_launch = run(cfg, params, True)
     params = _tree_map(params, lambda t: t.float())
-    f_put, f_dec, _ = run(dataclasses.replace(cfg, dtype=torch.float32),
-                          params, False)
+    f_put, _, f_dec, _ = run(dataclasses.replace(cfg, dtype=torch.float32),
+                             params, False)
     del params
 
     def rel_max(a, b):
         return ((a - b).abs().max() / b.abs().max()).item()
 
-    return {"layers": 2, "requests": n, "decode_steps": steps,
+    return {"layers": cfg.num_hidden_layers, "requests": n,
+            "decode_steps": steps,
             "logits_rel_err": {"put": rel_max(k_put, p_put),
+                               "decode_own_kv": rel_max(k_own, p_own),
                                "decode": rel_max(k_dec, p_dec)},
             "logits_norm_rel_err": {"put": rel_norm(k_put, p_put),
+                                    "decode_own_kv": rel_norm(k_own, p_own),
                                     "decode": rel_norm(k_dec, p_dec)},
             "norm_rel_err_vs_fp32": {
                 "put": {"kernel": rel_norm(k_put, f_put),
@@ -995,7 +1011,29 @@ def mixtral_kernel_vs_plain(torch, np, prompts, steps=4):
                                       if k not in MIXTRAL_SERVING and v},
             "plain_launches": p_launch,
             "finite": bool(torch.isfinite(k_put).all()
+                           and torch.isfinite(k_own).all()
                            and torch.isfinite(k_dec).all())}
+
+
+def mixtral_slice_failures(mix) -> list:
+    """The bars of phase 11 that :func:`mixtral_kernel_vs_plain`'s result
+    misses (empty when it passes): every logit set within TOL of the plain
+    path's largest magnitude; put within NORM_TOL and shared-KV decode
+    within MIXTRAL_DECODE_NORM_TOL in norm; against fp32, the kernel path at
+    most FP32_RATIO times the plain path's distance; finite values."""
+    missed = [f"{k} max {v:.4g} > {TOL}"
+              for k, v in mix["logits_rel_err"].items() if not v <= TOL]
+    norm = mix["logits_norm_rel_err"]
+    for key, bar in (("put", NORM_TOL), ("decode", MIXTRAL_DECODE_NORM_TOL)):
+        if not norm[key] <= bar:
+            missed.append(f"{key} norm {norm[key]:.4g} > {bar}")
+    for key, d in mix["norm_rel_err_vs_fp32"].items():
+        if not d["kernel"] <= FP32_RATIO * d["plain"]:
+            missed.append(f"{key} vs fp32 {d['kernel']:.4g} > "
+                          f"{FP32_RATIO} x {d['plain']:.4g}")
+    if not mix["finite"]:
+        missed.append("non-finite logits")
+    return missed
 
 
 def _tree_map(tree, fn):
@@ -1659,13 +1697,10 @@ def main() -> int:
     # 11. Mixtral at full width, 2 layers: kernels vs plain paths
     mix = mixtral_kernel_vs_plain(torch, np, prompts)
     print(f"[mixtral-slice] {json.dumps(mix)}", flush=True)
-    vs32 = mix["norm_rel_err_vs_fp32"]
-    if not (max(mix["logits_rel_err"].values()) <= TOL
-            and mix["logits_norm_rel_err"]["put"] <= NORM_TOL
-            and all(d["kernel"] <= FP32_RATIO * d["plain"]
-                    for d in vs32.values()) and mix["finite"]):
+    missed = mixtral_slice_failures(mix)
+    if missed:
         return fail(f"Mixtral kernel-path logits differ from the plain "
-                    f"path: {mix}")
+                    f"path: {'; '.join(missed)}")
     if any(v == 0 for v in mix["kernel_launches"].values()) \
             or mix["kernel_other_launches"] \
             or any(mix["plain_launches"].values()):

@@ -45,6 +45,8 @@
 
 #include <algorithm>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr int kSkinnyMaxM = 8;
@@ -207,22 +209,6 @@ __global__ void qmm_reduce_kernel(const float* __restrict__ partial,
     for (int p = 0; p < splits; ++p) sum += partial[static_cast<size_t>(p) * mn + i];
     out[i] = __float2bfloat16(sum);
   }
-}
-
-// 16-byte asynchronous copy global -> shared (zero-filled when !pred).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Issue the copies of k-tile `kt` into pipeline slot `slot`: the x slab

@@ -32,7 +32,6 @@ Not ported yet (each raises ``NotImplementedError``): ``serialize`` /
 
 from __future__ import annotations
 
-import inspect
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -319,9 +318,9 @@ class InferenceEngineV2:
         packed = torch.from_numpy(pack_metadata(meta)).to(self.device)
         batch = unpack_metadata(packed, bucket, self._batch.max_seqs,
                                 self._max_blocks)
-        kwargs = {"prefill_tile": tile} if use_tiles else {}
-        logits, new_cache = self.model(self.params, sm.kv_cache.cache, batch,
-                                       **kwargs)
+        logits, new_cache = self.model(
+            self.params, sm.kv_cache.cache, batch,
+            prefill_tile=tile if use_tiles else None)
         sm.kv_cache.update(new_cache)
 
         out: Dict[int, Any] = {}
@@ -462,11 +461,10 @@ class InferenceEngineV2:
         if n > S:
             raise ValueError(f"verify_step: {n} sequences exceed "
                              f"max_seqs {S}")
-        if "verify_k" not in inspect.signature(
-                self.model.__call__).parameters:
+        if not getattr(self.model, "supports_verify", False):
             raise NotImplementedError(
                 f"verify_step: {type(self.model).__name__} has no "
-                f"speculative verify path (its forward takes no verify_k)")
+                f"speculative verify path")
         max_context = self.config.state_manager.max_context
         seqs = []
         for uid in uids:

@@ -260,6 +260,8 @@ class RaggedLlama:
     #: the attention write path quantizes on insert and threads the scales:
     #: int8 KV (``kv_cache.dtype="int8"``) is supported
     supports_quantized_kv = True
+    #: ``verify_k`` batches run the paged verify path (``verify_step``)
+    supports_verify = True
 
     def __init__(self, config: LlamaConfig, block_size: int,
                  use_kernels: bool = True):

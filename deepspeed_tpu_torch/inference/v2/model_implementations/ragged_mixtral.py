@@ -39,7 +39,7 @@ from deepspeed_tpu_torch.ops.grouped_gemm import (exact_topk_routing,
                                                   grouped_moe_ffn)
 
 
-def dropless_moe(x, moe_params, k: int, dtype, grouped=None,
+def dropless_moe(x, moe_params, k: int, dtype, grouped: bool = True,
                  kernels: bool = True):
     """Dropless top-k MoE over a flat token buffer: x [T, H] -> [T, H].
 
@@ -54,7 +54,7 @@ def dropless_moe(x, moe_params, k: int, dtype, grouped=None,
     w_gate = experts["w_gate"].to(dtype)               # [E, H, F]
     w_up = experts["w_up"].to(dtype)
     w_down = experts["w_down"].to(dtype)
-    if grouped is None or grouped:
+    if grouped:
         return grouped_moe_ffn(x.to(dtype), topi, w.to(dtype), w_gate, w_up,
                                w_down, use_kernel=kernels)
     # dense all-experts composition (reference/oracle path)
@@ -78,6 +78,9 @@ class RaggedMixtral:
     #: attention goes through the shared ragged_attention_block, whose
     #: write path quantizes on insert — int8 KV works here too
     supports_quantized_kv = True
+    #: no speculative verify path, as in the JAX package: ``verify_step``
+    #: raises
+    supports_verify = False
 
     def __init__(self, config: MixtralConfig, block_size: int,
                  use_kernels: bool = True):

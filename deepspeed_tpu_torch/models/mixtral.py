@@ -18,8 +18,6 @@ from deepspeed_tpu_torch.models.llama import LlamaConfig
 class MixtralConfig(LlamaConfig):
     num_local_experts: int = 8
     num_experts_per_tok: int = 2
-    router_aux_loss_coef: float = 0.02
-    moe_capacity_factor: float = 1.25
 
     @staticmethod
     def tiny(**kw) -> "MixtralConfig":

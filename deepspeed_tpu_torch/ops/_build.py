@@ -3,9 +3,9 @@
 Each ``deepspeed_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into its own shared library with a plain C interface,
 ``build/deepspeed_tpu_torch/lib<name>-<hash>.so`` under the repository root,
-and loaded with ``ctypes``.  The file name carries a hash of the source and
-the flags, so an edited kernel is rebuilt and a stale library is never
-loaded.  :func:`build` starts one ``nvcc`` per source, all at once.
+and loaded with ``ctypes``.  The file name carries a hash of the source, of
+the headers it shares (``csrc/*.cuh``) and of the flags, so an edited
+kernel is rebuilt and a stale library is never loaded.  :func:`build` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: a machine without ``nvcc`` imports the
 package and runs the plain PyTorch paths on the CPU; only a call that needs
@@ -46,10 +46,20 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives for its current
-    source text and flags."""
+    source text, shared headers and flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def nvcc_command(source: Path, library: Path) -> list:
+    """The ``nvcc`` command that builds ``source`` into ``library``; the
+    shared headers of ``csrc/`` are on its include path, so a copy of a
+    source built elsewhere finds them too."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(library),
+            str(source)]
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
@@ -61,13 +71,13 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     missing = [n for n in seconds if not library_path(n).exists()]
     if not missing:
         return seconds
-    nvcc = _nvcc()
+    _nvcc()                       # raise before making anything
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in missing:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = nvcc_command(CSRC / f"{name}.cu", tmp)
         log = open(out.with_suffix(".log"), "w")
         procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT),

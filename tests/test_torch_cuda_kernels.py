@@ -198,7 +198,7 @@ def test_flash_norm_bar_catches_planted_faults(cuda_device, tmp_path,
         cu, so = tmp_path / f"{name}.cu", tmp_path / f"lib{name}.so"
         cu.write_text(src.replace(old, new))
         builds[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            _build.nvcc_command(cu, so),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT), so)
     for name, (proc, so) in builds.items():
         log = proc.communicate()[0].decode()
@@ -482,7 +482,7 @@ def test_paged_norm_bar_catches_planted_verify_frontier(cuda_device,
     cu, so = tmp_path / "frontier.cu", tmp_path / "libfrontier.so"
     cu.write_text(src.replace(*_VERIFY_FRONTIER))
     proc = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+        _build.nvcc_command(cu, so),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     assert proc.returncode == 0, proc.stdout.decode()[-2000:]
     monkeypatch.setitem(_build._LIBS, "blocked_flash", ctypes.CDLL(str(so)))
@@ -656,6 +656,22 @@ _GMM_BOUNDARY = (("u.lo = start;", "u.lo = start + (start % BM != 0);"),
                  ("u.hi = end;", "u.hi = end + (end % BM != 0 && end < m);"))
 
 
+def _planted_gmm_boundary(tmp_path):
+    """The grouped GEMM library built from a copy of its source with the
+    boundary-row fault planted, in a temporary directory."""
+    src = (_build.CSRC / "grouped_gemm.cu").read_text()
+    for old, new in _GMM_BOUNDARY:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    cu, so = tmp_path / "boundary.cu", tmp_path / "libboundary.so"
+    cu.write_text(src)
+    proc = subprocess.run(
+        _build.nvcc_command(cu, so),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    assert proc.returncode == 0, proc.stdout.decode()[-2000:]
+    return ctypes.CDLL(str(so))
+
+
 @pytest.mark.cuda
 def test_gmm_norm_bar_catches_planted_boundary_row(cuda_device, tmp_path,
                                                    monkeypatch):
@@ -674,17 +690,8 @@ def test_gmm_norm_bar_catches_planted_boundary_row(cuda_device, tmp_path,
                 _norm_rel(got, want))
 
     built = errors()
-    src = (_build.CSRC / "grouped_gemm.cu").read_text()
-    for old, new in _GMM_BOUNDARY:
-        assert src.count(old) == 1, old
-        src = src.replace(old, new)
-    cu, so = tmp_path / "boundary.cu", tmp_path / "libboundary.so"
-    cu.write_text(src)
-    proc = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    assert proc.returncode == 0, proc.stdout.decode()[-2000:]
-    monkeypatch.setitem(_build._LIBS, "grouped_gemm", ctypes.CDLL(str(so)))
+    monkeypatch.setitem(_build._LIBS, "grouped_gemm",
+                        _planted_gmm_boundary(tmp_path))
     tgg._kernel.cache_clear()
     try:
         planted = errors()
@@ -745,3 +752,48 @@ def test_mixtral_engine_kernels_match_plain_paths(cuda_device):
     for got, want in zip(out[True], out[False]):
         assert np.isfinite(got).all()
         assert np.abs(got - want).max() / np.abs(want).max() <= TOL
+
+
+@pytest.mark.cuda
+def test_mixtral_slice_bars_catch_planted_gmm_fault(cuda_device, tmp_path,
+                                                    monkeypatch):
+    """chip_smoke.py's phase 11 as it runs there (2 layers of Mixtral-8x7B
+    at full width, random bf16 weights and prompts from its seed), held to
+    its bars: the kernels as built pass every bar, and the planted
+    boundary-row fault of the grouped GEMM, built from a copy of its source
+    in a temporary directory, misses some.  The phase's shape, not a
+    narrower model: its bars were set from readings at that shape, and at
+    hidden 512 with 8 experts one flipped top-2 route puts the own-KV
+    decode 0.34 of the largest logit off as built."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rng = np.random.default_rng(smoke.SEED)
+    prompts = [rng.integers(0, 32000, size=256).tolist() for _ in range(8)]
+
+    def phase11():
+        tgg._kernel.cache_clear()
+        try:
+            mix = smoke.mixtral_kernel_vs_plain(torch, np, prompts)
+        finally:
+            tgg._kernel.cache_clear()
+            torch.cuda.empty_cache()
+        return mix, smoke.mixtral_slice_failures(mix)
+
+    built, built_missed = phase11()
+    monkeypatch.setitem(_build._LIBS, "grouped_gemm",
+                        _planted_gmm_boundary(tmp_path))
+    planted, planted_missed = phase11()
+    for label, mix, missed in (("built", built, built_missed),
+                               ("planted boundary row", planted,
+                                planted_missed)):
+        print(f"mixtral slice {label}: max {mix['logits_rel_err']}, "
+              f"norm {mix['logits_norm_rel_err']}, vs fp32 "
+              f"{mix['norm_rel_err_vs_fp32']}; missed {missed}")
+    assert built["kernel_launches"]["grouped_gemm"] > 0
+    assert not built_missed, built_missed
+    assert planted_missed
