@@ -22,7 +22,11 @@ Phases, each fatal on failure:
    each also timed beside the generic kernel, and decode at G = 4; the
    grouped expert GEMM at 4096 -> 14336 and 14336 -> 4096 over 8 experts,
    M = 1024 (a prefill, one expert empty) and M = 16 (a decode step),
-   beside ``torch._grouped_mm`` where the installed PyTorch has it;
+   beside ``torch._grouped_mm`` where the installed PyTorch has it; its
+   gradient kernels dlhs and drhs at Mixtral training shapes (4 x 1024
+   tokens routed top-2, M = 8192; the gate / up and the down projection)
+   and a ragged case (an empty expert, 192 rows past the groups), whose
+   zero rows and blocks must be exact zeros;
 4. the serving slice end to end at full Llama-2-7B width and 2 layers,
    through the kernels and through the plain paths on the card: first-step
    logits must agree within 3e-2 of their largest magnitude;
@@ -92,7 +96,29 @@ Phases, each fatal on failure:
    beside the bounds from the script's own weight-byte count, peak memory,
    one traced decode step by kernel kind; counts set to 0 just before and
    read just after: tiled prefill 4 x 16, decode 47 x 16, grouped GEMM
-   3 x 16 x (4 + 47), and no other kernel.
+   3 x 16 x (4 + 47), and no other kernel;
+13. MoE training, kernels vs plain versions: one dropless ``MoE`` layer at
+   full width on the same bf16 input and upstream gradient (4 x 1024
+   tokens) through the kernels, the plain versions and fp32 (the same
+   values, so every path routes alike): output, dx, the router's and each
+   expert weight's gradient within 1e-2 in norm of the plain path and no
+   more than 5% farther from fp32; then the dropless Mixtral at full width
+   and 2 layers, one forward and backward: first-step loss within 1e-3,
+   logits no more than 5% farther from fp32 than the plain path's (route
+   flips of the random router part the two bf16 paths by ~7% in norm, so
+   their direct distance is recorded, not barred); only the kernel path
+   launching the flash and grouped GEMM kernels;
+14. the dropless Mixtral trained at full width and 2 layers through
+   ``deepspeed_tpu_torch.initialize`` (the bench ds_config at micro-batch
+   4: ZeRO-1, bf16, AdamW 1e-4, clip 1.0): 3 warm-up and 10 timed steps
+   on 4 x 1024 tokens: ms/step, tokens/s, MFU (useful FLOPs: the dense
+   projections, 2 of 8 experts a token, causal attention), peak memory,
+   one traced step; falling loss; launches exact (counts set to 0 just
+   before the timed steps): each step forward gmm, dlhs and drhs 3 a layer,
+   flash forward, dQ and dK/dV 1 a layer, and no other kernel;
+15. the same for ``MixtralForCausalLM`` as the JAX package builds it
+   (capacity top-2, the dispatch and expert products library calls):
+   flash 1 a layer a step, no grouped GEMM.
 
 The second-to-last lines are the ``kernels`` JSON record and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -459,16 +485,10 @@ def gmm_cases(torch, gen, dev):
     from deepspeed_tpu_torch.ops import grouped_gemm as gg
 
     out = []
-    lib = getattr(torch, "_grouped_mm", None)
-    for label, tokens, empty in (("prefill", 512, True),
-                                 ("decode", 8, False)):
-        logits = torch.randn((tokens, 8), generator=gen, device=dev)
-        if empty:
-            logits[:, 2] = -float("inf")
-        topi, _ = gg.exact_topk_routing(logits, 2)
-        sizes = torch.bincount(topi.reshape(-1).long(), minlength=8).to(
-            torch.int32)
+    for label, tokens, empty in (("prefill", 512, 2), ("decode", 8, None)):
+        sizes = _routed_sizes(torch, gen, dev, tokens, empty)
         offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+        rows = [0] + offs.tolist()
         m = 2 * tokens
         for k, n in ((4096, 14336), (14336, 4096)):
             lhs = torch.randn((m, k), generator=gen, device=dev,
@@ -494,29 +514,131 @@ def gmm_cases(torch, gen, dev):
                                     1, 2),
                 "bound_ms": b_ms, "bound_by": b_by,
             }
-            if lib is not None:
-                # a yardstick only: where this PyTorch build's grouped GEMM
-                # refuses these operands, the per-group loop stands in
-                try:
-                    ref_out = lib(lhs, rhs, offs=offs)
-                    case["library_max_abs_err"] = (
-                        ref_out.float() - want.float()).abs().max().item()
-                    case["library"] = "torch._grouped_mm"
-                except (RuntimeError, TypeError, ValueError) as exc:
-                    case["library_refused"] = str(exc)[:200]
-                    lib = None
-            if lib is not None:
-                case["library_ms"] = time_ms(
-                    lambda i: lib(lhs, rhs, offs=offs), 1, iters)
-            else:
-                case["library"] = "8 torch.matmul calls, one a group"
-                bounds = [0] + offs.tolist()
-                case["library_ms"] = time_ms(lambda i: [
-                    torch.matmul(lhs[a:b], rhs[e])
-                    for e, (a, b) in enumerate(zip(bounds, bounds[1:]))],
-                    1, iters)
+            (case["library"], case["library_ms"],
+             case["library_max_abs_err"]) = _yardstick_ms(
+                torch, lambda lib: lib(lhs, rhs, offs=offs),
+                lambda: [torch.matmul(lhs[a:b], rhs[e])
+                         for e, (a, b) in enumerate(zip(rows, rows[1:]))],
+                want, iters)
             out.append(case)
             del lhs, rhs, got, want
+    return out
+
+
+def _routed_sizes(torch, gen, dev, tokens, empty=None, experts=8):
+    """Group sizes of ``tokens`` routed top-2 over ``experts`` from seeded
+    logits; expert ``empty`` is never chosen."""
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+
+    logits = torch.randn((tokens, experts), generator=gen, device=dev)
+    if empty is not None:
+        logits[:, empty] = -float("inf")
+    topi, _ = gg.exact_topk_routing(logits, 2)
+    return torch.bincount(topi.reshape(-1).long(), minlength=experts).to(
+        torch.int32)
+
+
+def _yardstick_ms(torch, lib_call, loop_call, want, iters):
+    """(library name, ms, max abs error against ``want`` or None) of one
+    PyTorch call computing a kernel's function: ``torch._grouped_mm`` where
+    this build has it and takes the operands, else the per-group
+    ``torch.matmul`` loop.  A yardstick only: the port never calls it."""
+    lib = getattr(torch, "_grouped_mm", None)
+    if lib is not None:
+        try:
+            err = (lib_call(lib).float() - want.float()).abs().max().item()
+            return ("torch._grouped_mm",
+                    time_ms(lambda i: lib_call(lib), 1, iters), err)
+        except (RuntimeError, TypeError, ValueError) as exc:
+            refused = str(exc)[:200]
+    else:
+        refused = "not in this PyTorch build"
+    return (f"8 torch.matmul calls, one a group (_grouped_mm: {refused})",
+            time_ms(lambda i: loop_call(), 1, iters), None)
+
+
+def gmm_backward_cases(torch, gen, dev):
+    """Phase 3's grouped GEMM gradient cases (B9 backward: dlhs and drhs)
+    at Mixtral-8x7B training shapes: T = 4096 tokens (batch 4 x 1024)
+    routed top-2 over 8 experts, M = 8192 rows; the gradients of the gate /
+    up projection (4096 -> 14336) and of the down projection (14336 ->
+    4096); and a ragged case with expert 2 empty and 4000 tokens in an
+    8192-row buffer (192 rows past the groups), where dlhs's rows past the
+    groups and drhs's empty block must be exact zeros.  Operands are
+    scaled so that every output is ~N(0, 1/4): the 3e-2 max bar then sits
+    above one bf16 ulp of the largest outputs, and the 1e-2 norm bar does
+    the finer work."""
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+
+    out = []
+    m = 8192
+    full = _routed_sizes(torch, gen, dev, m // 2)
+    ragged = _routed_sizes(torch, gen, dev, 4000, empty=2)
+    for label, sizes, k, n in (("", full, 4096, 14336),
+                               ("", full, 14336, 4096),
+                               ("ragged, expert 2 empty, ", ragged, 4096,
+                                14336)):
+        total = int(sizes.sum())
+        offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+        touched = int((sizes > 0).sum())
+        rows = [0] + offs.tolist()
+        dout = torch.randn((m, n), generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+        # dlhs = dout @ rhs[g]^T sums over n: rhs ~ N(0, 1 / (4 n))
+        rhs = torch.randn((8, k, n), generator=gen, device=dev,
+                          dtype=torch.bfloat16).mul_(0.5 / math.sqrt(n))
+        # drhs = lhs[rows_g]^T @ dout[rows_g] sums over a group's rows
+        lhs = torch.randn((m, k), generator=gen, device=dev,
+                          dtype=torch.bfloat16).mul_(
+            0.5 / math.sqrt(total / touched))
+        flops = 2.0 * total * k * n
+        specs = (
+            ("grouped_gemm_dlhs", f"dlhs[{label}M={m}, {n}->{k}, E=8]",
+             lambda: gg.gmm_dlhs(dout, rhs, sizes),
+             lambda: gg.gmm_dlhs_plain(dout, rhs, sizes),
+             lambda lib: lib(dout, rhs.transpose(1, 2), offs=offs),
+             lambda: [dout[a:b] @ rhs[e].t()
+                      for e, (a, b) in enumerate(zip(rows, rows[1:]))],
+             # dout and dlhs once, the touched experts' weights once
+             m * n * 2 + touched * k * n * 2 + m * k * 2 + 8 * 4),
+            ("grouped_gemm_drhs", f"drhs[{label}M={m}, {k}x{n}, E=8]",
+             lambda: gg.gmm_drhs(lhs, dout, sizes),
+             lambda: gg.gmm_drhs_plain(lhs, dout, sizes),
+             lambda lib: lib(lhs.t(), dout, offs=offs),
+             lambda: [lhs[a:b].t() @ dout[a:b]
+                      for e, (a, b) in enumerate(zip(rows, rows[1:]))],
+             # the rows in groups of lhs and dout once, drhs once
+             total * (k + n) * 2 + 8 * k * n * 2 + 8 * 4),
+        )
+        for kernel, name, run, plain, lib_call, loop_call, nbytes in specs:
+            got = run()
+            want = plain()
+            torch.cuda.synchronize()
+            b_ms, b_by = bound(nbytes, flops)
+            case = {"name": name, "kernel": kernel, "path": "moe_training",
+                    "group_sizes": sizes.tolist(),
+                    "max_abs_err": (got.float() - want.float()).abs().max()
+                    .item(),
+                    "norm_rel_err": rel_norm(got, want),
+                    "ms": time_ms(lambda i: run(), 1, 5),
+                    "plain_ms": time_ms(lambda i: plain(), 1, 2),
+                    "bound_ms": b_ms, "bound_by": b_by}
+            if kernel == "grouped_gemm_dlhs":
+                # rows past the groups: exact zeros
+                case["zeros_max_abs"] = (got[total:].abs().max().item()
+                                         if total < m else 0.0)
+            else:
+                # the empty groups' blocks: exact zeros
+                empty = (sizes == 0).nonzero().flatten().tolist()
+                case["zeros_max_abs"] = max(
+                    [got[e].abs().max().item() for e in empty] + [0.0])
+            (case["library"], case["library_ms"],
+             case["library_max_abs_err"]) = _yardstick_ms(
+                torch, lib_call, loop_call, want, 5)
+            out.append(case)
+            del got, want
+        del dout, rhs, lhs
+    torch.cuda.empty_cache()
     return out
 
 
@@ -571,8 +693,10 @@ TRAINING = ("flash_attention_fwd", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv")
 MIXTRAL_SERVING = ("paged_prefill_attention", "paged_decode_attention",
                    "grouped_gemm")
+MOE_GMM = ("grouped_gemm", "grouped_gemm_dlhs", "grouped_gemm_drhs")
+MOE_TRAINING = TRAINING + MOE_GMM
 ALL_KERNELS = tuple(dict.fromkeys(BF16_SERVING + INT8_SPECULATIVE
-                                  + TRAINING + MIXTRAL_SERVING))
+                                  + TRAINING + MIXTRAL_SERVING + MOE_GMM))
 
 
 def read_launches(keys=ALL_KERNELS):
@@ -1152,6 +1276,254 @@ def _leaves(tree):
 
 
 # --------------------------------------------------------------------- #
+# Phases 13-15: MoE training at full Mixtral-8x7B width
+# --------------------------------------------------------------------- #
+MOE_TOKENS = (4, 1024)       # batch 4 x 1024: T = 4096, M = T * k = 8192
+
+
+def moe_ids(torch, np, dev, vocab):
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.integers(0, vocab, size=MOE_TOKENS)
+                            .astype(np.int32)).to(dev)
+
+
+def mixtral_training_model(torch, dev, layers, dropless, use_kernels=True,
+                           dtype=None):
+    """Mixtral-8x7B at full width and ``layers`` layers, fp32 weights drawn
+    on the card from SEED (the same numbers for every ``use_kernels`` and
+    ``dtype``)."""
+    from deepspeed_tpu_torch.models import MixtralConfig, MixtralForCausalLM
+
+    cfg = MixtralConfig.mixtral_8x7b(num_hidden_layers=layers,
+                                     dtype=dtype or torch.bfloat16)
+    return MixtralForCausalLM(cfg, seed=SEED, device=dev,
+                              use_kernels=use_kernels, dropless=dropless)
+
+
+def moe_layer_kernel_vs_plain(torch, dev):
+    """Phase 13, layer part: one dropless ``MoE`` at full width (4096 ->
+    14336, 8 experts, top-2), weights from SEED, on the same bf16 input and
+    upstream gradient (4 x 1024 tokens) through the grouped GEMM kernels,
+    through their plain versions and, as the yardstick, in fp32 on the same
+    (bf16-valued) weights and input.  The router is fp32 on every path and
+    sees the same values, so all three route every token alike: what
+    differs is the kernels' arithmetic and the bf16 roundings alone."""
+    from deepspeed_tpu_torch.models import MixtralConfig
+    from deepspeed_tpu_torch.moe import MoE
+
+    cfg = MixtralConfig.mixtral_8x7b()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn(MOE_TOKENS + (cfg.hidden_size,), generator=gen,
+                    device=dev, dtype=torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    res = {}
+    for mode in ("kernel", "plain", "fp32"):
+        dtype = torch.float32 if mode == "fp32" else torch.bfloat16
+        layer = MoE(cfg.hidden_size, cfg.intermediate_size,
+                    num_experts=cfg.num_local_experts,
+                    k=cfg.num_experts_per_tok, dropless=True, dtype=dtype,
+                    use_kernels=mode == "kernel", seed=SEED, device=dev)
+        with torch.no_grad():              # every path on the bf16 values
+            for p in layer.parameters():
+                p.copy_(p.to(torch.bfloat16).to(dtype))
+        if mode != "fp32":
+            layer.to(torch.bfloat16)       # what the engine does
+        xin = x.to(dtype, copy=True).requires_grad_()
+        reset_launches()
+        out, l_aux = layer(xin)
+        (torch.sum(out.float() * dy.float()) + l_aux).backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.float() for n, p in layer.named_parameters()}
+        res[mode] = ({"out": out.detach().float(), "dx": xin.grad.float(),
+                      **grads}, read_launches(ALL_KERNELS))
+        del layer, out, xin, grads
+        torch.cuda.empty_cache()
+    (k_vals, k_launch), (p_vals, p_launch), (f_vals, _) = (
+        res["kernel"], res["plain"], res["fp32"])
+    short = {n: n.split(".")[-1] if "experts" in n
+             else ("router" if n.endswith("wg.weight") else n)
+             for n in k_vals}
+    return {
+        "norm_rel_err": {short[n]: rel_norm(k_vals[n], p_vals[n])
+                         for n in k_vals},
+        "norm_rel_err_vs_fp32": {
+            short[n]: {"kernel": rel_norm(k_vals[n], f_vals[n]),
+                       "plain": rel_norm(p_vals[n], f_vals[n])}
+            for n in k_vals},
+        "kernel_launches": {k: k_launch[k] for k in MOE_GMM},
+        "plain_launches": p_launch,
+        "finite": all(bool(torch.isfinite(v).all()) for v in k_vals.values()),
+    }
+
+
+def moe_model_kernel_vs_plain(torch, np, dev, layers=2):
+    """Phase 13, model part: the dropless Mixtral at full width and 2
+    layers, weights from SEED, one step's forward and backward on 4 x 1024
+    tokens through the kernels (flash attention and the grouped GEMMs) and
+    through their plain versions, both in bf16 as the engine holds the
+    weights; and the same model in fp32 (plain) as the yardstick, forward
+    only: the logits and the first-step loss.  A random router's top-2
+    near-ties flip under the least change of its input, a flipped token's
+    hidden state and logits move by much of their size, and it moves its
+    experts' gradients by ~1/sqrt(rows) each: the two bf16 paths' logits
+    and gradients part by route flips far more than by any kernel's
+    error.  So the gradients are held to their bars in
+    :func:`moe_layer_kernel_vs_plain`, where the routes agree, and the
+    logits only against fp32; here the direct distances are recorded."""
+    ids = moe_ids(torch, np, dev, 32000)
+    res = {}
+    for mode in ("kernel", "plain", "fp32"):
+        if mode == "fp32":
+            model = mixtral_training_model(torch, dev, layers, True, False,
+                                           torch.float32)
+        else:
+            model = mixtral_training_model(torch, dev, layers, True,
+                                           mode == "kernel").to(
+                torch.bfloat16)
+        with torch.no_grad():
+            logits = model(ids).float()
+        reset_launches()
+        if mode == "fp32":
+            with torch.no_grad():
+                loss = model(ids, ids)
+            grads = {}
+        else:
+            loss = model(ids, ids)
+            loss.backward()
+            # the router and expert weight gradients, bf16 as left
+            grads = {n: p.grad for n, p in model.named_parameters()
+                     if n.split(".")[-1] in ("w_gate", "w_up", "w_down")
+                     or n.endswith("gate.wg.weight")}
+        torch.cuda.synchronize()
+        res[mode] = (loss.item(), logits, grads, read_launches(ALL_KERNELS))
+        del model, loss
+        torch.cuda.empty_cache()
+    k_loss, k_logits, k_grads, k_launch = res.pop("kernel")
+    p_loss, p_logits, p_grads, p_launch = res.pop("plain")
+    f_loss, f_logits, _, _ = res.pop("fp32")
+    return {
+        "layers": layers, "tokens": list(MOE_TOKENS),
+        "losses": {"kernel": k_loss, "plain": p_loss, "fp32": f_loss},
+        "loss_rel_err": abs(k_loss - p_loss) / abs(p_loss),
+        "logits_norm_rel_err": rel_norm(k_logits, p_logits),
+        "logits_vs_fp32": {"kernel": rel_norm(k_logits, f_logits),
+                           "plain": rel_norm(p_logits, f_logits)},
+        # recorded, not held to a bar (route flips, above)
+        "grad_norm_rel_err": {n: rel_norm(k_grads[n], p_grads[n])
+                              for n in k_grads},
+        "kernel_launches": {k: k_launch[k] for k in MOE_TRAINING},
+        "kernel_other_launches": {k: v for k, v in k_launch.items()
+                                  if k not in MOE_TRAINING and v},
+        "plain_launches": p_launch,
+        "finite": bool(torch.isfinite(k_logits).all()
+                       and math.isfinite(k_loss)),
+    }
+
+
+def moe_training_failures(layer, model) -> list:
+    """The bars of phase 13 that its two parts miss (empty when they pass):
+    at the layer, the output, dx, the router's and every expert weight's
+    gradient within NORM_TOL of the plain path in norm and, against fp32,
+    at most FP32_RATIO times the plain path's distance; in the model, the
+    first-step loss within LOSS_TOL and the logits at most FP32_RATIO
+    times the plain path's distance from fp32; finite values.  The model's
+    logits and gradients are not held to a bar against the plain path
+    directly: there route flips, not the kernels, set the distance (6.8%
+    and 9-15% in norm on the card, where the layer's agree to 0.3%)."""
+    missed = [f"layer {n} norm {v:.4g} > {NORM_TOL}"
+              for n, v in layer["norm_rel_err"].items() if not v <= NORM_TOL]
+    missed += [f"layer {n} vs fp32 {d['kernel']:.4g} > {FP32_RATIO} x "
+               f"{d['plain']:.4g}"
+               for n, d in layer["norm_rel_err_vs_fp32"].items()
+               if not d["kernel"] <= FP32_RATIO * d["plain"]]
+    if not model["loss_rel_err"] <= LOSS_TOL:
+        missed.append(f"loss {model['loss_rel_err']:.4g} > {LOSS_TOL}")
+    d = model["logits_vs_fp32"]
+    if not d["kernel"] <= FP32_RATIO * d["plain"]:
+        missed.append(f"logits vs fp32 {d['kernel']:.4g} > {FP32_RATIO} x "
+                      f"{d['plain']:.4g}")
+    if not (layer["finite"] and model["finite"]):
+        missed.append("non-finite values")
+    return missed
+
+
+def moe_trained_run(torch, np, dev, dropless, layers=2, warmup=3, steps=10):
+    """Phases 14 (``dropless``) and 15 (capacity top-2, the JAX package's
+    ``MixtralForCausalLM``): Mixtral-8x7B at full width and 2 layers
+    through ``deepspeed_tpu_torch.initialize`` with the bench ds_config at
+    micro-batch 4 (ZeRO-1, bf16, AdamW 1e-4, clip 1.0): 3 warm-up and 10
+    timed steps of ``engine(ids, ids)`` / ``backward`` / ``step`` on one
+    4 x 1024 batch from SEED, then one traced step."""
+    import gc
+
+    import deepspeed_tpu_torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ids = moe_ids(torch, np, dev, 32000)
+    t0 = time.perf_counter()
+    model = mixtral_training_model(torch, dev, layers, dropless)
+    cfg = model.config
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, device=dev,
+        config={**BENCH_DS_CONFIG, "train_micro_batch_size_per_gpu": 4})
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses = [train_step(engine, ids) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses += [train_step(engine, ids) for _ in range(steps)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    launches = read_launches(ALL_KERNELS)
+    losses = [float(x) for x in losses]
+    trace = profile_window(torch, lambda: train_step(engine, ids), 1,
+                           top=12)
+    if trace is not None:
+        trace["device_idle_share_untraced"] = \
+            1.0 - trace["device_busy_ms_per_step"] / (step_s * 1e3)
+    tokens = ids.numel()
+    h, f, e, k = (cfg.hidden_size, cfg.intermediate_size,
+                  cfg.num_local_experts, cfg.num_experts_per_tok)
+    expert_params = 3 * e * h * f * layers
+    dense_params = sum(p.numel() for n, p in engine.module.named_parameters()
+                       if "embed_tokens" not in n and "experts" not in n)
+    hd = cfg.head_dim
+    attn = 3.5 * 4.0 * ids.shape[0] * cfg.num_attention_heads * \
+        visible_pairs(ids.shape[1], ids.shape[1], None) * hd * layers
+    # useful FLOPs: the dense projections, k of E experts a token, causal
+    # attention; never capacity padding
+    flops = 6.0 * (dense_params + expert_params * k / e) * tokens + attn
+    per_layer = {"flash_attention_fwd": layers,
+                 "flash_attention_bwd_dq": layers,
+                 "flash_attention_bwd_dkv": layers}
+    gmm_per_step = 3 * layers if dropless else 0
+    per_layer.update({key: gmm_per_step for key in MOE_GMM})
+    out = {
+        "model": "dropless" if dropless else "capacity top-2",
+        "layers": layers, "batch": list(ids.shape),
+        "params": sum(m.numel() for m in engine.master),
+        "expert_params": expert_params, "dense_matmul_params": dense_params,
+        "engine_init_s": init_s,
+        "ms_per_step": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "mfu": flops / step_s / BF16_FLOPS, "useful_flops_per_step": flops,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+        "launches": launches,
+        "expected_launches": {key: v * steps for key, v in per_layer.items()},
+        "finite": all(math.isfinite(x) for x in losses),
+        "trace": trace,
+    }
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------- #
 # Phases 6-8: the training path
 # --------------------------------------------------------------------- #
 FLASH_CASES = (
@@ -1513,7 +1885,7 @@ def profile_window(torch, fn, steps, top=6):
 # device kernels by kind, first match wins: the port's own kernels, the
 # library GEMMs, then PyTorch's elementwise / reduction / copy kernels
 KERNEL_KINDS = (
-    ("grouped_gemm", ("gmm_kernel",)),
+    ("grouped_gemm", ("gmm_kernel", "gmm_drhs_kernel")),
     ("flash_attention", ("flash_fwd", "flash_bwd")),
     ("port_serving", ("qmm", "paged_")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
@@ -1566,9 +1938,11 @@ def main() -> int:
     gen.manual_seed(SEED)
     cases = (qmm_cases(torch, gen, dev) + attention_cases(torch, gen, dev)
              + mixtral_attention_cases(torch, gen, dev)
-             + gmm_cases(torch, gen, dev))
+             + gmm_cases(torch, gen, dev)
+             + gmm_backward_cases(torch, gen, dev))
     for c in cases:
         extra = "".join(f" {k} {c[k]}" for k in ("pad_max_abs",
+                                                 "zeros_max_abs",
                                                  "generic_b5_ms", "library")
                         if k in c)
         print(f"[kernel] {c['name']}: err {c['max_abs_err']:.3g} "
@@ -1577,10 +1951,12 @@ def main() -> int:
               f"({c['bound_by']}){extra}", flush=True)
     bad = [c["name"] for c in cases if not (c["max_abs_err"] <= TOL
                                             and c["norm_rel_err"] <= NORM_TOL)
-           or c.get("pad_max_abs", 0.0) != 0.0]
+           or c.get("pad_max_abs", 0.0) != 0.0
+           or c.get("zeros_max_abs", 0.0) != 0.0]
     if bad:
         return fail(f"kernels disagree with their plain versions (or a pad "
-                    f"row of the tiled prefill is not zero): {bad}")
+                    f"row of the tiled prefill, a dlhs row past the groups "
+                    f"or an empty group's drhs block is not zero): {bad}")
 
     # 4. slice end to end: kernels vs plain paths, 2 layers at 7B width
     rng = np.random.default_rng(SEED)
@@ -1724,15 +2100,54 @@ def main() -> int:
             and mixtral["tokens_shape"] == [8, 47]):
         return fail(f"Mixtral served output malformed: {mixtral}")
 
+    # 13. MoE training at full width, 2 layers: kernels vs plain versions
+    moe_layer = moe_layer_kernel_vs_plain(torch, dev)
+    print(f"[moe-layer] {json.dumps(moe_layer)}", flush=True)
+    moe_model = moe_model_kernel_vs_plain(torch, np, dev)
+    print(f"[moe-slice] {json.dumps(moe_model)}", flush=True)
+    missed = moe_training_failures(moe_layer, moe_model)
+    if missed:
+        return fail(f"MoE training through the kernels differs from the "
+                    f"plain path: {'; '.join(missed)}")
+    if any(v == 0 for v in moe_layer["kernel_launches"].values()) \
+            or any(v == 0 for v in moe_model["kernel_launches"].values()) \
+            or moe_model["kernel_other_launches"] \
+            or any(moe_layer["plain_launches"].values()) \
+            or any(moe_model["plain_launches"].values()):
+        return fail(f"MoE training launch counts: layer {moe_layer}, model "
+                    f"kernel path {moe_model['kernel_launches']} (others "
+                    f"{moe_model['kernel_other_launches']}), plain path "
+                    f"{moe_model['plain_launches']}")
+
+    # 14-15. MoE trained at full width, 2 layers, through initialize ->
+    # engine: dropless, then capacity top-2 (counts reset just before the
+    # timed steps, read just after)
+    moe_runs = {}
+    for phase, dropless in ((14, True), (15, False)):
+        run = moe_trained_run(torch, np, dev, dropless)
+        print(f"[moe-trained {run['model']}] {json.dumps(run)}", flush=True)
+        if not (run["finite"] and run["last_loss"] < run["first_loss"]):
+            return fail(f"phase {phase}: MoE training did not converge: "
+                        f"{run['losses']}")
+        got_l, want_l = run["launches"], run["expected_launches"]
+        if any(got_l[k] != v for k, v in want_l.items()) or any(
+                v for k, v in got_l.items() if k not in want_l):
+            return fail(f"phase {phase}: launches {got_l}, expected "
+                        f"{want_l} and no other kernel")
+        moe_runs[run["model"]] = run
+    moe_l = moe_runs["dropless"]["launches"]
+
     src = "deepspeed_tpu_torch/csrc/"
     ref = "deepspeed_tpu/"
     bf_py = ref + "inference/v2/kernels/blocked_flash.py:"
     sources = {"quantized_matmul": src + "quantized_matmul.cu",
                "paged_prefill_attention": src + "paged_prefill.cu",
-               "grouped_gemm": src + "grouped_gemm.cu"}
+               **{k: src + "grouped_gemm.cu" for k in MOE_GMM}}
     replaces = {"quantized_matmul": ref + "ops/quantized_matmul.py:47",
                 "paged_prefill_attention": bf_py + "490",
                 "grouped_gemm": ref + "ops/grouped_gemm.py:92",
+                "grouped_gemm_dlhs": ref + "ops/grouped_gemm.py:155",
+                "grouped_gemm_drhs": ref + "ops/grouped_gemm.py:225",
                 "paged_attention": bf_py + "35",
                 "paged_decode_attention": bf_py + "118",
                 "paged_decode_attention_int8": bf_py + "118",
@@ -1745,8 +2160,8 @@ def main() -> int:
         "name": c["name"], "route": "cuda",
         "source": sources.get(c["kernel"], src + "blocked_flash.cu"),
         "replaces": replaces[c["kernel"]],
-        "launches": (mix_l if c.get("path") == "mixtral"
-                     else launches)[c["kernel"]],
+        "launches": {"mixtral": mix_l, "moe_training": moe_l}.get(
+            c.get("path"), launches)[c["kernel"]],
         "max_abs_err": c["max_abs_err"],
         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": c["library_ms"],
@@ -1780,7 +2195,8 @@ def main() -> int:
          "cases": cases, "slice": e2e, "served": served, "flash": flash,
          "train_slice": t_slice, "trained": trained, "spec_slice": spec,
          "spec_served": spec_run, "mixtral_slice": mix,
-         "mixtral_served": mixtral}, indent=1))
+         "mixtral_served": mixtral, "moe_layer": moe_layer,
+         "moe_slice": moe_model, "moe_trained": moe_runs}, indent=1))
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,10 @@ kernel on a ported path is a CUDA kernel under ``csrc/``, built with
 runs only for tensors on the CPU.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-Two paths are ported: FastGen serving (``inference.v2.InferenceEngineV2``)
-and single-device training (:func:`initialize` -> ``DeepSpeedEngine``).
+Two paths are ported: FastGen serving (``inference.v2.InferenceEngineV2``,
+Llama and Mixtral) and single-device training (:func:`initialize` ->
+``DeepSpeedEngine``) of Llama (``models.LlamaForCausalLM``) and of MoE
+models (``models.MixtralForCausalLM``; ``moe.MoE``, capacity or dropless).
 """
 
 from __future__ import annotations

@@ -26,7 +26,15 @@ passes through the host.
 port's ``LlamaForCausalLM``: each Dense kernel is transposed to
 ``nn.Linear``'s ``[out, in]`` (the transform ``checkpoint/hf_loader.py:9``
 documents), ``layers_{i}`` becomes ``layers.{i}``.
-:func:`flax_params_from_llama_state_dict` is its inverse.
+:func:`flax_params_from_llama_state_dict` is its inverse.  The same mapping
+serves the training ``MixtralForCausalLM``
+(:func:`mixtral_state_dict_from_flax`: ``layers_{i}/block_sparse_moe/
+deepspeed_moe/gate/wg/kernel`` becomes ``layers.{i}.block_sparse_moe.
+deepspeed_moe.gate.wg.weight``, transposed; the stacked expert weights
+``experts/w_gate|w_up|w_down`` keep their ``[E, K, N]`` layout, which the
+grouped GEMM reads) and a lone ``MoE`` subtree
+(:func:`moe_state_dict_from_flax`, with the residual MoE's Dense kernels
+and ``coefficient/bias``), each with its inverse.
 """
 
 from __future__ import annotations
@@ -159,9 +167,12 @@ def _flat(tree, prefix=()):
 
 def llama_state_dict_from_flax(params: Any,
                                device=None) -> Dict[str, torch.Tensor]:
-    """The Flax ``LlamaForCausalLM`` params (``{"params": ...}`` or the
-    bare tree, numpy leaves) as the port's ``state_dict`` on ``device``
-    (default CUDA)."""
+    """The Flax params of ``LlamaForCausalLM``, ``MixtralForCausalLM`` or a
+    lone ``MoE`` (``{"params": ...}`` or the bare tree, numpy leaves) as
+    the port's ``state_dict`` on ``device`` (default CUDA): Dense
+    ``kernel`` -> ``weight`` transposed, ``embedding`` -> ``weight``, every
+    other leaf (norm ``scale``, ``bias``, stacked expert weights) as it
+    is."""
     dev = resolve_device(device)
     params = params.get("params", params)
     out = {}
@@ -180,8 +191,8 @@ def llama_state_dict_from_flax(params: Any,
 
 
 def flax_params_from_llama_state_dict(state_dict) -> Dict[str, Any]:
-    """The inverse of :func:`llama_state_dict_from_flax`: a nested dict of
-    fp32 numpy arrays in the Flax layout."""
+    """The inverse of :func:`llama_state_dict_from_flax` (for each of its
+    models): a nested dict of fp32 numpy arrays in the Flax layout."""
     tree: Dict[str, Any] = {}
     for name, t in state_dict.items():
         *mods, leaf_name = name.split(".")
@@ -197,3 +208,10 @@ def flax_params_from_llama_state_dict(state_dict) -> Dict[str, Any]:
             node = node.setdefault(m, {})
         node[leaf_name] = arr
     return tree
+
+
+#: the Flax <-> ``state_dict`` mapping is one rule for every model
+mixtral_state_dict_from_flax = moe_state_dict_from_flax = \
+    llama_state_dict_from_flax
+flax_params_from_mixtral_state_dict = flax_params_from_moe_state_dict = \
+    flax_params_from_llama_state_dict

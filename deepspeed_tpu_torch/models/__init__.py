@@ -1,7 +1,10 @@
 from deepspeed_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                               apply_rotary,
                                               cross_entropy_loss)
-from deepspeed_tpu_torch.models.mixtral import MixtralConfig
+from deepspeed_tpu_torch.models.mixtral import (MIXTRAL_PARTITION_RULES,
+                                                MixtralConfig,
+                                                MixtralForCausalLM)
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "MixtralConfig",
-           "apply_rotary", "cross_entropy_loss"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "MIXTRAL_PARTITION_RULES",
+           "MixtralConfig", "MixtralForCausalLM", "apply_rotary",
+           "cross_entropy_loss"]

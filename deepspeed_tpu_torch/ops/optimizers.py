@@ -9,7 +9,9 @@ place (the JAX package returns new trees; updating in place saves a copy of
 the optimizer state).  The formulas are the JAX package's: bias correction
 from the step count, eps outside the square root, decoupled weight decay in
 AdamW mode.  Adam, the training path's optimizer, runs as ``torch._foreach_*``
-calls (a few launches for all tensors); the others loop over tensors.  The
+calls (a few launches for a group of tensors; a group holds at most
+``_FOREACH_ELEMS`` values, so the update's fp32 temporaries stay a few GB
+even when the state is tens of GB); the others loop over tensors.  The
 JAX package leaves these to XLA, not Pallas, so no kernel is owed here.
 """
 
@@ -38,6 +40,25 @@ def _f32(grads: Tensors) -> Tensors:
     return [g if g.dtype == torch.float32 else g.float() for g in grads]
 
 
+#: values in one group of tensors that the Adam update takes at a time:
+#: each of its two fp32 temporaries (the denominator and the update) holds
+#: at most this many (or one larger tensor)
+_FOREACH_ELEMS = 1 << 28
+
+
+def _groups(tensors: Tensors):
+    """Slices of consecutive tensors of at most ``_FOREACH_ELEMS`` values
+    each (a larger tensor alone)."""
+    start, total = 0, 0
+    for i, t in enumerate(tensors):
+        if i > start and total + t.numel() > _FOREACH_ELEMS:
+            yield slice(start, i)
+            start, total = i, 0
+        total += t.numel()
+    if start < len(tensors):
+        yield slice(start, len(tensors))
+
+
 def _bias_corrections(betas, step: int, bias_correction: bool):
     """1 - beta ** step, in float32 as the JAX package computes them."""
     if not bias_correction:
@@ -59,10 +80,14 @@ def fused_adam(lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
 
     def update(grads, state, master, lr_t, step):
         c1, c2 = _bias_corrections(betas, step, bias_correction)
+        for sl in _groups(master):
+            update_group(grads[sl], state["m"][sl], state["v"][sl],
+                         master[sl], lr_t, c1, c2)
+
+    def update_group(grads, m, v, master, lr_t, c1, c2):
         g = _f32(grads)
         if not adam_w_mode and weight_decay > 0.0:
             g = torch._foreach_add(g, master, alpha=weight_decay)
-        m, v = state["m"], state["v"]
         torch._foreach_mul_(m, b1)
         torch._foreach_add_(m, g, alpha=1.0 - b1)
         torch._foreach_mul_(v, b2)

@@ -621,19 +621,22 @@ def _gmm_inputs(gen, dev, m, k, n, sizes):
     return lhs, rhs, torch.tensor(sizes, dtype=torch.int32, device=dev)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n,sizes", [
+_GMM_CASES = [
     (16, 4096, 14336, [2, 3, 0, 1, 4, 2, 2, 2]),      # decode, 16-row tiles
     (16, 14336, 4096, [0, 5, 0, 0, 4, 2, 2, 1]),      # 2 rows past the sum
     (100, 256, 136, [10, 0, 33, 40, 0, 0, 7, 0]),     # ragged M, N edge
     (1024, 512, 1024, [200, 130, 0, 180, 100, 150, 120, 144]),
     (70, 64, 64, [0, 0, 0, 0]),                       # no rows: zeros
     (200, 64, 256, [64, 1, 0, 60]),                   # 75 rows past
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,sizes", _GMM_CASES)
 def test_grouped_gemm_kernel(cuda_device, m, k, n, sizes):
     """The grouped GEMM against its plain version: empty groups, boundary
     m-tiles shared by two groups, M = 16, an M that is no multiple of the
-    tile, rows past the groups exact zeros; forward only."""
+    tile, rows past the groups exact zeros."""
     gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
     lhs, rhs, gs = _gmm_inputs(gen, cuda_device, m, k, n, sizes)
     before = tgg.LAUNCHES["grouped_gemm"]
@@ -645,8 +648,52 @@ def test_grouped_gemm_kernel(cuda_device, m, k, n, sizes):
         assert _norm_rel(got, want) <= NORM_TOL
     if sum(sizes) < m:
         assert got[sum(sizes):].abs().max().item() == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tgg.gmm(lhs, rhs.clone().requires_grad_(), gs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,sizes", _GMM_CASES + [
+    (100, 136, 200, [10, 0, 33, 40, 0, 0, 7, 0]),     # K and N edges
+    (0, 64, 64, [0, 0]),                              # no rows at all
+])
+def test_grouped_gemm_backward_kernels(cuda_device, m, k, n, sizes):
+    """gmm under autograd launches the dlhs and drhs kernels once each,
+    fed a non-contiguous upstream gradient: each within 3e-2 of its plain
+    version's largest magnitude and 1e-2 in norm; dlhs rows past the groups
+    and an empty group's drhs
+    block exact zeros (the outputs are torch.empty: an unwritten element
+    would show)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n + 1)
+    lhs, rhs, gs = _gmm_inputs(gen, cuda_device, m, k, n, sizes)
+    lhs.requires_grad_()
+    rhs.requires_grad_()
+    dout = torch.randn((n, m), generator=gen, device=cuda_device,
+                       dtype=torch.bfloat16).t()      # a strided view
+    before = dict(tgg.LAUNCHES)
+    tgg.gmm(lhs, rhs, gs).backward(dout)
+    assert {key: tgg.LAUNCHES[key] - before[key] for key in before} == {
+        "grouped_gemm": int(m > 0), "grouped_gemm_dlhs": int(m > 0),
+        "grouped_gemm_drhs": 1}
+    total = sum(sizes)
+    for got, want in ((lhs.grad, tgg.gmm_dlhs_plain(dout, rhs.detach(), gs)),
+                      (rhs.grad, tgg.gmm_drhs_plain(lhs.detach(), dout, gs))):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        if total:           # drhs sums a group's rows: 3e-2 of the largest
+            err = (got.float() - want.float()).abs().max()
+            assert (err / want.float().abs().max()).item() <= TOL
+        if total:
+            assert _norm_rel(got, want) <= NORM_TOL
+    if total < m:
+        assert lhs.grad[total:].abs().max().item() == 0.0
+    for e, size in enumerate(sizes):
+        if size == 0:
+            assert rhs.grad[e].abs().max().item() == 0.0
+
+
+# A fault planted in a copy of csrc/grouped_gemm.cu: drhs takes the next
+# group's first row into each group's sum.
+_DRHS_BOUNDARY = (
+    ("const int end = min(start + max(group_sizes[blockIdx.z], 0), m);",
+     "const int end = min(start + max(group_sizes[blockIdx.z], 0) + 1, m);"),)
 
 
 # A fault planted in a copy of csrc/grouped_gemm.cu: the first row of a
@@ -656,11 +703,12 @@ _GMM_BOUNDARY = (("u.lo = start;", "u.lo = start + (start % BM != 0);"),
                  ("u.hi = end;", "u.hi = end + (end % BM != 0 && end < m);"))
 
 
-def _planted_gmm_boundary(tmp_path):
-    """The grouped GEMM library built from a copy of its source with the
-    boundary-row fault planted, in a temporary directory."""
+def _planted_gmm_boundary(tmp_path, fault=_GMM_BOUNDARY):
+    """The grouped GEMM library built from a copy of its source with a
+    boundary-row fault planted (the forward's by default), in a temporary
+    directory."""
     src = (_build.CSRC / "grouped_gemm.cu").read_text()
-    for old, new in _GMM_BOUNDARY:
+    for old, new in fault:
         assert src.count(old) == 1, old
         src = src.replace(old, new)
     cu, so = tmp_path / "boundary.cu", tmp_path / "libboundary.so"
@@ -702,6 +750,89 @@ def test_gmm_norm_bar_catches_planted_boundary_row(cuda_device, tmp_path,
         print(f"gmm {label}: max-abs {a:.3g} norm-rel {n:.3g}")
     assert built[0] <= TOL and built[1] <= NORM_TOL, built
     assert planted[1] > NORM_TOL, planted
+
+
+@pytest.mark.cuda
+def test_drhs_norm_bar_catches_planted_boundary_row(cuda_device, tmp_path,
+                                                    monkeypatch):
+    """At chip_smoke.py's phase-3 training shape (M = 8192 routed rows,
+    4096 x 14336, 8 experts): drhs as built passes both bars, and the
+    planted boundary-row fault (each group's sum takes the next group's
+    first row), built from a copy of the source in a temporary directory,
+    reads above the norm bar."""
+    gen = torch.Generator(device=cuda_device).manual_seed(29)
+    sizes = [1100, 980, 1010, 1050, 990, 1020, 1000, 1042]
+    lhs, _, gs = _gmm_inputs(gen, cuda_device, 8192, 4096, 8, sizes)
+    dout = torch.randn((8192, 14336), generator=gen, device=cuda_device,
+                       dtype=torch.bfloat16)
+    want = tgg.gmm_drhs_plain(lhs, dout, gs)
+
+    def errors():
+        got = tgg.gmm_drhs(lhs, dout, gs)
+        return ((got.float() - want.float()).abs().max().item(),
+                _norm_rel(got, want))
+
+    built = errors()
+    monkeypatch.setitem(_build._LIBS, "grouped_gemm", _planted_gmm_boundary(
+        tmp_path, _DRHS_BOUNDARY))
+    tgg._kernel.cache_clear()
+    try:
+        planted = errors()
+    finally:
+        tgg._kernel.cache_clear()
+    for label, (a, n) in (("built", built), ("planted boundary row",
+                                             planted)):
+        print(f"drhs {label}: max-abs {a:.3g} norm-rel {n:.3g}")
+    assert built[1] <= NORM_TOL, built
+    assert planted[1] > NORM_TOL, planted
+
+
+def _load_chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.cuda
+def test_moe_training_bars_catch_planted_drhs_fault(cuda_device, tmp_path,
+                                                    monkeypatch):
+    """chip_smoke.py's phase 13 as it runs there (a dropless MoE layer and
+    2 layers of the dropless Mixtral at full width, random weights from its
+    seed) held to its bars: the kernels as built pass every bar, and the
+    planted drhs boundary-row fault, built from a copy of the source in a
+    temporary directory, misses some."""
+    smoke = _load_chip_smoke()
+
+    def phase13():
+        tgg._kernel.cache_clear()
+        try:
+            layer = smoke.moe_layer_kernel_vs_plain(torch, cuda_device)
+            model = smoke.moe_model_kernel_vs_plain(torch, np, cuda_device)
+        finally:
+            tgg._kernel.cache_clear()
+            torch.cuda.empty_cache()
+        return layer, model, smoke.moe_training_failures(layer, model)
+
+    built = phase13()
+    monkeypatch.setitem(_build._LIBS, "grouped_gemm", _planted_gmm_boundary(
+        tmp_path, _DRHS_BOUNDARY))
+    planted = phase13()
+    for label, (layer, model, missed) in (("built", built),
+                                          ("planted drhs boundary row",
+                                           planted)):
+        print(f"moe training {label}: layer {layer['norm_rel_err']}, vs "
+              f"fp32 {layer['norm_rel_err_vs_fp32']}; model loss "
+              f"{model['loss_rel_err']:.3g} logits "
+              f"{model['logits_norm_rel_err']:.3g} vs fp32 "
+              f"{model['logits_vs_fp32']}; missed {missed}")
+    assert built[1]["kernel_launches"]["grouped_gemm_drhs"] > 0
+    assert not built[2], built[2]
+    assert planted[2]
 
 
 @pytest.mark.cuda
@@ -765,13 +896,7 @@ def test_mixtral_slice_bars_catch_planted_gmm_fault(cuda_device, tmp_path,
     narrower model: its bars were set from readings at that shape, and at
     hidden 512 with 8 experts one flipped top-2 route puts the own-KV
     decode 0.34 of the largest logit off as built."""
-    import importlib.util
-    from pathlib import Path
-
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _load_chip_smoke()
     rng = np.random.default_rng(smoke.SEED)
     prompts = [rng.integers(0, 32000, size=256).tolist() for _ in range(8)]
 

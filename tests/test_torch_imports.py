@@ -6,8 +6,8 @@
 * importing the package builds nothing;
 * an entry point called without ``device="cpu"`` on a machine without a
   GPU raises instead of running on the CPU (the serving engine, the
-  training ``initialize``, the weight bridges), and a kernel build without
-  ``nvcc`` raises.
+  training ``initialize``, the Llama and Mixtral models, ``MoE``, the
+  weight bridges), and a kernel build without ``nvcc`` raises.
 """
 
 import ast
@@ -113,6 +113,18 @@ def test_entry_points_raise_without_a_gpu():
             config={"train_micro_batch_size_per_gpu": 1})
     with pytest.raises(RuntimeError, match="CUDA"):
         llama_state_dict_from_flax({"lm_head": {"kernel": [[1.0]]}})
+
+    from deepspeed_tpu_torch.models import MixtralForCausalLM
+    from deepspeed_tpu_torch.moe import MoE
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MixtralForCausalLM(mcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MoE(8, 16, num_experts=2, dropless=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deepspeed_tpu_torch.initialize(
+            model=MixtralForCausalLM(mcfg, device="cpu", dropless=True),
+            config={"train_micro_batch_size_per_gpu": 1})
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
