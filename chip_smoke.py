@@ -88,7 +88,10 @@ Phases, each fatal on failure:
    model in fp32, the kernel path's put and decode logits no more than 5%
    farther off in norm than the plain path's; the kernel path launches the
    tiled prefill, decode and grouped GEMM kernels and nothing else, the
-   plain path nothing;
+   plain path nothing; then one ``verify_step`` of 3 fed tokens a request on
+   the kernel path (Mixtral has no verify route: the rows take the generic
+   paged kernel), each row within 3e-2 of the kernel path's sequential
+   ``decode_step`` rows;
 12. Mixtral served: full width, 16 of its 32 layers (the bf16 weights of
    all 32, ~93.5 GB, do not fit the card's 80 GB), engine as in phase 11:
    8 requests of 256-token prompts, 48 greedy tokens through ``put`` and
@@ -118,7 +121,34 @@ Phases, each fatal on failure:
    flash forward, dQ and dK/dV 1 a layer, and no other kernel;
 15. the same for ``MixtralForCausalLM`` as the JAX package builds it
    (capacity top-2, the dispatch and expert products library calls):
-   flash 1 a layer a step, no grouped GEMM.
+   flash 1 a layer a step, no grouped GEMM;
+16. the flash kernels' strided mode (the folded and paired entries) against
+   the plain versions in bf16, with phase 6's bars: GPT-2-125M's shape (12
+   heads, d = 64, 8 x 1024, q / k / v views of one [8, 1024, 2304]
+   ``c_attn`` output), the bench model's TPU geometry (6 heads, d = 128,
+   16 x 1024), Llama-2-70B's heads as views of a fused ``qkv_proj`` output,
+   a sliding window, a rectangular end-aligned case (k / v views); the
+   contiguous mode on ``.contiguous()`` copies must give the same bits;
+   each timed beside the contiguous mode plus its copies, the plain
+   versions, SDPA (a yardstick) and the bound;
+17. GPT-2-125M at full width and 12 layers, random fp32 weights drawn on
+   the card from SEED, batch 8 x 1024, the bench ds_config with
+   ``attention_layout`` "paired": 3 engine steps through the kernels and 3
+   through the plain versions (losses within 1e-3, logits before the first
+   step within 3e-2 and the first step's ``c_attn`` gradients within 5e-2
+   in norm, each no more than 5% farther from the fp32 model's than the
+   plain path's); "folded" and "bshd" from the same init must give the
+   paired path's losses, logits and gradients bit for bit; only the
+   kernel path launches, every launch counted under its layout's entry;
+18. the trained runs through ``initialize``, 3 warm-up and 20 timed steps
+   each: GPT-2-125M under "bshd", "folded" and "paired" (micro-batch 8),
+   the 12-layer bench model under "folded" and "paired" at 12 heads
+   (micro-batch 8) and "folded" at 6 heads (d = 128, micro-batch 16, where
+   paired falls back to folded): ms/step, tokens/s, MFU, peak memory, a
+   finite falling loss, and exactly 12 launches a step of each flash
+   kernel under the entry the layout implies and none under the others
+   (counts set to 0 just before the timed steps); one traced GPT-2 paired
+   step.
 
 The second-to-last lines are the ``kernels`` JSON record and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -691,12 +721,17 @@ INT8_DECODE_RUN = ("quantized_matmul", "paged_attention_int8",
                    "paged_decode_attention_int8")
 TRAINING = ("flash_attention_fwd", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv")
+#: the same kernels launched through the folded and the paired entry
+FLASH_BY_ENTRY = {"bshd": TRAINING,
+                  **{e: tuple(f"{k}_{e}" for k in TRAINING)
+                     for e in ("folded", "paired")}}
+ALL_FLASH = sum(FLASH_BY_ENTRY.values(), ())
 MIXTRAL_SERVING = ("paged_prefill_attention", "paged_decode_attention",
                    "grouped_gemm")
 MOE_GMM = ("grouped_gemm", "grouped_gemm_dlhs", "grouped_gemm_drhs")
 MOE_TRAINING = TRAINING + MOE_GMM
 ALL_KERNELS = tuple(dict.fromkeys(BF16_SERVING + INT8_SPECULATIVE
-                                  + TRAINING + MIXTRAL_SERVING + MOE_GMM))
+                                  + ALL_FLASH + MIXTRAL_SERVING + MOE_GMM))
 
 
 def read_launches(keys=ALL_KERNELS):
@@ -1109,6 +1144,7 @@ def mixtral_kernel_vs_plain(torch, np, prompts, steps=4):
 
     p_put, p_own, p_dec, p_launch = run(cfg, params, False)
     k_put, k_own, k_dec, k_launch = run(cfg, params, True)
+    verify = mixtral_verify_vs_decode(torch, cfg, params, prompts, max_ctx)
     params = _tree_map(params, lambda t: t.float())
     f_put, _, f_dec, _ = run(dataclasses.replace(cfg, dtype=torch.float32),
                              params, False)
@@ -1134,9 +1170,50 @@ def mixtral_kernel_vs_plain(torch, np, prompts, steps=4):
             "kernel_other_launches": {k: v for k, v in k_launch.items()
                                       if k not in MIXTRAL_SERVING and v},
             "plain_launches": p_launch,
+            "verify": verify,
             "finite": bool(torch.isfinite(k_put).all()
                            and torch.isfinite(k_own).all()
-                           and torch.isfinite(k_dec).all())}
+                           and torch.isfinite(k_dec).all()
+                           and verify["finite"])}
+
+
+def mixtral_verify_vs_decode(torch, cfg, params, prompts, max_ctx,
+                             k_tokens=3):
+    """Phase 11, verify part, on the kernel path: one engine decodes the
+    prompts' next ``k_tokens`` greedy tokens with sequential
+    ``decode_step`` calls, another scores the same fed tokens in one
+    ``verify_step`` (Mixtral has no verify route, so its rows go through
+    the generic paged kernel, as in the JAX package); each verify row
+    against the decode row of the same fed prefix."""
+    uids = list(range(len(prompts)))
+    n = len(uids)
+    seq_eng = make_engine(torch, cfg, params, max_ctx, True, mixtral=True)
+    ver_eng = make_engine(torch, cfg, params, max_ctx, True, mixtral=True)
+    first = {}
+    for i in range(0, n, 2):
+        first.update(seq_eng.put(uids[i:i + 2], prompts[i:i + 2]))
+        ver_eng.put(uids[i:i + 2], prompts[i:i + 2])
+    fed = [[int(first[u].argmax()) for u in uids]]
+    rows = []
+    for i in range(k_tokens):
+        logits = seq_eng.decode_step(uids, fed[i])[:n].float()
+        rows.append(logits)
+        fed.append(logits.argmax(-1).tolist())
+    reset_launches()
+    ver = ver_eng.verify_step(
+        uids, [[fed[k][s] for k in range(k_tokens)] for s in range(n)])
+    ver = ver[:n].float()
+    torch.cuda.synchronize()
+    launches = read_launches(ALL_KERNELS)
+    dec = torch.stack(rows, 1)
+    for eng in (seq_eng, ver_eng):
+        eng.flush(uids)
+    return {"k_tokens": k_tokens,
+            "verify_vs_decode_rel_err": (
+                (ver - dec).abs().max() / dec.abs().max()).item(),
+            "verify_vs_decode_norm_rel_err": rel_norm(ver, dec),
+            "verify_launches": {k: v for k, v in launches.items() if v},
+            "finite": bool(torch.isfinite(ver).all())}
 
 
 def mixtral_slice_failures(mix) -> list:
@@ -1144,7 +1221,9 @@ def mixtral_slice_failures(mix) -> list:
     misses (empty when it passes): every logit set within TOL of the plain
     path's largest magnitude; put within NORM_TOL and shared-KV decode
     within MIXTRAL_DECODE_NORM_TOL in norm; against fp32, the kernel path at
-    most FP32_RATIO times the plain path's distance; finite values."""
+    most FP32_RATIO times the plain path's distance; the kernel path's
+    verify rows within TOL of its sequential decode rows; finite
+    values."""
     missed = [f"{k} max {v:.4g} > {TOL}"
               for k, v in mix["logits_rel_err"].items() if not v <= TOL]
     norm = mix["logits_norm_rel_err"]
@@ -1155,6 +1234,9 @@ def mixtral_slice_failures(mix) -> list:
         if not d["kernel"] <= FP32_RATIO * d["plain"]:
             missed.append(f"{key} vs fp32 {d['kernel']:.4g} > "
                           f"{FP32_RATIO} x {d['plain']:.4g}")
+    ver = mix["verify"]["verify_vs_decode_rel_err"]
+    if not ver <= TOL:
+        missed.append(f"verify vs sequential decode max {ver:.4g} > {TOL}")
     if not mix["finite"]:
         missed.append("non-finite logits")
     return missed
@@ -1535,6 +1617,22 @@ FLASH_CASES = (
 )
 
 
+# phase 16: the strided mode, through the folded entry's counters
+STRIDED_CASES = (
+    # name, B, Sq, Sk, H, Hkv, D, window, fused
+    ("gpt2 B8 S1024 H12 D64 c_attn views", 8, 1024, 1024, 12, 12, 64, None,
+     "qkv"),
+    ("bench TPU geometry B16 S1024 H6 D128", 16, 1024, 1024, 6, 6, 128, None,
+     "none"),
+    ("70B heads B2 S2048 H64/8 D128 qkv_proj views", 2, 2048, 2048, 64, 8,
+     128, None, "qkv"),
+    ("window 256 B2 S2048 H8 D64 qkv views", 2, 2048, 2048, 8, 8, 64, 256,
+     "qkv"),
+    ("rect Sq512 Sk1024 B2 H8 D64 kv views", 2, 512, 1024, 8, 8, 64, None,
+     "kv"),
+)
+
+
 def visible_pairs(sq, sk, window):
     """(row, column) pairs a causal end-aligned mask keeps."""
     off = sk - sq
@@ -1546,38 +1644,80 @@ def visible_pairs(sq, sk, window):
     return total
 
 
-def flash_case(torch, gen, dev, name, b, sq, sk, h, hkv, d, window):
-    """One phase-6 case: each kernel against its plain version, timed
-    beside it, the SDPA yardstick and the bound."""
+def flash_case(torch, gen, dev, name, b, sq, sk, h, hkv, d, window,
+               fused=None):
+    """One phase-6 case (``fused`` None: q, k and v tensors of their own,
+    the bshd entry's counters) or phase-16 case (the strided mode through
+    the folded entry's counters; ``fused`` "qkv": q, k and v column views
+    of one [B, S, (H + 2 Hkv) D] projection output, "kv": k and v views
+    of one [B, Sk, 2 Hkv D], "none": tensors of their own): each kernel
+    against its plain version, timed beside it, the SDPA yardstick and the
+    bound.  A phase-16 case also runs the contiguous-mode kernels on
+    ``.contiguous()`` copies of k and v, which must give the same bits,
+    and times them with those copies."""
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
     bf16 = torch.bfloat16
     scale = d ** -0.5
+    entry = "bshd" if fused is None else "folded"
     call_bytes = 2 * (2 * b * sq * h * d + 2 * b * sk * hkv * d)
     sets = n_sets(call_bytes)
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=bf16)
 
+    def views(buf, *widths):
+        return [t.unflatten(-1, (-1, d))
+                for t in buf.split([w * d for w in widths], dim=-1)]
+
+    def fwd(qs, k, v):
+        return fa.flash_attention_fwd(qs, k, v, True, window, entry)
+
+    def bwd(qs, k, v, o, lse, do):
+        return fa.flash_attention_bwd(qs, k, v, o, lse, do, scale, True,
+                                      window, entry)
+
     ops = []
     for _ in range(sets):
-        q, k, v, do = (rand(b, sq, h, d), rand(b, sk, hkv, d),
-                       rand(b, sk, hkv, d), rand(b, sq, h, d))
+        if fused == "qkv":
+            q, k, v = views(rand(b, sq, (h + 2 * hkv) * d), h, hkv, hkv)
+            do = rand(b, sq, h, d)
+        elif fused == "kv":
+            q = rand(b, sq, h, d)
+            k, v = views(rand(b, sk, 2 * hkv * d), hkv, hkv)
+            do = rand(b, sq, h, d)
+        else:
+            q, k, v, do = (rand(b, sq, h, d), rand(b, sk, hkv, d),
+                           rand(b, sk, hkv, d), rand(b, sq, h, d))
         qs = (q.float() * scale).to(bf16)
-        o, lse = fa.flash_attention_fwd(qs, k, v, True, window)
+        o, lse = fwd(qs, k, v)
         _, delta = fa.flash_attention_bwd_dq(qs, k, v, o, do, lse, scale,
-                                             True, window)
+                                             True, window, entry)
         ops.append(dict(q=q, k=k, v=v, do=do, qs=qs, o=o, lse=lse,
                         delta=delta))
     x = ops[0]
     got = {"o": x["o"], "lse": x["lse"], "delta": x["delta"]}
     got["dq"], _ = fa.flash_attention_bwd_dq(
         x["qs"], x["k"], x["v"], x["o"], x["do"], x["lse"], scale, True,
-        window)
+        window, entry)
     got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(
-        x["qs"], x["k"], x["v"], x["do"], x["lse"], x["delta"], True, window)
+        x["qs"], x["k"], x["v"], x["do"], x["lse"], x["delta"], True, window,
+        entry)
+    bit_equal = None
+    if fused is not None:
+        kc, vc = x["k"].contiguous(), x["v"].contiguous()
+        co, clse = fwd(x["qs"], kc, vc)
+        cdq, cdelta = fa.flash_attention_bwd_dq(x["qs"], kc, vc, co,
+                                                x["do"], clse, scale, True,
+                                                window, entry)
+        cdk, cdv = fa.flash_attention_bwd_dkv(x["qs"], kc, vc, x["do"], clse,
+                                              cdelta, True, window, entry)
+        contiguous = dict(o=co, lse=clse, delta=cdelta, dq=cdq, dk=cdk,
+                          dv=cdv)
+        bit_equal = {key: torch.equal(got[key], contiguous[key])
+                     for key in got}
     want = {}
     want["o"], want["lse"] = fa.flash_attention_plain_fwd(
         x["qs"], x["k"], x["v"], causal=True, window=window)
@@ -1618,26 +1758,31 @@ def flash_case(torch, gen, dev, name, b, sq, sk, h, hkv, d, window):
     }
     iters = 20
     t = {
-        "fwd": time_ms(lambda i: fa.flash_attention_fwd(
-            ops[i]["qs"], ops[i]["k"], ops[i]["v"], True, window),
-            sets, iters),
+        "fwd": time_ms(lambda i: fwd(ops[i]["qs"], ops[i]["k"],
+                                     ops[i]["v"]), sets, iters),
         "bwd_dq": time_ms(lambda i: fa.flash_attention_bwd_dq(
             ops[i]["qs"], ops[i]["k"], ops[i]["v"], ops[i]["o"],
-            ops[i]["do"], ops[i]["lse"], scale, True, window),
+            ops[i]["do"], ops[i]["lse"], scale, True, window, entry),
             sets, iters),
         "bwd_dkv": time_ms(lambda i: fa.flash_attention_bwd_dkv(
             ops[i]["qs"], ops[i]["k"], ops[i]["v"], ops[i]["do"],
-            ops[i]["lse"], ops[i]["delta"], True, window), sets, iters),
+            ops[i]["lse"], ops[i]["delta"], True, window, entry),
+            sets, iters),
     }
 
-    def kernel_fwd_bwd(i):
+    def kernel_fwd_bwd(i, copy=False):
         y = ops[i]
-        o, lse = fa.flash_attention_fwd(y["qs"], y["k"], y["v"], True,
-                                        window)
-        fa.flash_attention_bwd(y["qs"], y["k"], y["v"], o, lse, y["do"],
-                               scale, True, window)
+        k, v = ((y["k"].contiguous(), y["v"].contiguous()) if copy
+                else (y["k"], y["v"]))
+        o, lse = fwd(y["qs"], k, v)
+        bwd(y["qs"], k, v, o, lse, y["do"])
 
     t["fwd+bwd"] = time_ms(kernel_fwd_bwd, sets, iters)
+    if fused is not None:
+        # what reading in place saves: the contiguous mode needs copies
+        # of the k and v views first
+        t["fwd+bwd contiguous + copies"] = time_ms(
+            lambda i: kernel_fwd_bwd(i, copy=True), sets, iters)
     plain = {
         "fwd": time_ms(lambda i: fa.flash_attention_plain_fwd(
             ops[i]["qs"], ops[i]["k"], ops[i]["v"], causal=True,
@@ -1683,6 +1828,8 @@ def flash_case(torch, gen, dev, name, b, sq, sk, h, hkv, d, window):
     lib_fwd_bwd = time_ms(sdpa_fwd_bwd, sets, iters)
     return {
         "name": name, "shape": [b, sq, sk, h, hkv, d, window],
+        "fused": fused, "strides": {n: x[n].stride(1) for n in "qkv"},
+        "bit_equal_to_contiguous": bit_equal,
         "rel_err": rel, "norm_rel_err": norm_rel, "abs_err": abs_err,
         "ms": t, "plain_ms": plain,
         "library_ms": {"fwd": lib_fwd, "fwd+bwd": lib_fwd_bwd},
@@ -1715,33 +1862,54 @@ def bench_llama(torch, layers, dtype=None):
                        dtype=dtype or torch.bfloat16)
 
 
-def bench_ids(torch, np, dev, vocab):
+def bench_ids(torch, np, dev, vocab, batch=8):
     rng = np.random.default_rng(SEED)
-    return torch.from_numpy(rng.integers(0, vocab, size=(8, 1024))
+    return torch.from_numpy(rng.integers(0, vocab, size=(batch, 1024))
                             .astype(np.int32)).to(dev)
 
 
-def train_engine(torch, cfg, dev, use_kernels=True, config=None):
+def gpt2_model(torch, dev, layout, use_kernels=True, dtype=None):
+    """GPT-2-125M at full width and depth (vocab 50257, hidden 768, 12
+    layers of 12 heads, d = 64, 1024 positions), fp32 weights drawn on the
+    card from SEED."""
+    from deepspeed_tpu_torch.models import GPT2Config, GPT2LMHeadModel
+
+    cfg = GPT2Config.gpt2_125m(dtype=dtype or torch.bfloat16,
+                               attention_layout=layout)
+    return GPT2LMHeadModel(cfg, seed=SEED, device=dev,
+                           use_kernels=use_kernels)
+
+
+def engine_for(model, config, dev):
+    """The engine ``deepspeed_tpu_torch.initialize`` builds for ``model``."""
     import deepspeed_tpu_torch
+
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model,
+                                                     config=config,
+                                                     device=dev)
+    return engine
+
+
+def train_engine(torch, cfg, dev, use_kernels=True, config=None):
     from deepspeed_tpu_torch.models import LlamaForCausalLM
 
     model = LlamaForCausalLM(cfg, seed=SEED, device=dev,
                              use_kernels=use_kernels)
-    engine, _, _, _ = deepspeed_tpu_torch.initialize(
-        model=model, config=config or BENCH_DS_CONFIG, device=dev)
-    return engine
+    return engine_for(model, config or BENCH_DS_CONFIG, dev)
 
 
 def train_step(engine, ids, grads=None):
     """One engine step; with ``grads`` (a dict), first the accumulated
-    fp32 gradients of the attention projections (q, k, v), by name."""
+    fp32 gradients of the attention projections (Llama's q, k, v; GPT-2's
+    fused c_attn), by name."""
     loss = engine(ids, ids)
     engine.backward(loss)
     if grads is not None:
         names = [n for n, p in engine.module.named_parameters()
                  if p.requires_grad]
         grads.update({n: g.clone() for n, g in zip(names, engine.acc_grads)
-                      if n.split(".")[-2] in ("q_proj", "k_proj", "v_proj")})
+                      if n.split(".")[-2] in ("q_proj", "k_proj", "v_proj",
+                                              "c_attn")})
     engine.step()
     return loss.detach()
 
@@ -1796,14 +1964,113 @@ def training_kernel_vs_plain(torch, np, dev, steps=3):
             "kernel_launches": k_launch, "plain_launches": p_launch}
 
 
-def trained_run(torch, np, dev, warmup=3, steps=20):
-    """Phase 8: the 12-layer bench model through initialize -> engine."""
+def gpt2_kernel_vs_plain(torch, np, dev, steps=3):
+    """Phase 17: GPT-2-125M at full width and 12 layers, batch 8 x 1024,
+    the bench ds_config with ``attention_layout`` "paired": the same init
+    and ids, 3 engine steps through the kernels and 3 through the plain
+    versions; the same model in fp32 (plain attention, one step) as the
+    yardstick; and 3 steps under "folded" and "bshd" through the kernels,
+    whose logits and gradients are expected to equal the paired path's
+    bit for bit (one kernel family, reading the same c_attn views)."""
+    import gc
+
+    ids = bench_ids(torch, np, dev, 50257)
+    res = {}
+    for mode in ("paired", "plain", "fp32", "folded", "bshd"):
+        layout = mode if mode in ("folded", "bshd") else "paired"
+        config = {**BENCH_DS_CONFIG, "attention_layout": layout}
+        if mode == "fp32":
+            config["bf16"] = {"enabled": False}
+        model = gpt2_model(torch, dev, layout,
+                           use_kernels=mode not in ("plain", "fp32"),
+                           dtype=torch.float32 if mode == "fp32" else None)
+        engine = engine_for(model, config, dev)
+        with torch.no_grad():
+            logits = engine.module(ids)
+        reset_launches()
+        grads = {}
+        losses = [train_step(engine, ids, grads if i == 0 else None)
+                  for i in range(1 if mode == "fp32" else steps)]
+        torch.cuda.synchronize()
+        res[mode] = ([float(x) for x in losses], logits, grads,
+                     read_launches(ALL_FLASH))
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    k_loss, k_logits, k_grads, k_launch = res["paired"]
+    p_loss, p_logits, p_grads, p_launch = res["plain"]
+    _, f_logits, f_grads, _ = res["fp32"]
+    layouts = {}
+    for lay in ("folded", "bshd"):
+        loss, logits, grads, launch = res[lay]
+        layouts[lay] = {
+            "losses_equal": loss == k_loss,
+            "logits_equal": torch.equal(logits, k_logits),
+            "grads_equal": all(torch.equal(grads[n], k_grads[n])
+                               for n in k_grads),
+            "logits_max_abs_diff": (logits.float() - k_logits.float())
+            .abs().max().item(),
+            "grads_max_abs_diff": max((grads[n] - k_grads[n]).abs().max()
+                                      .item() for n in k_grads),
+            "launches": launch}
+    return {"layers": 12, "batch": list(ids.shape),
+            "kernel_losses": k_loss, "plain_losses": p_loss,
+            "loss_rel_err": max(abs(a - b) / abs(b)
+                                for a, b in zip(k_loss, p_loss)),
+            "logits_norm_rel_err": rel_norm(k_logits, p_logits),
+            "c_attn_grad_norm_rel_err": {n: rel_norm(k_grads[n], p_grads[n])
+                                         for n in p_grads},
+            "logits_vs_fp32": {"kernel": rel_norm(k_logits, f_logits),
+                               "plain": rel_norm(p_logits, f_logits)},
+            "c_attn_grad_vs_fp32": {
+                "kernel": max(rel_norm(k_grads[n], f_grads[n])
+                              for n in f_grads),
+                "plain": max(rel_norm(p_grads[n], f_grads[n])
+                             for n in f_grads)},
+            "layouts_vs_paired": layouts,
+            "kernel_launches": k_launch, "plain_launches": p_launch,
+            "finite": all(math.isfinite(x) for x in k_loss)}
+
+
+#: phase 18: (model, attention_layout, heads, micro-batch)
+LAYOUT_RUNS = (("gpt2", "bshd", 12, 8), ("gpt2", "folded", 12, 8),
+               ("gpt2", "paired", 12, 8), ("llama", "folded", 12, 8),
+               ("llama", "paired", 12, 8), ("llama", "folded", 6, 16))
+
+
+def trained_run(torch, np, dev, warmup=3, steps=20, kind="llama",
+                layout="bshd", heads=12, batch=8, traced=True):
+    """Phase 8 (the 12-layer bench model, bshd) and phase 18 (GPT-2-125M
+    or the bench model under ``layout``, at ``heads`` heads of the 768
+    width and micro-batch ``batch``) through initialize -> engine: 3
+    warm-up and 20 timed steps on one batch from SEED, then, when
+    ``traced``, two traced steps.  ``expected_launches``: 12 a step of
+    each flash kernel, under the entry the layout implies (paired falls
+    back to folded where pairing does not apply, d = 128)."""
+    import gc
+
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        paired_heads_per_block)
+
+    # an engine is its own optimizer (a reference cycle): collect the last
+    # run's before the peak is reset, or it counts in this run's peak
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = bench_llama(torch, 12)
-    ids = bench_ids(torch, np, dev, cfg.vocab_size)
     t0 = time.perf_counter()
-    engine = train_engine(torch, cfg, dev)
+    config = {**BENCH_DS_CONFIG, "attention_layout": layout,
+              "train_micro_batch_size_per_gpu": batch}
+    if kind == "gpt2":
+        model = gpt2_model(torch, dev, None)
+    else:
+        from deepspeed_tpu_torch.models import LlamaForCausalLM
+
+        model = LlamaForCausalLM(dataclasses.replace(
+            bench_llama(torch, 12), num_attention_heads=heads,
+            num_key_value_heads=heads), seed=SEED, device=dev)
+    cfg = model.config
+    ids = bench_ids(torch, np, dev, cfg.vocab_size, batch)
+    engine = engine_for(model, config, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     losses = [train_step(engine, ids) for _ in range(warmup)]
@@ -1813,25 +2080,35 @@ def trained_run(torch, np, dev, warmup=3, steps=20):
     losses += [train_step(engine, ids) for _ in range(steps)]
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
-    launches = read_launches(TRAINING)
+    launches = read_launches(ALL_FLASH)
     losses = [float(x) for x in losses]
-    trace = profile_window(torch, lambda: [train_step(engine, ids)
-                                           for _ in range(2)], 2, top=12)
+    trace = None
+    if traced:
+        trace = profile_window(torch, lambda: [train_step(engine, ids)
+                                               for _ in range(2)], 2, top=12)
     if trace is not None:
         # the tracer inflates the wall: the idle share of an untraced step
         # sets the traced device time against the untraced step time
         trace["device_idle_share_untraced"] = \
             1.0 - trace["device_busy_ms_per_step"] / (step_s * 1e3)
     tokens = ids.numel()
+    # matmul parameters: lookups only (Llama's embed_tokens, GPT-2's wpe)
+    # do not count; GPT-2's tied wte counts once, as the unembedding
     n_matmul = sum(p.numel() for n, p in engine.module.named_parameters()
-                   if "embed_tokens" not in n)
+                   if "embed_tokens" not in n and "wpe" not in n)
     hd = cfg.hidden_size // cfg.num_attention_heads
+    entry = layout
+    if layout == "paired" and paired_heads_per_block(
+            cfg.num_attention_heads, cfg.num_attention_heads, hd) is None:
+        entry = "folded"
     # causal attention: 4 B H S^2 D / 2 forward, 2.5x that backward
     attn = 3.5 * 4.0 * ids.shape[0] * cfg.num_attention_heads * \
         visible_pairs(ids.shape[1], ids.shape[1], None) * hd * \
         cfg.num_hidden_layers
     flops = 6.0 * n_matmul * tokens + attn
-    return {
+    out = {
+        "model": kind, "attention_layout": layout, "heads": heads,
+        "head_dim": hd, "entry": entry,
         "layers": cfg.num_hidden_layers, "batch": list(ids.shape),
         "params": sum(m.numel() for m in engine.master),
         "matmul_params": n_matmul, "engine_init_s": init_s,
@@ -1840,10 +2117,17 @@ def trained_run(torch, np, dev, warmup=3, steps=20):
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
         "launches": launches,
-        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "expected_launches": {
+            k: (12 * steps if k in FLASH_BY_ENTRY[entry] else 0)
+            for k in ALL_FLASH},
+        "launches_per_step": {k: v / steps for k, v in launches.items()
+                              if k in FLASH_BY_ENTRY[entry]},
         "finite": all(math.isfinite(x) for x in losses),
         "trace": trace,
     }
+    del engine, model
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile_window(torch, fn, steps, top=6):
@@ -2079,11 +2363,13 @@ def main() -> int:
                     f"path: {'; '.join(missed)}")
     if any(v == 0 for v in mix["kernel_launches"].values()) \
             or mix["kernel_other_launches"] \
-            or any(mix["plain_launches"].values()):
+            or any(mix["plain_launches"].values()) \
+            or not mix["verify"]["verify_launches"].get("paged_attention"):
         return fail(f"Mixtral launch counts: kernel path "
                     f"{mix['kernel_launches']} (others "
                     f"{mix['kernel_other_launches']}), plain path "
-                    f"{mix['plain_launches']}")
+                    f"{mix['plain_launches']}, verify "
+                    f"{mix['verify']['verify_launches']}")
 
     # 12. Mixtral served at full width, 16 of 32 layers (counts reset just
     # before, read just after)
@@ -2137,6 +2423,70 @@ def main() -> int:
         moe_runs[run["model"]] = run
     moe_l = moe_runs["dropless"]["launches"]
 
+    # 16. the strided mode against the plain versions and the contiguous
+    # mode, at GPT-2's and the other training shapes
+    strided = [flash_case(torch, gen, dev, *c) for c in STRIDED_CASES]
+    for c in strided:
+        print(f"[strided] {c['name']}: norm rel err "
+              f"{ {k: float(f'{v:.3g}') for k, v in c['norm_rel_err'].items()} }"
+              f" bit-equal {all(c['bit_equal_to_contiguous'].values())} | "
+              f"ms fwd+bwd {c['ms']['fwd+bwd']:.4f} contiguous+copies "
+              f"{c['ms']['fwd+bwd contiguous + copies']:.4f} | plain "
+              f"{c['plain_ms']['fwd+bwd']:.3f} | SDPA "
+              f"{c['library_ms']['fwd+bwd']:.4f} | bound "
+              f"{c['bound_ms']['fwd+bwd']:.4f} ({c['bound_by']['fwd+bwd']})",
+              flush=True)
+    bad = [c["name"] for c in strided
+           if not all(v <= TOL for v in c["rel_err"].values())
+           or not all(v <= NORM_TOL for v in c["norm_rel_err"].values())
+           or not all(c["bit_equal_to_contiguous"].values())]
+    if bad:
+        return fail(f"strided flash kernels disagree with their plain "
+                    f"versions or with the contiguous mode: {bad}")
+
+    # 17. the slice checked: GPT-2-125M, 12 layers, paired; kernels vs
+    # plain vs fp32, and the folded and bshd layouts against paired
+    g_slice = gpt2_kernel_vs_plain(torch, np, dev)
+    print(f"[gpt2-slice] {json.dumps(g_slice)}", flush=True)
+    grad_rel = g_slice["c_attn_grad_norm_rel_err"]
+    if not (g_slice["finite"] and g_slice["loss_rel_err"] <= LOSS_TOL
+            and g_slice["logits_norm_rel_err"] <= LOGITS_TOL
+            and len(grad_rel) == 24          # 12 c_attn weights, 12 biases
+            and all(v <= GRAD_TOL for v in grad_rel.values())
+            and all(d["kernel"] <= FP32_RATIO * d["plain"]
+                    for d in (g_slice["logits_vs_fp32"],
+                              g_slice["c_attn_grad_vs_fp32"]))):
+        return fail(f"GPT-2 kernel path differs from the plain path: "
+                    f"{g_slice}")
+    want_k = {k: (36 if k in FLASH_BY_ENTRY["paired"] else 0)
+              for k in ALL_FLASH}
+    if g_slice["kernel_launches"] != want_k or any(
+            g_slice["plain_launches"].values()) or any(
+            d["launches"] != {k: (36 if k in FLASH_BY_ENTRY[lay] else 0)
+                              for k in ALL_FLASH}
+            for lay, d in g_slice["layouts_vs_paired"].items()):
+        return fail(f"GPT-2 slice launches: paired "
+                    f"{g_slice['kernel_launches']}, plain "
+                    f"{g_slice['plain_launches']}, others "
+                    f"{g_slice['layouts_vs_paired']}")
+
+    # 18. the trained runs under each layout (counts reset just before
+    # the timed steps, read just after)
+    runs = {}
+    for kind, layout, heads, batch in LAYOUT_RUNS:
+        run = trained_run(torch, np, dev, kind=kind, layout=layout,
+                          heads=heads, batch=batch,
+                          traced=(kind, layout) == ("gpt2", "paired"))
+        key = f"{kind} {layout} H{heads} B{batch}"
+        print(f"[layout-trained {key}] {json.dumps(run)}", flush=True)
+        if not (run["finite"] and run["last_loss"] < run["first_loss"]):
+            return fail(f"phase 18 {key}: training did not converge: "
+                        f"{run['losses']}")
+        if run["launches"] != run["expected_launches"]:
+            return fail(f"phase 18 {key}: launches {run['launches']}, "
+                        f"expected {run['expected_launches']}")
+        runs[key] = run
+
     src = "deepspeed_tpu_torch/csrc/"
     ref = "deepspeed_tpu/"
     bf_py = ref + "inference/v2/kernels/blocked_flash.py:"
@@ -2187,6 +2537,33 @@ def main() -> int:
                 "library_ms": c["library_ms"]["fwd"] if kname == "fwd"
                 else None,
             })
+    # B7 / B8: the strided mode through the folded and paired entries (one
+    # kernel family: a case's times serve both entries); launches from
+    # GPT-2's phase-18 runs under "folded" and "paired"
+    fa_py = ref + "ops/flash_attention.py:"
+    layout_kernels = {
+        "folded": {"fwd": "568/:600", "bwd_dq": "720", "bwd_dkv": "766"},
+        "paired": {"fwd": "1091/:1133", "bwd_dq": "1272",
+                   "bwd_dkv": "1334"},
+    }
+    for c in strided:
+        for entry, lines in layout_kernels.items():
+            if entry == "paired" and c["shape"][5] >= 128:
+                continue            # pairing applies at d < 128 only
+            launched = runs[f"gpt2 {entry} H12 B8"]["launches"]
+            for kname, (outs, _) in flash_kernels.items():
+                kernels.append({
+                    "name": f"flash_attention_{kname}_{entry}[{c['name']}]",
+                    "route": "cuda", "source": src + "flash_attention.cu",
+                    "replaces": fa_py + lines[kname],
+                    "launches": launched[f"flash_attention_{kname}_{entry}"],
+                    "max_abs_err": max(c["abs_err"][o] for o in outs),
+                    "ms": c["ms"][kname], "plain_ms": c["plain_ms"][kname],
+                    "bound_ms": c["bound_ms"][kname],
+                    "bound_by": c["bound_by"][kname],
+                    "library_ms": c["library_ms"]["fwd"] if kname == "fwd"
+                    else None,
+                })
     record = {"kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2196,7 +2573,9 @@ def main() -> int:
          "train_slice": t_slice, "trained": trained, "spec_slice": spec,
          "spec_served": spec_run, "mixtral_slice": mix,
          "mixtral_served": mixtral, "moe_layer": moe_layer,
-         "moe_slice": moe_model, "moe_trained": moe_runs}, indent=1))
+         "moe_slice": moe_model, "moe_trained": moe_runs,
+         "strided": strided, "gpt2_slice": g_slice, "layout_trained": runs},
+        indent=1))
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,14 @@
 from deepspeed_tpu_torch.checkpoint.jax_params import (
-    flax_params_from_llama_state_dict, flax_params_from_mixtral_state_dict,
-    flax_params_from_moe_state_dict, llama_state_dict_from_flax,
+    flax_params_from_gpt2_state_dict, flax_params_from_llama_state_dict,
+    flax_params_from_mixtral_state_dict, flax_params_from_moe_state_dict,
+    gpt2_state_dict_from_flax, llama_state_dict_from_flax,
     mixtral_state_dict_from_flax, moe_state_dict_from_flax, params_from_jax,
     random_int8_llama_params, random_mixtral_params)
 
-__all__ = ["flax_params_from_llama_state_dict",
+__all__ = ["flax_params_from_gpt2_state_dict",
+           "flax_params_from_llama_state_dict",
            "flax_params_from_mixtral_state_dict",
-           "flax_params_from_moe_state_dict", "llama_state_dict_from_flax",
-           "mixtral_state_dict_from_flax", "moe_state_dict_from_flax",
-           "params_from_jax", "random_int8_llama_params",
-           "random_mixtral_params"]
+           "flax_params_from_moe_state_dict", "gpt2_state_dict_from_flax",
+           "llama_state_dict_from_flax", "mixtral_state_dict_from_flax",
+           "moe_state_dict_from_flax", "params_from_jax",
+           "random_int8_llama_params", "random_mixtral_params"]

@@ -35,6 +35,12 @@ deepspeed_moe.gate.wg.weight``, transposed; the stacked expert weights
 grouped GEMM reads) and a lone ``MoE`` subtree
 (:func:`moe_state_dict_from_flax`, with the residual MoE's Dense kernels
 and ``coefficient/bias``), each with its inverse.
+
+:func:`gpt2_state_dict_from_flax` does the same for ``GPT2LMHeadModel``
+(``h_{i}`` becomes ``h.{i}``, Dense kernels are transposed, ``wte`` /
+``wpe`` ``embedding`` becomes ``weight``, a LayerNorm's ``scale`` becomes
+its ``weight``, biases stay), with :func:`flax_params_from_gpt2_state_dict`
+its inverse.
 """
 
 from __future__ import annotations
@@ -215,3 +221,44 @@ mixtral_state_dict_from_flax = moe_state_dict_from_flax = \
     llama_state_dict_from_flax
 flax_params_from_mixtral_state_dict = flax_params_from_moe_state_dict = \
     flax_params_from_llama_state_dict
+
+
+def gpt2_state_dict_from_flax(params: Any,
+                              device=None) -> Dict[str, torch.Tensor]:
+    """The Flax params of ``GPT2LMHeadModel`` (``{"params": ...}`` or the
+    bare tree, numpy leaves) as the port's ``state_dict`` on ``device``
+    (default CUDA): Dense ``kernel`` -> ``weight`` transposed,
+    ``embedding`` and LayerNorm ``scale`` -> ``weight``, ``bias`` as it
+    is."""
+    dev = resolve_device(device)
+    params = params.get("params", params)
+    out = {}
+    for path, leaf in _flat(params):
+        *mods, leaf_name = path
+        name = ".".join(re.sub(r"^h_(\d+)$", r"h.\1", m) for m in mods)
+        t = _to_tensor(leaf, dev)
+        if leaf_name == "kernel":
+            t = t.t().contiguous()
+        out[f"{name}.{'bias' if leaf_name == 'bias' else 'weight'}"] = t
+    return out
+
+
+def flax_params_from_gpt2_state_dict(state_dict) -> Dict[str, Any]:
+    """The inverse of :func:`gpt2_state_dict_from_flax`: a nested dict of
+    fp32 numpy arrays in the Flax layout."""
+    tree: Dict[str, Any] = {}
+    for name, t in state_dict.items():
+        *mods, leaf_name = name.split(".")
+        mods = re.sub(r"(^|\.)h\.(\d+)", r"\1h_\2", ".".join(mods)).split(".")
+        arr = t.detach().float().cpu().numpy()
+        if leaf_name == "weight" and mods[-1] in ("wte", "wpe"):
+            leaf_name = "embedding"
+        elif leaf_name == "weight" and mods[-1].startswith("ln_"):
+            leaf_name = "scale"
+        elif leaf_name == "weight":
+            leaf_name, arr = "kernel", arr.T.copy()
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf_name] = arr
+    return tree

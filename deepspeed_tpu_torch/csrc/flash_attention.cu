@@ -1,15 +1,31 @@
 // Flash attention forward and backward for Hopper (sm_90a), bf16 or fp16 in,
 // fp32 accumulators.
 //
-// Replaces the three TPU kernels of deepspeed_tpu/ops/flash_attention.py that
-// the training path runs:
+// Replaces the TPU kernels of deepspeed_tpu/ops/flash_attention.py that the
+// training path runs, for all three of its layouts:
 //
-// * `_fwd_kernel_onepass` / `_fwd_kernel` (pallas_call in `_fwd`):
-//   `dstt_flash_fwd`, one CUDA block per 64 query rows of one (batch, head);
-// * `_bwd_dq_kernel` (first pallas_call in `_bwd`): `dstt_flash_bwd_dq`,
-//   one block per 64 query rows of one (batch, head);
-// * `_bwd_dkv_kernel` (second pallas_call in `_bwd`): `dstt_flash_bwd_dkv`,
-//   one block per 64 keys of one (batch, KV head).
+// * forward, `dstt_flash_fwd`, one CUDA block per 64 query rows of one
+//   (batch, head): `_fwd_kernel_onepass` / `_fwd_kernel` (bshd, :119/:148),
+//   `_fwd_kernel_folded_onepass` / `_fwd_kernel_folded` (folded, :568/:600),
+//   `_fwd_kernel_paired_onepass` / `_fwd_kernel_paired` (paired,
+//   :1091/:1133);
+// * dQ, `dstt_flash_bwd_dq`, one block per 64 query rows of one (batch,
+//   head): `_bwd_dq_kernel` (:260), `_bwd_dq_kernel_folded` (:720),
+//   `_bwd_dq_kernel_paired` (:1272);
+// * dK/dV, `dstt_flash_bwd_dkv`, one block per 64 keys of one (batch, KV
+//   head): `_bwd_dkv_kernel` (:302), `_bwd_dkv_kernel_folded` (:766),
+//   `_bwd_dkv_kernel_paired` (:1334).
+//
+// One kernel family serves the three layouts.  The folded layout exists on
+// the TPU to avoid the BSHD <-> BHSD transposes around its kernels; these
+// kernels read BSHD in place, so what "folded" means here is reading q, k and
+// v where the projection left them: every operand is addressed by its own
+// row stride (`Rows`), so column slices of one fused [B, S, (H + 2 Hkv) D]
+// projection output are read without a copy.  The paired layout exists to
+// fill the TPU's 128-lane MXU tile at d = 64; mma.m16n8k16 consumes d in
+// 16-wide slices, so d = 64 already fills the operand and there is nothing to
+// pair: the paired entry launches the same kernels and keeps only its own
+// eligibility rule (ops/flash_attention.py).
 //
 // What they compute, with q pre-scaled by the softmax scale and rounded to
 // the input type (done once outside, as the TPU path does):
@@ -27,11 +43,16 @@
 //   round() is the input type: P and dS are rounded before their products,
 //   as the TPU kernels round them (flash_attention.py:292, :332, :338).
 //
-// Layout: q / o / do / dq are [B, Sq, H, D], k / v / dk / dv [B, Sk, Hkv, D],
-// all contiguous: the kernels read and write BSHD with strides, so the
-// BSHD <-> BHSD transposes around the TPU kernels (flash_attention.py:498-504)
-// do not exist here.  lse and delta are fp32 [B, H, Sq], one value a row (the
-// TPU stores them 8 wide only because its lowering wants it).
+// Layout: q / o / do / dq are [B, Sq, H, D] and k / v / dk / dv [B, Sk, Hkv,
+// D], each with its own row stride (the distance between two consecutive
+// positions, in elements; the batch stride is S times it, a head's D values
+// are contiguous at offset h * D).  The contiguous case is stride = H * D.
+// The kernels read and write BSHD in place, so the BSHD <-> BHSD transposes
+// around the TPU kernels (flash_attention.py:498-504) do not exist here.
+// The wrapper writes o, dq, dk and dv contiguous.  Every row must start on 16
+// bytes (base pointer and stride), for the 16-byte loads.  lse and delta are
+// fp32 [B, H, Sq], one value a row (the TPU stores them 8 wide only because
+// its lowering wants it).
 //
 // Design (the simple one first; wgmma, TMA and warp specialisation are later
 // work): 4 warps a block, 16 rows a warp; tiles of 64 rows staged in shared
@@ -44,7 +65,10 @@
 // (the loop bounds are the TPU's `_run_predicate`), and any S works: the
 // tail tile is loaded with zeros and masked.  GQA: the dK/dV block loops
 // over every query head of its KV group and over the query tiles, summing in
-// registers, so no two blocks write the same rows and no atomics are needed.
+// fp32 registers, so no two blocks write the same rows and no atomics are
+// needed (the TPU's folded and paired backward writes each query head's dk /
+// dv in the input type and sums the group outside, flash_attention.py:905-909:
+// it rounds twice where this rounds once).
 //
 // What bounds them on the H100: at the training shapes (S 1024-2048,
 // D 64-128) the products, ~4 * B * H * Sq * Sk * D flops forward (halved when
@@ -153,6 +177,19 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, size_t row_strid
   }
 }
 
+// Row strides in elements of each [B, S, *] operand: row s of batch b starts
+// at b * S * stride + s * stride, and head h's D values at offset h * D in
+// the row.  The contiguous BSHD case is stride = H * D (Hkv * D for k / v);
+// a column slice of a wider buffer (GPT-2's q, k and v in one [B, S, 3 H D]
+// c_attn output) is stride = the buffer's width.
+struct Rows {
+  long long q, k, v, o, dout, dq, dk, dv;
+};
+
+__device__ __forceinline__ size_t head_base(long long stride, int b, int s, int h, int d) {
+  return static_cast<size_t>(b) * s * stride + static_cast<size_t>(h) * d;
+}
+
 __device__ __forceinline__ bool keep(int r, int c, int off, int causal, int window) {
   if (!causal) return true;
   return r + off >= c && (window <= 0 || c > r + off - window);
@@ -203,7 +240,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                 int sq, int sk, int heads, int kv_heads, int causal, int window) {
+                 int sq, int sk, int heads, int kv_heads, int causal, int window,
+                 Rows rs) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);
@@ -215,13 +253,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (heads / kv_heads);
   const int off = sk - sq;
-  const size_t q_stride = static_cast<size_t>(heads) * D;
-  const size_t kv_stride = static_cast<size_t>(kv_heads) * D;
-  const T* qb = q + static_cast<size_t>(b) * sq * q_stride + static_cast<size_t>(h) * D;
-  const T* kb = k + static_cast<size_t>(b) * sk * kv_stride + static_cast<size_t>(kh) * D;
-  const T* vb = v + static_cast<size_t>(b) * sk * kv_stride + static_cast<size_t>(kh) * D;
+  const T* qb = q + head_base(rs.q, b, sq, h, D);
+  const T* kb = k + head_base(rs.k, b, sk, kh, D);
+  const T* vb = v + head_base(rs.v, b, sk, kh, D);
 
-  load_tile<T, D, kTile>(q_s, qb, q_stride, q0, sq);
+  load_tile<T, D, kTile>(q_s, qb, rs.q, q0, sq);
 
   // the k tiles that meet the visible band of rows [q0, q0 + 64)
   int n_begin = 0, n_end = (sk + kTile - 1) / kTile;
@@ -241,8 +277,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int nt = n_begin; nt < n_end; ++nt) {
     const int c0 = nt * kTile;
     __syncthreads();                                // the last tile's reads are done
-    load_tile<T, D, kTile>(k_s, kb, kv_stride, c0, sk);
-    load_tile<T, D, kTile>(v_s, vb, kv_stride, c0, sk);
+    load_tile<T, D, kTile>(k_s, kb, rs.k, c0, sk);
+    load_tile<T, D, kTile>(v_s, vb, rs.v, c0, sk);
     __syncthreads();
 
     float s[kTile / 8][4];
@@ -311,7 +347,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = r0 + 8 * i;
     if (r >= sq) continue;
     const float safe_l = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + (static_cast<size_t>(b) * sq + r) * q_stride + static_cast<size_t>(h) * D;
+    T* orow = o + head_base(rs.o, b, sq, h, D) + static_cast<size_t>(r) * rs.o;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       store2<T>(orow + 8 * j + 2 * t, acc[j][2 * i] / safe_l, acc[j][2 * i + 1] / safe_l);
@@ -329,7 +365,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     float* __restrict__ delta, T* __restrict__ dq, int sq, int sk,
-                    int heads, int kv_heads, int causal, int window, float scale) {
+                    int heads, int kv_heads, int causal, int window, float scale,
+                    Rows rs) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);
@@ -342,14 +379,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (heads / kv_heads);
   const int off = sk - sq;
-  const size_t q_stride = static_cast<size_t>(heads) * D;
-  const size_t kv_stride = static_cast<size_t>(kv_heads) * D;
-  const size_t q_base = static_cast<size_t>(b) * sq * q_stride + static_cast<size_t>(h) * D;
-  const T* kb = k + static_cast<size_t>(b) * sk * kv_stride + static_cast<size_t>(kh) * D;
-  const T* vb = v + static_cast<size_t>(b) * sk * kv_stride + static_cast<size_t>(kh) * D;
+  const T* kb = k + head_base(rs.k, b, sk, kh, D);
+  const T* vb = v + head_base(rs.v, b, sk, kh, D);
 
-  load_tile<T, D, kTile>(q_s, q + q_base, q_stride, q0, sq);
-  load_tile<T, D, kTile>(do_s, dout + q_base, q_stride, q0, sq);
+  load_tile<T, D, kTile>(q_s, q + head_base(rs.q, b, sq, h, D), rs.q, q0, sq);
+  load_tile<T, D, kTile>(do_s, dout + head_base(rs.dout, b, sq, h, D), rs.dout, q0, sq);
 
   int n_begin = 0, n_end = (sk + kTile - 1) / kTile;
   if (causal) {
@@ -370,7 +404,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = r0 + 8 * i;
     float part = 0.f;
     if (r < sq) {
-      const T* orow = o + q_base + static_cast<size_t>(r) * q_stride;
+      const T* orow = o + head_base(rs.o, b, sq, h, D) + static_cast<size_t>(r) * rs.o;
       const T* drow = do_s + (r - q0) * LD;
 #pragma unroll
       for (int c = 8 * t; c < D; c += 32)
@@ -390,8 +424,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int nt = n_begin; nt < n_end; ++nt) {
     const int c0 = nt * kTile;
     __syncthreads();
-    load_tile<T, D, kTile>(k_s, kb, kv_stride, c0, sk);
-    load_tile<T, D, kTile>(v_s, vb, kv_stride, c0, sk);
+    load_tile<T, D, kTile>(k_s, kb, rs.k, c0, sk);
+    load_tile<T, D, kTile>(v_s, vb, rs.v, c0, sk);
     __syncthreads();
 
     float s[kTile / 8][4], dp[kTile / 8][4];
@@ -430,7 +464,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + 8 * i;
     if (r >= sq) continue;
-    T* row = dq + q_base + static_cast<size_t>(r) * q_stride;
+    T* row = dq + head_base(rs.dq, b, sq, h, D) + static_cast<size_t>(r) * rs.dq;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       store2<T>(row + 8 * j + 2 * t, acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
@@ -448,7 +482,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      T* __restrict__ dk, T* __restrict__ dv, int sq, int sk,
-                     int heads, int kv_heads, int causal, int window) {
+                     int heads, int kv_heads, int causal, int window, Rows rs) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   T* k_s = reinterpret_cast<T*>(smem);
@@ -463,12 +497,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * kTile, kh = blockIdx.y, b = blockIdx.z;
   const int group = heads / kv_heads;
   const int off = sk - sq;
-  const size_t q_stride = static_cast<size_t>(heads) * D;
-  const size_t kv_stride = static_cast<size_t>(kv_heads) * D;
-  const size_t kv_base = static_cast<size_t>(b) * sk * kv_stride + static_cast<size_t>(kh) * D;
-
-  load_tile<T, D, kTile>(k_s, k + kv_base, kv_stride, k0, sk);
-  load_tile<T, D, kTile>(v_s, v + kv_base, kv_stride, k0, sk);
+  load_tile<T, D, kTile>(k_s, k + head_base(rs.k, b, sk, kh, D), rs.k, k0, sk);
+  load_tile<T, D, kTile>(v_s, v + head_base(rs.v, b, sk, kh, D), rs.v, k0, sk);
 
   // the q tiles whose rows see any of the keys [k0, k0 + 64)
   const int nq = (sq + BQ - 1) / BQ;
@@ -492,13 +522,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int hq = 0; hq < group; ++hq) {
     const int h = kh * group + hq;
-    const size_t q_base = static_cast<size_t>(b) * sq * q_stride + static_cast<size_t>(h) * D;
+    const T* qb = q + head_base(rs.q, b, sq, h, D);
+    const T* dob = dout + head_base(rs.dout, b, sq, h, D);
     const size_t row_base = (static_cast<size_t>(b) * heads + h) * sq;
     for (int mt = m_begin; mt < m_end; ++mt) {
       const int r0 = mt * BQ;
       __syncthreads();
-      load_tile<T, D, BQ>(q_s, q + q_base, q_stride, r0, sq);
-      load_tile<T, D, BQ>(do_s, dout + q_base, q_stride, r0, sq);
+      load_tile<T, D, BQ>(q_s, qb, rs.q, r0, sq);
+      load_tile<T, D, BQ>(do_s, dob, rs.dout, r0, sq);
       if (threadIdx.x < BQ) {
         const int r = r0 + threadIdx.x;
         lse_s[threadIdx.x] = r < sq ? lse[row_base + r] : 0.f;
@@ -549,11 +580,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int c = c_0 + 8 * i;
     if (c >= sk) continue;
-    const size_t row = kv_base + static_cast<size_t>(c) * kv_stride;
+    T* dk_row = dk + head_base(rs.dk, b, sk, kh, D) + static_cast<size_t>(c) * rs.dk;
+    T* dv_row = dv + head_base(rs.dv, b, sk, kh, D) + static_cast<size_t>(c) * rs.dv;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      store2<T>(dk + row + 8 * j + 2 * t, dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
-      store2<T>(dv + row + 8 * j + 2 * t, dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
+      store2<T>(dk_row + 8 * j + 2 * t, dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
+      store2<T>(dv_row + 8 * j + 2 * t, dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
     }
   }
 }
@@ -571,17 +603,33 @@ int prepare(K kernel, size_t smem) {
   return 0;
 }
 
+// The 16-byte loads need every row to start on 16 bytes: each stride a
+// multiple of 8 elements (the wrapper checks the base pointers too).
+inline bool rows_aligned(const Rows& rs) {
+  const long long all[] = {rs.q, rs.k, rs.v, rs.o, rs.dout, rs.dq, rs.dk, rs.dv};
+  for (long long x : all)
+    if (x % 8) return false;
+  return true;
+}
+
+inline Rows to_rows(const long long* strides) {
+  return Rows{strides[0], strides[1], strides[2], strides[3],
+              strides[4], strides[5], strides[6], strides[7]};
+}
+
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
-        int sq, int sk, int heads, int kv_heads, int causal, int window,
+        int sq, int sk, int heads, int kv_heads, int causal, int window, Rows rs,
         cudaStream_t stream) {
+  if (!rows_aligned(rs)) return static_cast<int>(cudaErrorMisalignedAddress);
   const size_t smem = 3 * kTile * (D + 8) * sizeof(T);
   auto kernel = flash_fwd_kernel<T, D>;
   if (int rc = prepare(kernel, smem)) return rc;
   const dim3 grid((sq + kTile - 1) / kTile, heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), sq, sk, heads, kv_heads, causal, window);
+      static_cast<T*>(o), static_cast<float*>(lse), sq, sk, heads, kv_heads, causal, window,
+      rs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -589,7 +637,8 @@ template <typename T, int D>
 int bwd_dq(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* delta, void* dq, int batch,
            int sq, int sk, int heads, int kv_heads, int causal, int window,
-           float scale, cudaStream_t stream) {
+           float scale, Rows rs, cudaStream_t stream) {
+  if (!rows_aligned(rs)) return static_cast<int>(cudaErrorMisalignedAddress);
   const size_t smem = 4 * kTile * (D + 8) * sizeof(T);
   auto kernel = flash_bwd_dq_kernel<T, D>;
   if (int rc = prepare(kernel, smem)) return rc;
@@ -598,14 +647,16 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o,
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<T*>(dq),
-      sq, sk, heads, kv_heads, causal, window, scale);
+      sq, sk, heads, kv_heads, causal, window, scale, rs);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dk, void* dv, int batch, int sq,
-            int sk, int heads, int kv_heads, int causal, int window, cudaStream_t stream) {
+            int sk, int heads, int kv_heads, int causal, int window, Rows rs,
+            cudaStream_t stream) {
+  if (!rows_aligned(rs)) return static_cast<int>(cudaErrorMisalignedAddress);
   constexpr int BQ = D == 64 ? 64 : 32;
   const size_t smem = (2 * kTile + 2 * BQ) * (D + 8) * sizeof(T) + 2 * BQ * sizeof(float);
   auto kernel = flash_bwd_dkv_kernel<T, D, BQ>;
@@ -615,7 +666,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), sq, sk,
-      heads, kv_heads, causal, window);
+      heads, kv_heads, causal, window, rs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -631,13 +682,16 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// `window` <= 0: no sliding window.  Return: the CUDA error code (0 ok).
+// `window` <= 0: no sliding window.  `row_strides`: a host array of 8 row
+// strides in elements, in the order of `Rows` (q, k, v, o, dout, dq, dk, dv;
+// a kernel ignores the tensors it does not take).  Return: the CUDA error
+// code (0 ok).
 extern "C" int dstt_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
                               const void* v, void* o, void* lse, int batch, int sq,
                               int sk, int heads, int kv_heads, int causal, int window,
-                              void* stream) {
+                              const long long* row_strides, void* stream) {
   DSTT_DISPATCH(fwd, q, k, v, o, lse, batch, sq, sk, heads, kv_heads, causal, window,
-                static_cast<cudaStream_t>(stream));
+                to_rows(row_strides), static_cast<cudaStream_t>(stream));
 }
 
 // Writes dq and delta (fp32 [B, H, Sq]) for the dK/dV kernel.
@@ -645,16 +699,20 @@ extern "C" int dstt_flash_bwd_dq(int dtype, int head_dim, const void* q, const v
                                  const void* v, const void* o, const void* dout,
                                  const void* lse, void* delta, void* dq, int batch,
                                  int sq, int sk, int heads, int kv_heads, int causal,
-                                 int window, float scale, void* stream) {
+                                 int window, float scale, const long long* row_strides,
+                                 void* stream) {
   DSTT_DISPATCH(bwd_dq, q, k, v, o, dout, lse, delta, dq, batch, sq, sk, heads,
-                kv_heads, causal, window, scale, static_cast<cudaStream_t>(stream));
+                kv_heads, causal, window, scale, to_rows(row_strides),
+                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int dstt_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
                                   const void* v, const void* dout, const void* lse,
                                   const void* delta, void* dk, void* dv, int batch,
                                   int sq, int sk, int heads, int kv_heads, int causal,
-                                  int window, void* stream) {
+                                  int window, const long long* row_strides,
+                                  void* stream) {
   DSTT_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, batch, sq, sk, heads,
-                kv_heads, causal, window, static_cast<cudaStream_t>(stream));
+                kv_heads, causal, window, to_rows(row_strides),
+                static_cast<cudaStream_t>(stream));
 }

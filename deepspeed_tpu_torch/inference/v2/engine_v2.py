@@ -19,8 +19,9 @@ via the sequence's ``pending`` queue.
 Speculative decoding: ``verify_step`` scores K fed tokens per sequence (the
 next input and K-1 drafts) in one forward and returns all K logits rows;
 ``commit_verified`` advances a sequence past the accepted prefix and frees
-the lookahead blocks it no longer needs; a model without a verify path
-(``RaggedMixtral``) raises ``NotImplementedError`` there.
+the lookahead blocks it no longer needs.  ``RaggedLlama`` scores the rows
+with the paged verify kernel, ``RaggedMixtral`` (which has no verify
+route, as in the JAX package) as ragged rows through its generic path.
 ``kv_cache.dtype="int8"`` keeps the pool block-quantized (fp32 scale per
 row and KV head).
 ``flush_to_host(include_kv=True)`` / ``resume(kv_state=...)`` carry a
@@ -461,10 +462,6 @@ class InferenceEngineV2:
         if n > S:
             raise ValueError(f"verify_step: {n} sequences exceed "
                              f"max_seqs {S}")
-        if not getattr(self.model, "supports_verify", False):
-            raise NotImplementedError(
-                f"verify_step: {type(self.model).__name__} has no "
-                f"speculative verify path")
         max_context = self.config.state_manager.max_context
         seqs = []
         for uid in uids:

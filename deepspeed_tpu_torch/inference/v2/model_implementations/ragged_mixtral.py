@@ -27,7 +27,7 @@ The param tree is the JAX package's ``MixtralForCausalLM`` tree, FLAT:
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -72,15 +72,14 @@ class RaggedMixtral:
 
     On CUDA tensors the forward runs the CUDA kernels; ``use_kernels=False``
     runs the plain PyTorch paths on any device (the on-card comparison
-    path).  CPU tensors always take the plain paths.  It has no speculative
-    verify path (the JAX package's has none either)."""
+    path).  CPU tensors always take the plain paths.  A speculative verify
+    batch (``verify_step``) is scored as ragged rows over the paged KV by
+    the generic paged-attention path, as the JAX engine scores it for a
+    model without a verify route (``engine_v2.py:654-664``)."""
 
     #: attention goes through the shared ragged_attention_block, whose
     #: write path quantizes on insert — int8 KV works here too
     supports_quantized_kv = True
-    #: no speculative verify path, as in the JAX package: ``verify_step``
-    #: raises
-    supports_verify = False
 
     def __init__(self, config: MixtralConfig, block_size: int,
                  use_kernels: bool = True):
@@ -103,9 +102,12 @@ class RaggedMixtral:
     @torch.no_grad()
     def __call__(self, params: Dict[str, Any], kv_cache: Dict[str, Any],
                  batch: Dict[str, torch.Tensor], prefill_tile=None,
-                 decode: bool = False):
+                 decode: bool = False, verify_k: Optional[int] = None):
         """Returns ``(logits [S, vocab], kv_cache)``, the pools updated in
-        place (see :meth:`RaggedLlama.__call__`)."""
+        place (see :meth:`RaggedLlama.__call__`).  ``verify_k`` is accepted
+        and not forwarded: the JAX package has no Mixtral verify route, so
+        a verify batch takes the generic paged path."""
+        del verify_k
         cfg = self.config
         dt = cfg.dtype
         kernels = self.use_kernels

@@ -57,7 +57,9 @@ class LlamaConfig:
     # most the previous `sliding_window` positions (None = full causal).
     sliding_window: Any = None
     # "bshd" | "folded" | "paired" | None (None -> the process default set
-    # from the DeepSpeed config's `attention_layout`); only "bshd" is ported
+    # from the DeepSpeed config's `attention_layout`); "folded" and
+    # "paired" hand attention the projections' [B,S,H*D] output (with
+    # fused_qkv, v in place in the qkv_proj output)
     attention_layout: Any = None
 
     @property
@@ -105,16 +107,19 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
 
 
 class Dense(nn.Linear):
-    """``nn.Linear(bias=False)`` computing in ``dtype`` whatever type its
-    weight is held in."""
+    """``nn.Linear`` (no bias unless asked for) computing in ``dtype``
+    whatever type its weight is held in, as Flax's ``Dense(dtype=...)``
+    casts input, kernel and bias."""
 
-    def __init__(self, in_features: int, out_features: int, dtype):
-        super().__init__(in_features, out_features, bias=False)
+    def __init__(self, in_features: int, out_features: int, dtype,
+                 bias: bool = False):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x):
-        return F.linear(x.to(self.compute_dtype),
-                        self.weight.to(self.compute_dtype))
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 class RMSNorm(nn.Module):
@@ -171,7 +176,8 @@ class LlamaAttention(nn.Module):
             return self.o_proj(fn(
                 q.reshape(b, s, h * d), k.reshape(b, s, hkv * d),
                 v.reshape(b, s, hkv * d), num_heads=h, num_kv_heads=hkv,
-                causal=True, window=window))
+                causal=True, window=window,
+                implementation=self.implementation))
         out = dot_product_attention(q, k, v, causal=True, window=window,
                                     implementation=self.implementation)
         return self.o_proj(out.reshape(b, s, h * d))

@@ -1,16 +1,21 @@
 """Attention dispatcher (counterpart of ``deepspeed_tpu/ops/attention.py``).
 
-:func:`dot_product_attention` is the single entry point, q ``[B,Sq,H,D]``
-and k / v ``[B,Sk,Hkv,D]``.  It sends to the plain composition
+:func:`dot_product_attention` is the bshd entry point, q ``[B,Sq,H,D]`` and
+k / v ``[B,Sk,Hkv,D]``.  It sends to the plain composition
 (:func:`_xla_attention`, the JAX package's XLA path) exactly what the JAX
 package sends to XLA for every shape: a ``mask`` or a ``bias``.  Everything
 else goes to :func:`deepspeed_tpu_torch.ops.flash_attention.flash_attention`
 — the CUDA kernels on the card (which raise on a head dim they do not take),
 the plain flash functions on the CPU.
 
-The layout switch (``attention_layout``) is kept: ``"bshd"`` is the path
-above; the ``"folded"`` and ``"paired"`` kernels are not ported yet, and
-their entry points raise.
+The layout switch (``attention_layout``) is kept, with the JAX package's
+fallback chain: :func:`paired_attention` → :func:`folded_attention` →
+:func:`dot_product_attention` on the free ``[B,S,H,D]`` reshape.  The folded
+and paired entries take the projection's ``[B,S,H*D]`` output as it is
+(column slices of a fused projection included) and launch the strided flash
+kernels; on the card every route runs a kernel or raises.
+``implementation="plain"`` keeps the routing and runs the plain versions
+(the on-card comparison path).
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ from typing import Optional
 
 import torch
 
-from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+from deepspeed_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_folded, flash_attention_folded_usable,
+    flash_attention_paired, flash_attention_paired_usable)
 
 ATTENTION_LAYOUTS = ("bshd", "folded", "paired")
 _DEFAULT_ATTENTION_LAYOUT = "bshd"
@@ -56,9 +63,7 @@ def dot_product_attention(q, k, v, *, causal: bool = True,
     [B,H,Sq,Sk]) and ``bias`` (additive, same broadcast) take the plain
     composition.  ``implementation="plain"`` runs the flash functions'
     plain versions even on CUDA (the on-card comparison path)."""
-    if implementation not in ("auto", "plain"):
-        raise ValueError(f"implementation must be 'auto' or 'plain', got "
-                         f"{implementation!r}")
+    _check_implementation(implementation)
     if bias is not None or mask is not None:
         return _xla_attention(q, k, v, causal=causal, mask=mask, scale=scale,
                               window=window, bias=bias)
@@ -67,20 +72,64 @@ def dot_product_attention(q, k, v, *, causal: bool = True,
                            use_kernel=implementation == "auto")
 
 
-def folded_attention(q, k, v, *, num_heads: int, **kw):
-    """Layout-native attention on ``[B,S,H*D]``: its kernels (ROADMAP B7)
-    are not ported yet."""
-    raise NotImplementedError(
-        "folded_attention: the folded-layout flash kernels are not ported "
-        "yet (ROADMAP B7); use attention_layout 'bshd'")
+def _check_implementation(implementation: str) -> None:
+    if implementation not in ("auto", "plain"):
+        raise ValueError(f"implementation must be 'auto' or 'plain', got "
+                         f"{implementation!r}")
 
 
-def paired_attention(q, k, v, *, num_heads: int, **kw):
-    """Head-paired attention on ``[B,S,H*D]``: its kernels (ROADMAP B8)
-    are not ported yet."""
-    raise NotImplementedError(
-        "paired_attention: the head-paired flash kernels are not ported "
-        "yet (ROADMAP B8); use attention_layout 'bshd'")
+def folded_attention(q, k, v, *, num_heads: int,
+                     num_kv_heads: Optional[int] = None,
+                     causal: bool = True,
+                     scale: Optional[float] = None,
+                     window: Optional[int] = None,
+                     implementation: str = "auto"):
+    """Layout-native attention on the projection's folded output.
+
+    q: [B,Sq,H*D]; k/v: [B,Sk,Hkv*D]; returns [B,Sq,H*D].  Geometries that
+    :func:`flash_attention_folded_usable` takes go to the folded entry;
+    the others are *reshaped* (free: the same memory) to [B,S,H,D] and go
+    through :func:`dot_product_attention`."""
+    _check_implementation(implementation)
+    hkv = num_kv_heads if num_kv_heads is not None else num_heads
+    if flash_attention_folded_usable(q, k, v, num_heads, hkv, causal, None):
+        return flash_attention_folded(
+            q, k, v, num_heads=num_heads, num_kv_heads=hkv, causal=causal,
+            scale=scale, window=window,
+            use_kernel=implementation == "auto")
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    d = hd // num_heads
+    out = dot_product_attention(
+        q.reshape(b, sq, num_heads, d), k.reshape(b, sk, hkv, d),
+        v.reshape(b, sk, hkv, d), causal=causal, scale=scale, window=window,
+        implementation=implementation)
+    return out.reshape(b, sq, hd)
+
+
+def paired_attention(q, k, v, *, num_heads: int,
+                     num_kv_heads: Optional[int] = None,
+                     causal: bool = True,
+                     scale: Optional[float] = None,
+                     window: Optional[int] = None,
+                     implementation: str = "auto"):
+    """Head-paired attention on the projection's folded output.
+
+    q: [B,Sq,H*D]; k/v: [B,Sk,Hkv*D]; returns [B,Sq,H*D].  Geometries that
+    :func:`flash_attention_paired_usable` takes (D < 128 dividing 128,
+    whole head groups) go to the paired entry; every other one falls
+    through to :func:`folded_attention`, which itself falls back to the
+    bshd path, so routing never fails."""
+    _check_implementation(implementation)
+    hkv = num_kv_heads if num_kv_heads is not None else num_heads
+    if flash_attention_paired_usable(q, k, v, num_heads, hkv, causal, None):
+        return flash_attention_paired(
+            q, k, v, num_heads=num_heads, num_kv_heads=hkv, causal=causal,
+            scale=scale, window=window,
+            use_kernel=implementation == "auto")
+    return folded_attention(q, k, v, num_heads=num_heads, num_kv_heads=hkv,
+                            causal=causal, scale=scale, window=window,
+                            implementation=implementation)
 
 
 def _xla_attention(q, k, v, *, causal, mask, scale, window=None, bias=None):

@@ -1,21 +1,31 @@
-"""Flash attention with a hand-written backward (counterpart of the bshd
-entry ``flash_attention`` of ``deepspeed_tpu/ops/flash_attention.py``).
+"""Flash attention with a hand-written backward, in the JAX package's three
+layouts (counterpart of ``deepspeed_tpu/ops/flash_attention.py``).
 
-:func:`flash_attention` takes q ``[B, Sq, H, D]`` and k / v
-``[B, Sk, Hkv, D]`` (GQA when ``Hkv < H``) and returns ``[B, Sq, H, D]``.
-It is a ``torch.autograd.Function`` mirroring the JAX package's
-``custom_vjp`` (``flash_attention.py:436-458``): the forward pre-scales q
-once, rounds it to the input type, and saves ``(q_scaled, k, v, o, lse)``;
-the backward runs dQ (which also forms ``delta = rowsum(dO * O)``), then
-dK / dV.
+:func:`flash_attention` (the ``"bshd"`` entry) takes q ``[B, Sq, H, D]``
+and k / v ``[B, Sk, Hkv, D]`` (GQA when ``Hkv < H``) and returns ``[B, Sq,
+H, D]``.  :func:`flash_attention_folded` and :func:`flash_attention_paired`
+take the projection's own layout, q ``[B, Sq, H*D]`` and k / v ``[B, Sk,
+Hkv*D]``, and return ``[B, Sq, H*D]``.  All three are one
+``torch.autograd.Function`` mirroring the JAX package's ``custom_vjp``
+(``flash_attention.py:436-458``): the forward pre-scales q once, rounds it
+to the input type, and saves ``(q_scaled, k, v, o, lse)``; the backward runs
+dQ (which also forms ``delta = rowsum(dO * O)``), then dK / dV.
 
 On CUDA tensors the three steps are the hand-written kernels of
 ``deepspeed_tpu_torch/csrc/flash_attention.cu`` (forward, dQ, dK/dV), which
 take bf16 or fp16 with a head dim of 64 or 128 and raise on anything else.
-On CPU tensors they are the plain versions, :func:`flash_attention_plain_fwd`
-and :func:`flash_attention_plain_bwd`: the same masking, pre-scaling and
+They read every operand through its own row stride, so k and v may be
+column slices of one fused projection output (GPT-2's ``c_attn``, Llama's
+``qkv_proj``) and are never copied; each row must start on 16 bytes.  The
+folded and paired entries launch the same kernels (on Hopper there are no
+lanes to fill by pairing heads: ``csrc/flash_attention.cu`` says why); each
+keeps its own eligibility rule and its own launch counters.  On CPU tensors
+the steps are the plain versions, :func:`flash_attention_plain_fwd` and
+:func:`flash_attention_plain_bwd`: the same masking, pre-scaling and
 rounding (P and dS rounded to the input type before their products) in fp32
-math.  ``LAUNCHES`` counts the kernel launches.
+math.  ``LAUNCHES`` counts the kernel launches by kernel and entry:
+``flash_attention_fwd`` for the bshd entry, ``flash_attention_fwd_folded``
+and ``flash_attention_fwd_paired`` for the others.
 
 Masking is end-aligned causal (row ``r`` sees column ``c`` when
 ``r + Sk - Sq >= c``), optionally limited to the last ``window`` columns.
@@ -35,13 +45,39 @@ import torch
 
 from deepspeed_tpu_torch.ops import _build
 
-#: kernel launches per kernel (plain CPU calls do not count)
-LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0}
+#: the entries, each with its own launch counters
+ENTRIES = ("bshd", "folded", "paired")
+
+
+def launch_key(kernel: str, entry: str = "bshd") -> str:
+    """The ``LAUNCHES`` key of ``kernel`` ("fwd", "bwd_dq", "bwd_dkv")
+    launched through ``entry``."""
+    return f"flash_attention_{kernel}" + ("" if entry == "bshd"
+                                          else f"_{entry}")
+
+
+#: kernel launches per kernel and entry (plain CPU calls do not count)
+LAUNCHES = {launch_key(k, e): 0 for e in ENTRIES
+            for k in ("fwd", "bwd_dq", "bwd_dkv")}
 
 NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
+
+
+def _kernel_takes(q, k, v, head_dim) -> bool:
+    """What the CUDA kernels take: bf16 or fp16 q/k/v of one type with a
+    head dim of 64 or 128."""
+    return (head_dim in _HEAD_DIMS and q.dtype in _DTYPES
+            and k.dtype == v.dtype == q.dtype)
+
+
+def _check_kernel_takes(name, q, k, v, head_dim):
+    if not _kernel_takes(q, k, v, head_dim):
+        raise ValueError(
+            f"{name}: the CUDA kernel takes bf16 or fp16 q/k/v of one type "
+            f"with head_dim in {_HEAD_DIMS} (got {q.dtype} "
+            f"{tuple(q.shape)}, {k.dtype} {tuple(k.shape)})")
 
 
 def flash_attention_usable(q, k, v) -> bool:
@@ -50,10 +86,7 @@ def flash_attention_usable(q, k, v) -> bool:
     takes any)."""
     if q.shape[2] % k.shape[2]:
         return False
-    if not q.is_cuda:
-        return True
-    return (q.shape[-1] in _HEAD_DIMS and q.dtype in _DTYPES
-            and k.dtype == v.dtype == q.dtype)
+    return not q.is_cuda or _kernel_takes(q, k, v, q.shape[-1])
 
 
 def _keep(sq: int, sk: int, causal: bool, window: Optional[int], device):
@@ -153,55 +186,98 @@ def flash_attention_plain_bwd(qs, k, v, o, lse, do, *, scale: float,
         qs, k, v, do, lse, delta, causal=causal, window=window)
 
 
-def _check(name, tensors, head_dim):
-    ref = tensors[0]
-    for t in tensors:
+def _bshd_rows(t) -> bool:
+    """Whether ``t`` [B, S, H, D] is laid out as the kernels read it: each
+    head's D values contiguous at offset h * D of a row, and the batch
+    stride S times the row stride."""
+    b, s, h, d = t.shape
+    return (t.stride(3) == 1 and (h == 1 or t.stride(2) == d)
+            and (b == 1 or t.stride(0) == s * t.stride(1)))
+
+
+def _rows(t):
+    """``t`` itself when the kernels can read it in place (any row
+    stride), else a contiguous copy (a transposed view, say)."""
+    return t if _bshd_rows(t) else t.contiguous()
+
+
+def _aligned(t) -> bool:
+    """Every row of ``t`` starts on 16 bytes (base pointer and row
+    stride), as the kernels' 16-byte loads need."""
+    return (t.data_ptr() % 16 == 0
+            and (t.shape[1] == 1 or t.stride(1) * t.element_size() % 16 == 0))
+
+
+def _check(name, operands, stats, head_dim):
+    """``operands`` are [B, S, H, D] (any 16-byte aligned row stride),
+    ``stats`` the fp32 [B, H, Sq] lse / delta (contiguous)."""
+    ref = operands[0]
+    for t in operands + stats:
         if t.device != ref.device:
             raise ValueError(f"{name}: tensors on {t.device} and {ref.device}")
-        if t.data_ptr() % 16 or not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous and 16-byte "
-                             f"aligned (the kernel reads 16-byte vectors)")
-    if head_dim not in _HEAD_DIMS or ref.dtype not in _DTYPES or any(
-            t.dtype != ref.dtype for t in tensors[1:4]):
-        raise ValueError(
-            f"{name}: the CUDA kernel takes bf16 or fp16 q/k/v of one type "
-            f"with head_dim in {_HEAD_DIMS} (got {ref.dtype}, head_dim "
-            f"{head_dim})")
+    for t in operands:
+        if not _bshd_rows(t):
+            raise ValueError(
+                f"{name}: a [B, S, H, D] operand must hold each head's D "
+                f"values contiguous at offset h * D of its row, with the "
+                f"batch stride S times the row stride (strides "
+                f"{t.stride()})")
+        if not _aligned(t):
+            raise ValueError(
+                f"{name}: every row must start on 16 bytes (base pointer "
+                f"{t.data_ptr()} and row stride {t.stride(1)} elements of "
+                f"{t.element_size()} bytes): the kernel reads 16-byte "
+                f"vectors")
+    for t in stats:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: lse / delta must be contiguous")
+    _check_kernel_takes(name, *operands[:3], head_dim)
+
+
+def _strides(**named):
+    """The kernels' row strides (q, k, v, o, dout, dq, dk, dv), 0 for the
+    tensors a kernel does not take."""
+    order = ("q", "k", "v", "o", "dout", "dq", "dk", "dv")
+    return (ctypes.c_longlong * 8)(*(named[n].stride(1) if n in named else 0
+                                     for n in order))
 
 
 def flash_attention_fwd(qs, k, v, causal: bool = True,
-                        window: Optional[int] = None):
+                        window: Optional[int] = None, entry: str = "bshd"):
     """Forward kernel wrapper: ``qs`` pre-scaled q [B,Sq,H,D], k/v
-    [B,Sk,Hkv,D] contiguous.  Returns ``(o, lse)``."""
+    [B,Sk,Hkv,D], each with any 16-byte aligned row stride.  Returns
+    ``(o, lse)``, o contiguous.  ``entry`` names the counter the launch
+    adds to."""
     if not qs.is_cuda:
         return flash_attention_plain_fwd(qs, k, v, causal=causal,
                                          window=window)
     b, sq, h, d = qs.shape
     sk, hkv = k.shape[1], k.shape[2]
-    _check("flash_attention", (qs, k, v), d)
-    o = torch.empty_like(qs)
+    _check("flash_attention", [qs, k, v], [], d)
+    o = torch.empty((b, sq, h, d), dtype=qs.dtype, device=qs.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=qs.device)
     if b * sq == 0:
         return o, lse
-    _launch("fwd", "flash_attention forward", _DTYPES[qs.dtype], d, qs, k, v,
-            o, lse, b, sq, sk, h, hkv, int(causal), window or 0)
+    _launch("fwd", "flash_attention forward", entry, qs,
+            [qs, k, v, o, lse], [b, sq, sk, h, hkv, int(causal), window or 0],
+            [], _strides(q=qs, k=k, v=v, o=o))
     return o, lse
 
 
-def _launch(name, label, *args):
-    with torch.cuda.device(args[2].device):
-        rc = _kernel(name)(*(a.data_ptr() if isinstance(a, torch.Tensor)
-                             else a for a in args),
-                           torch.cuda.current_stream().cuda_stream)
+def _launch(name, label, entry, ref, ptrs, ints, floats, strides):
+    with torch.cuda.device(ref.device):
+        rc = _kernel(name)(_DTYPES[ref.dtype], ref.shape[-1],
+                           *(t.data_ptr() for t in ptrs), *ints, *floats,
+                           strides, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{label}: CUDA kernel launch failed with error "
                            f"{rc}")
-    LAUNCHES[f"flash_attention_{name}"] += 1
+    LAUNCHES[launch_key(name, entry)] += 1
 
 
 def flash_attention_bwd_dq(qs, k, v, o, do, lse, scale: float,
                            causal: bool = True,
-                           window: Optional[int] = None):
+                           window: Optional[int] = None, entry: str = "bshd"):
     """dQ kernel wrapper: the residuals of :func:`flash_attention_fwd` and
     dO -> ``(dq [B,Sq,H,D], delta fp32 [B,H,Sq])``; the kernel forms
     delta = rowsum(dO * O) for its rows and writes it for dK/dV."""
@@ -210,71 +286,91 @@ def flash_attention_bwd_dq(qs, k, v, o, do, lse, scale: float,
                                             scale=scale, causal=causal,
                                             window=window)
     b, sq, h, d = qs.shape
-    _check("flash_attention dQ", (qs, k, v, o, do, lse), d)
-    dq = torch.empty_like(qs)
+    _check("flash_attention dQ", [qs, k, v, o, do], [lse], d)
+    dq = torch.empty((b, sq, h, d), dtype=qs.dtype, device=qs.device)
     delta = torch.empty_like(lse)
-    _launch("bwd_dq", "flash_attention dQ", _DTYPES[qs.dtype], d, qs, k, v,
-            o, do, lse, delta, dq, b, sq, k.shape[1], h, k.shape[2],
-            int(causal), window or 0, scale)
+    _launch("bwd_dq", "flash_attention dQ", entry, qs,
+            [qs, k, v, o, do, lse, delta, dq],
+            [b, sq, k.shape[1], h, k.shape[2], int(causal), window or 0],
+            [scale], _strides(q=qs, k=k, v=v, o=o, dout=do, dq=dq))
     return dq, delta
 
 
 def flash_attention_bwd_dkv(qs, k, v, do, lse, delta, causal: bool = True,
-                            window: Optional[int] = None):
+                            window: Optional[int] = None,
+                            entry: str = "bshd"):
     """dK/dV kernel wrapper: the residuals, dO and the dQ kernel's delta
-    -> (dk, dv) [B,Sk,Hkv,D], each KV head's gradient summed over its
-    query heads inside the kernel."""
+    -> (dk, dv) [B,Sk,Hkv,D] contiguous, each KV head's gradient summed
+    over its query heads in fp32 inside the kernel."""
     if not qs.is_cuda:
         return flash_attention_plain_bwd_dkv(qs, k, v, do, lse, delta,
                                              causal=causal, window=window)
     b, sq, h, d = qs.shape
-    _check("flash_attention dK/dV", (qs, k, v, do, lse, delta), d)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("bwd_dkv", "flash_attention dK/dV", _DTYPES[qs.dtype], d, qs, k,
-            v, do, lse, delta, dk, dv, b, sq, k.shape[1], h, k.shape[2],
-            int(causal), window or 0)
+    _check("flash_attention dK/dV", [qs, k, v, do], [lse, delta], d)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch("bwd_dkv", "flash_attention dK/dV", entry, qs,
+            [qs, k, v, do, lse, delta, dk, dv],
+            [b, sq, k.shape[1], h, k.shape[2], int(causal), window or 0],
+            [], _strides(q=qs, k=k, v=v, dout=do, dk=dk, dv=dv))
     return dk, dv
 
 
 def flash_attention_bwd(qs, k, v, o, lse, do, scale: float,
-                        causal: bool = True, window: Optional[int] = None):
+                        causal: bool = True, window: Optional[int] = None,
+                        entry: str = "bshd"):
     """The backward: the dQ kernel (which also forms delta), then the
     dK/dV kernel (their plain versions on the CPU).  Returns ``(dq, dk,
     dv)``."""
-    do = do.contiguous()
     dq, delta = flash_attention_bwd_dq(qs, k, v, o, do, lse, scale, causal,
-                                       window)
+                                       window, entry)
     return (dq,) + flash_attention_bwd_dkv(qs, k, v, do, lse, delta, causal,
-                                           window)
+                                           window, entry)
 
 
 class _FlashAttention(torch.autograd.Function):
+    """The three entries' one autograd function on [B, S, H, D] operands
+    (the folded entries pass views): k and v are kept as they come, in
+    place in the projection's output."""
+
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, window, use_kernel):
+    def forward(ctx, q, k, v, scale, causal, window, use_kernel, entry):
         # fold the softmax scale into q once, rounded to the input type
-        qs = (q.float() * scale).to(q.dtype).contiguous()
-        k, v = k.contiguous(), v.contiguous()
+        qs = _rows((q.float() * scale).to(q.dtype))
+        k, v = _rows(k), _rows(v)
         if use_kernel:
-            o, lse = flash_attention_fwd(qs, k, v, causal, window)
+            o, lse = flash_attention_fwd(qs, k, v, causal, window, entry)
         else:
             o, lse = flash_attention_plain_fwd(qs, k, v, causal=causal,
                                                window=window)
         ctx.save_for_backward(qs, k, v, o, lse)
-        ctx.args = (scale, causal, window, use_kernel)
+        ctx.args = (scale, causal, window, use_kernel, entry)
         return o
 
     @staticmethod
     def backward(ctx, do):
         qs, k, v, o, lse = ctx.saved_tensors
-        scale, causal, window, use_kernel = ctx.args
+        scale, causal, window, use_kernel, entry = ctx.args
+        do = _rows(do)
         if use_kernel:
             grads = flash_attention_bwd(qs, k, v, o, lse, do, scale, causal,
-                                        window)
+                                        window, entry)
         else:
             grads = flash_attention_plain_bwd(qs, k, v, o, lse, do,
                                               scale=scale, causal=causal,
                                               window=window)
-        return grads + (None,) * 4
+        return grads + (None,) * 5
+
+
+def _check_mask_window(name, mask, causal, window):
+    if mask is not None:
+        raise NotImplementedError(
+            f"{name} supports causal/full (+sliding window) only; use "
+            f"ops.attention.dot_product_attention for custom masks")
+    if window is not None and not causal:
+        raise ValueError("sliding window requires causal attention")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, mask=None,
@@ -287,26 +383,187 @@ def flash_attention(q, k, v, *, causal: bool = True, mask=None,
     On CUDA the kernels run (or the call raises); on the CPU the plain
     versions.  ``use_kernel=False`` takes the plain versions on any device
     (the on-card comparison path)."""
-    if mask is not None:
-        raise NotImplementedError(
-            "flash_attention supports causal/full (+sliding window) only; "
-            "use ops.attention.dot_product_attention for custom masks")
-    if window is not None and not causal:
-        raise ValueError("sliding window requires causal attention")
-    if window is not None and window <= 0:
-        raise ValueError(f"window must be positive, got {window}")
+    _check_mask_window("flash_attention", mask, causal, window)
     if q.shape[2] % k.shape[2] != 0:
         raise ValueError(f"GQA needs H % Hkv == 0, got {q.shape[2]} % "
                          f"{k.shape[2]}")
-    if use_kernel and q.is_cuda and not flash_attention_usable(q, k, v):
-        raise ValueError(
-            f"flash_attention: the CUDA kernel takes bf16 or fp16 q/k/v of "
-            f"one type with head_dim in {_HEAD_DIMS} (got {q.dtype} "
-            f"{tuple(q.shape)}, {k.dtype} {tuple(k.shape)})")
+    if use_kernel and q.is_cuda:
+        _check_kernel_takes("flash_attention", q, k, v, q.shape[-1])
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     return _FlashAttention.apply(q, k, v, float(scale), bool(causal),
                                  int(window) if window is not None else None,
-                                 bool(use_kernel))
+                                 bool(use_kernel), "bshd")
+
+
+# ===================================================================== #
+# The folded and paired entries: q [B, Sq, H*D], k / v [B, Sk, Hkv*D]
+# ===================================================================== #
+# On the TPU the folded kernels consume the projection's [B, S, H*D] output
+# without the BSHD <-> BHSD transposes, in grid steps of ``hb`` heads whose
+# lanes form whole 128-lane tiles, and the paired kernels pack 128/d heads
+# into one MXU tile at d < 128.  Here both launch the strided kernels above
+# on free [B, S, H, D] views; the geometry rules below are the JAX
+# package's, verbatim, because they are public and decide the routing.
+
+_FOLDED_MAX_HEADS_PER_BLOCK = 8
+_PAIRED_MAX_HEADS_PER_BLOCK = 8
+
+
+def folded_heads_per_block(num_heads: int, num_kv_heads: int,
+                           head_dim: int) -> Optional[int]:
+    """Query heads per grid step for the folded layout, or None when the
+    geometry has no lane-aligned grouping (``flash_attention.py:521``).
+
+    d % 128 == 0: singleton blocks.  Otherwise a group of ``m =
+    128/gcd(d,128)`` heads spans whole lane tiles; the group is widened to
+    ``m * g`` so the KV heads it touches also form whole tiles (g = GQA
+    group size)."""
+    d, h, hkv = head_dim, num_heads, num_kv_heads
+    if d % 8 != 0 or h % hkv != 0:
+        return None
+    if d % 128 == 0:
+        return 1
+    m = 128 // math.gcd(d, 128)
+    hb = m * (h // hkv)
+    if hb > _FOLDED_MAX_HEADS_PER_BLOCK or h % hb != 0:
+        return None
+    return hb
+
+
+def paired_heads_per_block(num_heads: int, num_kv_heads: int,
+                           head_dim: int) -> Optional[int]:
+    """Query heads per grid step for the head-paired layout, or None when
+    pairing does not apply (``flash_attention.py:1028``): it needs ``d <
+    128`` with ``128 % d == 0`` and a head count divisible by ``hb = m *
+    g`` (m = 128/d, g = GQA group size)."""
+    d, h, hkv = head_dim, num_heads, num_kv_heads
+    if d % 8 != 0 or d >= 128 or 128 % d != 0 or h % hkv != 0:
+        return None
+    g = h // hkv
+    m = 128 // d
+    hb = m * g
+    if hb > _PAIRED_MAX_HEADS_PER_BLOCK or h % hb != 0:
+        return None
+    return hb
+
+
+def _layout_usable(rule, q, k, v, num_heads, num_kv_heads, mask) -> bool:
+    """The JAX package's shape rules and heads-per-block clause; on CUDA
+    also what the kernel takes (bf16 / fp16 of one type, head dim 64 or
+    128, 16-byte aligned rows) in place of the TPU's clauses."""
+    if mask is not None:
+        return False
+    if q.dim() != 3 or q.shape[-1] % num_heads or \
+            k.shape[-1] % num_kv_heads:
+        return False
+    d = q.shape[-1] // num_heads
+    if k.shape[-1] // num_kv_heads != d:
+        return False
+    if rule(num_heads, num_kv_heads, d) is None:
+        return False
+    if not q.is_cuda:
+        return True
+    return _kernel_takes(q, k, v, d) and all(
+        t.is_cuda and t.stride(-1) == 1 and _aligned(t) for t in (q, k, v))
+
+
+def flash_attention_folded_usable(q, k, v, num_heads, num_kv_heads,
+                                  causal, mask) -> bool:
+    """Folded-entry eligibility for the auto path
+    (``flash_attention.py:545``)."""
+    return _layout_usable(folded_heads_per_block, q, k, v, num_heads,
+                          num_kv_heads, mask)
+
+
+def flash_attention_paired_usable(q, k, v, num_heads, num_kv_heads,
+                                  causal, mask) -> bool:
+    """Paired-entry eligibility for the auto path
+    (``flash_attention.py:1051``)."""
+    return _layout_usable(paired_heads_per_block, q, k, v, num_heads,
+                          num_kv_heads, mask)
+
+
+def _layout_attention(entry, rule, q, k, v, num_heads, num_kv_heads, causal,
+                      mask, scale, window, block_q, block_k, use_kernel):
+    name = f"flash_attention_{entry}"
+    _check_mask_window(name, mask, causal, window)
+    hkv = num_kv_heads if num_kv_heads is not None else num_heads
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"{entry} layout expects rank-3 [B, S, H*D] inputs")
+    b, sq, hd = q.shape
+    _, sk, kvd = k.shape
+    if num_heads % hkv:
+        raise ValueError(f"GQA needs H % Hkv == 0, got {num_heads} % {hkv}")
+    if hd % num_heads or kvd % hkv:
+        raise ValueError(
+            f"{entry} widths ({hd}, {kvd}) must be divisible by their head "
+            f"counts ({num_heads}, {hkv})")
+    d = hd // num_heads
+    if kvd // hkv != d:
+        raise ValueError(f"q head_dim {d} != kv head_dim {kvd // hkv}")
+    if rule(num_heads, hkv, d) is None:
+        what, alt = (("lane-full head pairing",
+                      "flash_attention_folded (d >= 128) or ")
+                     if entry == "paired"
+                     else ("lane-aligned head grouping", ""))
+        raise ValueError(f"no {what} for H={num_heads} Hkv={hkv} d={d}; "
+                         f"use {alt}the [B,S,H,D] flash_attention path")
+    # the TPU's tiles; the CUDA kernels take any S, so only blocks a caller
+    # names are checked
+    for n, blk in ((sq, block_q), (sk, block_k)):
+        if blk is not None and (blk <= 0 or n % blk):
+            raise ValueError(
+                f"seq lengths ({sq},{sk}) must divide blocks "
+                f"({block_q},{block_k})")
+    if use_kernel and q.is_cuda:
+        _check_kernel_takes(name, q, k, v, d)
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    out = _FlashAttention.apply(
+        q.unflatten(-1, (num_heads, d)), k.unflatten(-1, (hkv, d)),
+        v.unflatten(-1, (hkv, d)), float(scale), bool(causal),
+        int(window) if window is not None else None, bool(use_kernel), entry)
+    return out.flatten(2)
+
+
+def flash_attention_folded(q, k, v, *, num_heads: int,
+                           num_kv_heads: Optional[int] = None,
+                           causal: bool = True, mask=None,
+                           scale: Optional[float] = None,
+                           window: Optional[int] = None,
+                           block_q: Optional[int] = None,
+                           block_k: Optional[int] = None,
+                           interpret: Optional[bool] = None,
+                           use_kernel: bool = True):
+    """Layout-native flash attention (``flash_attention.py:943``).  q:
+    [B,Sq,H*D]; k/v: [B,Sk,Hkv*D], each with any 16-byte aligned row
+    stride (slices of one fused projection output are read in place);
+    returns [B,Sq,H*D].  Semantics (causal / sliding ``window`` / GQA /
+    ``scale``) match :func:`flash_attention` exactly.  ``block_q`` /
+    ``block_k`` are checked as the JAX package checks them and otherwise
+    unused, ``interpret`` unused (the TPU's tiling and interpreter)."""
+    del interpret
+    return _layout_attention("folded", folded_heads_per_block, q, k, v,
+                             num_heads, num_kv_heads, causal, mask, scale,
+                             window, block_q, block_k, use_kernel)
+
+
+def flash_attention_paired(q, k, v, *, num_heads: int,
+                           num_kv_heads: Optional[int] = None,
+                           causal: bool = True, mask=None,
+                           scale: Optional[float] = None,
+                           window: Optional[int] = None,
+                           block_q: Optional[int] = None,
+                           block_k: Optional[int] = None,
+                           interpret: Optional[bool] = None,
+                           use_kernel: bool = True):
+    """Head-paired flash attention (``flash_attention.py:1523``): the
+    folded entry's layout and semantics for geometries that
+    :func:`paired_heads_per_block` pairs; it launches the same kernels
+    and counts them under its own name."""
+    del interpret
+    return _layout_attention("paired", paired_heads_per_block, q, k, v,
+                             num_heads, num_kv_heads, causal, mask, scale,
+                             window, block_q, block_k, use_kernel)
 
 
 @functools.lru_cache(maxsize=None)
@@ -316,6 +573,7 @@ def _kernel(name: str):
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * n_ptr
                    + [ctypes.c_int] * 7
                    + ([ctypes.c_float] if name == "bwd_dq" else [])
-                   + [ctypes.c_void_p])    # the stream
+                   + [ctypes.POINTER(ctypes.c_longlong),   # row strides
+                      ctypes.c_void_p])                     # the stream
     fn.restype = ctypes.c_int
     return fn

@@ -104,6 +104,16 @@ def _norm_rel(got, want):
     return ((got.float() - want).norm() / want.norm().clamp_min(1e-30)).item()
 
 
+_BSHD = tuple(tfa.launch_key(k) for k in ("fwd", "bwd_dq", "bwd_dkv"))
+
+
+def _launched_since(before):
+    """The flash launches since ``before`` (a copy of LAUNCHES), by key,
+    leaving out the keys that did not move."""
+    return {n: c - before[n] for n, c in tfa.LAUNCHES.items()
+            if c != before[n]}
+
+
 def _flash_errors(b, sq, sk, h, hkv, d, causal, window, dtype):
     """The three kernels and their plain versions on the same random
     inputs: ``{output: (max-relative error, norm-relative error)}`` for
@@ -123,7 +133,7 @@ def _flash_errors(b, sq, sk, h, hkv, d, causal, window, dtype):
                                            causal, window)
     dk, dv = tfa.flash_attention_bwd_dkv(qs, k, v, do, lse, delta, causal,
                                          window)
-    assert all(tfa.LAUNCHES[n] == before[n] + 1 for n in before)
+    assert _launched_since(before) == {n: 1 for n in _BSHD}
     po, plse = tfa.flash_attention_plain_fwd(qs, k, v, causal=causal,
                                              window=window)
     pdq, pdelta = tfa.flash_attention_plain_bwd_dq(
@@ -227,13 +237,156 @@ def test_flash_attention_autograd_launches_kernels(cuda_device):
                for h in (4, 2, 2))
     before = dict(tfa.LAUNCHES)
     tfa.flash_attention(q, k, v).float().square().sum().backward()
-    assert all(tfa.LAUNCHES[n] == before[n] + 1 for n in before)
+    assert _launched_since(before) == {n: 1 for n in _BSHD}
     assert all(t.grad is not None and t.grad.shape == t.shape
                for t in (q, k, v))
     bad = torch.zeros((1, 8, 2, 80), device=cuda_device,
                       dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention(bad, bad, bad)
+
+
+def _strided_flash_errors(b, s, h, hkv, d, window=None):
+    """The three kernels on q, k and v as column views of one fused
+    ``[B, S, (H + 2 Hkv) D]`` bf16 buffer (q pre-scaled, a copy as on the
+    training path), against their plain versions on the same views and
+    against the contiguous-mode kernels on ``.contiguous()`` copies:
+    ``({output: (max-rel, norm-rel)}, {output: bit-equal})``."""
+    gen = torch.Generator(device="cuda").manual_seed(s + h + d)
+    buf = torch.randn((b, s, (h + 2 * hkv) * d), generator=gen,
+                      device="cuda", dtype=torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (-1, d))
+               for t in buf.split([h * d, hkv * d, hkv * d], dim=-1))
+    do = torch.randn((b, s, h, d), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    scale = d ** -0.5
+    qs = (q.float() * scale).to(q.dtype)
+
+    def run(k_, v_, plain=False):
+        if plain:
+            o, lse = tfa.flash_attention_plain_fwd(qs, k_, v_, window=window)
+            dq, delta = tfa.flash_attention_plain_bwd_dq(
+                qs, k_, v_, o, do, lse, scale=scale, window=window)
+            dk, dv = tfa.flash_attention_plain_bwd_dkv(
+                qs, k_, v_, do, lse, delta, window=window)
+        else:
+            o, lse = tfa.flash_attention_fwd(qs, k_, v_, True, window,
+                                             "folded")
+            dq, delta = tfa.flash_attention_bwd_dq(qs, k_, v_, o, do, lse,
+                                                   scale, True, window,
+                                                   "folded")
+            dk, dv = tfa.flash_attention_bwd_dkv(qs, k_, v_, do, lse, delta,
+                                                 True, window, "folded")
+        return dict(zip(("o", "lse", "delta", "dq", "dk", "dv"),
+                        (o, lse, delta, dq, dk, dv)))
+
+    assert not k.is_contiguous() and k.stride(1) == buf.shape[-1]
+    before = dict(tfa.LAUNCHES)
+    got = run(k, v)
+    assert _launched_since(before) == {
+        tfa.launch_key(n, "folded"): 1 for n in ("fwd", "bwd_dq", "bwd_dkv")}
+    contiguous = run(k.contiguous(), v.contiguous())
+    want = run(k, v, plain=True)
+    torch.cuda.synchronize()
+    errs = {n: (_rel(got[n], want[n]), _norm_rel(got[n], want[n]))
+            for n in want}
+    same = {n: torch.equal(got[n], contiguous[n]) for n in got}
+    return errs, same
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d,window", [
+    (8, 1024, 12, 12, 64, None),    # GPT-2-125M: views of [8, 1024, 2304]
+    (1, 1024, 64, 8, 128, None),    # Llama-2-70B heads, fused qkv_proj
+    (1, 1024, 8, 8, 64, 256),       # sliding window
+])
+def test_strided_flash_kernels(cuda_device, b, s, h, hkv, d, window):
+    """The strided mode (column views of one fused projection output)
+    against the plain versions at phase 16's bars, and bit for bit equal
+    to the contiguous mode on copies of the same views."""
+    errs, same = _strided_flash_errors(b, s, h, hkv, d, window)
+    for name, (rel, norm_rel) in errs.items():
+        assert rel <= TOL and norm_rel <= NORM_TOL, (name, rel, norm_rel)
+    assert all(same.values()), same
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_raises_on_misaligned_rows(cuda_device):
+    """A view whose offset is not a multiple of 8 elements, or whose row
+    stride is not, cannot be read with 16-byte loads: the wrappers raise
+    (and launch nothing)."""
+    buf = torch.zeros((2, 64, 3 * 256 + 8), device=cuda_device,
+                      dtype=torch.bfloat16)
+    good = buf[..., :256].unflatten(-1, (4, 64))
+    shifted = buf[..., 4:260].unflatten(-1, (4, 64))        # +8 bytes
+    odd = torch.zeros((2, 64, 260), device=cuda_device,
+                      dtype=torch.bfloat16)[..., :256].unflatten(-1, (4, 64))
+    before = dict(tfa.LAUNCHES)
+    for bad in (shifted, odd):
+        with pytest.raises(ValueError, match="16 bytes"):
+            tfa.flash_attention_fwd(good, bad, good)
+        with pytest.raises(ValueError, match="16 bytes"):
+            tfa.flash_attention_folded(good.flatten(2), bad.flatten(2),
+                                       good.flatten(2), num_heads=4)
+    assert _launched_since(before) == {}
+    assert not tfa.flash_attention_folded_usable(
+        good.flatten(2), shifted.flatten(2), good.flatten(2), 4, 4, True,
+        None)
+
+
+@pytest.mark.cuda
+def test_strided_norm_bar_catches_planted_k_stride(cuda_device, tmp_path,
+                                                   monkeypatch):
+    """A copy of csrc/flash_attention.cu that reads k with q's row stride
+    (the pre-scaled q is contiguous, k a view of the fused buffer) misses
+    the norm bar of test_strided_flash_kernels."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    old = "Rows{strides[0], strides[1],"
+    assert src.count(old) == 1
+    cu, so = tmp_path / "k_stride.cu", tmp_path / "libk_stride.so"
+    cu.write_text(src.replace(old, "Rows{strides[0], strides[0],"))
+    proc = subprocess.run(_build.nvcc_command(cu, so), capture_output=True,
+                          text=True)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    monkeypatch.setitem(_build._LIBS, "flash_attention",
+                        ctypes.CDLL(str(so)))
+    tfa._kernel.cache_clear()
+    try:
+        errs, _ = _strided_flash_errors(8, 1024, 12, 12, 64)
+    finally:
+        tfa._kernel.cache_clear()
+    print("planted k stride: " + ", ".join(
+        f"{k} max-rel {r:.3g} norm-rel {n:.3g}" for k, (r, n) in errs.items()))
+    assert max(n for _, n in errs.values()) > NORM_TOL, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["folded", "paired"])
+def test_gpt2_layouts_launch_the_strided_kernels(cuda_device, layout):
+    """GPT-2 at d = 64 under the folded and paired layouts: one launch of
+    each flash kernel a layer, counted under the layout's own entry, and
+    the same loss and c_attn gradient as the bshd layout bit for bit (one
+    kernel family reads the same views)."""
+    from deepspeed_tpu_torch.models import GPT2Config, GPT2LMHeadModel
+
+    ids = torch.randint(0, 256, (2, 128), device=cuda_device,
+                        generator=torch.Generator(device=cuda_device)
+                        .manual_seed(3))
+    out = {}
+    for lay in ("bshd", layout):
+        model = GPT2LMHeadModel(GPT2Config.tiny(
+            hidden_size=256, num_attention_heads=4, attention_layout=lay),
+            seed=2).to(torch.bfloat16)
+        before = dict(tfa.LAUNCHES)
+        loss = model(ids, ids)
+        loss.backward()
+        out[lay] = (loss.detach(), model.h[0].c_attn.weight.grad,
+                    _launched_since(before))
+    assert out[layout][2] == {tfa.launch_key(k, layout): 2
+                              for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    assert out["bshd"][2] == {n: 2 for n in _BSHD}
+    assert torch.equal(out["bshd"][0], out[layout][0])
+    assert torch.equal(out["bshd"][1], out[layout][1])
 
 
 @pytest.mark.cuda
@@ -310,10 +463,10 @@ def test_training_engine_kernels_match_plain_path(cuda_device):
                     n: g.clone() for n, g in zip(names, engine.acc_grads)
                     if n.split(".")[-2] in ("q_proj", "k_proj", "v_proj")}
             engine.step()
-            out.append(float(loss))
+            out.append(float(loss.detach()))
         launched = {k: tfa.LAUNCHES[k] - before[k] for k in before}
-        assert all(v == (6 if mode == "kernel" else 0)
-                   for v in launched.values())
+        assert launched == {k: (6 if mode == "kernel" and k in _BSHD else 0)
+                            for k in before}
         losses[mode] = np.array(out)
     assert np.isfinite(losses["kernel"]).all()
     loss_rel = (np.abs(losses["kernel"] - losses["plain"])
@@ -842,7 +995,7 @@ def test_mixtral_engine_kernels_match_plain_paths(cuda_device):
     on the same card, with a 64-row prefill tile so that put() takes the
     tiled prefill kernel.  The kernel path launches the tiled prefill, the
     decode kernel and the grouped GEMM; the plain path launches nothing;
-    verify_step raises."""
+    verify_step scores its rows through the generic paged kernel."""
     from deepspeed_tpu_torch.checkpoint import random_mixtral_params
 
     cfg = MixtralConfig.tiny(hidden_size=256, intermediate_size=384,
@@ -876,8 +1029,14 @@ def test_mixtral_engine_kernels_match_plain_paths(cuda_device):
             assert launched["paged_attention"] == 0
         else:
             assert not any(launched.values())
-        with pytest.raises(NotImplementedError, match="verify"):
-            eng.verify_step([0, 1], [[1, 2], [3, 4]])
+        before = dict(tbf.LAUNCHES)
+        ver = eng.verify_step([0, 1], [[1, 2], [3, 4]])[:2].float()
+        torch.cuda.synchronize()
+        assert ver.shape == (2, 2, cfg.vocab_size)
+        assert torch.isfinite(ver).all()
+        # verify rows take the generic paged kernel (no Mixtral verify route)
+        assert tbf.LAUNCHES["paged_attention"] - before["paged_attention"] \
+            == (cfg.num_hidden_layers if use_kernels else 0)
         out[use_kernels] = [np.stack([first[0], first[1]]),
                             dec[:2].float().cpu().numpy()]
     for got, want in zip(out[True], out[False]):

@@ -123,11 +123,15 @@ def test_dot_product_attention_routes_to_flash(implementation):
 
 
 def test_unported_layouts_and_bad_arguments_raise():
-    x = torch.zeros((1, 8, 4 * 64))
-    for fn, item in ((tattn.folded_attention, "B7"),
-                     (tattn.paired_attention, "B8")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn(x, x, x, num_heads=4)
+    """The folded and paired layouts are ported (they no longer raise:
+    their outputs equal the bshd path's); bad arguments still raise."""
+    x = torch.from_numpy(_inputs(1, 8, 8, 4, 4, 64)[0]).flatten(2)
+    want = tfa.flash_attention(*(x.unflatten(-1, (4, 64)),) * 3).flatten(2)
+    for fn in (tattn.folded_attention, tattn.paired_attention):
+        torch.testing.assert_close(fn(x, x, x, num_heads=4), want,
+                                   atol=0, rtol=0)
+        with pytest.raises(ValueError, match="implementation"):
+            fn(x, x, x, num_heads=4, implementation="pallas")
     q = torch.zeros((1, 8, 4, 64))
     with pytest.raises(ValueError, match="requires causal"):
         tfa.flash_attention(q, q, q, causal=False, window=4)

@@ -141,3 +141,91 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         "libblocked_flash-")
     assert set(_build.SOURCES) == {p.stem for p in (PORT / "csrc").glob(
         "*.cu")}
+
+
+def _jax_initialize_params():
+    """The parameter names of ``deepspeed_tpu.initialize``, read from its
+    source (this file imports nothing of the JAX package)."""
+    tree = ast.parse((ROOT / "deepspeed_tpu" / "__init__.py").read_text())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == "initialize")
+    return [a.arg for a in fn.args.args]
+
+
+def _tiny_llama():
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    return LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32),
+                            device="cpu")
+
+
+def test_initialize_keeps_the_jax_signature(tmp_path):
+    """The JAX parameters in the JAX order (``device`` after them);
+    ``initialize(args, model)`` positional reads ``args.deepspeed_config``
+    (a JSON file), ``config_params=`` is a config, and ``config=`` wins
+    over both."""
+    import argparse
+    import inspect
+    import json
+
+    import deepspeed_tpu_torch
+
+    names = list(inspect.signature(deepspeed_tpu_torch.initialize).parameters)
+    assert names == _jax_initialize_params() + ["device"]
+
+    path = tmp_path / "ds_config.json"
+    path.write_text(json.dumps({"train_micro_batch_size_per_gpu": 3}))
+    parser = deepspeed_tpu_torch.add_config_arguments(argparse.ArgumentParser())
+    args = parser.parse_args(["--deepspeed", "--deepspeed_config", str(path)])
+    assert args.deepspeed and args.deepspeed_config == str(path)
+    engine, opt, loader, sched = deepspeed_tpu_torch.initialize(
+        args, _tiny_llama(), device="cpu")
+    assert engine.train_micro_batch_size_per_gpu() == 3
+    assert opt is engine and loader is None and sched is None
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=_tiny_llama(), device="cpu",
+        config_params={"train_micro_batch_size_per_gpu": 5})
+    assert engine.train_micro_batch_size_per_gpu() == 5
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        args, _tiny_llama(), device="cpu",
+        config={"train_micro_batch_size_per_gpu": 7})
+    assert engine.train_micro_batch_size_per_gpu() == 7
+    with pytest.raises(ValueError, match="config required"):
+        deepspeed_tpu_torch.initialize(model=_tiny_llama(), device="cpu")
+
+
+@pytest.mark.parametrize("kw", ["optimizer", "mpu", "topology"])
+def test_initialize_raises_on_what_needs_more_than_one_device(kw):
+    from types import SimpleNamespace
+
+    import deepspeed_tpu_torch
+
+    value = {"optimizer": object(), "mpu": object(),
+             "topology": SimpleNamespace(world_size=4)}[kw]
+    with pytest.raises(NotImplementedError, match="A6"):
+        deepspeed_tpu_torch.initialize(
+            model=_tiny_llama(), config={"train_micro_batch_size_per_gpu": 1},
+            device="cpu", **{kw: value})
+
+
+def test_top_level_reexports_and_init_distributed(monkeypatch):
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
+                                                        RepeatingLoader)
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    from deepspeed_tpu_torch.utils.logging import logger
+
+    assert (ds.DeepSpeedEngine, ds.DeepSpeedConfig, ds.DeepSpeedDataLoader,
+            ds.RepeatingLoader, ds.get_accelerator, ds.logger) == (
+        DeepSpeedEngine, DeepSpeedConfig, DeepSpeedDataLoader,
+        RepeatingLoader, get_accelerator, logger)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    ds.init_distributed()                       # world size 1: nothing to do
+    ds.init_distributed(world_size=1)
+    with pytest.raises(NotImplementedError, match="A6"):
+        ds.init_distributed(world_size=2)
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(NotImplementedError, match="A6"):
+        ds.init_distributed()

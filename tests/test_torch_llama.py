@@ -101,11 +101,17 @@ def test_kv_cache_branch_and_unported_layouts_raise():
     ids = torch.zeros((1, 8), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="A9"):
         model(ids, cache={})
-    folded = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32,
-                                               attention_layout="folded"),
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="B7"):
-        folded(ids)
+    # the folded and paired layouts are ported: they no longer raise, and
+    # give the bshd layout's logits (d = 64, so both entries take it)
+    logits = {}
+    for layout in ("bshd", "folded", "paired"):
+        model = LlamaForCausalLM(LlamaConfig.tiny(
+            dtype=torch.float32, hidden_size=256, attention_layout=layout),
+            device="cpu")
+        logits[layout] = model(ids)
+    for layout in ("folded", "paired"):
+        torch.testing.assert_close(logits[layout], logits["bshd"], rtol=0,
+                                   atol=0)
 
 
 def test_seed_fixes_the_weights():

@@ -5,14 +5,13 @@ with ``params_from_jax``.  ``put`` and ``decode_step`` logits <= 2e-5 max
 abs and greedy tokens equal over 6 steps; with ``PREFILL_TILE = 16``, so
 that the engine packs tile-aligned and hands the tile to the model; over
 an int8 KV pool.  Also: the dense all-experts oracle equals the grouped
-path, ``verify_step`` on Mixtral raises, the weight bridge carries the
+path, ``verify_step`` on Mixtral matches JAX's, the weight bridge carries the
 Mixtral tree, and ``random_mixtral_params`` builds the JAX package's tree
 on the device it is given."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from deepspeed_tpu.inference.v2 import InferenceEngineV2 as JEngine
@@ -159,13 +158,20 @@ def test_dense_oracle_equals_grouped():
     assert (grouped - dense).abs().max().item() <= TOL
 
 
-def test_verify_step_raises_on_mixtral():
-    teng, _ = _engines(max_context=64)
-    teng.put([0], _prompts(2, (6,)))
-    free = teng.state_manager.free_blocks
-    with pytest.raises(NotImplementedError, match="verify"):
-        teng.verify_step([0], [[1, 2, 3]])
-    assert teng.state_manager.free_blocks == free      # nothing allocated
+def test_verify_step_matches_jax():
+    """``verify_step`` on Mixtral scores its rows through the generic
+    ragged path, as the JAX engine does: one 6-token prompt, then three
+    fed tokens; all three logits rows within the f32 bar of JAX's."""
+    teng, jeng = _engines(max_context=64)
+    prompt = _prompts(2, (6,))
+    tl = teng.put([0], prompt)
+    jl = jeng.put([0], prompt)
+    t0 = int(np.argmax(jl[0]))
+    assert t0 == int(np.argmax(tl[0]))
+    tlog = teng.verify_step([0], [[t0, 1, 2]])
+    jlog = jeng.verify_step([0], [[t0, 1, 2]])
+    assert tlog.shape == np.asarray(jlog).shape == (4, 3, 256)
+    assert np.abs(tlog[0].numpy() - np.asarray(jlog)[0]).max() <= TOL
 
 
 def _leaves(tree, prefix=()):
