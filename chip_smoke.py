@@ -148,7 +148,48 @@ Phases, each fatal on failure:
    finite falling loss, and exactly 12 launches a step of each flash
    kernel under the entry the layout implies and none under the others
    (counts set to 0 just before the timed steps); one traced GPT-2 paired
-   step.
+   step;
+19. the int8 quantizer kernel (``ops/quantizer.py`` ``quantize_kernel``)
+   against its plain version at the Llama-2-7B matrices in bf16 ([4096,
+   4096], [4096, 11008], [11008, 4096], lm_head [4096, 32000]) at 64 and 16
+   groups, at 128 values a group, with an all-zero group (scale 1, q 0) and
+   with exact .5 ties (fp32): q and scales bit for bit, each timed beside
+   the plain version and the bound (no one PyTorch call computes it);
+20. ``InferenceEngineV2.from_hf`` of a 2-layer Llama-2-7B checkpoint this
+   script writes (``config.json`` and a 1.3 GB bf16 ``model.safetensors``
+   from SEED) with ``quantize_bits=8`` and without: the 15 int8 records bit
+   for bit the plain quantizer on the bf16 engine's tensors, 64 groups each;
+   the 8 prompts through ``put`` and 16 greedy tokens on each engine, the
+   int8 engine's first logits within 1e-1 in norm of the bf16 engine's
+   (int8 rounding of 15 matrices puts them ~5% apart);
+   launches counted from 0 around each load and each served run: 15 quantize
+   launches loading int8, none loading bf16, the int8 matmul 15 a forward
+   serving int8 and never serving bf16;
+21. Llama-2-7B's 32 layers drawn in bf16 on the card from SEED and
+   quantized by ``WeightQuantization.model_quantize`` (64 groups, the
+   embedding excluded): 225 matrices, exactly 225 quantize launches, device
+   time beside the bound; then phase 5's workload with 16 decode tokens and
+   16 more: TTFT and ms/step beside phase 5's, the int8 matmul 225 launches
+   a forward; then a traced quantization of a second draw, 16 more decode
+   tokens after it, a traced decode window, and phase 5's own tree served
+   by the same code in the same process, with a probe of the host's cost
+   of one launch before each (what tells a slower tree from a slower
+   process);
+22. Evoformer attention (``DS4Sci_EvoformerAttention``) against the plain
+   version, in bf16 through the tensor-core kernel at upstream DeepSpeed's
+   test shapes [1, 256, 256, 4, 32] (triangle attention at crop 256,
+   OpenFold's 4 pair heads of 32) and [1, 512, 256, 8, 8], OpenFold's MSA
+   row attention [1, 128, 256, 8, 32], a ragged S = 250, no biases, and
+   rows whose keys are all masked (-1e9: the mean of v), with the mask bias
+   [B, N, 1, 1, S] and the pair bias [B, 1, H, S, S]; and through the
+   general kernel in fp32 at the triangle shape and in bf16 with a third
+   (per-row) bias at the MSA shape: the forward within 3e-2 max (fp32:
+   1e-4) and 1e-2 in norm, dQ, dK, dV and d(pair bias) of the autograd
+   Function within 5e-2 in norm of dense autograd; exactly one launch of
+   the routed kernel and none of the other a forward (counts set to 0 just
+   before each call); timed beside the plain version, SDPA over the summed
+   biases as one float mask (a yardstick) and the bound, with each
+   forward's peak memory.
 
 The second-to-last lines are the ``kernels`` JSON record and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -208,9 +249,9 @@ def rel_norm(got, want) -> float:
     return ((got.float() - want).norm() / want.norm().clamp_min(1e-30)).item()
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / (flops_per_s or BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -695,11 +736,14 @@ def make_engine(torch, cfg, params, max_ctx, use_kernels, kv_dtype=None,
 
 def _launch_counters():
     from deepspeed_tpu_torch.inference.v2.kernels import blocked_flash as bf
+    from deepspeed_tpu_torch.ops import evoformer_attn as evo
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import grouped_gemm as gg
     from deepspeed_tpu_torch.ops import quantized_matmul as qm
+    from deepspeed_tpu_torch.ops import quantizer as tq
 
-    return qm.LAUNCHES, bf.LAUNCHES, fa.LAUNCHES, gg.LAUNCHES
+    return (qm.LAUNCHES, bf.LAUNCHES, fa.LAUNCHES, gg.LAUNCHES, tq.LAUNCHES,
+            evo.LAUNCHES)
 
 
 def reset_launches():
@@ -775,6 +819,28 @@ def slice_kernel_vs_plain(torch, np, prompts):
             "finite": bool(torch.isfinite(k_logits).all())}
 
 
+def timed_serving(torch, eng, uids, prompts, gen_tokens):
+    """Phase 5's workload on ``eng``: all requests arrive at t0; the
+    512-token budget admits two 256-token prompts per forward, so they are
+    put two at a time and a request's TTFT is the end of the put that
+    returned its logits; then ``decode_loop`` of ``gen_tokens`` greedy
+    tokens.  Returns (ttft_ms, first logits, first tokens, tokens,
+    decode seconds)."""
+    ttft_ms = {}
+    first = {}
+    t0 = time.perf_counter()
+    for i in range(0, len(uids), 2):
+        got = eng.put(uids[i:i + 2], prompts[i:i + 2])
+        now = (time.perf_counter() - t0) * 1e3
+        for u in uids[i:i + 2]:
+            ttft_ms[u] = now
+            first[u] = got[u]
+    start = [int(first[u].argmax()) for u in uids]
+    t1 = time.perf_counter()
+    toks = eng.decode_loop(uids, start, gen_tokens)
+    return ttft_ms, first, start, toks, time.perf_counter() - t1
+
+
 def served_run(torch, prompts, gen_tokens=48):
     from deepspeed_tpu_torch.checkpoint import random_int8_llama_params
     from deepspeed_tpu_torch.inference.v2.speculative import NgramDrafter
@@ -797,25 +863,12 @@ def served_run(torch, prompts, gen_tokens=48):
     eng.flush([100, 101])
     torch.cuda.synchronize()
 
+    launch_us = host_launch_us(torch)
     reset_launches()
-    # all 8 requests arrive at t0; the 512-token budget admits two
-    # 256-token prompts per forward, so they are put two at a time and a
-    # request's TTFT is the end of the put that returned its logits
-    ttft_ms = {}
-    first = {}
-    t0 = time.perf_counter()
-    for i in range(0, len(uids), 2):
-        got = eng.put(uids[i:i + 2], prompts[i:i + 2])
-        now = (time.perf_counter() - t0) * 1e3
-        for u in uids[i:i + 2]:
-            ttft_ms[u] = now
-            first[u] = got[u]
+    ttft_ms, first, start, toks, decode_s = timed_serving(
+        torch, eng, uids, prompts, gen_tokens)
     finite = all(bool(torch.isfinite(torch.from_numpy(first[u])).all())
                  for u in uids)
-    start = [int(first[u].argmax()) for u in uids]
-    t1 = time.perf_counter()
-    toks = eng.decode_loop(uids, start, gen_tokens)
-    decode_s = time.perf_counter() - t1
     # one speculative round over the bf16 pool: n-gram drafts of each
     # request's history, scored in one verify pass, the accepted prefix
     # committed
@@ -834,6 +887,9 @@ def served_run(torch, prompts, gen_tokens=48):
     trace["decode"] = profile_window(
         torch, lambda: eng.decode_loop([200, 201], start[:2], 4), 4)
     eng.flush([200, 201])
+    # the same probe after the process's first traces
+    launch_us = {"before_serving": launch_us,
+                 "after_trace": host_launch_us(torch)}
     return {
         "layers": cfg.num_hidden_layers, "requests": len(uids),
         "prompt_len": len(prompts[0]), "gen_tokens": gen_tokens,
@@ -841,6 +897,7 @@ def served_run(torch, prompts, gen_tokens=48):
         "ttft_ms": [ttft_ms[u] for u in uids],
         "decode_ms_per_step": decode_s / gen_tokens * 1e3,
         "decode_tokens_per_s": len(uids) * gen_tokens / decode_s,
+        "host_launch_us": launch_us,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "finite": finite,
         "verify_round_accepted": accepted,
@@ -2181,6 +2238,514 @@ KERNEL_KINDS = (
 
 
 # --------------------------------------------------------------------- #
+# Phases 19-21: int8 weight quantization at load time (B10)
+# --------------------------------------------------------------------- #
+FP32_FLOPS = 67e12           # H100 SXM fp32 outside the tensor cores
+#: the Llama-2-7B matrices (q/k/v/o, gate/up, down, lm_head) as [K, N]
+QUANT_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+#: phase 20: the int8 engine's logits against the bf16 engine's, in norm.
+#: 64 row-block groups of a 4096-row matrix hold 262,144 weights each, whose
+#: absmax is ~4.9 sigma: the int8 step is ~0.039 sigma and its rounding
+#: noise (step / sqrt(12)) ~0.011 sigma; through the 14 projections of 2
+#: layers and the unembedding the logits part by 4.8% in norm (this phase's
+#: reading on an H100), so the bar sits ~2x above that
+INT8_LOGITS_NORM_TOL = 1e-1
+
+
+def quantizer_bound(n: int, groups: int, elt: int):
+    """The least time for one quantize of n values of ``elt`` bytes: x read
+    once, q and the scales written once, or ~4 fp32 operations a value
+    (abs, max, divide, round) at the fp32 rate, whichever is larger."""
+    t_bytes = (n * elt + n + groups * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = 4.0 * n / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def quantizer_case(torch, name, xs, groups):
+    """One phase-19 case: the kernel and its plain version on ``xs[0]``
+    (q and scales compared bit for bit), each timed over the operand sets
+    ``xs``."""
+    from deepspeed_tpu_torch.ops import quantizer as tq
+
+    x = xs[0]
+    got_q, got_s = tq.quantize_kernel(x, groups)
+    want_q, want_s = tq.quantize_plain(x, groups)
+    torch.cuda.synchronize()
+    err = max((got_q.int() - want_q.int()).abs().max().item(),
+              (got_s - want_s).abs().max().item())
+    b_ms, b_by = quantizer_bound(x.numel(), groups, x.element_size())
+    big = x.numel() * x.element_size() > 100e6
+    case = {
+        "name": name, "kernel": "quantize", "groups": groups,
+        "group_size": x.numel() // groups,
+        "bit_equal": bool(torch.equal(got_q, want_q)
+                          and torch.equal(got_s, want_s)),
+        "max_abs_err": err,
+        "ms": time_ms(lambda i: tq.quantize_kernel(xs[i], groups), len(xs),
+                      8 if big else 24),
+        "plain_ms": time_ms(lambda i: tq.quantize_plain(xs[i], groups),
+                            len(xs), len(xs)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # no one PyTorch call computes a groupwise int8 quantize
+        "library_ms": None,
+    }
+    if name.startswith("zero group"):
+        case["zero_group"] = bool(got_s[0].item() == 1.0
+                                  and not got_q[0].any().item())
+    return case
+
+
+def quantizer_cases(torch, gen, dev):
+    """Phase 19: the Llama-2-7B matrices in bf16 at 64 and 16 groups, 128
+    values a group, an all-zero group, and exact .5 ties everywhere."""
+    def sets_of(make, nbytes):
+        return [make() for _ in range(n_sets(nbytes))]
+
+    out = []
+    for k, n in QUANT_SHAPES:
+        xs = sets_of(lambda: torch.randn((k, n), generator=gen, device=dev,
+                                         dtype=torch.bfloat16) * 0.02,
+                     k * n * 3)
+        for groups in (64, 16):
+            out.append(quantizer_case(torch, f"[{k},{n}] bf16 G={groups}",
+                                      xs, groups))
+        del xs
+    k = n = 4096
+    xs = sets_of(lambda: torch.randn((k, n), generator=gen, device=dev,
+                                     dtype=torch.bfloat16), k * n * 3)
+    out.append(quantizer_case(torch, "[4096,4096] bf16 group 128", xs,
+                              k * n // 128))
+    for x in xs:
+        x[:64] = 0                               # group 0 of 64
+    out.append(quantizer_case(torch, "zero group [4096,4096] bf16 G=64", xs,
+                              64))
+    # (m + 0.5) / 8 with |m + 0.5| < 127 and one 127 / 8 a group: every value
+    # but the absmax lies on a .5 tie of the grid (scale 1/8 exactly)
+    ties = []
+    for _ in range(len(xs)):
+        t = (torch.randint(-126, 126, (k, n), generator=gen, device=dev)
+             .float() + 0.5) / 8
+        t.view(64, -1)[:, 0] = 127 / 8
+        ties.append(t)
+    out.append(quantizer_case(torch, "ties [4096,4096] fp32 G=64", ties, 64))
+    return out
+
+
+def _record_paths(tree, prefix=()):
+    for key, node in tree.items():
+        if isinstance(node, dict) and set(node) == {"q", "scale"}:
+            yield prefix + (key,), node
+        elif isinstance(node, dict):
+            yield from _record_paths(node, prefix + (key,))
+
+
+def _leaf(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def hf_checkpoint(torch, dev, path, layers):
+    """A HuggingFace Llama-2-7B checkpoint of ``layers`` layers in ``path``:
+    ``config.json`` and one bf16 ``model.safetensors``, the tree
+    ``random_llama_params`` draws on the card from SEED under HF's names,
+    projections transposed to HF's ``[out, in]`` (the inverse of the
+    loader's ``_llama_rules``).  Returns its bytes."""
+    from deepspeed_tpu_torch.checkpoint import random_llama_params
+    from deepspeed_tpu_torch.checkpoint.hf_loader import save_safetensors
+    from deepspeed_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=layers,
+                                dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    tree = random_llama_params(cfg, device=dev, generator=gen)
+    m = tree["model"]
+    tensors = {"model.embed_tokens.weight": m["embed_tokens"]["embedding"]}
+    for i in range(layers):
+        blk, p = m[f"layers_{i}"], f"model.layers.{i}."
+        for part in ("self_attn", "mlp"):
+            for proj, leaf in blk[part].items():
+                tensors[f"{p}{part}.{proj}.weight"] = leaf["kernel"].t()
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            tensors[f"{p}{norm}.weight"] = blk[norm]["scale"]
+    tensors["model.norm.weight"] = m["norm"]["scale"]
+    tensors["lm_head.weight"] = tree["lm_head"]["kernel"].t()
+    tensors = {k: t.to(torch.bfloat16) for k, t in tensors.items()}
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    path.mkdir(parents=True, exist_ok=True)
+    save_safetensors(tensors, str(path / "model.safetensors"))
+    (path / "config.json").write_text(json.dumps({
+        "model_type": "llama", "vocab_size": V, "hidden_size": H,
+        "intermediate_size": I, "num_hidden_layers": layers,
+        "num_attention_heads": cfg.num_attention_heads,
+        "num_key_value_heads": cfg.num_key_value_heads,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+        "torch_dtype": "bfloat16"}))
+    return sum(t.numel() * 2 for t in tensors.values())
+
+
+def serving_engine_config(max_ctx):
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineConfig
+
+    return RaggedInferenceEngineConfig.from_dict({
+        "state_manager": {"max_ragged_batch_size": 512,
+                          "max_ragged_sequence_count": 8,
+                          "max_context": max_ctx},
+        "kv_cache": {"block_size": 128}})
+
+
+def from_hf_run(torch, np, dev, prompts, gen_tokens=16, layers=2):
+    """Phase 20: ``from_hf`` of a 2-layer Llama-2-7B checkpoint written by
+    this script, with ``quantize_bits=8`` and without: every int8 record
+    bit for bit the plain quantizer on the bf16 engine's tensor, then the 8
+    prompts through ``put`` and ``gen_tokens`` greedy tokens on each engine,
+    launches counted from 0 around each load and each served run."""
+    import shutil
+
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.ops import quantizer as tq
+
+    path = ROOT / "build" / "chip_smoke_hf"
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    nbytes = hf_checkpoint(torch, dev, path, layers)
+    write_s = time.perf_counter() - t0
+    max_ctx = 256 + gen_tokens + 8
+    engines, out = {}, {"checkpoint_gb": nbytes / 1e9,
+                        "write_s": write_s}
+    try:
+        for mode, bits in (("int8", 8), ("bf16", None)):
+            reset_launches()
+            t0 = time.perf_counter()
+            eng = InferenceEngineV2.from_hf(
+                str(path), serving_engine_config(max_ctx),
+                quantize_bits=bits, device=dev)
+            torch.cuda.synchronize()
+            out[f"{mode}_load_s"] = time.perf_counter() - t0
+            out[f"{mode}_load_quantize_launches"] = tq.LAUNCHES["quantize"]
+            engines[mode] = eng
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    records = list(_record_paths(engines["int8"].params))
+    bad = []
+    for rpath, rec in records:
+        w = _leaf(engines["bf16"].params, rpath)
+        q, s = tq.quantize_plain(w, rec["scale"].numel())
+        if not (torch.equal(rec["q"], q.reshape(w.shape))
+                and torch.equal(rec["scale"], s)
+                and rec["scale"].numel() == 64):
+            bad.append("/".join(rpath))
+    out.update(records=len(records), records_not_bit_equal=bad)
+    uids = list(range(len(prompts)))
+    logits, toks = {}, {}
+    for mode, eng in engines.items():
+        reset_launches()
+        first = eng.put(uids, prompts)
+        logits[mode] = torch.from_numpy(np.stack([first[u] for u in uids]))
+        start = [int(first[u].argmax()) for u in uids]
+        toks[mode] = eng.decode_loop(uids, start, gen_tokens)
+        eng.flush(uids)
+        torch.cuda.synchronize()
+        out[f"{mode}_serve_launches"] = read_launches(
+            ("quantized_matmul", "paged_attention", "paged_decode_attention",
+             "quantize"))
+    forwards = len(prompts) // 2 + gen_tokens    # two prompts a put forward
+    out["expected_int8_serve_quantized_matmul"] = \
+        (7 * layers + 1) * forwards
+    out["logits_norm_rel_err"] = rel_norm(logits["int8"], logits["bf16"])
+    scale = logits["bf16"].abs().max().item()
+    out["logits_max_rel_err"] = (logits["int8"] - logits["bf16"]).abs() \
+        .max().item() / scale
+    out["first_token_agreement"] = float(
+        (logits["int8"].argmax(-1) == logits["bf16"].argmax(-1))
+        .float().mean())
+    out["decode_token_agreement"] = float((toks["int8"] == toks["bf16"])
+                                          .mean())
+    out["finite"] = all(bool(torch.isfinite(v).all())
+                        for v in logits.values())
+    out["tokens_in_vocab"] = all(bool(((t >= 0) & (t < 32000)).all())
+                                 for t in toks.values())
+    return out
+
+
+def host_launch_us(torch, n=2000):
+    """Host time of one small launch (an in-place add on one value), the
+    mean over ``n``: a probe of what each launch costs on the host, which
+    a host-bound decode step pays some 700 times."""
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def quantized_served_run(torch, np, dev, prompts, gen_tokens=16):
+    """Phase 21: Llama-2-7B's 32 layers drawn in bf16 on the card and
+    quantized by ``model_quantize`` (64 groups, embeddings excluded; counts
+    set to 0 just before, read just after), then phase 5's workload on a
+    shorter decode (counts set to 0 just before the timed puts).  Then,
+    to tell the tree from the process's state: the same quantization of a
+    second draw under the tracer and the same sequences decoding on after
+    it, and phase 5's tree (random int8 records) served by the same code in
+    the same process."""
+    from deepspeed_tpu_torch.checkpoint import (random_int8_llama_params,
+                                                random_llama_params)
+    from deepspeed_tpu_torch.models import LlamaConfig
+    from deepspeed_tpu_torch.ops import quantizer as tq
+    from deepspeed_tpu_torch.runtime.weight_quantizer import (
+        WeightQuantization)
+
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig.llama2_7b(dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = random_llama_params(cfg, device=dev, generator=gen)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    wq = WeightQuantization(quantize_bits=8, quantize_groups=64)
+    start_ev = torch.cuda.Event(enable_timing=True)
+    stop_ev = torch.cuda.Event(enable_timing=True)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start_ev.record()
+    qparams, count = wq.model_quantize(params, exclude=("embed",))
+    stop_ev.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    quantize_launches = tq.LAUNCHES["quantize"]
+    bound_ms = sum(quantizer_bound(r["q"].numel(), r["scale"].numel(), 2)[0]
+                   for _, r in _record_paths(qparams))
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    max_ctx = 256 + 3 * gen_tokens + 8
+    eng = make_engine(torch, cfg, qparams, max_ctx, True)
+    eng.put([100, 101], prompts[:2])               # warm, as phase 5
+    eng.decode_loop([100, 101], [1, 1], 2)
+    eng.flush([100, 101])
+    torch.cuda.synchronize()
+    uids = list(range(len(prompts)))
+    probe = {"before_serving": host_launch_us(torch)}
+    reset_launches()
+    ttft_ms, first, _, toks, decode_s = timed_serving(
+        torch, eng, uids, prompts, gen_tokens)
+    # the same sequences decode on: a second decode_loop of as many tokens
+    t1 = time.perf_counter()
+    more = eng.decode_loop(uids, toks[:, -1].tolist(), gen_tokens)
+    again_s = time.perf_counter() - t1
+    launches = read_launches(BF16_PUT_DECODE + ("quantize",))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # where the load's time goes: the same quantization of a second draw,
+    # traced; then the same sequences decode on once more
+    params = random_llama_params(cfg, device=dev, generator=gen)
+    trace = {"quantize_again": profile_window(
+        torch, lambda: wq.model_quantize(params, exclude=("embed",)), 1)}
+    del params
+    torch.cuda.empty_cache()
+    probe["after_quantize_trace"] = host_launch_us(torch)
+    t1 = time.perf_counter()
+    eng.decode_loop(uids, more[:, -1].tolist(), gen_tokens)
+    after_trace_s = time.perf_counter() - t1
+    eng.flush(uids)
+    torch.cuda.synchronize()
+    eng.put([200, 201], prompts[:2])
+    trace["decode"] = profile_window(
+        torch, lambda: eng.decode_loop([200, 201], [1, 1], 4), 4)
+    eng.flush([200, 201])
+    del eng, qparams
+    torch.cuda.empty_cache()
+    # phase 5's tree (16 groups of random int8) through the same code, here
+    eng = make_engine(torch, cfg, random_int8_llama_params(cfg, groups=16,
+                                                           seed=SEED),
+                      max_ctx, True)
+    eng.put([100, 101], prompts[:2])
+    eng.decode_loop([100, 101], [1, 1], 2)
+    eng.flush([100, 101])
+    torch.cuda.synchronize()
+    probe["before_phase5_tree"] = host_launch_us(torch)
+    p5_ttft, _, _, _, p5_decode_s = timed_serving(torch, eng, uids, prompts,
+                                                  gen_tokens)
+    eng.flush(uids)
+    del eng
+    torch.cuda.empty_cache()
+    forwards = len(prompts) // 2 + 2 * gen_tokens
+    return {
+        "layers": cfg.num_hidden_layers, "param_draw_s": draw_s,
+        "matrices_quantized": count, "quantize_launches": quantize_launches,
+        "quantize_device_ms": start_ev.elapsed_time(stop_ev),
+        "quantize_wall_ms": wall_ms, "quantize_bound_ms": bound_ms,
+        "ttft_ms": [ttft_ms[u] for u in uids],
+        "decode_ms_per_step": decode_s / gen_tokens * 1e3,
+        "decode_again_ms_per_step": again_s / gen_tokens * 1e3,
+        "decode_after_quantize_trace_ms_per_step":
+            after_trace_s / gen_tokens * 1e3,
+        "phase5_tree_ttft_ms": [p5_ttft[u] for u in uids],
+        "phase5_tree_decode_ms_per_step": p5_decode_s / gen_tokens * 1e3,
+        "host_launch_us": probe,
+        "decode_tokens_per_s": len(uids) * gen_tokens / decode_s,
+        "gen_tokens": gen_tokens,
+        "peak_memory_gb": peak_gb,
+        "launches": launches,
+        "expected_quantized_matmul": (7 * cfg.num_hidden_layers + 1)
+        * forwards,
+        "finite": all(bool(torch.isfinite(torch.from_numpy(first[u])).all())
+                      for u in uids),
+        "tokens_shape": list(toks.shape) if more.shape == toks.shape
+        else [],
+        "tokens_in_vocab": bool(((toks >= 0) & (toks < 32000)).all()
+                                and ((more >= 0) & (more < 32000)).all()),
+        "trace": trace,
+    }
+
+
+# --------------------------------------------------------------------- #
+# Phase 22: Evoformer attention (B12)
+# --------------------------------------------------------------------- #
+#: (name, lead dims, S, heads, d, biases, type): Q/K/V [*lead, S, H, d], the
+#: mask bias [B, N, 1, 1, S] (-1e9 on masked keys) and the pair bias
+#: [B, 1, H, S, S] ("three": and a per-row bias [B, N, H, S, 1]).  bf16 with
+#: at most two biases takes the tensor-core kernel; fp32 and three biases
+#: the general one
+EVO_CASES = (
+    ("triangle crop 256 (1,256,256,4,32)", (1, 256), 256, 4, 32, "both",
+     "bf16"),
+    ("DS4Sci test (1,512,256,8,8)", (1, 512), 256, 8, 8, "both", "bf16"),
+    ("MSA row (1,128,256,8,32)", (1, 128), 256, 8, 32, "both", "bf16"),
+    ("ragged S=250 (1,64,250,4,32)", (1, 64), 250, 4, 32, "both", "bf16"),
+    ("no biases (1,256,256,4,32)", (1, 256), 256, 4, 32, "none", "bf16"),
+    ("masked rows (1,256,256,4,32)", (1, 256), 256, 4, 32, "masked",
+     "bf16"),
+    ("fp32 triangle crop 256 (1,256,256,4,32)", (1, 256), 256, 4, 32,
+     "both", "fp32"),
+    ("three biases MSA row (1,128,256,8,32)", (1, 128), 256, 8, 32, "three",
+     "bf16"),
+)
+EVO_GRAD_NORM_TOL = 5e-2
+#: the general kernel in fp32 against the dense version in fp32
+EVO_FP32_TOL = 1e-4
+EVO_KEYS = {"mma": "evoformer_attention", "simt": "evoformer_attention_simt"}
+
+
+def evoformer_case(torch, gen, dev, name, lead, s, h, d, biases, dtype):
+    """One phase-22 case: the forward through ``DS4Sci_EvoformerAttention``
+    (one launch of the kernel ``kernel_route`` names, none of the other)
+    against the plain version, the gradients of the autograd Function
+    against dense autograd, times beside the plain version, SDPA over the
+    summed biases (a yardstick) and the bound, peak memory of each
+    forward."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import evoformer_attn as evo
+
+    b, n = lead
+    L = b * n
+    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+    elt = torch.tensor([], dtype=dt).element_size()
+    qkv_bytes = L * s * h * d * elt
+    sets = n_sets(4 * qkv_bytes + h * s * s * elt)
+
+    def operands():
+        q, k, v = (torch.randn(lead + (s, h, d), generator=gen, device=dev,
+                               dtype=dt) for _ in range(3))
+        if biases == "none":
+            return q, k, v, []
+        keep = torch.randint(0, 2, (b, n, s), generator=gen, device=dev)
+        if biases == "masked":
+            keep[:, :16] = 0                     # every key of 16 rows
+        mask = (1e9 * (keep - 1)).to(dt)[:, :, None, None, :]
+        pair = torch.randn((b, 1, h, s, s), generator=gen, device=dev,
+                           dtype=dt)
+        if biases == "three":
+            row = torch.randn((b, n, h, s, 1), generator=gen, device=dev,
+                              dtype=dt)
+            return q, k, v, [mask, pair, row]
+        return q, k, v, [mask, pair]
+
+    ops = [operands() for _ in range(sets)]
+    q, k, v, bs = ops[0]
+    key = EVO_KEYS[evo.kernel_route(q, k, v, bs)]
+    case = {"name": name, "kernel": key, "dtype": dtype,
+            "shape": list(lead) + [s, h, d], "biases": biases}
+    reset_launches()
+    with torch.no_grad():
+        got = evo.DS4Sci_EvoformerAttention(q, k, v, bs)
+    torch.cuda.synchronize()
+    case["fwd_launches"] = dict(evo.LAUNCHES)
+    want = evo.evoformer_attention_dense(q, k, v, bs)
+    case["max_abs_err"] = (got.float() - want.float()).abs().max().item()
+    case["norm_rel_err"] = rel_norm(got, want)
+    if biases == "masked":                       # uniform: the mean of v
+        mean_v = v[:, :16].float().mean(dim=2, keepdim=True)
+        case["masked_rows_vs_mean_v"] = (got[:, :16].float() - mean_v) \
+            .abs().max().item()
+    # gradients: the kernel route's Function against dense autograd
+    w = torch.randn(q.shape, generator=gen, device=dev)
+    grads = {}
+    for route in ("kernel", "dense"):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        pair = [bs[1].detach().clone().requires_grad_()] if bs else []
+        args = bs[:1] + pair + bs[2:]
+        reset_launches()
+        fn = (evo.DS4Sci_EvoformerAttention if route == "kernel"
+              else evo.evoformer_attention_dense)
+        (fn(*leaves, args).float() * w).sum().backward()
+        torch.cuda.synchronize()
+        if route == "kernel":
+            case["grad_launches"] = dict(evo.LAUNCHES)
+        grads[route] = [t.grad for t in leaves + pair]
+    case["grad_norm_rel_err"] = dict(zip(
+        ("dq", "dk", "dv", "dpair"),
+        (rel_norm(a, b_) for a, b_ in zip(grads["kernel"], grads["dense"]))))
+    del grads
+
+    def fwd(i):
+        with torch.no_grad():
+            evo.evoformer_attention_kernel(*ops[i][:3], ops[i][3])
+
+    def plain(i):
+        with torch.no_grad():
+            evo.evoformer_attention_dense(*ops[i][:3], ops[i][3])
+
+    case["ms"] = time_ms(fwd, sets, 20)
+    case["plain_ms"] = time_ms(plain, sets, sets)
+    # SDPA over [L, H, S, d] with the biases summed into one float mask
+    # [L, H, S, S], made outside the timing: a yardstick only
+    sd = []
+    for qi, ki, vi, bi in ops:
+        lay = [t.reshape(L, s, h, d).transpose(1, 2).contiguous()
+               for t in (qi, ki, vi)]
+        mask = None
+        if bi:
+            mask = sum(bi[1:], bi[0]).expand(lead + (h, s, s)).reshape(
+                L, h, s, s).contiguous()
+        sd.append((lay, mask))
+    case["library_ms"] = time_ms(
+        lambda i: F.scaled_dot_product_attention(*sd[i][0],
+                                                 attn_mask=sd[i][1]),
+        sets, 20)
+    del sd
+    bias_bytes = sum(t.numel() * elt for t in bs)
+    case["bound_ms"], case["bound_by"] = bound(
+        4 * qkv_bytes + bias_bytes, 4.0 * L * h * s * s * d,
+        BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS)
+    for route, fn in (("kernel", fwd), ("dense", plain)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn(0)
+        torch.cuda.synchronize()
+        case[f"{route}_fwd_peak_extra_mb"] = (
+            torch.cuda.max_memory_allocated() - base) / 1e6
+    return case
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     if not (ROOT / "deepspeed_tpu_torch" / "csrc").is_dir():
         return fail("deepspeed_tpu_torch/ not found beside chip_smoke.py: "
@@ -2487,6 +3052,98 @@ def main() -> int:
                         f"expected {run['expected_launches']}")
         runs[key] = run
 
+    # 19. the int8 quantizer kernel against its plain version, bit for bit
+    qcases = quantizer_cases(torch, gen, dev)
+    for c in qcases:
+        print(f"[quantizer] {c['name']}: bit-equal {c['bit_equal']} "
+              f"max abs err {c['max_abs_err']} ms {c['ms']:.4f} plain "
+              f"{c['plain_ms']:.4f} bound {c['bound_ms']:.4f} "
+              f"({c['bound_by']})"
+              + (f" zero group {c['zero_group']}" if "zero_group" in c
+                 else ""), flush=True)
+    bad = [c["name"] for c in qcases
+           if not c["bit_equal"] or c.get("zero_group") is False]
+    if bad:
+        return fail(f"the quantizer kernel's q or scales differ from its "
+                    f"plain version: {bad}")
+
+    # 20. from_hf of a 2-layer Llama-2-7B checkpoint, int8 and bf16
+    hf = from_hf_run(torch, np, dev, prompts)
+    print(f"[from-hf] {json.dumps(hf)}", flush=True)
+    i8, b16 = hf["int8_serve_launches"], hf["bf16_serve_launches"]
+    if hf["records"] != 15 or hf["records_not_bit_equal"]:
+        return fail(f"from_hf(quantize_bits=8): {hf['records']} records, "
+                    f"not the plain quantizer's bits: "
+                    f"{hf['records_not_bit_equal']}")
+    if hf["int8_load_quantize_launches"] != 15 \
+            or hf["bf16_load_quantize_launches"] \
+            or i8["quantized_matmul"] != \
+            hf["expected_int8_serve_quantized_matmul"] \
+            or b16["quantized_matmul"] or i8["quantize"] or b16["quantize"] \
+            or not all(r["paged_attention"] and r["paged_decode_attention"]
+                       for r in (i8, b16)):
+        return fail(f"from_hf launches: loads "
+                    f"{hf['int8_load_quantize_launches']} / "
+                    f"{hf['bf16_load_quantize_launches']} quantize, served "
+                    f"int8 {i8} (quantized_matmul expected "
+                    f"{hf['expected_int8_serve_quantized_matmul']}), bf16 "
+                    f"{b16}")
+    if not (hf["finite"] and hf["tokens_in_vocab"]
+            and hf["logits_norm_rel_err"] <= INT8_LOGITS_NORM_TOL):
+        return fail(f"from_hf: the int8 engine's logits are "
+                    f"{hf['logits_norm_rel_err']:.4g} from the bf16 "
+                    f"engine's in norm (bar {INT8_LOGITS_NORM_TOL}) or not "
+                    f"finite")
+
+    # 21. Llama-2-7B quantized on the card from bf16, then served
+    qserved = quantized_served_run(torch, np, dev, prompts)
+    print(f"[quantized-served] {json.dumps(qserved)} | phase 5: TTFT "
+          f"{served['ttft_ms']} decode ms/step "
+          f"{served['decode_ms_per_step']:.2f}", flush=True)
+    ql = qserved["launches"]
+    if not (qserved["matrices_quantized"] == 225
+            == qserved["quantize_launches"]) or ql["quantize"] \
+            or ql["quantized_matmul"] != qserved["expected_quantized_matmul"] \
+            or not (ql["paged_attention"] and ql["paged_decode_attention"]):
+        return fail(f"phase 21 launches: {qserved['matrices_quantized']} "
+                    f"matrices, {qserved['quantize_launches']} quantize "
+                    f"launches (225 expected), served {ql} (quantized_matmul "
+                    f"expected {qserved['expected_quantized_matmul']})")
+    if not (qserved["finite"] and qserved["tokens_in_vocab"]
+            and qserved["tokens_shape"] == [8, qserved["gen_tokens"]]):
+        return fail(f"phase 21 served output malformed: {qserved}")
+
+    # 22. Evoformer attention: the kernel route against the plain version
+    evo_cases = [evoformer_case(torch, gen, dev, *c) for c in EVO_CASES]
+    for c in evo_cases:
+        print(f"[evoformer] {c['name']}: err {c['max_abs_err']:.3g} norm "
+              f"err {c['norm_rel_err']:.3g} grads "
+              f"{ {k: float(f'{v:.3g}') for k, v in c['grad_norm_rel_err'].items()} }"
+              f" | ms {c['ms']:.4f} plain {c['plain_ms']:.4f} SDPA "
+              f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
+              f"({c['bound_by']}) | peak MB kernel "
+              f"{c['kernel_fwd_peak_extra_mb']:.1f} dense "
+              f"{c['dense_fwd_peak_extra_mb']:.1f}"
+              + (f" | masked rows vs mean v {c['masked_rows_vs_mean_v']:.3g}"
+                 if "masked_rows_vs_mean_v" in c else ""), flush=True)
+    bad = [c["name"] for c in evo_cases
+           if not (c["max_abs_err"] <= (EVO_FP32_TOL if c["dtype"] == "fp32"
+                                        else TOL)
+                   and c["norm_rel_err"] <= NORM_TOL
+                   and all(v <= EVO_GRAD_NORM_TOL
+                           for v in c["grad_norm_rel_err"].values())
+                   and c.get("masked_rows_vs_mean_v", 0.0) <= TOL)]
+    if bad:
+        return fail(f"the Evoformer kernel route differs from the plain "
+                    f"version: {bad}")
+    bad = [(c["name"], c["fwd_launches"], c["grad_launches"])
+           for c in evo_cases
+           if not c["fwd_launches"] == c["grad_launches"] == {
+               key: int(key == c["kernel"]) for key in EVO_KEYS.values()}]
+    if bad:
+        return fail(f"Evoformer launches: not one launch of the routed "
+                    f"kernel a forward call (and none of the other): {bad}")
+
     src = "deepspeed_tpu_torch/csrc/"
     ref = "deepspeed_tpu/"
     bf_py = ref + "inference/v2/kernels/blocked_flash.py:"
@@ -2564,6 +3221,27 @@ def main() -> int:
                     "library_ms": c["library_ms"]["fwd"] if kname == "fwd"
                     else None,
                 })
+    for c in qcases:
+        kernels.append({
+            "name": f"quantize[{c['name']}]", "route": "cuda",
+            "source": src + "quantizer.cu",
+            "replaces": ref + "ops/quantizer.py:201",
+            "launches": qserved["quantize_launches"],
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": None,
+        })
+    for c in evo_cases:
+        kernels.append({
+            "name": f"{c['kernel']}[{c['name']}]", "route": "cuda",
+            "source": src + "evoformer_attn.cu",
+            "replaces": ref + "ops/evoformer_attn.py:63",
+            "launches": c["fwd_launches"][c["kernel"]]
+            + c["grad_launches"][c["kernel"]],
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+        })
     record = {"kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2574,7 +3252,9 @@ def main() -> int:
          "spec_served": spec_run, "mixtral_slice": mix,
          "mixtral_served": mixtral, "moe_layer": moe_layer,
          "moe_slice": moe_model, "moe_trained": moe_runs,
-         "strided": strided, "gpt2_slice": g_slice, "layout_trained": runs},
+         "strided": strided, "gpt2_slice": g_slice, "layout_trained": runs,
+         "quantizer": qcases, "from_hf": hf, "quantized_served": qserved,
+         "evoformer": evo_cases},
         indent=1))
     print(json.dumps(record))
     print(smi)

@@ -1,14 +1,20 @@
+from deepspeed_tpu_torch.checkpoint.hf_loader import (HFLoadError,
+                                                     config_from_hf,
+                                                     hf_config,
+                                                     load_hf_checkpoint)
 from deepspeed_tpu_torch.checkpoint.jax_params import (
     flax_params_from_gpt2_state_dict, flax_params_from_llama_state_dict,
     flax_params_from_mixtral_state_dict, flax_params_from_moe_state_dict,
     gpt2_state_dict_from_flax, llama_state_dict_from_flax,
     mixtral_state_dict_from_flax, moe_state_dict_from_flax, params_from_jax,
-    random_int8_llama_params, random_mixtral_params)
+    random_int8_llama_params, random_llama_params, random_mixtral_params)
 
-__all__ = ["flax_params_from_gpt2_state_dict",
+__all__ = ["HFLoadError", "config_from_hf", "hf_config", "load_hf_checkpoint",
+           "flax_params_from_gpt2_state_dict",
            "flax_params_from_llama_state_dict",
            "flax_params_from_mixtral_state_dict",
            "flax_params_from_moe_state_dict", "gpt2_state_dict_from_flax",
            "llama_state_dict_from_flax", "mixtral_state_dict_from_flax",
            "moe_state_dict_from_flax", "params_from_jax",
-           "random_int8_llama_params", "random_mixtral_params"]
+           "random_int8_llama_params", "random_llama_params",
+           "random_mixtral_params"]

@@ -14,6 +14,10 @@ transposed to ``nn.Linear``'s ``[out, in]`` (the forward computes
 matmul weight an int8 record, drawn on the device from a seeded
 ``torch.Generator`` (its numbers differ from ``jax.random``'s).
 
+:func:`random_llama_params` makes the same tree with bf16 (``cfg.dtype``)
+weights, the checkpoint that ``WeightQuantization.model_quantize`` turns
+into int8 records.
+
 :func:`random_mixtral_params` makes the flat ``MixtralForCausalLM`` tree
 of ``ragged_mixtral.py`` with bf16 (``cfg.dtype``) weights and an fp32
 router, one tensor at a time on the device from a ``torch.Generator``: a
@@ -119,6 +123,47 @@ def random_int8_llama_params(cfg: LlamaConfig, groups: int = 16,
     model["embed_tokens"] = {"embedding": emb}
     model["norm"] = ones()
     return {"model": model, "lm_head": rec(H, V)}
+
+
+def random_llama_params(cfg: LlamaConfig, device=None,
+                        generator: Optional[torch.Generator] = None) -> Any:
+    """Random Llama params in the JAX package's ragged tree, made directly
+    on ``device`` (default CUDA) from ``generator`` (default: seeded with 0
+    on that device): every projection ``[K, N]`` in ``cfg.dtype`` with std
+    1/sqrt(K), the embedding with std 0.02, RMSNorm scales of ones in fp32.
+    The full-precision tree a checkpoint holds, before any quantization."""
+    dev = resolve_device(device)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+    H, I, V, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                  cfg.num_hidden_layers)
+    kv = cfg.num_key_value_heads * cfg.head_dim
+
+    def w(k_dim, n_dim, std=None):
+        t = torch.randn((k_dim, n_dim), generator=gen, dtype=cfg.dtype,
+                        device=dev)
+        return t.mul_(std if std is not None else 1.0 / math.sqrt(k_dim))
+
+    def ones():
+        return {"scale": torch.ones((H,), dtype=torch.float32, device=dev)}
+
+    model = {"embed_tokens": {"embedding": w(V, H, std=0.02)}}
+    for i in range(L):
+        model[f"layers_{i}"] = {
+            "self_attn": {"q_proj": {"kernel": w(H, H)},
+                          "k_proj": {"kernel": w(H, kv)},
+                          "v_proj": {"kernel": w(H, kv)},
+                          "o_proj": {"kernel": w(H, H)}},
+            "mlp": {"gate_proj": {"kernel": w(H, I)},
+                    "up_proj": {"kernel": w(H, I)},
+                    "down_proj": {"kernel": w(I, H)}},
+            "input_layernorm": ones(),
+            "post_attention_layernorm": ones(),
+        }
+    model["norm"] = ones()
+    return {"model": model, "lm_head": {"kernel": w(H, V)}}
 
 
 def random_mixtral_params(cfg: MixtralConfig, device=None,

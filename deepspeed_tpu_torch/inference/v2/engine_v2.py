@@ -27,8 +27,11 @@ row and KV head).
 ``flush_to_host(include_kv=True)`` / ``resume(kv_state=...)`` carry a
 sequence's KV rows (scales included) from one engine to another.
 
-Not ported yet (each raises ``NotImplementedError``): ``serialize`` /
-``from_hf`` and the memory ledger.
+``from_hf`` loads a HuggingFace checkpoint directory, with int8
+weight-only quantization on the device (``quantize_bits=8``).
+
+Not ported yet (each raises ``NotImplementedError``): ``serialize`` and the
+memory ledger.
 """
 
 from __future__ import annotations
@@ -704,10 +707,54 @@ class InferenceEngineV2:
             "serialize is not ported to deepspeed_tpu_torch yet")
 
     @classmethod
-    def from_hf(cls, model_path: str, *args, **kwargs):
-        raise NotImplementedError(
-            "from_hf is not ported to deepspeed_tpu_torch yet; build the "
-            "params with deepspeed_tpu_torch.checkpoint.jax_params")
+    def from_hf(cls, model_path: str,
+                config: Optional[RaggedInferenceEngineConfig] = None,
+                mesh=None, dtype=None, quantize_bits: Optional[int] = None,
+                quantize_groups: int = 64, device=None):
+        """Serve a HuggingFace checkpoint directory (Llama / Mistral /
+        InternLM or Mixtral; ``checkpoint/hf_loader.py``), every tensor
+        landing on ``device`` (default CUDA) as it is read.
+
+        ``quantize_bits=8``: weight-only quantized serving, Llama family
+        only.  The projection weights are quantized on the device by
+        ``WeightQuantization(...).model_quantize(params,
+        exclude=("embed",))`` (on the card the int8 quantizer kernel, one
+        call a matrix) and REST as int8 ``{"q", "scale"}`` records, which
+        every projection reads through the int8 matmul kernel.  ``mesh``
+        (tensor parallelism) raises naming ROADMAP A6.
+        """
+        from deepspeed_tpu_torch.checkpoint.hf_loader import (
+            config_from_hf, load_hf_checkpoint)
+        from deepspeed_tpu_torch.inference.v2.model_implementations import (
+            RaggedLlama, RaggedMixtral)
+
+        if mesh is not None:
+            raise NotImplementedError(
+                "from_hf(mesh=...): tensor-parallel serving is not ported "
+                "to deepspeed_tpu_torch yet (ROADMAP A6)")
+        cfg = config or RaggedInferenceEngineConfig()
+        dtype = dtype or torch.bfloat16
+        arch, mcfg = config_from_hf(model_path, dtype)
+        llama_family = arch in ("llama", "mistral", "internlm")
+        if quantize_bits and not llama_family:
+            raise ValueError(
+                f"weight-quantized serving covers the Llama-family ragged "
+                f"models; {arch!r} still consumes plain kernels")
+        block_size = cfg.kv_cache.block_size
+        model = (RaggedLlama if llama_family else RaggedMixtral)(mcfg,
+                                                                 block_size)
+        dev = resolve_device(device)
+        params = load_hf_checkpoint(model_path, dtype=dtype, device=dev)
+        if quantize_bits:
+            from deepspeed_tpu_torch.runtime.weight_quantizer import (
+                WeightQuantization)
+
+            wq = WeightQuantization(quantize_bits=quantize_bits,
+                                    quantize_groups=quantize_groups)
+            params, n = wq.model_quantize(params, exclude=("embed",))
+            log_dist(f"InferenceEngineV2: int{quantize_bits} weight-only "
+                     f"quantization on {n} matrices", ranks=[0])
+        return cls(model, params, cfg, device=dev)
 
     def capture_memory_ledger(self, ledger=None):
         raise NotImplementedError(

@@ -1,0 +1,324 @@
+"""Evoformer attention, DS4Science (counterpart of
+``deepspeed_tpu/ops/evoformer_attn.py``; reference:
+csrc/deepspeed4science/evoformer_attn/, python surface
+deepspeed/ops/deepspeed4science/evoformer_attn.py
+``DS4Sci_EvoformerAttention``; built by op_builder/evoformer_attn.py).
+
+``DS4Sci_EvoformerAttention(Q, K, V, biases)``: Q/K/V ``[*, S, H, D]`` (K and
+V of one shape, with Q's lead dims, heads and D), each bias broadcastable to
+``[*, H, Sq, Sk]`` (OpenFold passes ``[mask_bias, pair_bias]``, e.g.
+``[B, N, 1, 1, S]`` and ``[B, 1, H, S, S]``).
+
+Every call goes through one autograd Function:
+
+* forward on CUDA tensors: the hand-written kernels of
+  ``csrc/evoformer_attn.cu`` (:func:`evoformer_attention_kernel`), routed by
+  :func:`kernel_route`: the tensor-core kernel (``LAUNCHES
+  ["evoformer_attention"]``) for bf16 / fp16 Q/K/V with D a multiple of 8
+  up to 128 and at most two biases of Q's type; the general kernel
+  (``LAUNCHES["evoformer_attention_simt"]``) for the rest, fp32 included,
+  up to D = 256 and eight biases, each of its own float type.  What
+  neither takes raises ``NotImplementedError`` naming ROADMAP C: a CUDA
+  tensor never reaches the dense version;
+* forward on CPU tensors: :func:`evoformer_attention_dense`, the plain
+  version;
+* backward, on either: the JAX package's ``_bwd_chunked``, the dense
+  composition recomputed with autograd over chunks of the flattened lead
+  dimension, each bias gradient summed over the lead slices that share it
+  (``segment_sum`` there, ``index_add_`` here, in fp32).
+
+A row whose scores are all -inf (an fp16 mask bias of -1e9 is -inf) comes
+out of the kernels as zeros, where the dense softmax gives NaN; a finite
+mask (-1e9 in fp32 or bf16) gives the dense answer, the mean of v.
+
+Deliberate differences from the JAX package: a backward chunk holds as many
+lead slices as fit ``BWD_CHUNK_BYTES`` of fp32 score buffers (JAX: one
+slice); a bias gradient is summed in fp32 and rounded once to the bias's
+type; K and V must have Q's lead dims (the JAX dense path broadcasts them);
+``interpret`` is accepted and ignored.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.ops import _build
+
+__all__ = ["DS4Sci_EvoformerAttention", "EvoformerAttnBuilder",
+           "evoformer_attention_dense", "evoformer_attention_kernel",
+           "kernel_route"]
+
+#: launches of the tensor-core kernel and of the general kernel
+LAUNCHES = {"evoformer_attention": 0, "evoformer_attention_simt": 0}
+
+#: fp32 bytes the backward's dense recompute may hold at once (scores,
+#: probabilities and their gradients: ~5 buffers of [H, Sq, Sk] a slice)
+BWD_CHUNK_BYTES = 1 << 30
+_BWD_BUFFERS = 5
+
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_MMA_MAX_BIASES, _MMA_MAX_D = 2, 128
+_SIMT_MAX_BIASES, _SIMT_MAX_D = 8, 256
+
+
+def evoformer_attention_dense(Q, K, V, biases=None):
+    """Dense composition (the plain version, the CPU forward and the parity
+    oracle): materializes the score tensor, computes in fp32, returns Q's
+    type."""
+    d = Q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    q = Q.float().movedim(-2, -3)                    # [..., h, sq, d]
+    k = K.float().movedim(-2, -3)
+    v = V.float().movedim(-2, -3)
+    scores = torch.einsum("...hqd,...hkd->...hqk", q, k) * scale
+    for bias in biases or []:
+        scores = scores + bias.float()
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("...hqk,...hkd->...hqd", probs, v)
+    return out.movedim(-3, -2).to(Q.dtype)
+
+
+def _canon_bias(b, lead: Tuple[int, ...], h: int, sq: int, sk: int):
+    """Left-pad a bias to rank len(lead)+3 (each dim full-size or 1) and
+    validate broadcastability (a view, nothing materialized)."""
+    want = len(lead) + 3
+    if b.dim() > want:
+        raise ValueError(f"bias of rank {b.dim()} for {want}-dim scores")
+    if b.dim() < want:
+        b = b.reshape((1,) * (want - b.dim()) + tuple(b.shape))
+    for i, (bd, full) in enumerate(zip(b.shape, tuple(lead) + (h, sq, sk))):
+        if bd not in (1, full):
+            raise ValueError(
+                f"bias dim {i} = {bd} not broadcastable to {full}")
+    return b
+
+
+def _lead_offsets(lead: Tuple[int, ...], sizes: Tuple[int, ...],
+                  strides: Tuple[int, ...]) -> np.ndarray:
+    """For each flattened lead index l, sum_i coord_i(l) * strides[i] over
+    the dims the bias does not broadcast (sizes[i] != 1): with the bias's
+    own contiguous lead strides its flattened lead index (JAX's
+    ``_bias_lead_index``), with its element strides its offset."""
+    n = int(np.prod(lead)) if lead else 1
+    idx = np.arange(n, dtype=np.int64)
+    out = np.zeros(n, dtype=np.int64)
+    div = n
+    for size, full, stride in zip(sizes, lead, strides):
+        div //= full
+        if size != 1:
+            out += ((idx // div) % full) * stride
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _lead_table(lead, sizes, strides, device) -> torch.Tensor:
+    """:func:`_lead_offsets` as an int64 tensor on ``device``, made once a
+    geometry (a bias's lead sizes and strides)."""
+    return torch.from_numpy(_lead_offsets(lead, sizes, strides)).to(device)
+
+
+def _contiguous_strides(sizes: Sequence[int]) -> Tuple[int, ...]:
+    out, acc = [], 1
+    for s in reversed(sizes):
+        out.append(acc)
+        acc *= s
+    return tuple(reversed(out))
+
+
+def _check_shapes(Q, K, V, biases: Sequence) -> None:
+    """K and V of one shape with Q's lead dims, heads and D; every bias
+    broadcastable to the scores (ValueError otherwise)."""
+    if Q.dim() < 3 or K.shape != V.shape or K.dim() != Q.dim() \
+            or K.shape[:-3] != Q.shape[:-3] or K.shape[-2:] != Q.shape[-2:]:
+        raise ValueError(
+            f"DS4Sci_EvoformerAttention: Q [*, Sq, H, D] and K, V [*, Sk, H, "
+            f"D] of one shape (got Q {tuple(Q.shape)}, K {tuple(K.shape)}, V "
+            f"{tuple(V.shape)})")
+    *lead, sq, h, _ = Q.shape
+    for b in biases:
+        _canon_bias(b, tuple(lead), h, sq, K.shape[-3])
+
+
+def kernel_route(Q, K, V, biases: Sequence = ()) -> str:
+    """Which kernel of ``csrc/evoformer_attn.cu`` takes these inputs on the
+    card: ``"mma"``, the tensor-core kernel (Q/K/V bf16 or fp16, D a multiple
+    of 8 up to 128, at most two biases of Q's type), or ``"simt"``, the
+    general kernel (Q/K/V fp32, bf16 or fp16, D up to 256, at most eight
+    biases, each of any of those types).  Raises ``NotImplementedError``
+    (ROADMAP C, "Evoformer on the card") for what neither kernel takes."""
+    d = Q.shape[-1]
+    why = None
+    if K.dtype != Q.dtype or V.dtype != Q.dtype:
+        why = f"Q, K and V of one type (got {Q.dtype}, {K.dtype}, {V.dtype})"
+    elif Q.dtype not in _DTYPE_CODE or any(b.dtype not in _DTYPE_CODE
+                                           for b in biases):
+        why = "fp32, bf16 or fp16 inputs and biases"
+    elif d > _SIMT_MAX_D or len(biases) > _SIMT_MAX_BIASES:
+        why = (f"D <= {_SIMT_MAX_D} and at most {_SIMT_MAX_BIASES} biases "
+               f"(got D = {d}, {len(biases)} biases)")
+    if why is not None:
+        raise NotImplementedError(
+            f"DS4Sci_EvoformerAttention on the card: the kernels take {why}; "
+            f"see ROADMAP C, Evoformer on the card")
+    if Q.dtype != torch.float32 and d % 8 == 0 and d <= _MMA_MAX_D \
+            and len(biases) <= _MMA_MAX_BIASES \
+            and all(b.dtype == Q.dtype for b in biases):
+        return "mma"
+    return "simt"
+
+
+def evoformer_attention_kernel(Q, K, V, biases: Sequence = ()
+                               ) -> torch.Tensor:
+    """The forward on the card: one launch of the kernel :func:`kernel_route`
+    picks.  Q, K and V are made contiguous; the biases are read in place
+    through their strides."""
+    tensors = (Q, K, V, *biases)
+    if not all(t.is_cuda and t.device == Q.device for t in tensors):
+        raise ValueError("evoformer_attention_kernel: Q, K, V and the biases "
+                         "must be CUDA tensors on one device (the plain "
+                         "version is evoformer_attention_dense)")
+    _check_shapes(Q, K, V, biases)
+    route = kernel_route(Q, K, V, biases)
+    *lead, sq, h, d = Q.shape
+    lead = tuple(lead)
+    sk = K.shape[-3]
+    L = int(np.prod(lead)) if lead else 1
+    q, k, v = (t.contiguous() for t in (Q, K, V))
+    if route == "mma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        route = "simt"      # the tensor-core kernel reads 16-byte vectors
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out.view(Q.shape)
+    n = len(lead)
+    ptrs, tables, codes, strides = [], [], [], []
+    for b in biases:
+        c = _canon_bias(b, lead, h, sq, sk)
+        st = c.expand(lead + (h, sq, sk)).stride()    # 0 where broadcast
+        table = _lead_table(lead, tuple(c.shape[:n]), st[:n], q.device)
+        ptrs.append(c.data_ptr())
+        tables.append(table.data_ptr())
+        codes.append(_DTYPE_CODE[c.dtype])
+        strides.extend(st[n:])
+    nb = len(biases)
+    with torch.cuda.device(q.device):
+        rc = _kernel()(_DTYPE_CODE[q.dtype], int(route == "simt"),
+                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), L, sq, sk, h, d, nb,
+                       (ctypes.c_void_p * max(nb, 1))(*ptrs),
+                       (ctypes.c_void_p * max(nb, 1))(*tables),
+                       (ctypes.c_int * max(nb, 1))(*codes),
+                       (ctypes.c_longlong * max(3 * nb, 1))(*strides),
+                       torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"evoformer_attention_kernel: CUDA kernel launch "
+                           f"failed with error {rc}")
+    LAUNCHES["evoformer_attention" if route == "mma"
+             else "evoformer_attention_simt"] += 1
+    return out.view(Q.shape)
+
+
+def _bwd_chunked(Q, K, V, biases, dout, needs):
+    """Dense recompute + autograd over chunks of the flattened lead dim
+    (JAX ``_bwd_chunked``); the broadcast biases' gradients are summed over
+    the lead slices that share a bias slice."""
+    *lead, sq, h, d = Q.shape
+    lead = tuple(lead)
+    L = int(np.prod(lead)) if lead else 1
+    sk = K.shape[-3]
+    qf, kf, vf, dof = (t.reshape((L,) + tuple(t.shape[len(lead):]))
+                       for t in (Q, K, V, dout))
+    canon = [_canon_bias(b, lead, h, sq, sk) for b in biases]
+    bflat = [c.reshape((-1,) + tuple(c.shape[-3:])) for c in canon]
+    maps = [_lead_table(lead, tuple(c.shape[:len(lead)]),
+                        _contiguous_strides(c.shape[:len(lead)]), Q.device)
+            for c in canon]
+    chunk = max(1, BWD_CHUNK_BYTES // max(1, _BWD_BUFFERS * 4 * h * sq * sk))
+    grads = [torch.empty_like(t) if need else None
+             for t, need in zip((qf, kf, vf), needs[:3])]
+    dbias = [torch.zeros(bf.shape, dtype=torch.float32, device=bf.device)
+             if need else None for bf, need in zip(bflat, needs[3:])]
+    for l0 in range(0, L, chunk):
+        sl = slice(l0, min(L, l0 + chunk))
+        with torch.enable_grad():
+            ins = [t[sl].detach().requires_grad_(need)
+                   for t, need in zip((qf, kf, vf), needs[:3])]
+            bs = [bf[m[sl]].detach().requires_grad_(need)
+                  for bf, m, need in zip(bflat, maps, needs[3:])]
+            out = evoformer_attention_dense(*ins, bs)
+            wants = [t for t in ins + bs if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wants, dof[sl]))
+        for i, t in enumerate(ins):
+            if t.requires_grad:
+                grads[i][sl] = next(got)
+        for i, (b, m) in enumerate(zip(bs, maps)):
+            if b.requires_grad:
+                dbias[i].index_add_(0, m[sl], next(got).float())
+    dq, dk, dv = (g.reshape(t.shape) if g is not None else None
+                  for g, t in zip(grads, (Q, K, V)))
+    dbs = [db.reshape(b.shape).to(b.dtype) if db is not None else None
+           for db, b in zip(dbias, biases)]
+    return (dq, dk, dv, *dbs)
+
+
+class _Evoformer(torch.autograd.Function):
+    """Forward by the kernels (CUDA) or the plain version (CPU), backward by
+    the chunked dense recompute."""
+
+    @staticmethod
+    def forward(ctx, Q, K, V, *biases):
+        ctx.save_for_backward(Q, K, V, *biases)
+        if any(t.is_cuda for t in (Q, K, V, *biases)):
+            return evoformer_attention_kernel(Q, K, V, biases)
+        return evoformer_attention_dense(Q, K, V, list(biases))
+
+    @staticmethod
+    def backward(ctx, dout):
+        Q, K, V, *biases = ctx.saved_tensors
+        return _bwd_chunked(Q, K, V, biases, dout.contiguous(),
+                            ctx.needs_input_grad)
+
+
+def DS4Sci_EvoformerAttention(Q: torch.Tensor, K: torch.Tensor,
+                              V: torch.Tensor,
+                              biases: Optional[List[torch.Tensor]] = None,
+                              interpret: Optional[bool] = None
+                              ) -> torch.Tensor:
+    """Fused evoformer MHA (reference evoformer_attn.py API).
+
+    Q/K/V: [..., seq, heads, head_dim]; each bias broadcastable to [...,
+    heads, seq_q, seq_k].  Returns the attention output in Q's layout and
+    type.  ``interpret`` (a JAX-package test switch) is ignored.
+    """
+    bs = list(biases or [])
+    _check_shapes(Q, K, V, bs)
+    return _Evoformer.apply(Q, K, V, *bs)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = _build.load("evoformer_attn").dstt_evoformer_fwd
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_void_p)] * 2   # biases, tables
+                   + [ctypes.POINTER(ctypes.c_int),          # bias types
+                      ctypes.POINTER(ctypes.c_longlong),     # bias strides
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+class EvoformerAttnBuilder:
+    NAME = "evoformer_attn"
+
+    def load(self):
+        import deepspeed_tpu_torch.ops.evoformer_attn as m
+        return m
+
+    def is_compatible(self) -> bool:
+        return True

@@ -2,7 +2,8 @@
 bf16 (bar 3e-2 of the largest magnitude, the reference's on-chip
 tolerance; flash attention, the int8, verify and tiled prefill paged
 kernels, the grouped expert GEMM and the training path also 1e-2 in norm,
-|got - want|_2 / |want|_2).  Every test here is marked ``cuda`` and skips
+|got - want|_2 / |want|_2; the int8 quantizer bit for bit; Evoformer
+attention 3e-2 / 1e-2 forward and 5e-2 in norm for its gradients).  Every test here is marked ``cuda`` and skips
 where ``torch.cuda.is_available()`` is false.  The file imports neither JAX
 nor ``deepspeed_tpu``, so on a GPU machine without the JAX package's
 dependencies it runs as
@@ -24,10 +25,13 @@ from deepspeed_tpu_torch.inference.v2.model_implementations import (
     RaggedLlama, RaggedMixtral)
 from deepspeed_tpu_torch.models import LlamaConfig, MixtralConfig
 from deepspeed_tpu_torch.ops import _build
+from deepspeed_tpu_torch.ops import evoformer_attn as tevo
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import grouped_gemm as tgg
 from deepspeed_tpu_torch.ops import quantized_matmul as tqm
+from deepspeed_tpu_torch.ops import quantizer as tqz
 from torch_port_common import cuda_device  # noqa: F401  (fixture)
+from torch_port_common import single_process_env  # noqa: F401 (autouse)
 
 TOL = 3e-2
 NORM_TOL = 1e-2
@@ -856,21 +860,28 @@ _GMM_BOUNDARY = (("u.lo = start;", "u.lo = start + (start % BM != 0);"),
                  ("u.hi = end;", "u.hi = end + (end % BM != 0 && end < m);"))
 
 
-def _planted_gmm_boundary(tmp_path, fault=_GMM_BOUNDARY):
-    """The grouped GEMM library built from a copy of its source with a
-    boundary-row fault planted (the forward's by default), in a temporary
-    directory."""
-    src = (_build.CSRC / "grouped_gemm.cu").read_text()
+def _planted(tmp_path, source, fault):
+    """The library of ``csrc/<source>.cu`` built from a copy of its source
+    with ``fault`` (pairs of text and replacement, each found once)
+    planted, in a temporary directory."""
+    src = (_build.CSRC / f"{source}.cu").read_text()
     for old, new in fault:
         assert src.count(old) == 1, old
         src = src.replace(old, new)
-    cu, so = tmp_path / "boundary.cu", tmp_path / "libboundary.so"
+    cu, so = tmp_path / f"{source}_planted.cu", tmp_path / f"lib{source}.so"
     cu.write_text(src)
     proc = subprocess.run(
         _build.nvcc_command(cu, so),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     assert proc.returncode == 0, proc.stdout.decode()[-2000:]
     return ctypes.CDLL(str(so))
+
+
+def _planted_gmm_boundary(tmp_path, fault=_GMM_BOUNDARY):
+    """The grouped GEMM library built from a copy of its source with a
+    boundary-row fault planted (the forward's by default), in a temporary
+    directory."""
+    return _planted(tmp_path, "grouped_gemm", fault)
 
 
 @pytest.mark.cuda
@@ -1081,3 +1092,242 @@ def test_mixtral_slice_bars_catch_planted_gmm_fault(cuda_device, tmp_path,
     assert built["kernel_launches"]["grouped_gemm"] > 0
     assert not built_missed, built_missed
     assert planted_missed
+
+
+# ----------------------------------------------------------------------------
+# B10: the int8 quantizer, bit for bit
+# ----------------------------------------------------------------------------
+_QUANT_CASES = [
+    ((4096, 4096), 64, torch.bfloat16), ((4096, 11008), 16, torch.bfloat16),
+    ((11008, 4096), 64, torch.bfloat16), ((4096, 32000), 16, torch.bfloat16),
+    ((4096, 4096), 4096 * 4096 // 128, torch.bfloat16),     # group 128
+    ((512, 1024), 8, torch.float16), ((512, 1024), 8, torch.float32),
+    ((1000, 3), 3, torch.bfloat16),   # 2000-byte groups: the scalar path
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,dtype", _QUANT_CASES)
+def test_quantizer_kernel_bit_equal(cuda_device, shape, groups, dtype):
+    """chip_smoke.py phase 19's shapes and more types: q and the scales bit
+    for bit the plain version's, an all-zero group's scale 1 and q 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape) + groups)
+    x = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    x.view(groups, -1)[0] = 0
+    before = tqz.LAUNCHES["quantize"]
+    q, s = tqz.quantize_kernel(x, groups)
+    assert tqz.LAUNCHES["quantize"] == before + 1
+    want_q, want_s = tqz.quantize_plain(x, groups)
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    assert s[0].item() == 1.0 and not q[0].any().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantizer_kernel_rounds_ties_to_even(cuda_device, dtype):
+    """Every value but a group's absmax on an exact .5 tie (scale 1/8)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = (torch.randint(-126, 126, (4096, 4096), generator=gen,
+                       device=cuda_device).float() + 0.5) / 8
+    x.view(64, -1)[:, 0] = 127 / 8
+    x = x.to(dtype)
+    q, s = tqz.quantize_kernel(x, 64)
+    assert torch.all(s == 0.125)
+    assert torch.equal(q, torch.round(x.float() * 8).to(torch.int8)
+                       .view(64, -1))
+    assert torch.equal(q, tqz.quantize_plain(x, 64)[0])
+
+
+@pytest.mark.cuda
+def test_quantize_routes_and_refusals(cuda_device):
+    """8-bit symmetric quantize launches the kernel on a CUDA tensor; the
+    other modes are torch math; what the kernel does not take raises."""
+    x = torch.randn((64, 128), device=cuda_device)
+    before = tqz.LAUNCHES["quantize"]
+    tqz.quantize(x, 4)
+    tqz.quantize(x, 4, 4)
+    tqz.quantize(x, 4, 8, False)
+    assert tqz.LAUNCHES["quantize"] == before + 1
+    with pytest.raises(ValueError, match="contiguous"):
+        tqz.quantize_kernel(x.t(), 4)
+    with pytest.raises(TypeError, match="fp32, bf16 or fp16"):
+        tqz.quantize_kernel(x.double(), 4)
+    with pytest.raises(ValueError, match="16-byte"):
+        tqz.quantize_kernel(x.view(-1)[1:4097], 4)
+
+
+@pytest.mark.cuda
+def test_quantizer_bit_equality_catches_planted_reciprocal(cuda_device,
+                                                           tmp_path,
+                                                           monkeypatch):
+    """A copy of csrc/quantizer.cu that multiplies by the scale's
+    reciprocal instead of dividing misses the bit-equality bar at a
+    phase-19 shape; the kernel as built meets it."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn((4096, 4096), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    want_q, want_s = tqz.quantize_plain(x, 64)
+    built_q, built_s = tqz.quantize_kernel(x, 64)
+    monkeypatch.setitem(_build._LIBS, "quantizer", _planted(
+        tmp_path, "quantizer", (("rintf(__fdiv_rn(x, scale))",
+                                 "rintf(x * (1.f / scale))"),)))
+    tqz._kernel.cache_clear()
+    try:
+        planted_q, _ = tqz.quantize_kernel(x, 64)
+    finally:
+        tqz._kernel.cache_clear()
+    flips = int((planted_q != want_q).sum().item())
+    print(f"planted reciprocal: {flips} of {x.numel()} values differ")
+    assert torch.equal(built_q, want_q) and torch.equal(built_s, want_s)
+    assert flips > 0
+
+
+# ----------------------------------------------------------------------------
+# B12: Evoformer attention
+# ----------------------------------------------------------------------------
+EVO_GRAD_NORM_TOL = 5e-2
+#: the general kernel in fp32 against the dense version in fp32
+EVO_FP32_TOL = 1e-4
+_EVO_CASES = [
+    ((1, 256), 256, 4, 32, "both", torch.bfloat16, "mma"),  # triangle, 256
+    ((1, 512), 256, 8, 8, "both", torch.bfloat16, "mma"),
+    ((1, 128), 256, 8, 32, "both", torch.bfloat16, "mma"),  # MSA row
+    ((1, 64), 250, 4, 32, "both", torch.bfloat16, "mma"),   # ragged S
+    ((1, 256), 256, 4, 32, "none", torch.bfloat16, "mma"),
+    ((1, 256), 256, 4, 32, "masked", torch.bfloat16, "mma"),
+    ((2, 3), 70, 2, 24, "both", torch.float16, "mma"),      # d 24 -> 32
+    ((1, 4), 130, 2, 128, "both", torch.bfloat16, "mma"),
+    ((3,), 64, 4, 16, "pair", torch.bfloat16, "mma"),       # [H, S, S] bias
+    ((1, 8), 96, 4, 32, "fp32_mask", torch.bfloat16, "simt"),
+    ((1, 64), 256, 4, 32, "masked", torch.float32, "simt"),
+    ((2, 3), 70, 2, 24, "three", torch.bfloat16, "simt"),
+    ((1, 4), 100, 2, 12, "both", torch.bfloat16, "simt"),
+    ((1, 4), 66, 2, 160, "both", torch.float16, "simt"),
+]
+
+
+def _evo_inputs(gen, dev, lead, s, h, d, biases, dtype):
+    """Q/K/V and biases: "both" the mask bias (-1e9 on masked keys; "masked":
+    every key of 16 rows masked; "fp32_mask": the mask in fp32) and the pair
+    bias, "three" both and a per-row bias, "pair" a [H, S, S] bias alone."""
+    q, k, v = (torch.randn(lead + (s, h, d), generator=gen, device=dev,
+                           dtype=dtype) for _ in range(3))
+    if biases == "none":
+        return q, k, v, []
+    pair = torch.randn(lead[:-1] + (1, h, s, s), generator=gen, device=dev,
+                       dtype=dtype)
+    if biases == "pair":
+        return q, k, v, [pair[0]]
+    keep = torch.randint(0, 2, lead + (s,), generator=gen, device=dev)
+    if biases == "masked":
+        keep[..., :16, :] = 0                    # every key of 16 rows
+    mask = (1e9 * (keep - 1)).to(
+        torch.float32 if biases == "fp32_mask" else dtype)[..., None, None, :]
+    if biases == "three":
+        row = torch.randn(lead + (h, s, 1), generator=gen, device=dev,
+                          dtype=dtype)
+        return q, k, v, [mask, pair, row]
+    return q, k, v, [mask, pair]
+
+
+def _evo_errors(dev, lead, s, h, d, biases, dtype, seed=0):
+    """The kernel route against the plain version on the same inputs:
+    forward (max abs, norm), the last bias's and Q/K/V's gradients in norm,
+    and the launches of the forward call."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, bs = _evo_inputs(gen, dev, lead, s, h, d, biases, dtype)
+    before = dict(tevo.LAUNCHES)
+    with torch.no_grad():
+        got = tevo.DS4Sci_EvoformerAttention(q, k, v, bs)
+    fwd_launches = {n: c - before[n] for n, c in tevo.LAUNCHES.items()}
+    want = tevo.evoformer_attention_dense(q, k, v, bs)
+    out = {"max": (got.float() - want.float()).abs().max().item(),
+           "norm": _norm_rel(got, want), "fwd_launches": fwd_launches}
+    w = torch.randn(q.shape, generator=gen, device=dev)
+    grads = []
+    for fn in (tevo.DS4Sci_EvoformerAttention,
+               tevo.evoformer_attention_dense):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, *bs[-1:])]
+        args = list(bs[:-1]) + leaves[3:]
+        (fn(*leaves[:3], args).float() * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    out["grads"] = [_norm_rel(a, b) for a, b in zip(*grads)]
+    return out
+
+
+_EVO_KEY = {"mma": "evoformer_attention", "simt": "evoformer_attention_simt"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,s,h,d,biases,dtype,route", _EVO_CASES)
+def test_evoformer_kernel(cuda_device, lead, s, h, d, biases, dtype, route):
+    """chip_smoke.py phase 22's shapes and bars, more head dims, fp32, three
+    biases and an fp32 mask on bf16 inputs: one launch of the routed kernel
+    a forward call, none of the other (fp32: within EVO_FP32_TOL)."""
+    e = _evo_errors(cuda_device, lead, s, h, d, biases, dtype)
+    assert e["fwd_launches"] == {key: int(r == route)
+                                 for r, key in _EVO_KEY.items()}
+    tol = EVO_FP32_TOL if dtype == torch.float32 else TOL
+    assert e["max"] <= tol and e["norm"] <= NORM_TOL, e
+    assert all(g <= EVO_GRAD_NORM_TOL for g in e["grads"]), e
+
+
+@pytest.mark.cuda
+def test_evoformer_refusals_and_fp16_masked_rows(cuda_device):
+    """What neither kernel takes raises NotImplementedError (nothing runs
+    the dense version on the card); a mixed-device call raises ValueError.
+    An fp16 mask bias of -1e9 is -inf: a row with every key masked comes
+    out as zeros from both kernels, where the dense softmax gives NaN."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v, bs = _evo_inputs(gen, cuda_device, (1, 2), 64, 2, 16, "both",
+                              torch.float16)
+    before = dict(tevo.LAUNCHES)
+    for args in ((q, k.float(), v, []), (q, k, v, [bs[1]] * 9),
+                 (q.double(), k.double(), v.double(), [])):
+        with pytest.raises(NotImplementedError, match="ROADMAP C"):
+            tevo.DS4Sci_EvoformerAttention(*args[:3], args[3])
+    wide = torch.zeros((1, 2, 8, 2, 264), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="D <= 256"):
+        tevo.DS4Sci_EvoformerAttention(wide, wide, wide)
+    with pytest.raises(ValueError, match="CUDA"):
+        tevo.DS4Sci_EvoformerAttention(q, k, v, [bs[0].cpu()])
+    assert tevo.LAUNCHES == before
+    mask = torch.full_like(bs[0], -1e9, dtype=torch.float32).half()  # -inf
+    assert torch.isinf(mask).all()
+    for d, route in ((16, "mma"), (12, "simt")):
+        args = (q[..., :d], k[..., :d], v[..., :d], [mask, bs[1]])
+        got = tevo.DS4Sci_EvoformerAttention(*args[:3], args[3])
+        assert tevo.kernel_route(*args[:3], args[3]) == route
+        assert torch.equal(got, torch.zeros_like(got))
+        assert torch.isnan(tevo.evoformer_attention_dense(
+            *args[:3], args[3])).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,shape,loop", [
+    ("mma", ((1, 256), 256, 4, 32, "both", torch.bfloat16),
+     ("for (int nt = 0; nt < n_tiles; ++nt) {",
+      "for (int nt = 0; nt < n_tiles - 1; ++nt) {")),
+    ("simt", ((1, 64), 256, 4, 32, "both", torch.float32),
+     ("for (int c0 = 0; c0 < sk; c0 += kSimtKeys) {",
+      "for (int c0 = 0; c0 + kSimtKeys < sk; c0 += kSimtKeys) {")),
+])
+def test_evoformer_norm_bar_catches_planted_dropped_tile(
+        cuda_device, tmp_path, monkeypatch, route, shape, loop):
+    """A copy of csrc/evoformer_attn.cu whose blocks of one kernel skip the
+    last k tile misses the norm bar at the triangle shape; as built it
+    meets it."""
+    built = _evo_errors(cuda_device, *shape)
+    monkeypatch.setitem(_build._LIBS, "evoformer_attn", _planted(
+        tmp_path, "evoformer_attn", (loop,)))
+    tevo._kernel.cache_clear()
+    try:
+        planted = _evo_errors(cuda_device, *shape)
+    finally:
+        tevo._kernel.cache_clear()
+    print(f"evoformer {route} built: max {built['max']:.3g} norm "
+          f"{built['norm']:.3g}; planted dropped tile: max "
+          f"{planted['max']:.3g} norm {planted['norm']:.3g}")
+    assert built["fwd_launches"][_EVO_KEY[route]] == 1
+    assert built["norm"] <= NORM_TOL
+    assert planted["norm"] > NORM_TOL

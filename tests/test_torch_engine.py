@@ -23,6 +23,7 @@ from deepspeed_tpu_torch.checkpoint import (flax_params_from_llama_state_dict,
                                             llama_state_dict_from_flax)
 from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from torch_port_common import single_process_env  # noqa: F401 (autouse)
 from torch_port_common import tiny_geometry
 
 TOL = 1e-4

@@ -33,6 +33,7 @@ from deepspeed_tpu_torch.checkpoint import (flax_params_from_gpt2_state_dict,
 from deepspeed_tpu_torch.models import (GPT2Config, GPT2LMHeadModel,
                                         LlamaConfig, LlamaForCausalLM)
 from deepspeed_tpu_torch.ops import attention as tattn
+from torch_port_common import single_process_env  # noqa: F401 (autouse)
 from torch_port_common import tiny_geometry
 
 FWD_TOL = 2e-5

@@ -19,6 +19,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from torch_port_common import single_process_env  # noqa: F401 (autouse)
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "deepspeed_tpu_torch"
 

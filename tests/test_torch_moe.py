@@ -43,6 +43,7 @@ from deepspeed_tpu_torch.models import MixtralConfig, MixtralForCausalLM
 from deepspeed_tpu_torch.moe import MoE, top1gating, top2gating
 from deepspeed_tpu_torch.moe import sharded_moe as tsm
 from deepspeed_tpu_torch.ops import grouped_gemm as tgg
+from torch_port_common import single_process_env  # noqa: F401 (autouse)
 
 TOL = 2e-5
 GRAD_TOL = 1e-4

@@ -72,6 +72,26 @@ def engine_config_dict(token_budget=64, max_seqs=4, max_context=96,
     }
 
 
+#: what a launcher sets for each process it starts, and what both packages'
+#: ``initialize`` read: a world of ``WORLD_SIZE`` processes, this one's
+#: ``RANK``, where to meet
+LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                "COORDINATOR_ADDRESS", "MASTER_ADDR", "MASTER_PORT")
+
+
+@pytest.fixture(autouse=True)
+def single_process_env(monkeypatch):
+    """Run each test of a module that imports this fixture as one process
+    that no launcher started: a test elsewhere in the same pytest process
+    can leave launcher variables behind (the JAX package's ``mpi_discovery``
+    writes them into ``os.environ``; ``tests/unit/test_launcher_elasticity
+    .py::test_mpi_discovery_from_slurm_env`` leaves ``WORLD_SIZE=8``), and
+    an engine built after it would take them for a multi-process launch.
+    They are put back after the test."""
+    for key in LAUNCHER_ENV:
+        monkeypatch.delenv(key, raising=False)
+
+
 @pytest.fixture
 def cuda_device():
     """A CUDA device for the tests marked ``cuda``; decided when the test
