@@ -189,7 +189,44 @@ Phases, each fatal on failure:
    the routed kernel and none of the other a forward (counts set to 0 just
    before each call); timed beside the plain version, SDPA over the summed
    biases as one float mask (a yardstick) and the bound, with each
-   forward's peak memory.
+   forward's peak memory;
+23. block-sparse attention (B11) at BERT width (12 heads of 64, S = 4096,
+   batch 4, block 16) through ``SparseSelfAttention`` (implementation
+   "auto": the kernels), forward and backward, under Fixed (upstream's
+   defaults, bidirectional and unidirectional), BigBird, BSLongformer,
+   Variable and Dense layouts in bf16; and fixed in fp16, BSLongformer in
+   fp32 (the general kernels), BigBird at D = 128 (6 heads), BSLongformer at
+   block 32, Variable at block 64, BigBird with a layout per head, Fixed at
+   S = 1040 (a tail tile), and BigBird at S = 16384, batch 1, forward only
+   (a timing case): the forward within 3e-2 max and 1e-2 in norm of
+   ``block_sparse_attention_reference`` (fp32: 1e-4 max), dQ, dK and dV
+   within 5e-2 in norm; exactly one launch of each kernel a call and no
+   dense call (counts set to 0 just before each call and read just after);
+   tables that drop the last live key tile of every query tile must miss
+   the bars; each kernel timed beside its plain version, SDPA over the
+   expanded boolean mask (a yardstick: forward and forward + backward) and
+   its bound (bytes, or the FLOPs of the layout's live cells; the FLOPs of
+   the live 64 x 64 tiles beside them); time against density at the
+   Fixed / BSLongformer / Dense layouts; with a key-padding mask, "auto"
+   takes the dense composition, counted under its own key;
+24. the continuous-batching scheduler (``ContinuousBatchScheduler``)
+   serving ``bench_serving.py`` ``measure_scheduler``'s traffic on the
+   32-layer Llama-2-7B geometry with phase 5's int8 tree: 32 requests,
+   Poisson arrivals at 16 req/s, 192-token prompts, 48 new tokens each,
+   half greedy and half seeded top-k, 8 sequences, budget 512, block 128,
+   a KV pool of 0.7 of the worst-case demand: every request finishes with
+   48 tokens; that traffic does not preempt at block 128 (a prompt takes
+   its 2 blocks at admission and 240 tokens never need a third), so 16
+   requests of 104-token prompts at once on the same engine must preempt
+   at least once, and every preempted request finish with 48 tokens; the
+   pool's free blocks back to its size after each run, the int8 matmul,
+   paged prefill and paged decode kernels launched (counts set to 0 just
+   before the run and read just after), the registry snapshot holding the
+   JAX package's ``serving/*`` and occupancy keys; goodput, TTFT p50 / p99,
+   ms per tick, the device idle share over a traced window of decode
+   ticks, and the share of greedy tokens equal to an unscheduled ``put`` /
+   ``decode_loop`` run of the same prompts (reported, not barred: bf16
+   near-ties flip across batch shapes).
 
 The second-to-last lines are the ``kernels`` JSON record and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -736,14 +773,16 @@ def make_engine(torch, cfg, params, max_ctx, use_kernels, kv_dtype=None,
 
 def _launch_counters():
     from deepspeed_tpu_torch.inference.v2.kernels import blocked_flash as bf
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops import evoformer_attn as evo
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import grouped_gemm as gg
     from deepspeed_tpu_torch.ops import quantized_matmul as qm
     from deepspeed_tpu_torch.ops import quantizer as tq
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
 
     return (qm.LAUNCHES, bf.LAUNCHES, fa.LAUNCHES, gg.LAUNCHES, tq.LAUNCHES,
-            evo.LAUNCHES)
+            evo.LAUNCHES, bsa.LAUNCHES, sa.LAUNCHES)
 
 
 def reset_launches():
@@ -774,8 +813,10 @@ MIXTRAL_SERVING = ("paged_prefill_attention", "paged_decode_attention",
                    "grouped_gemm")
 MOE_GMM = ("grouped_gemm", "grouped_gemm_dlhs", "grouped_gemm_drhs")
 MOE_TRAINING = TRAINING + MOE_GMM
-ALL_KERNELS = tuple(dict.fromkeys(BF16_SERVING + INT8_SPECULATIVE
-                                  + ALL_FLASH + MIXTRAL_SERVING + MOE_GMM))
+ALL_KERNELS = tuple(dict.fromkeys(
+    BF16_SERVING + INT8_SPECULATIVE + ALL_FLASH + MIXTRAL_SERVING + MOE_GMM
+    + ("block_sparse_attention_fwd", "block_sparse_attention_bwd_dq",
+       "block_sparse_attention_bwd_dkv")))
 
 
 def read_launches(keys=ALL_KERNELS):
@@ -2746,6 +2787,566 @@ def evoformer_case(torch, gen, dev, name, lead, s, h, d, biases, dtype):
 
 
 # --------------------------------------------------------------------- #
+# Phase 23: block-sparse attention (B11)
+# --------------------------------------------------------------------- #
+BSA_KEYS = ("block_sparse_attention_fwd", "block_sparse_attention_bwd_dq",
+            "block_sparse_attention_bwd_dkv")
+BSA_DENSE = "sparse_self_attention_dense"
+#: the layouts at BERT width: upstream's defaults (Fixed 4 local / 1 global,
+#: both directions), BigBird (1 random, 3 sliding, 1 global), BSLongformer
+#: (3 sliding, global [0]), Variable (1 random, windows [4], global [0]) and
+#: Dense (density 1, the worst case)
+BSA_LAYOUTS = {
+    "fixed": ("FixedSparsityConfig",
+              dict(num_local_blocks=4, num_global_blocks=1)),
+    "fixed_uni": ("FixedSparsityConfig",
+                  dict(num_local_blocks=4, num_global_blocks=1,
+                       attention="unidirectional")),
+    "bigbird": ("BigBirdSparsityConfig",
+                dict(num_random_blocks=1, num_sliding_window_blocks=3,
+                     num_global_blocks=1)),
+    "bslongformer": ("BSLongformerSparsityConfig",
+                     dict(num_sliding_window_blocks=3,
+                          global_block_indices=[0])),
+    "variable": ("VariableSparsityConfig",
+                 dict(num_random_blocks=1, local_window_blocks=[4],
+                      global_block_indices=[0])),
+    "dense": ("DenseSparsityConfig", {}),
+}
+#: (name, layout, B, H, S, D, block, type, extra config keywords,
+#: key-padding mode): BERT width (models/bert.py: 12 heads of 64),
+#: S = 4096, block 16, batch 4; the padded cases' batches hold sequences
+#: of S, 3/4, 1/2 and 1/4 of S keys (lengths off the block grid:
+#: bsa_padding_mask), "mul" a 0/1 keep mask, "add" BERT's additive -10000
+BSA_CASES = tuple((n, n, 4, 12, 4096, 64, 16, "bf16", {}, None)
+                  for n in BSA_LAYOUTS) + (
+    ("fixed fp16", "fixed", 4, 12, 4096, 64, 16, "fp16", {}, None),
+    ("bslongformer fp32", "bslongformer", 4, 12, 4096, 64, 16, "fp32", {},
+     None),
+    ("bigbird D128", "bigbird", 4, 6, 4096, 128, 16, "bf16", {}, None),
+    ("bslongformer block32", "bslongformer", 4, 12, 4096, 64, 32, "bf16", {},
+     None),
+    ("variable block64", "variable", 4, 12, 4096, 64, 64, "bf16", {}, None),
+    ("bigbird per-head", "bigbird", 4, 12, 4096, 64, 16, "bf16",
+     {"different_layout_per_head": True}, None),
+    ("fixed S1040", "fixed", 4, 12, 1040, 64, 16, "bf16", {}, None),
+    ("bigbird padded mul", "bigbird", 4, 12, 4096, 64, 16, "bf16", {}, "mul"),
+    ("bslongformer padded add", "bslongformer", 4, 12, 4096, 64, 16, "bf16",
+     {}, "add"),
+    ("fixed S1040 padded mul fp32", "fixed", 4, 12, 1040, 64, 16, "fp32", {},
+     "mul"),
+)
+#: the timing case: forward only, held against the plain forward
+BSA_LONG = ("bigbird S16384", "bigbird", 1, 12, 16384, 64, 16, "bf16", {},
+            None)
+BSA_GRAD_NORM_TOL = 5e-2
+BSA_FP32_TOL = 1e-4
+BSA_DTYPES = {"bf16": "bfloat16", "fp16": "float16", "fp32": "float32"}
+
+
+def bsa_planted_fault(np, bsl, side="q"):
+    """A copy of ``bsl`` whose kernel lists drop a tile (the faults the
+    bars must catch): side "q", the last live key tile of every query tile
+    from the query-major lists (the forward and dQ); side "k", the last
+    live query tile of every key tile from the key-major lists (dK/dV)."""
+    import copy
+
+    bad = copy.copy(bsl)
+    m = bsl.kernel_masks.copy()
+    mt = np.ascontiguousarray(m.transpose(0, 2, 1))
+    cut = m if side == "q" else mt
+    h, n, _ = cut.shape
+    for hh in range(h):
+        for i in range(n):
+            live = np.nonzero(cut[hh, i])[0]
+            if len(live):
+                cut[hh, i, live[-1]] = 0
+    bad._masks, bad._masks_t, bad._lists, bad._elem = m, mt, {}, {}
+    return bad
+
+
+def bsa_padding_mask(torch, dev, b, s, mode):
+    """A batch of b sequences of S and about 3/4, 1/2 and 1/4 of S valid
+    keys (lengths off the block grid) as a [b, S] key-padding mask: mode
+    "mul" a 0/1 keep mask, "add" 0 / -10000 (BERT's extended attention
+    mask)."""
+    lengths = torch.tensor([s] + [s * f // 4 + 5 - 4 * f for f in (3, 2, 1)],
+                           device=dev)[:b]
+    valid = torch.arange(s, device=dev)[None] < lengths[:, None]
+    if mode == "mul":
+        return valid.float()
+    return torch.where(valid, 0.0, -10000.0)
+
+
+def bsa_bounds(bsl, b, h, s, d, elt, peak, bias_bytes=0):
+    """Per kernel (fwd, bwd_dq, bwd_dkv): the bound from the bytes (each
+    operand read once, each output written once; the key bias, when given,
+    is ``bias_bytes``) and the FLOPs of the layout's live cells, and the
+    FLOPs of its live 64 x 64 tiles."""
+    dead, total = bsl.tiles_skipped()
+    live = float(bsl.layout.sum()) * bsl.block ** 2 * b
+    tiles = float(total - dead) * 64 * 64 * b
+    t, row = b * h * s * d * elt, b * h * s * 4
+    work = {"fwd": (4 * t + row, 4), "bwd_dq": (6 * t + 2 * row, 6),
+            "bwd_dkv": (6 * t + 2 * row, 8)}
+    out = {}
+    for k, (nbytes, f) in work.items():
+        nbytes += bias_bytes
+        ms, by = bound(nbytes, f * live * d, peak)
+        out[k] = {"bound_ms": ms, "bound_by": by,
+                  "cell_flops": f * live * d, "tile_flops": f * tiles * d,
+                  "tile_bound_ms": bound(nbytes, f * tiles * d, peak)[0]}
+    return out
+
+
+def block_sparse_case(torch, np, gen, dev, name, layout, b, h, s, d, block,
+                      dtype, extra, padding, forward_only=False):
+    """One phase-23 case.  The main path, ``SparseSelfAttention`` with
+    implementation "auto" (with the key-padding mask of ``padding``, when
+    given), forward and backward, counted from 0; then the kernels against
+    ``block_sparse_attention_reference`` on the same inputs (a padded case
+    also against the dense composition), the two planted faults, and each
+    kernel timed beside its plain version, SDPA over the expanded boolean
+    mask (a yardstick) and the bound."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    cls, kw = BSA_LAYOUTS[layout]
+    cfg = getattr(sa, cls)(h, block, **kw, **extra)
+    attn = sa.SparseSelfAttention(cfg, key_padding_mask_mode=padding or "mul")
+    dt = getattr(torch, BSA_DTYPES[dtype])
+    elt = torch.tensor([], dtype=dt).element_size()
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=dev,
+                               dtype=dt) for _ in range(4))
+    kpm = None if padding is None else bsa_padding_mask(torch, dev, b, s,
+                                                        padding)
+    bias = None if kpm is None else sa.key_padding_bias(kpm, padding)
+    case = {"name": name, "layout": layout, "dtype": dtype,
+            "shape": [b, h, s, d], "block": block, "padding": padding}
+
+    def run(fn, *args, **kw):
+        leaves = [t.clone().requires_grad_(not forward_only)
+                  for t in (q, k, v)]
+        out = fn(*leaves, *args, **kw)
+        if not forward_only:
+            out.backward(do)
+        torch.cuda.synchronize()
+        return out.detach(), [t.grad for t in leaves]
+
+    def grad_errs(grads, rgrads):
+        return dict(zip(("dq", "dk", "dv"), (
+            rel_norm(a, c) for a, c in zip(grads, rgrads))))
+
+    reset_launches()
+    got, grads = run(attn, key_padding_mask=kpm)
+    case["launches"] = read_launches(BSA_KEYS + (BSA_DENSE,))
+    bsl = attn._bs_layouts[s]
+    want, rgrads = run(bsa.block_sparse_attention_reference, bsl,
+                       key_bias=bias)
+    case["max_abs_err"] = (got.float() - want.float()).abs().max().item()
+    case["norm_rel_err"] = rel_norm(got, want)
+    if kpm is not None:
+        with torch.no_grad():
+            dense = sa.sparse_self_attention(
+                q, k, v, bsl.layout, block, key_padding_mask=kpm,
+                key_padding_mask_mode=padding)
+        case["dense_max_abs_err"] = (got.float()
+                                     - dense.float()).abs().max().item()
+        case["dense_norm_rel_err"] = rel_norm(got, dense)
+        del dense
+    if not forward_only:
+        case["grad_norm_rel_err"] = grad_errs(grads, rgrads)
+        case["grad_max_abs_err"] = dict(zip(("dq", "dk", "dv"), (
+            (a.float() - c.float()).abs().max().item()
+            for a, c in zip(grads, rgrads))))
+        _, kgrads = run(bsa.block_sparse_attention,
+                        bsa_planted_fault(np, bsl, "k"), key_bias=bias)
+        case["fault_k_grad_norm_rel_err"] = grad_errs(kgrads, rgrads)
+        del kgrads
+    del grads, rgrads
+    with torch.no_grad():
+        bad = bsa.block_sparse_attention(q, k, v, bsa_planted_fault(np, bsl),
+                                         key_bias=bias)
+    case["fault_max_abs_err"] = (bad.float() - want.float()).abs().max().item()
+    case["fault_norm_rel_err"] = rel_norm(bad, want)
+    del bad, want
+    case["density"] = bsl.density
+    dead, total = bsl.tiles_skipped()
+    case["live_tile_ratio"] = (total - dead) / total
+
+    scale = 1.0 / math.sqrt(d)
+    qs = (q.float() * scale).to(dt)
+    keep = bsl.element_mask(dev)
+    sets = n_sets(4 * b * h * s * d * elt)
+    ops = [(qs, k, v, do)] + [tuple(torch.randn_like(t) for t in (qs, k, v, do))
+                              for _ in range(sets - 1)]
+    res = [bsa.block_sparse_attention_fwd(*o[:3], bsl, bias) for o in ops]
+    case["ms"] = {"fwd": time_ms(
+        lambda i: bsa.block_sparse_attention_fwd(*ops[i][:3], bsl, bias),
+        sets, 20)}
+    case["plain_ms"] = {"fwd": time_ms(
+        lambda i: bsa.block_sparse_plain_fwd(qs, k, v, keep, bias), 1, 2)}
+    # the yardstick's boolean mask: the layout's cells and the valid keys
+    mask = keep[None] if bias is None else \
+        keep[None] & (bias > -1e3)[:, None, None, :]
+    case["library_ms"] = {"fwd": time_ms(
+        lambda i: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+        1, 3)}
+    if not forward_only:
+        deltas = [bsa.block_sparse_attention_bwd_dq(
+            *o[:3], r[0], r[1], o[3], bsl, scale, bias)[1]
+            for o, r in zip(ops, res)]
+        case["ms"]["bwd_dq"] = time_ms(
+            lambda i: bsa.block_sparse_attention_bwd_dq(
+                *ops[i][:3], res[i][0], res[i][1], ops[i][3], bsl, scale,
+                bias), sets, 10)
+        case["ms"]["bwd_dkv"] = time_ms(
+            lambda i: bsa.block_sparse_attention_bwd_dkv(
+                *ops[i][:3], ops[i][3], res[i][1], deltas[i], bsl, bias),
+            sets, 10)
+        o, lse = res[0]
+        case["plain_ms"]["bwd_dq"] = time_ms(
+            lambda i: bsa.block_sparse_plain_bwd_dq(qs, k, v, o, lse, do,
+                                                    keep, scale, bias), 1, 2)
+        case["plain_ms"]["bwd_dkv"] = time_ms(
+            lambda i: bsa.block_sparse_plain_bwd_dkv(qs, k, v, do, lse,
+                                                     deltas[0], keep, bias),
+            1, 2)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def sdpa_fwd_bwd(i):
+            F.scaled_dot_product_attention(*leaves, attn_mask=mask).backward(
+                do)
+
+        case["library_ms"]["fwd_bwd"] = time_ms(sdpa_fwd_bwd, 1, 3)
+        del deltas, leaves
+    del res, ops, qs
+    bounds = bsa_bounds(bsl, b, h, s, d, elt,
+                        FP32_FLOPS if dt == torch.float32 else BF16_FLOPS,
+                        0 if bias is None else bias.numel() * 4)
+    case["bounds"] = {kn: bounds[kn] for kn in case["ms"]}
+    bsl._elem.clear()
+    return case
+
+
+def bsa_failures(case) -> list:
+    """The bars of phase 23 that ``case`` misses (empty when it passes)."""
+    fwd_only = "grad_norm_rel_err" not in case
+    def fwd_ok(max_err, norm_err):
+        if case["dtype"] == "fp32":
+            return max_err <= BSA_FP32_TOL
+        return max_err <= TOL and norm_err <= NORM_TOL
+
+    bad = [] if fwd_ok(case["max_abs_err"], case["norm_rel_err"]) \
+        else ["forward"]
+    if "dense_max_abs_err" in case and not fwd_ok(
+            case["dense_max_abs_err"], case["dense_norm_rel_err"]):
+        bad.append("forward against the dense composition")
+    if not fwd_only and not all(
+            x <= BSA_GRAD_NORM_TOL for x in case["grad_norm_rel_err"].values()):
+        bad.append("gradients")
+    if case["fault_max_abs_err"] <= TOL and \
+            case["fault_norm_rel_err"] <= NORM_TOL:
+        bad.append("planted fault passes the bars")
+    if not fwd_only and any(
+            case["fault_k_grad_norm_rel_err"][g] <= BSA_GRAD_NORM_TOL
+            for g in ("dk", "dv")):
+        bad.append("planted key-major fault passes the gradient bar")
+    want = {BSA_KEYS[0]: 1, BSA_KEYS[1]: int(not fwd_only),
+            BSA_KEYS[2]: int(not fwd_only), BSA_DENSE: 0}
+    if case["launches"] != want:
+        bad.append(f"launches {case['launches']}")
+    return bad
+
+
+# --------------------------------------------------------------------- #
+# Phase 24: the continuous-batching scheduler serving Llama-2-7B (A5)
+# --------------------------------------------------------------------- #
+#: the JAX package's ``ContinuousBatchScheduler(registry=...)`` snapshot keys
+#: (``serving/*`` and the engine's occupancy gauges) after a run
+SERVING_KEYS = (
+    "observability/hbm_weights_bytes", "observability/kv_blocks_evictable",
+    "observability/kv_blocks_free", "observability/kv_blocks_live",
+    "observability/kv_blocks_total", "observability/kv_blocks_warm",
+    "observability/kv_live_bytes", "observability/kv_pool_bytes",
+    "observability/kv_sequences_live", "observability/kv_tokens_live",
+    "serving/deadline_exceeded", "serving/decode_ticks",
+    "serving/decode_tokens_delivered", "serving/failed",
+    "serving/fast_decode_ticks", "serving/finished",
+    "serving/goodput_tokens_per_s", "serving/handoffs",
+    "serving/overall_tokens_per_s", "serving/p50_decode_tick_s",
+    "serving/p50_queue_wait_s", "serving/p50_tpot_s", "serving/p50_ttft_s",
+    "serving/p95_decode_tick_s", "serving/p95_queue_wait_s",
+    "serving/p95_tpot_s", "serving/p95_ttft_s",
+    "serving/preempted_requests", "serving/preemption_rate",
+    "serving/preemptions", "serving/rejected", "serving/shutdown_failed",
+    "serving/submitted", "serving/tokens_per_decode_tick",
+    "serving/tokens_per_request_tick", "serving/total_tokens",
+    "serving/tpot_delivered_s")
+#: the kernels the scheduled 7B path launches: B2 (int8 matmul), B5 (paged
+#: prefill, generic) and B3 (paged decode)
+SCHEDULER_KERNELS = ("quantized_matmul", "paged_attention",
+                     "paged_decode_attention")
+#: the teacher-forced bar: each scheduled token's logit in an unscheduled
+#: re-score of the same history is at most this far below the re-score's
+#: top logit (greedy) or its top_k-th (seeded top-k).  bf16 logits move by
+#: a few hundredths between batch shapes (PERF.md section 6), while a
+#: token from another request's row sits several logits below the top
+TEACHER_FORCED_MARGIN = 0.25
+
+
+def teacher_forced_gaps(np, eng, reqs, group, uid_base):
+    """Re-score each request's history unscheduled, ``group`` requests at a
+    time: its prompt by ``put`` (two prompts a call), then each generated
+    token fed back by a ``put`` of one token a request.  Returns, for every
+    generated token, how far its logit lies below the re-score's top logit
+    (greedy) or its top_k-th logit (seeded top-k), clipped at 0."""
+    gaps = []
+    for g in range(0, len(reqs), group):
+        grp = reqs[g:g + group]
+        uids = [uid_base + r.uid for r in grp]
+        rows = {}
+        for i in range(0, len(grp), 2):
+            rows.update(eng.put(uids[i:i + 2],
+                                [r.prompt for r in grp[i:i + 2]]))
+        for pos in range(max(len(r.generated) for r in grp)):
+            live = [(r, u) for r, u in zip(grp, uids)
+                    if pos < len(r.generated)]
+            for r, u in live:
+                row = rows[u]
+                kth = 1 if r.sampling.greedy else r.sampling.top_k
+                top = np.partition(row, -kth)[-kth]
+                gaps.append(max(0.0, float(top - row[r.generated[pos]])))
+            nxt = [(r, u) for r, u in live if pos + 1 < len(r.generated)]
+            if nxt:
+                rows = eng.put([u for _, u in nxt],
+                               [[r.generated[pos]] for r, _ in nxt])
+        eng.flush(uids)
+    return np.asarray(gaps)
+
+
+def gap_stats(np, gaps):
+    return {"tokens": int(gaps.size), "max": float(gaps.max()),
+            "p99": float(np.percentile(gaps, 99)),
+            "nonzero": int((gaps > 0).sum()),
+            "over_margin": int((gaps > TEACHER_FORCED_MARGIN).sum())}
+
+
+def scheduler_served_run(torch, np, n_requests=32, rate_rps=16.0,
+                         prompt_len=192, gen_tokens=48, clients=8,
+                         block=128, kv_fraction=0.7):
+    """``bench_serving.py`` ``measure_scheduler``'s traffic on the 32-layer
+    Llama-2-7B geometry with phase 5's int8 tree: Poisson arrivals through
+    ``ContinuousBatchScheduler.run_with_arrivals``, a KV pool of 0.7 of the
+    worst-case demand, half the requests greedy and half seeded top-k.
+    Counts set to 0 just before the run and read just after it.  Then a
+    run that preempts (16 requests of 100-token prompts at once), a traced
+    window of decode ticks, and the greedy requests' prompts through an
+    unscheduled ``put`` / ``decode_loop`` on the same engine.  Every
+    scheduled token of the measured and the preempting run is held to the
+    teacher-forced bar (:func:`teacher_forced_gaps`), and so is a run
+    through a scheduler with a planted slot swap, which must miss it."""
+    from deepspeed_tpu_torch.checkpoint import random_int8_llama_params
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.model_implementations import (
+        RaggedLlama)
+    from deepspeed_tpu_torch.models import LlamaConfig
+    from deepspeed_tpu_torch.observability import MetricsRegistry
+    from deepspeed_tpu_torch.serving import (ContinuousBatchScheduler,
+                                             SamplingParams)
+
+    class SwappedSlots(ContinuousBatchScheduler):
+        """The planted fault: a tick's first two emitted tokens trade
+        requests (a logits row read from the wrong slot)."""
+
+        def _advance_emitted(self, ready, tokens):
+            if len(tokens) >= 2:
+                tokens = [tokens[1], tokens[0], *tokens[2:]]
+            return super()._advance_emitted(ready, tokens)
+
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig.llama2_7b(dtype=torch.bfloat16)     # 32 layers
+    params = random_int8_llama_params(cfg, groups=16, seed=SEED)
+    max_ctx = prompt_len + gen_tokens + 8
+    per_seq = -(-max_ctx // block)
+    num_blocks = max(int(clients * per_seq * kv_fraction), 2 * per_seq) + 1
+    eng = InferenceEngineV2(
+        RaggedLlama(cfg, block, use_kernels=True), params,
+        RaggedInferenceEngineConfig.from_dict({
+            "state_manager": {"max_ragged_batch_size": 512,
+                              "max_ragged_sequence_count": clients,
+                              "max_context": max_ctx},
+            "kv_cache": {"block_size": block, "num_blocks": num_blocks}}))
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(prompt_len,)).tolist()
+               for _ in range(n_requests)]
+    sampling = [SamplingParams(max_new_tokens=gen_tokens) if i % 2 == 0
+                else SamplingParams(greedy=False, temperature=0.8, top_k=50,
+                                    seed=SEED, max_new_tokens=gen_tokens)
+                for i in range(n_requests)]
+    # warm: a burst of the same workload through a throwaway scheduler
+    ContinuousBatchScheduler(eng).run_with_arrivals(
+        prompts[:clients], [0.0] * clients, sampling=sampling[:clients])
+    registry = MetricsRegistry()
+    sched = ContinuousBatchScheduler(eng, registry=registry)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate_rps, size=n_requests))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = sched.run_with_arrivals(prompts, arrivals, sampling=sampling)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    snap = sched.metrics.snapshot()
+    scrape = registry.snapshot()
+    sm = eng.state_manager
+    free_after = sm.free_blocks
+    ticks = sched._tick
+    ttft = np.asarray([r.ttft for r in reqs if r.ttft is not None] or [0.0],
+                      np.float64) * 1e3
+    out = {
+        "layers": cfg.num_hidden_layers, "requests": n_requests,
+        "rate_rps": rate_rps, "prompt_len": prompt_len,
+        "gen_tokens": gen_tokens, "kv_blocks": num_blocks,
+        "wall_s": wall, "ticks": ticks, "ms_per_tick": wall / ticks * 1e3,
+        "goodput_tokens_per_s": snap["total_tokens"] / wall,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p99": float(np.percentile(ttft, 99)),
+        "tpot_ms_p50": snap["p50_tpot_s"] * 1e3,
+        "preemptions": sched.metrics.preemptions,
+        "fast_decode_ticks": sched.fast_ticks,
+        "states": sorted({r.state.value for r in reqs}),
+        "generated": sorted({len(r.generated) for r in reqs}),
+        "preempted_finished": all(r.state.value == "finished"
+                                  for r in reqs if r.preemptions),
+        "free_blocks_after": free_after, "pool_blocks": num_blocks - 1,
+        "launches": launches,
+        "missing_keys": [k for k in SERVING_KEYS if k not in scrape],
+        "tokens_in_vocab": all(0 <= t < cfg.vocab_size
+                               for r in reqs for t in r.generated),
+    }
+    # that traffic never preempts at block 128: a 192-token prompt takes
+    # its 2 blocks at admission and 192 + 48 tokens never reach a third, so
+    # the pool bounds admission (5 requests at a time) instead.  Preemption
+    # by flush_to_host and recompute is driven on the same engine by
+    # 2 x clients requests at once whose prompts (104 tokens) take 1 block
+    # at admission and a second at their 25th new token, half greedy and
+    # half seeded
+    pre_len = block - gen_tokens // 2
+    pre_prompts = [rng.integers(0, cfg.vocab_size, size=(pre_len,)).tolist()
+                   for _ in range(2 * clients)]
+    s3 = ContinuousBatchScheduler(eng)
+    t0 = time.perf_counter()
+    pre = s3.run_with_arrivals(pre_prompts, [0.0] * len(pre_prompts),
+                               sampling=sampling[:len(pre_prompts)])
+    torch.cuda.synchronize()
+    out["preemption_run"] = {
+        "requests": len(pre), "prompt_len": pre_len,
+        "wall_s": time.perf_counter() - t0,
+        "preemptions": s3.metrics.preemptions,
+        "preempted_requests": sum(int(r.preemptions > 0) for r in pre),
+        "states": sorted({r.state.value for r in pre}),
+        "generated": sorted({len(r.generated) for r in pre}),
+        "preempted_finished": all(r.state.value == "finished"
+                                  for r in pre if r.preemptions),
+        "preempted_greedy": sum(int(r.preemptions > 0 and r.sampling.greedy)
+                                for r in pre),
+        "free_blocks_after": sm.free_blocks,
+        "tokens_in_vocab": all(0 <= t < cfg.vocab_size
+                               for r in pre for t in r.generated)}
+    # where the time goes: 8 decode ticks of as many requests as the pool
+    # holds whole (5 x 2 blocks of the 11), traced: no preemption inside
+    # the window
+    fit = min(clients, (num_blocks - 1)
+              // -(-(prompt_len + gen_tokens) // block))
+    s2 = ContinuousBatchScheduler(eng)
+    for p in prompts[:fit]:
+        s2.submit(p, sampling=SamplingParams(max_new_tokens=gen_tokens))
+    for _ in range(100):
+        if len(s2.running_decode_uids) == fit:
+            break
+        s2.step()
+    out["trace"] = profile_window(torch, lambda: [s2.step()
+                                                  for _ in range(8)], 8)
+    s2.run_until_idle()
+    # the greedy requests' prompts unscheduled: put two at a time, then
+    # decode_loop, as many requests at a time as the pool holds whole
+    greedy = [r for r in reqs if r.sampling.greedy]
+    same = full = first_same = 0
+    for g in range(0, len(greedy), fit):
+        grp = greedy[g:g + fit]
+        uids = [1000 + r.uid for r in grp]
+        first = {}
+        for i in range(0, len(grp), 2):
+            first.update(eng.put(uids[i:i + 2],
+                                 [r.prompt for r in grp[i:i + 2]]))
+        start = [int(np.argmax(first[u])) for u in uids]
+        toks = eng.decode_loop(uids, start, gen_tokens - 1)
+        eng.flush(uids)
+        for r, s0, t in zip(grp, start, toks):
+            ref = [s0] + t.tolist()
+            same += sum(int(a == c) for a, c in zip(r.generated, ref))
+            full += int(r.generated == ref)
+            first_same += int(r.generated[0] == s0)
+    out["greedy_token_share_equal"] = same / (len(greedy) * gen_tokens)
+    out["greedy_requests_equal"] = full
+    out["greedy_first_tokens_equal"] = first_same
+    out["greedy_requests"] = len(greedy)
+    # the teacher-forced bar: the measured run, the preempting run (its
+    # resumed requests included) and the planted slot swap
+    out["teacher_forced"] = gap_stats(np, teacher_forced_gaps(
+        np, eng, reqs, fit, 1000))
+    out["preemption_run"]["teacher_forced"] = gap_stats(
+        np, teacher_forced_gaps(np, eng, pre, fit, 2000))
+    swapped = SwappedSlots(eng).run_with_arrivals(
+        prompts[:clients], [0.0] * clients,
+        sampling=[SamplingParams(max_new_tokens=16)] * clients)
+    out["planted_slot_swap"] = gap_stats(np, teacher_forced_gaps(
+        np, eng, swapped, fit, 3000))
+    out["free_blocks_end"] = sm.free_blocks
+    return out
+
+
+def scheduler_failures(run) -> list:
+    """The bars of phase 24 that ``run`` misses (empty when it passes)."""
+    bad = []
+    if run["states"] != ["finished"] or run["generated"] != [
+            run["gen_tokens"]]:
+        bad.append(f"states {run['states']} lengths {run['generated']}")
+    pre = run["preemption_run"]
+    if pre["preemptions"] < 1 or not pre["preempted_finished"] \
+            or pre["states"] != ["finished"] \
+            or pre["generated"] != [run["gen_tokens"]] \
+            or not pre["tokens_in_vocab"]:
+        bad.append(f"preemption run {pre}")
+    if not run["preempted_finished"]:
+        bad.append("a preempted request of the measured run did not finish")
+    if {run["free_blocks_after"], pre["free_blocks_after"],
+            run["free_blocks_end"]} != {run["pool_blocks"]}:
+        bad.append(f"free blocks {run['free_blocks_after']} / "
+                   f"{pre['free_blocks_after']} / {run['free_blocks_end']} "
+                   f"of {run['pool_blocks']}")
+    if not all(run["launches"][k] > 0 for k in SCHEDULER_KERNELS):
+        bad.append(f"launches {run['launches']}")
+    if run["missing_keys"]:
+        bad.append(f"registry lacks {run['missing_keys']}")
+    if not run["tokens_in_vocab"]:
+        bad.append("tokens outside the vocabulary")
+    for name, tf in (("measured run", run["teacher_forced"]),
+                     ("preemption run", pre["teacher_forced"])):
+        if tf["over_margin"]:
+            bad.append(f"{name}: scheduled tokens off the teacher-forced "
+                       f"re-score {tf}")
+    if not run["planted_slot_swap"]["over_margin"]:
+        bad.append(f"the planted slot swap passes the teacher-forced bar "
+                   f"{run['planted_slot_swap']}")
+    return bad
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     if not (ROOT / "deepspeed_tpu_torch" / "csrc").is_dir():
         return fail("deepspeed_tpu_torch/ not found beside chip_smoke.py: "
@@ -3144,6 +3745,53 @@ def main() -> int:
         return fail(f"Evoformer launches: not one launch of the routed "
                     f"kernel a forward call (and none of the other): {bad}")
 
+    # 23. block-sparse attention (B11) at BERT width, through
+    # SparseSelfAttention ("auto": the kernels, key-padding masks included)
+    bsa_cases = []
+    for c in BSA_CASES + (BSA_LONG,):
+        r = block_sparse_case(torch, np, gen, dev, *c,
+                              forward_only=c is BSA_LONG)
+        bsa_cases.append(r)
+        grads = r.get("grad_norm_rel_err", {})
+        print(f"[block-sparse] {r['name']}: err {r['max_abs_err']:.3g} norm "
+              f"{r['norm_rel_err']:.3g} grads "
+              f"{ {k: float(f'{x:.3g}') for k, x in grads.items()} } fault "
+              f"{r['fault_norm_rel_err']:.3g} key-major fault "
+              f"{ {k: float(f'{x:.3g}') for k, x in r.get('fault_k_grad_norm_rel_err', {}).items()} }"
+              + (f" dense {r['dense_norm_rel_err']:.3g}"
+                 if "dense_norm_rel_err" in r else "")
+              + f" | density {r['density']:.4f} "
+              f"live tiles {r['live_tile_ratio']:.4f} | ms "
+              f"{ {k: round(x, 4) for k, x in r['ms'].items()} } plain "
+              f"{ {k: round(x, 3) for k, x in r['plain_ms'].items()} } SDPA "
+              f"{ {k: round(x, 3) for k, x in r['library_ms'].items()} } "
+              f"bound { {k: round(x['bound_ms'], 4) for k, x in r['bounds'].items()} }",
+              flush=True)
+        bad = bsa_failures(r)
+        if bad:
+            return fail(f"phase 23 {r['name']}: {bad}")
+    bsa_main = {k: sum(c["launches"][k] for c in bsa_cases)
+                for k in BSA_KEYS}
+    for c in bsa_cases:
+        if c["layout"] in ("fixed", "bslongformer", "dense") \
+                and c["padding"] is None \
+                and c["dtype"] == "bf16" and c["shape"][2] == 4096 \
+                and c["block"] == 16 and c["shape"][1] == 12:
+            print(f"[block-sparse] time vs density: {c['layout']}: density "
+                  f"{c['density']:.4f} live 64-tiles {c['live_tile_ratio']:.4f}"
+                  f" fwd {c['ms']['fwd']:.4f} ms dQ {c['ms']['bwd_dq']:.4f} "
+                  f"dK/dV {c['ms']['bwd_dkv']:.4f}", flush=True)
+
+    # 24. the continuous-batching scheduler serving Llama-2-7B
+    sched_run = scheduler_served_run(torch, np)
+    print(f"[scheduler] {json.dumps({k: v for k, v in sched_run.items() if k != 'trace'})}",
+          flush=True)
+    print(f"[scheduler] traced ticks: {json.dumps(sched_run['trace'])}",
+          flush=True)
+    bad = scheduler_failures(sched_run)
+    if bad:
+        return fail(f"phase 24: {bad}")
+
     src = "deepspeed_tpu_torch/csrc/"
     ref = "deepspeed_tpu/"
     bf_py = ref + "inference/v2/kernels/blocked_flash.py:"
@@ -3242,6 +3890,29 @@ def main() -> int:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
         })
+    bsa_lines = {"fwd": "82", "bwd_dq": "131", "bwd_dkv": "166"}
+    bsa_outs = {"fwd": ("max_abs_err",), "bwd_dq": ("dq",),
+                "bwd_dkv": ("dk", "dv")}
+    for c in bsa_cases:
+        for kname in c["ms"]:
+            err = (c["max_abs_err"] if kname == "fwd" else
+                   max(c["grad_max_abs_err"][o] for o in bsa_outs[kname]))
+            kernels.append({
+                "name": f"block_sparse_attention_{kname}[{c['name']}]",
+                "route": "cuda", "source": src + "block_sparse_attention.cu",
+                "replaces": ref + "ops/block_sparse_attention.py:"
+                + bsa_lines[kname],
+                "launches": bsa_main[f"block_sparse_attention_{kname}"],
+                "max_abs_err": err, "ms": c["ms"][kname],
+                "plain_ms": c["plain_ms"][kname],
+                "bound_ms": c["bounds"][kname]["bound_ms"],
+                "bound_by": c["bounds"][kname]["bound_by"],
+                # SDPA over the expanded mask computes the forward; no one
+                # PyTorch call computes dQ or dK/dV alone (fwd+bwd is in
+                # chip_smoke.json)
+                "library_ms": c["library_ms"]["fwd"] if kname == "fwd"
+                else None,
+            })
     record = {"kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3254,7 +3925,8 @@ def main() -> int:
          "moe_slice": moe_model, "moe_trained": moe_runs,
          "strided": strided, "gpt2_slice": g_slice, "layout_trained": runs,
          "quantizer": qcases, "from_hf": hf, "quantized_served": qserved,
-         "evoformer": evo_cases},
+         "evoformer": evo_cases, "block_sparse": bsa_cases,
+         "scheduler": sched_run},
         indent=1))
     print(json.dumps(record))
     print(smi)

@@ -80,7 +80,7 @@
 
 #include <type_traits>
 
-#include "mma.cuh"
+#include "attention_tiles.cuh"
 
 namespace {
 
@@ -97,75 +97,6 @@ constexpr int kSimtRowsPerWarp = 4;
 constexpr int kSimtRows = kSimtWarps * kSimtRowsPerWarp;   // 32 query rows a block
 constexpr int kSimtKeys = 32;                              // one key a lane
 constexpr int kSimtMaxD = 256;
-
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  } else {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ float to_f(T v) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return __bfloat162float(v);
-  } else if constexpr (std::is_same<T, __half>::value) {
-    return __half2float(v);
-  } else {
-    return v;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return __float2bfloat16_rn(v);
-  } else if constexpr (std::is_same<T, __half>::value) {
-    return __float2half_rn(v);
-  } else {
-    return v;
-  }
-}
-
-// acc[N/8][4] += A[16 x K] B[N x K]^T, both in shared memory, row stride LD.
-template <typename T, int K, int N, int LD>
-__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4], const T* a,
-                                        const T* b, int lane) {
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t af[4];
-    ldsm_x4(af, a + (lane % 16) * LD + k0 + (lane / 16) * 8);
-#pragma unroll
-    for (int n0 = 0; n0 < N; n0 += 16) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + (n0 + (lane / 16) * 8 + lane % 8) * LD + k0 + ((lane / 8) % 2) * 8);
-      mma16816<T>(acc[n0 / 8], af, bf[0], bf[1]);
-      mma16816<T>(acc[n0 / 8 + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[D/8][4] += P[16 x N] B[N x D]: P in registers as A fragments, B in
-// shared memory, row stride LD.
-template <typename T, int N, int D, int LD>
-__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4],
-                                       const uint32_t (&pa)[N / 16][4],
-                                       const T* b, int lane) {
-#pragma unroll
-  for (int k0 = 0; k0 < N; k0 += 16) {
-#pragma unroll
-    for (int d0 = 0; d0 < D; d0 += 16) {
-      uint32_t bf[4];
-      ldsm_x4_trans(bf, b + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * LD + d0 + (lane / 16) * 8);
-      mma16816<T>(acc[d0 / 8], pa[k0 / 16], bf[0], bf[1]);
-      mma16816<T>(acc[d0 / 8 + 1], pa[k0 / 16], bf[2], bf[3]);
-    }
-  }
-}
 
 // kTile rows of one head (D values at `src + row * row_stride`) from row
 // `row0` into shared memory (row stride DP + 8), 16 bytes a thread at a

@@ -59,7 +59,7 @@ class KVCacheConfig(DeepSpeedConfigModel):
         if self.host_tier:
             raise NotImplementedError(
                 "kv_cache.host_tier (host-memory cold tier) is not ported "
-                "to deepspeed_tpu_torch yet (ROADMAP A4, open item 2)")
+                "to deepspeed_tpu_torch yet (ROADMAP A5b)")
 
 
 @dataclasses.dataclass

@@ -30,8 +30,11 @@ sequence's KV rows (scales included) from one engine to another.
 ``from_hf`` loads a HuggingFace checkpoint directory, with int8
 weight-only quantization on the device (``quantize_bits=8``).
 
+``occupancy()`` reads the live KV-pool and weight-byte gauges the serving
+scheduler's registry provider scrapes.
+
 Not ported yet (each raises ``NotImplementedError``): ``serialize`` and the
-memory ledger.
+memory ledger (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -755,6 +758,23 @@ class InferenceEngineV2:
             log_dist(f"InferenceEngineV2: int{quantize_bits} weight-only "
                      f"quantization on {n} matrices", ranks=[0])
         return cls(model, params, cfg, device=dev)
+
+    # ------------------------------------------------------------------ #
+    # Observability: live occupancy
+    # ------------------------------------------------------------------ #
+    def occupancy(self) -> Dict[str, float]:
+        """Live ``observability/kv_*`` + ``observability/hbm_*`` gauges
+        — host-side bookkeeping only (allocator free lists, refcounts,
+        ``seen_tokens``, static geometry arithmetic): safe to scrape
+        between steady-state decode ticks without a device sync."""
+        from deepspeed_tpu_torch.observability.memory import (hbm_footprint,
+                                                              kv_occupancy)
+
+        out = kv_occupancy(self.state_manager)
+        # weights only: kv_occupancy already carries the pool bytes —
+        # the same quantity must not scrape under two names
+        out.update(hbm_footprint(self.params))
+        return out
 
     def capture_memory_ledger(self, ledger=None):
         raise NotImplementedError(

@@ -47,6 +47,36 @@ class PrefixCacheStats:
     evicted_blocks: int = 0
     cow_forks: int = 0
 
+    #: every counter ``attach_prefix`` advances — the scheduler snapshots
+    #: these around an attach so a discarded (deferred) attach rolls back
+    #: cleanly; eviction/insert counters stay out (those block frees and
+    #: registrations really happened)
+    ATTACH_COUNTERS = ("lookups", "hits", "misses", "hit_tokens",
+                       "cow_forks")
+
+    def attach_snapshot(self) -> Dict[str, int]:
+        return {f: getattr(self, f) for f in self.ATTACH_COUNTERS}
+
+    def restore_attach(self, snap: Dict[str, int]) -> None:
+        for f, v in snap.items():
+            setattr(self, f, v)
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hits / max(self.lookups, 1)
+
+    def as_dict(self) -> Dict[str, float]:
+        return {
+            "lookups": float(self.lookups),
+            "hits": float(self.hits),
+            "misses": float(self.misses),
+            "hit_rate": self.hit_rate,
+            "hit_tokens": float(self.hit_tokens),
+            "inserted_blocks": float(self.inserted_blocks),
+            "evicted_blocks": float(self.evicted_blocks),
+            "cow_forks": float(self.cow_forks),
+        }
+
 
 class _Node:
     """One cached KV block: edge label ``key`` (its block's token tuple),

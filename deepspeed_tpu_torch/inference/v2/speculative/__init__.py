@@ -12,10 +12,10 @@ Three layers, one mechanism:
   :func:`accept_drafts` walks the sampler's draws against the drafts, and
   ``engine.commit_verified`` rolls rejected lookahead blocks back so the
   allocator ends where a never-drafted run would;
-* **schedule** — the serving scheduler that runs verify passes on decode
-  ticks (``SpeculativeConfig`` configures it) is not ported yet; a caller
-  drives draft → ``verify_step`` → :func:`accept_drafts` →
-  ``commit_verified`` itself.
+* **schedule** — ``serving.ContinuousBatchScheduler(engine,
+  speculative=SpeculativeConfig(...))`` runs verify passes on its decode
+  ticks; without the scheduler a caller drives draft → ``verify_step`` →
+  :func:`accept_drafts` → ``commit_verified`` itself.
 
 The drafters and the acceptance rule are pure host Python, copied from the
 JAX package with their behaviour.

@@ -3,7 +3,9 @@ bf16 (bar 3e-2 of the largest magnitude, the reference's on-chip
 tolerance; flash attention, the int8, verify and tiled prefill paged
 kernels, the grouped expert GEMM and the training path also 1e-2 in norm,
 |got - want|_2 / |want|_2; the int8 quantizer bit for bit; Evoformer
-attention 3e-2 / 1e-2 forward and 5e-2 in norm for its gradients).  Every test here is marked ``cuda`` and skips
+attention 3e-2 / 1e-2 forward and 5e-2 in norm for its gradients;
+block-sparse attention the same, and fp32 within 1e-4).  Every test here is
+marked ``cuda`` and skips
 where ``torch.cuda.is_available()`` is false.  The file imports neither JAX
 nor ``deepspeed_tpu``, so on a GPU machine without the JAX package's
 dependencies it runs as
@@ -1331,3 +1333,219 @@ def test_evoformer_norm_bar_catches_planted_dropped_tile(
     assert built["fwd_launches"][_EVO_KEY[route]] == 1
     assert built["norm"] <= NORM_TOL
     assert planted["norm"] > NORM_TOL
+
+
+# --------------------------------------------------------------------- #
+# Block-sparse attention (B11)
+# --------------------------------------------------------------------- #
+#: (layout, heads, S, D, block, type, per-head layouts): the CPU parity
+#: tests' shapes (h 2, s 256, d 32, block 16; S = 1040: a tail tile), one
+#: BERT-width shape, fp32 (the general kernels), D = 128, blocks 32 / 64 / 128
+_BSA_CASES = [
+    ("bigbird", 2, 256, 32, 16, torch.bfloat16, False),
+    ("fixed_uni", 2, 1040, 32, 16, torch.bfloat16, False),
+    ("bslongformer", 12, 4096, 64, 16, torch.bfloat16, False),
+    ("bigbird", 12, 1024, 64, 16, torch.float16, True),
+    ("fixed", 2, 1040, 64, 16, torch.float32, False),
+    ("variable", 2, 512, 128, 32, torch.bfloat16, True),
+    ("dense", 4, 512, 40, 64, torch.bfloat16, False),
+    ("bslongformer", 2, 1024, 128, 128, torch.float32, False),
+]
+
+
+def _bsa_layout(name, h, s, block, per_head):
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+
+    kw = {"fixed": ("FixedSparsityConfig", {}),
+          "fixed_uni": ("FixedSparsityConfig",
+                        {"attention": "unidirectional"}),
+          "bigbird": ("BigBirdSparsityConfig", {}),
+          "bslongformer": ("BSLongformerSparsityConfig", {}),
+          "variable": ("VariableSparsityConfig", {"num_random_blocks": 1}),
+          "dense": ("DenseSparsityConfig", {})}[name]
+    cfg = getattr(tsa, kw[0])(h, block, different_layout_per_head=per_head,
+                              **kw[1])
+    return cfg.make_layout(s)
+
+
+def _bsa_run(fn, q, k, v, do, bsl):
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves, bsl)
+    out.backward(do)
+    torch.cuda.synchronize()
+    return out.detach(), [t.grad for t in leaves]
+
+
+def _bsa_errors(got, want):
+    (o, gs), (ro, rgs) = got, want
+    return ((o.float() - ro.float()).abs().max().item(),
+            [_norm_rel(a, b) for a, b in zip([o] + gs, [ro] + rgs)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,h,s,d,block,dtype,per_head", _BSA_CASES)
+def test_block_sparse_attention_kernels(cuda_device, layout, h, s, d, block,
+                                        dtype, per_head):
+    """Forward, dQ and dK/dV against the plain versions: bf16 / fp16 within
+    3e-2 max and 1e-2 in norm forward, 5e-2 in norm for the gradients; fp32
+    (the general kernels) within 1e-4; one launch of each a call."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbsa
+
+    bsl = tbsa.BlockSparseLayout(_bsa_layout(layout, h, s, block, per_head),
+                                 block, s)
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d + block)
+    q, k, v, do = (torch.randn((2, h, s, d), generator=gen,
+                               device=cuda_device, dtype=dtype)
+                   for _ in range(4))
+    before = dict(tbsa.LAUNCHES)
+    got = _bsa_run(tbsa.block_sparse_attention, q, k, v, do, bsl)
+    assert {key: tbsa.LAUNCHES[key] - before[key] for key in before} == \
+        dict.fromkeys(before, 1)
+    want = _bsa_run(tbsa.block_sparse_attention_reference, q, k, v, do, bsl)
+    assert tbsa.LAUNCHES["block_sparse_attention_fwd"] == \
+        before["block_sparse_attention_fwd"] + 1
+    max_err, norms = _bsa_errors(got, want)
+    if dtype == torch.float32:
+        assert max_err <= 1e-4, (max_err, norms)
+    else:
+        assert max_err <= TOL and norms[0] <= NORM_TOL, (max_err, norms)
+        assert all(n <= 5e-2 for n in norms[1:]), norms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,s,d,dtype,mode", [
+    ("bigbird", 1040, 64, torch.bfloat16, "mul"),
+    ("bslongformer", 4096, 64, torch.bfloat16, "add"),
+    ("fixed", 512, 128, torch.float16, "mul"),
+    ("fixed", 1040, 64, torch.float32, "mul"),
+    ("bigbird", 512, 48, torch.float32, "add"),
+])
+def test_block_sparse_key_padding(cuda_device, layout, s, d, dtype, mode):
+    """A key-padding mask through the kernels (the key bias): forward, dQ
+    and dK/dV against the plain versions under the same bias, at the bars
+    of test_block_sparse_attention_kernels; the forward also against the
+    dense composition under the mask; one launch of each a call."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbsa
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+
+    h, block = 4, 16
+    lay = _bsa_layout(layout, h, s, block, False)
+    bsl = tbsa.BlockSparseLayout(lay, block, s)
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d)
+    q, k, v, do = (torch.randn((3, h, s, d), generator=gen,
+                               device=cuda_device, dtype=dtype)
+                   for _ in range(4))
+    valid = torch.arange(s, device=cuda_device)[None] < torch.tensor(
+        [[s], [s * 3 // 4 - 7], [s // 4 + 1]], device=cuda_device)
+    kpm = valid.float() if mode == "mul" else torch.where(valid, 0.0,
+                                                          -10000.0)
+    bias = tsa.key_padding_bias(kpm, mode)
+    before = dict(tbsa.LAUNCHES)
+    got = _bsa_run(lambda *a: tbsa.block_sparse_attention(*a, key_bias=bias),
+                   q, k, v, do, bsl)
+    assert {key: tbsa.LAUNCHES[key] - before[key] for key in before} == \
+        dict.fromkeys(before, 1)
+    want = _bsa_run(lambda *a: tbsa.block_sparse_attention_reference(
+        *a, key_bias=bias), q, k, v, do, bsl)
+    with torch.no_grad():
+        dense = tsa.sparse_self_attention(q, k, v, lay, block,
+                                          key_padding_mask=kpm,
+                                          key_padding_mask_mode=mode)
+    max_err, norms = _bsa_errors(got, want)
+    dense_err = (got[0].float() - dense.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert max_err <= 1e-4 and dense_err <= 1e-4, (max_err, dense_err)
+    else:
+        assert max_err <= TOL and norms[0] <= NORM_TOL, (max_err, norms)
+        assert dense_err <= TOL and _norm_rel(got[0], dense) <= NORM_TOL
+        assert all(n <= 5e-2 for n in norms[1:]), norms
+    # padded keys get no gradient
+    assert not got[1][2][1, :, s * 3 // 4 - 7:].any()
+
+
+@pytest.mark.cuda
+def test_block_sparse_empty_rows_and_refusals(cuda_device):
+    """A row that keeps no key gives zeros (and lse -1e30) on the card; what
+    the kernels do not take raises, and a CUDA tensor never reaches the
+    plain version."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbsa
+
+    layout = np.ones((2, 16, 16), bool)
+    layout[1, 3] = False                          # rows 48..63 of head 1
+    bsl = tbsa.BlockSparseLayout(layout, 16, 256)
+    q, k, v = (torch.randn((1, 2, 256, 64), device=cuda_device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    o, lse = tbsa.block_sparse_attention_fwd(q, k, v, bsl)
+    assert not o[0, 1, 48:64].any() and (lse[0, 1, 48:64] == -1e30).all()
+    assert o[0, 0, 48:64].abs().sum() > 0
+    for bad in (q.to(torch.float64), q[..., :12].contiguous()):
+        with pytest.raises(NotImplementedError, match="ROADMAP C"):
+            tbsa.block_sparse_attention(bad, bad, bad, bsl)
+    with pytest.raises(NotImplementedError, match="multiple of 16"):
+        tbsa.block_sparse_attention(q, k, v, tbsa.BlockSparseLayout(
+            np.ones((2, 32, 32), bool), 8, 256))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tbsa.block_sparse_attention_fwd(q, k.cpu(), v, bsl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block_sparse_bars_catch_planted_dropped_tile(cuda_device, dtype):
+    """chip_smoke.py phase 23's planted faults: query-major lists that drop
+    the last live key tile of every query tile must miss the forward's
+    bars; key-major lists that drop the last live query tile of every key
+    tile must leave the forward and dQ whole and put dK and dV past the
+    5e-2 gradient bar.  The kernels walk only the listed tiles."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbsa
+
+    s = 1024
+    bsl = tbsa.BlockSparseLayout(_bsa_layout("bigbird", 4, s, 16, True), 16,
+                                 s)
+    smoke = _load_chip_smoke()
+    bad, bad_k = (smoke.bsa_planted_fault(np, bsl, side)
+                  for side in ("q", "k"))
+    q, k, v, do = (torch.randn((2, 4, s, 64), device=cuda_device,
+                               dtype=dtype) for _ in range(4))
+    want = _bsa_run(tbsa.block_sparse_attention_reference, q, k, v, do, bsl)
+    good = _bsa_run(tbsa.block_sparse_attention, q, k, v, do, bsl)
+    assert all(n <= 5e-2 for n in _bsa_errors(good, want)[1])
+    with torch.no_grad():
+        got = tbsa.block_sparse_attention(q, k, v, bad)
+    err = (got.float() - want[0].float()).abs().max().item()
+    print(f"block-sparse planted dropped tile ({dtype}): max {err:.3g} "
+          f"norm {_norm_rel(got, want[0]):.3g}")
+    assert err > TOL and _norm_rel(got, want[0]) > NORM_TOL
+    _, norms = _bsa_errors(_bsa_run(tbsa.block_sparse_attention, q, k, v, do,
+                                    bad_k), want)
+    print(f"block-sparse planted key-major drop ({dtype}): o, dq, dk, dv "
+          f"norm {[float(f'{n:.3g}') for n in norms]}")
+    assert norms[0] <= NORM_TOL and norms[1] <= 5e-2
+    assert norms[2] > 5e-2 and norms[3] > 5e-2
+
+
+@pytest.mark.cuda
+def test_sparse_self_attention_routes_on_the_card(cuda_device):
+    """"auto" and "pallas" launch the kernels, with a key-padding mask too
+    (its key bias); only "xla" takes the counted dense composition."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbsa
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+
+    cfg = tsa.FixedSparsityConfig(12, 16)
+    q, k, v = (torch.randn((2, 12, 512, 64), device=cuda_device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    kpm = torch.ones((2, 512), device=cuda_device)
+    kpm[1, 300:] = 0
+    launches = tbsa.LAUNCHES["block_sparse_attention_fwd"]
+    dense = tsa.LAUNCHES["sparse_self_attention_dense"]
+    auto = tsa.SparseSelfAttention(cfg)
+    auto(q, k, v)
+    masked = auto(q, k, v, key_padding_mask=kpm)
+    pallas = tsa.SparseSelfAttention(cfg, implementation="pallas")(
+        q, k, v, key_padding_mask=kpm)
+    assert tbsa.LAUNCHES["block_sparse_attention_fwd"] == launches + 3
+    assert tsa.LAUNCHES["sparse_self_attention_dense"] == dense
+    xla = tsa.SparseSelfAttention(cfg, implementation="xla")(
+        q, k, v, key_padding_mask=kpm)
+    assert tsa.LAUNCHES["sparse_self_attention_dense"] == dense + 1
+    assert torch.equal(masked, pallas)
+    assert _norm_rel(masked, xla) <= NORM_TOL

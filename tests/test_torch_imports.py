@@ -231,3 +231,18 @@ def test_top_level_reexports_and_init_distributed(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "4")
     with pytest.raises(NotImplementedError, match="A6"):
         ds.init_distributed()
+
+
+def test_every_kernel_source_is_built():
+    """Every ``csrc/*.cu`` is in ``_build.SOURCES`` (``chip_smoke.py``
+    builds that list), and every header it includes is one of
+    ``csrc/*.cuh`` (their text is part of each library's hash)."""
+    from deepspeed_tpu_torch.ops import _build
+
+    sources = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
+    assert sorted(_build.SOURCES) == sources
+    headers = {p.name for p in (PORT / "csrc").glob("*.cuh")}
+    for name in sources:
+        for line in (PORT / "csrc" / f"{name}.cu").read_text().splitlines():
+            if line.startswith('#include "'):
+                assert line.split('"')[1] in headers, (name, line)

@@ -309,6 +309,6 @@ def test_int8_guards(jparams):
     assert KVCacheConfig.from_dict({"dtype": "int8"}).dtype == "int8"
     with pytest.raises(ValueError, match="not understood"):
         KVCacheConfig.from_dict({"dtype": "fp7"})
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
         KVCacheConfig.from_dict({"dtype": "int8", "host_tier": True,
                                  "enable_prefix_cache": True})
