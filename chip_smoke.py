@@ -26,7 +26,14 @@ Phases, each fatal on failure:
    gradient kernels dlhs and drhs at Mixtral training shapes (4 x 1024
    tokens routed top-2, M = 8192; the gate / up and the down projection)
    and a ragged case (an empty expert, 192 rows past the groups), whose
-   zero rows and blocks must be exact zeros;
+   zero rows and blocks must be exact zeros; the redesigned kernels
+   (PR 10) at more shapes: the int8 matmul's tiled path (wgmma) at M =
+   16, 40, 64, 65 and 1024, at M = 40 on every projection shape, with 64
+   groups at K = 11008 and at N = 4112, each beside its k-split; the
+   generic paged kernel (a tiled wgmma walk per 64-row stripe) at 8 x 256
+   contexts in int8, a SplitFuse tick (a 192-token chunk and 7 decode
+   tokens), block sizes 16 and 64, a window of 100, G = 4 and 8, D = 64,
+   and pad rows with one slot's tokens in two runs (pads exact zeros);
 4. the serving slice end to end at full Llama-2-7B width and 2 layers,
    through the kernels and through the plain paths on the card: first-step
    logits must agree within 3e-2 of their largest magnitude;
@@ -327,58 +334,78 @@ def time_ms(fn, sets: int, iters: int) -> float:
 # --------------------------------------------------------------------- #
 # Phase 3 cases
 # --------------------------------------------------------------------- #
-def qmm_cases(torch, gen, dev):
+#: phase 3's int8 matmul cases (M, K, N, groups): the skinny path (M = 8,
+#: a decode step) and the tiled path at the four Llama-2-7B projection
+#: shapes at M = 512 (the prefill bucket); medium M (16 to 65: a verify
+#: pass is 8 x 5 = 40 rows) at 4096 x 4096 and at M = 40 on the other
+#: shapes; M = 1024; from_hf's 64 groups at K = 11008 (a group boundary
+#: inside a k-tile); a ragged N = 4112
+QMM_CASES = ([(8, 4096, 4096, 16), (8, 4096, 11008, 16), (8, 11008, 4096, 16),
+              (8, 4096, 32000, 16)]
+             + [(512, 4096, 4096, 16), (512, 4096, 11008, 16),
+                (512, 11008, 4096, 16), (512, 4096, 32000, 16)]
+             + [(m, 4096, 4096, 16) for m in (16, 40, 64, 65, 1024)]
+             + [(40, 4096, 11008, 16), (40, 11008, 4096, 16),
+                (40, 4096, 32000, 16)]
+             + [(40, 11008, 4096, 64), (512, 11008, 4096, 64),
+                (70, 1024, 4112, 16), (512, 1024, 4112, 16)])
+
+
+def qmm_cases(torch, gen, dev, shapes):
     from deepspeed_tpu_torch.ops import quantized_matmul as qm
 
     out = []
-    for m in (8, 512):
-        for k, n in ((4096, 4096), (4096, 11008), (11008, 4096),
-                     (4096, 32000)):
-            x = torch.randn((m, k), generator=gen, device=dev,
-                            dtype=torch.bfloat16)
-            sets = n_sets(k * n)
-            recs = [{"q": torch.randint(-127, 128, (k, n), generator=gen,
-                                        device=dev, dtype=torch.int8),
-                     "scale": torch.rand((16,), generator=gen, device=dev)
-                     / (73.3 * math.sqrt(k))} for _ in range(sets)]
-            got = qm.quantized_matmul(x, recs[0])
-            want = qm.quantized_matmul_plain(x, recs[0])
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            norm_err = rel_norm(got, want)
-            iters = 48 if m == 8 else 16
-            nbytes = m * k * 2 + k * n + 16 * 4 + m * n * 2
-            b_ms, b_by = bound(nbytes, 2.0 * m * k * n)
-            case = {
-                "name": f"quantized_matmul[M={m},K={k},N={n}]",
-                "kernel": "quantized_matmul",
-                "max_abs_err": err, "norm_rel_err": norm_err,
-                "ms": time_ms(lambda i: qm.quantized_matmul(x, recs[i]),
-                              sets, iters),
-                "plain_ms": time_ms(
-                    lambda i: qm.quantized_matmul_plain(x, recs[i]), sets,
-                    sets),
-                "bound_ms": b_ms, "bound_by": b_by,
-            }
-            w_bf16 = [qm.dequant_reference(r, torch.bfloat16) for r in recs]
-            case["library_ms"] = time_ms(lambda i: torch.matmul(x, w_bf16[i]),
-                                         sets, iters)
-            out.append(case)
-            del x, recs, got, want, w_bf16
+    for m, k, n, groups in shapes:
+        x = torch.randn((m, k), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        sets = n_sets(k * n)
+        recs = [{"q": torch.randint(-127, 128, (k, n), generator=gen,
+                                    device=dev, dtype=torch.int8),
+                 "scale": torch.rand((groups,), generator=gen, device=dev)
+                 / (73.3 * math.sqrt(k))} for _ in range(sets)]
+        got = qm.quantized_matmul(x, recs[0])
+        want = qm.quantized_matmul_plain(x, recs[0])
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        norm_err = rel_norm(got, want)
+        iters = 48 if m <= 64 else 16
+        nbytes = m * k * 2 + k * n + groups * 4 + m * n * 2
+        b_ms, b_by = bound(nbytes, 2.0 * m * k * n)
+        g_tag = f",G={groups}" if groups != 16 else ""
+        case = {
+            "name": f"quantized_matmul[M={m},K={k},N={n}{g_tag}]",
+            "kernel": "quantized_matmul",
+            "max_abs_err": err, "norm_rel_err": norm_err,
+            "ms": time_ms(lambda i: qm.quantized_matmul(x, recs[i]),
+                          sets, iters),
+            "plain_ms": time_ms(
+                lambda i: qm.quantized_matmul_plain(x, recs[i]), sets,
+                sets),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "k_splits": qm.k_splits_for(m, k, n, qm._sms(dev)),
+            "tile_rows": (qm.tiled_rows(m, n, qm._sms(dev)) if m > 8
+                          else None),
+        }
+        w_bf16 = [qm.dequant_reference(r, torch.bfloat16) for r in recs]
+        case["library_ms"] = time_ms(lambda i: torch.matmul(x, w_bf16[i]),
+                                     sets, iters)
+        out.append(case)
+        del x, recs, got, want, w_bf16
     return out
 
 
-def _attention_inputs(torch, gen, dev, slots, q_pos, int8=False, hkv=32):
-    """Pools of ``slots`` sequences at the served table width (3 blocks of
-    128, 7B KV heads or ``hkv``, tables scattered over the pool) — as many
-    pool copies as keep each call cold in L2, each ``(k, v, scales)``:
-    bf16, or int8 with its ``k_scale`` / ``v_scale`` — and 32 query heads
-    of rows at the positions ``q_pos[s]`` (a list per slot; -1 for a pad
-    row)."""
+def _attention_inputs(torch, gen, dev, slots, q_pos, int8=False, hkv=32,
+                      h=32, d=128, bs=128, order=None):
+    """Pools of ``slots`` sequences at the served table width (384 tokens:
+    3 blocks of 128, or as many of ``bs``; 7B KV heads or ``hkv``, tables
+    scattered over the pool) — as many pool copies as keep each call cold
+    in L2, each ``(k, v, scales)``: bf16, or int8 with its ``k_scale`` /
+    ``v_scale`` — and ``h`` query heads of rows at the positions
+    ``q_pos[s]`` (a list per slot; -1 for a pad row), slot by slot, or in
+    the row order ``order`` (indices into that slot-major list)."""
     from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import quantize_kv
 
-    bs, d = 128, 128
-    width = 3                                    # the served table width
+    width = -(-384 // bs)                        # the served table width
     nb = slots * width + 1
     perm = torch.randperm(nb - 1, generator=gen, device=dev)[:slots * width]
     tables = (perm + 1).to(torch.int32).reshape(slots, width)
@@ -396,19 +423,22 @@ def _attention_inputs(torch, gen, dev, slots, q_pos, int8=False, hkv=32):
                                               * (1 if int8 else 2)))]
     slot_ids = [s for s in range(slots) for _ in q_pos[s]]
     pos = [p for s in range(slots) for p in q_pos[s]]
+    if order is not None:
+        slot_ids, pos = [slot_ids[i] for i in order], [pos[i] for i in order]
     token_slot = torch.tensor(slot_ids, dtype=torch.int32, device=dev)
     token_pos = torch.tensor(pos, dtype=torch.int32, device=dev)
-    q = torch.randn((len(pos), 32, d), generator=gen, device=dev,
+    q = torch.randn((len(pos), h, d), generator=gen, device=dev,
                     dtype=torch.bfloat16)
     return q, pools, tables, token_slot, token_pos
 
 
 def attention_case(torch, name, fn, q, pools, tables, token_slot, token_pos,
-                   iters, window=None, plain=None, plain_kw=None, **kw):
+                   iters, window=None, plain=None, plain_kw=None, bs=128,
+                   **kw):
     """One phase-3 case: the wrapper ``fn`` (``kw``: its own arguments, such
     as verify's ``k_tokens``) against the plain version (``plain`` with
     ``plain_kw``: by default ``paged_attention_plain``) on the first pool
-    set, then timed over all of them."""
+    set, then timed over all of them (``bs``: the pools' block size)."""
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.inference.v2.kernels.blocked_flash import (
@@ -416,7 +446,6 @@ def attention_case(torch, name, fn, q, pools, tables, token_slot, token_pos,
     from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import (
         dequantize_kv)
 
-    bs = 128
     sets = len(pools)
     plain = plain or paged_attention_plain
     plain_kw = dict(plain_kw or {}, window=window)
@@ -496,6 +525,43 @@ def attention_case(torch, name, fn, q, pools, tables, token_slot, token_pos,
     }
 
 
+#: phase 3's generic paged attention (B5) cases beyond the served 2 x 256
+#: prefill: (label, q_pos per slot, int8, keyword arguments of
+#: _attention_inputs, window).  A SplitFuse tick (one 192-token chunk and
+#: 7 decode tokens), block sizes 16 and 64 (a 64-key tile over several
+#: blocks, and exactly one), a window, G = 4 and 8 (Mixtral's and a
+#: 70B-style grouping), D = 64, and pad rows with one slot's tokens in two
+#: runs of the token buffer.
+_TICK = [list(range(64, 256))] + [[p] for p in (300, 257, 330, 281, 299,
+                                                264, 312)]
+_SPLIT_RUNS = ([list(range(150)), list(range(60)), [-1] * 20],
+               list(range(100)) + list(range(210, 220)) + list(range(150, 210))
+               + list(range(100, 150)) + list(range(220, 230)))
+B5_CASES = [
+    ("T=512, 8x256 ctx", [list(range(192, 256))] * 8, True, {}, None),
+    ("T=199, SplitFuse tick 192+7", _TICK, False, {}, None),
+    ("T=199, SplitFuse tick 192+7", _TICK, True, {}, None),
+    ("T=512, 2x256, block 16", [list(range(256))] * 2, False, {"bs": 16},
+     None),
+    ("T=512, 2x256, block 16", [list(range(256))] * 2, True, {"bs": 16},
+     None),
+    ("T=512, 2x256, block 64", [list(range(256))] * 2, False, {"bs": 64},
+     None),
+    ("T=512, 2x256, window 100", [list(range(256))] * 2, False, {}, 100),
+    ("T=512, 2x256, window 100", [list(range(256))] * 2, True, {}, 100),
+    ("T=512, 2x256, G=4", [list(range(256))] * 2, False, {"hkv": 8}, None),
+    ("T=512, 2x256, G=4", [list(range(256))] * 2, True, {"hkv": 8}, None),
+    ("T=512, 2x256, G=8", [list(range(256))] * 2, False,
+     {"hkv": 4}, None),
+    ("T=512, 2x256, D=64", [list(range(256))] * 2, False, {"d": 64}, None),
+    ("T=512, 2x256, D=64", [list(range(256))] * 2, True, {"d": 64}, None),
+    ("T=230, pads, split runs", _SPLIT_RUNS[0], False,
+     {"order": _SPLIT_RUNS[1]}, None),
+    ("T=230, pads, split runs", _SPLIT_RUNS[0], True,
+     {"order": _SPLIT_RUNS[1]}, None),
+]
+
+
 def attention_cases(torch, gen, dev):
     from deepspeed_tpu_torch.inference.v2.kernels import blocked_flash as bf
 
@@ -536,6 +602,31 @@ def attention_cases(torch, gen, dev):
             torch, f"paged_verify_attention{' int8' if int8 else ''}"
                    f"[S=8, K=5, ctx~300]",
             bf.paged_verify_attention, *args, iters=48, k_tokens=5))
+    return out
+
+
+def b5_cases(torch, gen, dev):
+    """Phase 3's B5_CASES (the generic kernel beyond the served prefill);
+    a case with pad rows also reads their largest magnitude (exact zeros
+    wanted)."""
+    from deepspeed_tpu_torch.inference.v2.kernels import blocked_flash as bf
+
+    out = []
+    for label, q_pos, int8, kw, window in B5_CASES:
+        args = _attention_inputs(torch, gen, dev, len(q_pos), q_pos,
+                                 int8=int8, **kw)
+        bs = kw.get("bs", 128)
+        case = attention_case(
+            torch, f"paged_attention{' int8' if int8 else ''}[{label}]",
+            bf.paged_attention, *args, iters=16, window=window, bs=bs)
+        q, pools, tables, ts, tp = args
+        pads = tp < 0
+        if pads.any():
+            got = bf.paged_attention(q, pools[0][0], pools[0][1], tables, ts,
+                                     tp, block_size=bs, window=window,
+                                     **pools[0][2])
+            case["pad_max_abs"] = got[pads].abs().max().item()
+        out.append(case)
     return out
 
 
@@ -3386,12 +3477,20 @@ def main() -> int:
     # 3. kernels against their plain versions
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    cases = (qmm_cases(torch, gen, dev) + attention_cases(torch, gen, dev)
+    # the cases of PRs 1-9 draw from `gen` in their old order (the same
+    # inputs as before); PR 10's from their own generator
+    gen_new = torch.Generator(device=dev)
+    gen_new.manual_seed(SEED + 10)
+    cases = (qmm_cases(torch, gen, dev, QMM_CASES[:8])
+             + attention_cases(torch, gen, dev)
              + mixtral_attention_cases(torch, gen, dev)
              + gmm_cases(torch, gen, dev)
-             + gmm_backward_cases(torch, gen, dev))
+             + gmm_backward_cases(torch, gen, dev)
+             + qmm_cases(torch, gen_new, dev, QMM_CASES[8:])
+             + b5_cases(torch, gen_new, dev))
     for c in cases:
-        extra = "".join(f" {k} {c[k]}" for k in ("pad_max_abs",
+        extra = "".join(f" {k} {c[k]}" for k in ("pad_max_abs", "k_splits",
+                                                 "tile_rows",
                                                  "zeros_max_abs",
                                                  "generic_b5_ms", "library")
                         if k in c)

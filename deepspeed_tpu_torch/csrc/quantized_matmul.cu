@@ -23,15 +23,42 @@
 //   The grid is split over K so that one wave of blocks covers the SMs,
 //   and a second small pass (`qmm_reduce_kernel`) sums the per-split fp32
 //   partials, which are small enough to stay in L2.
-// * Prefill (M up to the 512-token bucket) is bound by operations.
-//   `qmm_tiled_kernel` computes 128x128 output tiles with bf16 tensor-core
-//   products (WMMA 16x16x16, fp32 accumulate; 8 warps of 64x32): each
-//   32-row slab of int8 weights is dequantized once into shared memory and
-//   reused by all 128 rows of the tile.  A 4-stage `cp.async` pipeline
-//   keeps the next three k-tiles' copies in flight while the current one
-//   is multiplied, so loads overlap the tensor cores; registers are held
-//   to 128 a thread so that two blocks share an SM.  No TMA, no wgmma:
-//   those are later work.
+// * Above M = 8 (prefill at the 512-token bucket, a verify pass of 8 x 5
+//   rows, a SplitFuse tick) the product is bound by operations at large M
+//   (2 M K N: 17 us at 989 TFLOP/s for M = 512 and 4096 x 4096) and by the
+//   weight bytes at medium M (K N: 5 us at 4096 x 4096).
+//   `qmm_wgmma_kernel` runs it on Hopper's warpgroup tensor-core product,
+//   transposed: y^T = W^T x^T, so the dequantized weight is wgmma's
+//   register A operand and never goes back to shared memory.  A block
+//   takes 128 weight columns (two consumer warpgroups of 64) against BX x
+//   rows, wgmma's N: 64 at M <= 64 (a medium M pays for 64 rows, not 128),
+//   128 up to M = 128, and above that 256 (each dequantized weight feeds
+//   256 rows) where the wrapper finds that fewer waves of these longer
+//   blocks finish first.  A producer warp keeps TMA loads of the next k-tiles in
+//   flight through a 4-stage ring (x [BX x 64] bf16, q [64 x 128] int8,
+//   both 128-byte swizzled; the ragged edges in M, N and K are zero-filled
+//   by TMA) and writes each k row's scale beside them (loaded a k-tile
+//   ahead), so a group boundary inside a k-tile costs nothing (Llama's 64
+//   groups at K = 11008 are 172 rows each).  The consumers dequantize each
+//   16-row k step's A fragments straight from the int8 stage (a 2-byte
+//   load gives a thread's two columns at one k row) into one of four
+//   register sets, so up to three products are in flight while the next
+//   step is dequantized.  When the output tiles would not fill the SMs
+//   (medium M) the k-tiles are split over blocks whose fp32 partials
+//   `qmm_reduce_kernel` sums.
+//   What bounds it is not settled.  At M = 512 and 4096 x 4096 (128-row
+//   tiles) it reaches about 40% of the tensor cores' rate, while its
+//   operands cross from L2 into the SMs at ~4.3 TB/s (x re-read by each
+//   of 32 column blocks, q by each of 4 row blocks: 201 MB); a 16-row k
+//   step is ~57 instructions a consumer warp, two warps to each
+//   sub-partition, against 64 cycles of tensor work a warpgroup.  Tried
+//   on the H100 and not kept: two fragment sets (ptxas then serialises
+//   every product, C7513; no faster), the weight dequantized into shared
+//   memory for an all-shared-memory product (no faster), clusters of 2
+//   and 4 blocks multicasting x (no faster).  Later work: fewer
+//   instructions a weight (an int8 -> bf16 path that keeps the fp32
+//   rounding point), a persistent grid, and the skinny path on the same
+//   loads.
 //
 // Shapes the kernel takes (the wrapper checks them): x bf16 [M, K] and
 // out bf16 [M, N] contiguous, q int8 [K, N] contiguous, scale fp32 [G],
@@ -40,12 +67,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -58,38 +84,14 @@ constexpr int kRedStride = kSkinnyCols + 1;         // padded: no bank conflicts
 constexpr int kUnroll = 4;                          // rows in flight a thread
 constexpr int kChunkRows = 256;                     // x rows staged at once
 
-constexpr int kTileM = 128;
-constexpr int kTileN = 128;
-constexpr int kTileK = 32;
-constexpr int kTileThreads = 256;                   // 8 warps, 64x32 each
-constexpr int kStages = 4;                          // k-tiles in flight
-constexpr int kRowA = kTileK + 8;                   // padded smem rows
-constexpr int kRowB = kTileN + 8;
-constexpr int kTileSmemA = kStages * kTileM * kRowA * 2;
-constexpr int kTileSmemQ = kStages * kTileK * kTileN;
-constexpr int kTileSmem = kTileSmemA + kTileSmemQ + kTileK * kRowB * 2;
-static_assert(8 * 256 * 4 <= kTileSmemA, "epilogue scratch fits the x slots");
-
-// Byte b of a 32-bit word, sign-extended, as a float.
-__device__ __forceinline__ float byte_to_float(int word, int b) {
-  return static_cast<float>(static_cast<signed char>(word >> (8 * b)));
-}
-
 __device__ __forceinline__ int word_of(const int4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
 // The skinny path's dequant runs once per weight byte, and int->float and
 // float->bf16 conversion instructions issue at a fraction of the FMA rate,
-// so it converts with full-rate integer and float ops instead.
-//
-// float(b) for byte j of `biased`, a word whose int8 bytes were XORed with
-// 0x80 (b + 128 as an unsigned byte): 2^23 + (b + 128) is built by placing
-// that byte under the exponent of 2^23, then 2^23 + 128 is subtracted.
-// Exact for every b.
-__device__ __forceinline__ float biased_byte_to_float(unsigned biased, int j) {
-  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540u | j)) - 8388736.0f;
-}
+// so it converts with full-rate integer and float ops instead
+// (biased_byte_to_float, csrc/hopper.cuh, and round_to_bf16).
 
 // v rounded to the nearest bf16 (ties to even) and widened back to fp32:
 // what __bfloat162float(__float2bfloat16(v)) gives for every finite v.
@@ -211,131 +213,203 @@ __global__ void qmm_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-// Issue the copies of k-tile `kt` into pipeline slot `slot`: the x slab
-// [128 x 32] bf16 (two 16-byte vectors a thread) and the raw int8 weight
-// slab [32 x 128] (one vector a thread).  Rows past M and columns past N
-// are zero-filled.
-__device__ __forceinline__ void issue_tile(__nv_bfloat16* a_slot, int8_t* q_slot,
-                                           const __nv_bfloat16* __restrict__ x,
-                                           const int8_t* __restrict__ q,
-                                           int m0, int n0, int kt, int M, int K, int N) {
-  const int k0 = kt * kTileK;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int v = threadIdx.x + i * kTileThreads;
-    const int r = v / (kTileK / 8);
-    const int seg = v % (kTileK / 8);
-    const bool ok = m0 + r < M;
-    cp_async16(a_slot + r * kRowA + seg * 8,
-               ok ? x + static_cast<size_t>(m0 + r) * K + k0 + seg * 8 : x, ok);
-  }
-  const int r = threadIdx.x / (kTileN / 16);
-  const int seg = threadIdx.x % (kTileN / 16);
-  const bool ok = n0 + seg * 16 < N;
-  cp_async16(q_slot + r * kTileN + seg * 16,
-             ok ? q + static_cast<size_t>(k0 + r) * N + n0 + seg * 16 : q, ok);
+// ------------------------------------------------------------ tiled path
+//
+// One block computes a 128-column (weights) x BX-row (x) output tile as
+// y^T = W^T x^T on wgmma: the dequantized weight is the register A operand
+// (m64, one consumer warpgroup per 64 columns), x the shared-memory B
+// operand (BX rows, K-major, 128-byte swizzled).  A producer warp keeps TMA
+// loads of the next k-tiles (x [BX x 64] bf16, q [64 x 128] int8) in
+// flight through a ring of kStages stages and writes each k row's scale
+// beside them; full / empty mbarriers hand the stages over.
+
+constexpr int kBN = 128;                      // weight columns a block
+constexpr int kBK = 64;                       // k rows a stage
+constexpr int kStages = 4;
+constexpr int kConsumers = 256;               // two warpgroups
+constexpr int kTiledThreads = kConsumers + 32;  // and the producer warp
+constexpr int kQBytes = kBK * kBN;            // one int8 q stage
+
+template <int BX>
+constexpr int tiled_smem() {
+  return kStages * (BX * 128 + kQBytes + kBK * 4) + 2 * kStages * 8 + 1024;
 }
 
-__global__ void __launch_bounds__(kTileThreads, 2)
-qmm_tiled_kernel(const __nv_bfloat16* __restrict__ x,
-                 const int8_t* __restrict__ q,
-                 const float* __restrict__ scale,
-                 __nv_bfloat16* __restrict__ out,
-                 int M, int K, int N, int rows_per_group) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem);         // [stages][128][40]
-  int8_t* q_s = reinterpret_cast<int8_t*>(smem + kTileSmemA);          // [stages][32][128]
-  __nv_bfloat16* b_s = reinterpret_cast<__nv_bfloat16*>(smem + kTileSmemA + kTileSmemQ);
-  // epilogue scratch, one 16x16 fp32 tile a warp, over the x slots
-  float* c_s = reinterpret_cast<float*>(smem);
+// fp32 x of int8 byte j of `biased` (see biased_byte_to_float) times s,
+// for two k rows, as one packed bf16 pair: the rounding point of
+// dequant_reference
+__device__ __forceinline__ uint32_t deq_pair(unsigned biased, int j0, int j1, float s0, float s1) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(biased_byte_to_float(biased, j0) * s0,
+                                                 biased_byte_to_float(biased, j1) * s1);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
-  const int m0 = blockIdx.y * kTileM;
-  const int n0 = blockIdx.x * kTileN;
+template <int BX>
+__global__ void __launch_bounds__(kTiledThreads, 1)
+qmm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                 const __grid_constant__ CUtensorMap q_map,
+                 const float* __restrict__ scale, float* __restrict__ partial,
+                 __nv_bfloat16* __restrict__ out, int M, int K, int N,
+                 int rows_per_group, int tiles_per_split) {
+  constexpr int kXBytes = BX * 128;           // one x stage: BX rows of 64 bf16
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* xs = smem;
+  unsigned char* qs = xs + kStages * kXBytes;
+  float* ss = reinterpret_cast<float*>(qs + kStages * kQBytes);   // [stage][64] scales
+  uint64_t* full = reinterpret_cast<uint64_t*>(ss + kStages * kBK);
+  uint64_t* empty = full + kStages;
+
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * BX;
+  const int kt0 = blockIdx.z * tiles_per_split;
+  const int nk = min((K + kBK - 1) / kBK, kt0 + tiles_per_split) - kt0;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int wm = (warp >> 2) * 64;
-  const int wn = (warp & 3) * 32;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[4][2];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
-
-  const int k_tiles = K / kTileK;
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < k_tiles)
-      issue_tile(a_s + st * kTileM * kRowA, q_s + st * kTileK * kTileN, x, q,
-                 m0, n0, st, M, K, N);
-    cp_async_commit();
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);                // the producer warp's lanes
+      mbar_init(&empty[s], kConsumers / 32);  // one arrival a consumer warp
+    }
+    mbar_fence_init();
   }
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int slot = kt % kStages;
-    cp_async_wait<kStages - 2>();      // this thread's copies of tile kt
-    __syncthreads();                   // everyone's; and tile kt-1 is consumed
-    {
-      // dequantize the weight slab once, for all 128 rows of the tile
-      const int r = threadIdx.x / (kTileN / 16);
-      const int seg = threadIdx.x % (kTileN / 16);
-      const int4 raw = *reinterpret_cast<const int4*>(
-          q_s + slot * kTileK * kTileN + r * kTileN + seg * 16);
-      const float sc = __ldg(scale + (kt * kTileK + r) / rows_per_group);
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(b_s + r * kRowB + seg * 16);
-#pragma unroll
-      for (int p = 0; p < 8; ++p) {
-        const int word = word_of(raw, p / 2);
-        dst[p] = __floats2bfloat162_rn(byte_to_float(word, 2 * (p % 2)) * sc,
-                                       byte_to_float(word, 2 * (p % 2) + 1) * sc);
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // producer: stage i % kStages takes k-tile kt0 + i once its readers
+    // have released it.  The scales of the next k-tile are loaded one
+    // iteration ahead, so that their latency never holds the loop up.
+    auto row_scale = [&](int k) { return k < K ? __ldg(scale + k / rows_per_group) : 0.f; };
+    float sc0 = row_scale(kt0 * kBK + lane), sc1 = row_scale(kt0 * kBK + lane + 32);
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+      const int k0 = (kt0 + i) * kBK;
+      ss[s * kBK + lane] = sc0;
+      ss[s * kBK + lane + 32] = sc1;
+      sc0 = row_scale(k0 + kBK + lane);
+      sc1 = row_scale(k0 + kBK + lane + 32);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], kXBytes + kQBytes);
+        tma_load_2d(xs + s * kXBytes, &x_map, &full[s], k0, m0);
+        tma_load_2d(qs + s * kQBytes, &q_map, &full[s], n0, k0);
+      } else {
+        mbar_arrive(&full[s]);
       }
     }
-    // refill the slot tile kt-1 used: every thread is past its reads
-    const int next = kt + kStages - 1;
-    if (next < k_tiles)
-      issue_tile(a_s + (next % kStages) * kTileM * kRowA,
-                 q_s + (next % kStages) * kTileK * kTileN, x, q, m0, n0, next,
-                 M, K, N);
-    cp_async_commit();
-    __syncthreads();                   // the bf16 weight slab is complete
-    const __nv_bfloat16* a_slot = a_s + slot * kTileM * kRowA;
-#pragma unroll
-    for (int kk = 0; kk < kTileK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], a_slot + (wm + 16 * i) * kRowA + kk, kRowA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], b_s + kk * kRowB + wn + 16 * j, kRowB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
+    return;
   }
-  cp_async_wait<0>();
-  __syncthreads();                     // the x slots are free for the scratch
 
-  float* scratch = c_s + warp * 256;
+  // consumers: warp wi of warpgroup wg holds A rows 16 wi + g and + 8 of
+  // its m64 tile, taken as the weight columns nl and nl + 1, so one
+  // 2-byte load reads both
+  const int wg = warp >> 2, wi = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int nl = 64 * wg + 16 * wi + 2 * g;
+  float acc[BX / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < BX / 2; ++i) acc[i] = 0.f;
+  uint32_t a[4][4];                         // one fragment set a k step
+
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % kStages;
+    mbar_wait(&full[s], (i / kStages) & 1);
+    const unsigned char* qt = qs + s * kQBytes;
+    const float* st = ss + s * kBK;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(scratch, c[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int idx = lane * 8 + e;
-        const int row = m0 + wm + 16 * i + idx / 16;
-        const int col = n0 + wn + 16 * j + idx % 16;
-        if (row < M && col < N)
-          out[static_cast<size_t>(row) * N + col] = __float2bfloat16(scratch[idx]);
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      // k rows kr, kr + 1, kr + 8, kr + 9 of the stage at columns nl, nl + 1
+      const int kr = 16 * ks + 2 * t;
+      auto ld2 = [&](int row) -> unsigned {
+        return *reinterpret_cast<const uint16_t*>(
+            qt + row * 128 + ((((nl >> 4) ^ (row & 7)) << 4) | (nl & 15)));
+      };
+      const unsigned w01 = (ld2(kr) | (ld2(kr + 1) << 16)) ^ 0x80808080u;
+      const unsigned w89 = (ld2(kr + 8) | (ld2(kr + 9) << 16)) ^ 0x80808080u;
+      const float2 s01 = *reinterpret_cast<const float2*>(st + kr);
+      const float2 s89 = *reinterpret_cast<const float2*>(st + kr + 8);
+      wgmma_wait<3>();                        // the product that last read a[ks] is done
+      uint32_t (&av)[4] = a[ks];
+      av[0] = deq_pair(w01, 0, 2, s01.x, s01.y);   // column nl, rows kr, kr + 1
+      av[1] = deq_pair(w01, 1, 3, s01.x, s01.y);   // column nl + 1
+      av[2] = deq_pair(w89, 0, 2, s89.x, s89.y);   // column nl, rows kr + 8, kr + 9
+      av[3] = deq_pair(w89, 1, 3, s89.x, s89.y);
+      wgmma_fence();
+      wgmma_rs<BX, 0>(acc, av, wgmma_desc(xs + s * kXBytes + ks * 32, 16, 1024));
+      wgmma_commit();
+      if (ks == 3 && i > 0) {                 // the last k-tile's products are done
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[(i - 1) % kStages]);
       }
-      __syncwarp();
     }
   }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < BX / 2; ++i) fence_reg(acc[i]);
+
+  // acc[4j + e]: column nl, x row 8j + 2t + e; acc[4j + 2 + e]: column nl + 1
+  const int n = n0 + nl;
+  if (n < N) {                      // N % 16 == 0: n + 1 < N too
+#pragma unroll
+    for (int j = 0; j < BX / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + 8 * j + 2 * t + e;
+        if (m < M) {
+          if (partial != nullptr)
+            *reinterpret_cast<float2*>(partial + (static_cast<size_t>(blockIdx.z) * M + m) * N
+                                       + n) = make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(m) * N + n) =
+                __floats2bfloat162_rn(acc[4 * j + e], acc[4 * j + 2 + e]);
+        }
+      }
+    }
+  }
+}
+
+template <int BX>
+int launch_tiled(const __nv_bfloat16* x, const int8_t* q, const float* scale, float* partial,
+                 __nv_bfloat16* out, int M, int K, int N, int rows_per_group, int k_splits,
+                 cudaStream_t stream) {
+  CUtensorMap x_map, q_map;
+  {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 2};
+    const cuuint32_t box[2] = {kBK, BX};
+    if (encode_tiled(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<__nv_bfloat16*>(x),
+                     dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N)};
+    const cuuint32_t box[2] = {kBN, kBK};
+    if (encode_tiled(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(q), dims,
+                     strides, box, CU_TENSOR_MAP_SWIZZLE_128B) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int smem = tiled_smem<BX>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      qmm_wgmma_kernel<BX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int k_tiles = (K + kBK - 1) / kBK;
+  const int per_split = (k_tiles + k_splits - 1) / k_splits;
+  const int splits = (k_tiles + per_split - 1) / per_split;
+  const dim3 grid((N + kBN - 1) / kBN, (M + BX - 1) / BX, splits);
+  qmm_wgmma_kernel<BX><<<grid, kTiledThreads, smem, stream>>>(
+      x_map, q_map, scale, splits > 1 ? partial : nullptr, out, M, K, N, rows_per_group,
+      per_split);
+  if (splits > 1) {
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return static_cast<int>(launched);
+    const int mn = M * N;
+    qmm_reduce_kernel<<<std::min((mn + 255) / 256, 4096), 256, 0, stream>>>(partial, out, splits,
+                                                                            mn);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int MT>
@@ -352,11 +426,12 @@ void launch_skinny(const __nv_bfloat16* x, const int8_t* q, const float* scale,
 }  // namespace
 
 // Returns the CUDA error code of the launches (0 on success).  `partial`
-// is fp32 [k_splits, M, N] scratch, used only when M <= 8 and k_splits > 1.
+// is fp32 [k_splits, M, N] scratch, used only when k_splits > 1; `rows`
+// (64, 128 or 256) is the tiled path's x rows a block (M > 8).
 extern "C" int dstt_quantized_matmul_bf16(const void* x, const void* q,
                                           const void* scale, void* partial,
                                           void* out, int M, int K, int N,
-                                          int groups, int k_splits,
+                                          int groups, int k_splits, int rows,
                                           void* stream) {
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* qb = static_cast<const int8_t*>(q);
@@ -379,12 +454,13 @@ extern "C" int dstt_quantized_matmul_bf16(const void* x, const void* q,
       qmm_reduce_kernel<<<blocks, 256, 0, s>>>(pb, ob, k_splits, mn);
     }
   } else {
-    const cudaError_t err = cudaFuncSetAttribute(
-        qmm_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-    qmm_tiled_kernel<<<grid, kTileThreads, kTileSmem, s>>>(xb, qb, sb, ob, M, K, N,
-                                                           rows_per_group);
+    if (k_splits > 1 && pb == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    if (rows == 64) return launch_tiled<64>(xb, qb, sb, pb, ob, M, K, N, rows_per_group, k_splits, s);
+    if (rows == 128)
+      return launch_tiled<128>(xb, qb, sb, pb, ob, M, K, N, rows_per_group, k_splits, s);
+    if (rows == 256)
+      return launch_tiled<256>(xb, qb, sb, pb, ob, M, K, N, rows_per_group, k_splits, s);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,9 @@ mode (``k_scale`` / ``v_scale`` given: int8 pools with fp32 scales
 * :func:`paged_attention` — every token of a ragged batch attends over its
   sequence's paged context up to its own position (the JAX package's
   generic grid kernel ``_kernel``; its int8 mode computes the JAX package's
-  XLA gather + dequant path, which has no TPU kernel);
+  XLA gather + dequant path, which has no TPU kernel).  On the card a
+  tiled tensor-core kernel: 64 query rows of one KV head share each walk
+  of the context;
 * :func:`paged_decode_attention` — one query per slot walking only that
   slot's live blocks (the JAX package's ``_decode_kernel``);
 * :func:`paged_verify_attention` — K query rows per slot (speculative
@@ -282,6 +284,9 @@ def _launch(name, k_tokens, q, k_pool, v_pool, block_tables, token_slot,
     if t_count == 0:
         return out
     mode = "int8" if quantized else "bf16"
+    # the generic (tiled) kernel takes the pools' row count (its TMA tensor
+    # maps) where the decode and verify kernels take k_tokens
+    last = k_pool.shape[0] if name == "paged_attention" else k_tokens
     with torch.cuda.device(q.device):      # the launch goes to q's GPU
         rc = _kernel(name, mode)(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -290,7 +295,7 @@ def _launch(name, k_tokens, q, k_pool, v_pool, block_tables, token_slot,
             block_tables.data_ptr(), token_slot.data_ptr(),
             token_pos.data_ptr(), out.data_ptr(), t_count // k_tokens, h,
             hkv, d, block_tables.shape[1], block_size,
-            int(window) if window is not None else 0, k_tokens,
+            int(window) if window is not None else 0, last,
             1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

@@ -9,7 +9,8 @@ over leading-dim (K) rows, ``G | K``.
 :func:`quantized_matmul` is the wrapper of the hand-written CUDA kernel in
 ``deepspeed_tpu_torch/csrc/quantized_matmul.cu``: for CUDA tensors it
 launches the kernel at every M (the JAX package sends M < 64 to an XLA
-composition; that rule was a TPU measurement) or raises; for CPU tensors
+composition; that rule was a TPU measurement) or raises: a skinny path for
+M <= 8 and a tiled tensor-core path (wgmma, TMA) above it; for CPU tensors
 it takes the plain version, ``x @ dequant_reference(record, x.dtype)``.
 ``LAUNCHES`` counts the kernel launches.
 """
@@ -32,6 +33,11 @@ _SKINNY_MAX_M = 8
 _SKINNY_BLOCK_N = 512
 _K_ALIGN = 32
 _N_ALIGN = 16
+#: the tiled path's block: 128 weight columns against 64, 128 or 256 x
+#: rows (tiled_rows), 64 k rows a stage
+_TILED_COLS = 128
+_TILED_ROWS = (64, 128, 256)
+_TILED_K = 64
 
 
 def is_quant_record(leaf) -> bool:
@@ -91,13 +97,15 @@ def quantized_matmul(x: torch.Tensor, record) -> torch.Tensor:
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
-    splits = _k_splits(m, k, n, x.device)
+    sms = _sms(x.device)
+    splits = k_splits_for(m, k, n, sms)
+    rows = tiled_rows(m, n, sms) if m > _SKINNY_MAX_M else 0
     partial = (torch.empty((splits, m, n), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
     with torch.cuda.device(x.device):      # the launch goes to x's GPU
         rc = _kernel()(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
                        partial.data_ptr() if partial is not None else None,
-                       out.data_ptr(), m, k, n, g, splits,
+                       out.data_ptr(), m, k, n, g, splits, rows,
                        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"quantized_matmul: CUDA kernel launch failed "
@@ -119,20 +127,45 @@ def qmm(x: torch.Tensor, leaf, dtype=None,
     return x @ (leaf.to(dtype) if dtype is not None else leaf)
 
 
-def _k_splits(m: int, k: int, n: int, device) -> int:
-    """Blocks along K for the skinny path: as many as keep the grid to one
-    wave (one block fits an SM), with at least 64 weight rows a block."""
-    if m > _SKINNY_MAX_M:
-        return 1
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    col_blocks = -(-n // _SKINNY_BLOCK_N)
-    return max(1, min(sms // col_blocks, k // 64))
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def tiled_rows(m: int, n: int, sms: int) -> int:
+    """x rows a block of the tiled (wgmma) path takes, wgmma's N: 64 for a
+    medium M (a verify pass, a small SplitFuse tick), 128 up to M = 128;
+    above that 256 where the fewer, longer blocks finish sooner on ``sms``
+    SMs (a 256-row block takes 1.5 times a 128-row one, measured on the
+    H100), else 128."""
+    small, medium, large = _TILED_ROWS
+    if m <= small:
+        return small
+    if m <= medium:
+        return medium
+
+    def waves(rows):
+        return -(-(-(-n // _TILED_COLS) * -(-m // rows)) // sms)
+
+    return large if 3 * waves(large) < 2 * waves(medium) else medium
+
+
+def k_splits_for(m: int, k: int, n: int, sms: int) -> int:
+    """Blocks along K for ``sms`` SMs.  Skinny path (M <= 8): one block an
+    SM, at least 64 weight rows a block.  Tiled path: split only while the
+    output tiles fill fewer than ``sms`` SMs, at least 4 k-tiles of 64 rows
+    a block (the kernel sums the fp32 partials in a second pass)."""
+    if m <= _SKINNY_MAX_M:
+        col_blocks = -(-n // _SKINNY_BLOCK_N)
+        return max(1, min(sms // col_blocks, k // 64))
+    tiles = -(-n // _TILED_COLS) * -(-m // tiled_rows(m, n, sms))
+    k_tiles = -(-k // _TILED_K)
+    return max(1, min(sms // tiles, k_tiles // 4))
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load("quantized_matmul").dstt_quantized_matmul_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -698,7 +698,8 @@ def test_int8_engine_kernels_match_plain_paths(cuda_device):
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (9, 40)]
     out = {}
-    for use_kernels in (True, False):
+    start = None
+    for use_kernels in (False, True):
         eng = InferenceEngineV2(
             RaggedLlama(cfg, 16, use_kernels=use_kernels), params,
             RaggedInferenceEngineConfig.from_dict({
@@ -708,7 +709,11 @@ def test_int8_engine_kernels_match_plain_paths(cuda_device):
                 "kv_cache": {"block_size": 16, "dtype": "int8"}}))
         before = dict(tbf.LAUNCHES)
         first = eng.put([0, 1], prompts)
-        start = [int(first[u].argmax()) for u in (0, 1)]
+        if start is None:
+            # the plain path's greedy tokens feed both paths' decode and
+            # verify, so that a near-tie of this random model's logits
+            # cannot hand the two paths different inputs
+            start = [int(first[u].argmax()) for u in (0, 1)]
         dec = eng.decode_step([0, 1], start)
         ver = eng.verify_step([0, 1], [[5, 6, 7], [8, 9, 10]])
         torch.cuda.synchronize()
@@ -771,6 +776,197 @@ def test_paged_prefill_kernel(cuda_device, head_dim, h, hkv, window, bs,
     with pytest.raises(ValueError, match="multiple of 64"):
         tbf.paged_prefill_attention(q, kp, vp, tb, ts, tp, block_size=bs,
                                     tile_q=32)
+
+
+def _b5_inputs(rng, dev, slot_pos, h, hkv, d, bs, int8, order=None):
+    """A ragged batch for the generic kernel: ``slot_pos`` lists each slot's
+    positions (-1: a pad row), rows slot by slot or in ``order``; pools of
+    384 positions a slot in scattered blocks of ``bs``."""
+    slots = len(slot_pos)
+    (kp, vp), scales, tb = _paged_inputs(rng, dev, bs, h, hkv, d, slots,
+                                         384 // bs, int8)
+    slot = np.asarray([s for s in range(slots) for _ in slot_pos[s]],
+                      np.int32)
+    pos = np.asarray([p for s in range(slots) for p in slot_pos[s]],
+                     np.int32)
+    if order is not None:
+        slot, pos = slot[order], pos[order]
+    q = torch.from_numpy(rng.standard_normal((len(pos), h, d))).to(
+        dev, torch.bfloat16)
+    ts, tp = (torch.from_numpy(a).to(dev) for a in (slot, pos))
+    return q, kp, vp, scales, tb, ts, tp
+
+
+_R = lambda a, b: list(range(a, b))  # noqa: E731
+# chip_smoke.py phase 3's B5 cases at test size: (slot positions, h, hkv,
+# d, block size, window, row order)
+_B5_CASES = {
+    "2x256 prefill": ([_R(0, 256)] * 2, 32, 32, 128, 128, None, None),
+    "8x256 ctx": ([_R(192, 256)] * 8, 32, 32, 128, 128, None, None),
+    "SplitFuse tick": ([_R(64, 256)] + [[p] for p in (300, 257, 330, 281,
+                                                      299, 264, 312)],
+                       32, 32, 128, 128, None, None),
+    "block 16": ([_R(0, 256), _R(0, 77)], 8, 8, 128, 16, None, None),
+    "block 64": ([_R(0, 256), _R(0, 77)], 8, 8, 128, 64, None, None),
+    "window 100": ([_R(0, 256)] * 2, 8, 8, 128, 128, 100, None),
+    "window 100, block 16, gaps": ([_R(0, 20) + _R(300, 330), _R(5, 9)], 8,
+                                   8, 128, 16, 100, None),
+    "G=4": ([_R(0, 256)] * 2, 32, 8, 128, 128, None, None),
+    "G=8": ([_R(0, 256)] * 2, 32, 4, 128, 128, None, None),
+    "G=3, D=64": ([_R(0, 100), _R(0, 50)], 6, 2, 64, 16, None, None),
+    "D=64, G=4, window": ([_R(0, 150), _R(10, 90)], 16, 4, 64, 64, 37,
+                          None),
+    "pads, split runs": ([_R(0, 150), _R(0, 60), [-1] * 20], 8, 8, 128,
+                         128, None,
+                         _R(0, 100) + _R(210, 220) + _R(150, 210)
+                         + _R(100, 150) + _R(220, 230)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("case", list(_B5_CASES))
+def test_paged_attention_tiled_kernel(cuda_device, case, int8):
+    """The generic kernel (a tiled tensor-core walk per 64-row stripe and
+    distinct slot) against its plain version, bf16 and int8 pools: block
+    sizes 16 / 64 / 128 (cp.async gathers and TMA boxes), windows with
+    gaps between a slot's rows, G = 1, 3, 4, 8, D = 64 and 128, pad rows
+    (exact zeros) and one slot's tokens in two runs of the batch."""
+    slot_pos, h, hkv, d, bs, window, order = _B5_CASES[case]
+    rng = np.random.default_rng(len(case) + 7 * int8)
+    q, kp, vp, scales, tb, ts, tp = _b5_inputs(
+        rng, cuda_device, slot_pos, h, hkv, d, bs, int8, order)
+    key = "paged_attention" + ("_int8" if int8 else "")
+    before = dict(tbf.LAUNCHES)
+    got = tbf.paged_attention(q, kp, vp, tb, ts, tp, block_size=bs,
+                              window=window, **scales)
+    torch.cuda.synchronize()
+    assert tbf.LAUNCHES[key] == before[key] + 1
+    assert sum(tbf.LAUNCHES.values()) == sum(before.values()) + 1
+    want = tbf.paged_attention_plain(q, kp, vp, tb, ts, tp, block_size=bs,
+                                     window=window, **scales)
+    assert (got.float() - want.float()).abs().max().item() <= TOL
+    assert _norm_rel(got, want) <= NORM_TOL
+    if (tp < 0).any():
+        assert got[tp < 0].abs().max().item() == 0.0
+
+
+# A fault planted in a copy of csrc/blocked_flash.cu: the tiled kernel's
+# causal frontier one key too far where a tile is masked (a tile that a
+# row sees whole is not), so each row on the diagonal sees the next key.
+_TILED_FRONTIER = ("(act[h] && c <= r_pos[h] && c < c_len",
+                   "(act[h] && c <= r_pos[h] + 1 && c < c_len")
+
+
+@pytest.mark.cuda
+def test_tiled_norm_bar_catches_planted_frontier(cuda_device, tmp_path,
+                                                 monkeypatch):
+    """At the served 2 x 256 prefill (32 heads, D = 128, block 128), bf16
+    and int8 pools: the generic kernel as built passes both bars; the
+    planted frontier fault reads above the norm bar."""
+    cases = {}
+    for int8 in (False, True):
+        rng = np.random.default_rng(23 + int8)
+        q, kp, vp, scales, tb, ts, tp = _b5_inputs(
+            rng, cuda_device, [_R(0, 256)] * 2, 32, 32, 128, 128, int8)
+        want = tbf.paged_attention_plain(q, kp, vp, tb, ts, tp,
+                                         block_size=128, **scales)
+        cases["int8" if int8 else "bf16"] = (q, kp, vp, scales, tb, ts, tp,
+                                             want)
+
+    def errors():
+        out = {}
+        for mode, (q, kp, vp, scales, tb, ts, tp, want) in cases.items():
+            got = tbf.paged_attention(q, kp, vp, tb, ts, tp, block_size=128,
+                                      **scales)
+            out[mode] = ((got.float() - want.float()).abs().max().item(),
+                         _norm_rel(got, want))
+        return out
+
+    built = errors()
+    monkeypatch.setitem(_build._LIBS, "blocked_flash", _planted(
+        tmp_path, "blocked_flash", [_TILED_FRONTIER]))
+    tbf._kernel.cache_clear()
+    try:
+        planted = errors()
+    finally:
+        tbf._kernel.cache_clear()
+    for label, errs in (("built", built), ("planted frontier", planted)):
+        print(f"tiled {label}: " + ", ".join(
+            f"{m} max-abs {a:.3g} norm-rel {n:.3g}"
+            for m, (a, n) in errs.items()))
+    assert all(a <= TOL and n <= NORM_TOL for a, n in built.values()), built
+    assert all(n > NORM_TOL for _, n in planted.values()), planted
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,groups", [
+    (16, 4096, 4096, 16), (40, 4096, 4096, 16), (64, 4096, 4096, 16),
+    (65, 4096, 4096, 16), (512, 4096, 4096, 16), (1024, 4096, 4096, 16),
+    (40, 11008, 4096, 64), (512, 11008, 4096, 64), (40, 4096, 4112, 16),
+    (512, 4096, 32000, 16), (40, 4096, 32000, 16), (9, 96, 48, 3),
+    (129, 1024, 4112, 16)])
+def test_quantized_matmul_tiled_kernel(cuda_device, m, k, n, groups):
+    """The tiled (wgmma) path above M = 8 against its plain version at both
+    bars: 64-row tiles with split-K at medium M, 128-row tiles to M = 128
+    and 256-row tiles above (split-K at M = 512), from_hf's 64 groups at
+    K = 11008 (a group boundary inside a k-tile), ragged N (4112, 32000)
+    and M, and a K shorter than one split."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    rec = {"q": torch.randint(-127, 128, (k, n), generator=gen,
+                              device=cuda_device, dtype=torch.int8),
+           "scale": torch.rand((groups,), generator=gen, device=cuda_device)
+           / (73.3 * k ** 0.5)}
+    before = tqm.LAUNCHES["quantized_matmul"]
+    got = tqm.quantized_matmul(x, rec)
+    torch.cuda.synchronize()
+    assert tqm.LAUNCHES["quantized_matmul"] == before + 1
+    want = tqm.quantized_matmul_plain(x, rec)
+    assert (got.float() - want.float()).abs().max().item() <= TOL
+    assert _norm_rel(got, want) <= NORM_TOL
+
+
+# A fault planted in a copy of csrc/quantized_matmul.cu: each k-tile's
+# scales taken from the group of its first row, as a per-tile lookup would.
+_QMM_TILE_SCALE = (("return k < K ? __ldg(scale + k / rows_per_group) : 0.f;",
+                    "return k < K ? __ldg(scale + (k & ~(kBK - 1)) "
+                    "/ rows_per_group) : 0.f;"),)
+
+
+@pytest.mark.cuda
+def test_qmm_norm_bar_catches_planted_tile_scale(cuda_device, tmp_path,
+                                                 monkeypatch):
+    """At K = 11008 with from_hf's 64 groups (172 rows a group, so 63 of the
+    172 k-tiles straddle a boundary), M = 40 and 512: the kernel as built
+    passes both bars, the planted per-tile scale misses the norm bar."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    rec = {"q": torch.randint(-127, 128, (11008, 4096), generator=gen,
+                              device=cuda_device, dtype=torch.int8),
+           "scale": torch.rand((64,), generator=gen, device=cuda_device)
+           / (73.3 * 11008 ** 0.5)}
+    xs = [torch.randn((m, 11008), generator=gen, device=cuda_device,
+                      dtype=torch.bfloat16) for m in (40, 512)]
+    wants = [tqm.quantized_matmul_plain(x, rec) for x in xs]
+
+    def errors():
+        return [((got.float() - w.float()).abs().max().item(),
+                 _norm_rel(got, w))
+                for got, w in ((tqm.quantized_matmul(x, rec), w)
+                               for x, w in zip(xs, wants))]
+
+    built = errors()
+    monkeypatch.setitem(_build._LIBS, "quantized_matmul", _planted(
+        tmp_path, "quantized_matmul", _QMM_TILE_SCALE))
+    tqm._kernel.cache_clear()
+    try:
+        planted = errors()
+    finally:
+        tqm._kernel.cache_clear()
+    print(f"qmm built {built}; planted tile scale {planted}")
+    assert all(a <= TOL and n <= NORM_TOL for a, n in built), built
+    assert all(n > NORM_TOL for _, n in planted), planted
 
 
 def _gmm_inputs(gen, dev, m, k, n, sizes):
