@@ -34,6 +34,10 @@ Phases, each fatal on failure:
    contexts in int8, a SplitFuse tick (a 192-token chunk and 7 decode
    tokens), block sizes 16 and 64, a window of 100, G = 4 and 8, D = 64,
    and pad rows with one slot's tokens in two runs (pads exact zeros);
+   the decode and verify kernel at Llama-2-7B width in bf16 and int8:
+   decode and verify (K = 5) at S = 8 over contexts of ~2000 and ~4000
+   tokens and at S = 64 over ~300 (4 decode pads, exact zeros), each read
+   twice for bit-equality; every decode and verify case prints its grid;
 4. the serving slice end to end at full Llama-2-7B width and 2 layers,
    through the kernels and through the plain paths on the card: first-step
    logits must agree within 3e-2 of their largest magnitude;
@@ -395,17 +399,18 @@ def qmm_cases(torch, gen, dev, shapes):
 
 
 def _attention_inputs(torch, gen, dev, slots, q_pos, int8=False, hkv=32,
-                      h=32, d=128, bs=128, order=None):
-    """Pools of ``slots`` sequences at the served table width (384 tokens:
-    3 blocks of 128, or as many of ``bs``; 7B KV heads or ``hkv``, tables
-    scattered over the pool) — as many pool copies as keep each call cold
-    in L2, each ``(k, v, scales)``: bf16, or int8 with its ``k_scale`` /
-    ``v_scale`` — and ``h`` query heads of rows at the positions
-    ``q_pos[s]`` (a list per slot; -1 for a pad row), slot by slot, or in
-    the row order ``order`` (indices into that slot-major list)."""
+                      h=32, d=128, bs=128, order=None, width=384):
+    """Pools of ``slots`` sequences at a table width of ``width`` tokens
+    (by default the served 384: 3 blocks of 128, or as many of ``bs``; 7B
+    KV heads or ``hkv``, tables scattered over the pool) — as many pool
+    copies as keep each call cold in L2, each ``(k, v, scales)``: bf16, or
+    int8 with its ``k_scale`` / ``v_scale`` — and ``h`` query heads of rows
+    at the positions ``q_pos[s]`` (a list per slot; -1 for a pad row), slot
+    by slot, or in the row order ``order`` (indices into that slot-major
+    list)."""
     from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import quantize_kv
 
-    width = -(-384 // bs)                        # the served table width
+    width = -(-width // bs)                      # table blocks a slot
     nb = slots * width + 1
     perm = torch.randperm(nb - 1, generator=gen, device=dev)[:slots * width]
     tables = (perm + 1).to(torch.int32).reshape(slots, width)
@@ -508,9 +513,13 @@ def attention_case(torch, name, fn, q, pools, tables, token_slot, token_pos,
 
     gathered = [(ctx_of(kp, sc.get("k_scale")), ctx_of(vp, sc.get("v_scale")))
                 for kp, vp, sc in pools]
+    grid = {}
+    if fn.__name__ in ("paged_decode_attention", "paged_verify_attention"):
+        grid = {"grid": [t // kw.get("k_tokens", 1), hkv]}
     return {
         "name": name,
         "kernel": fn.__name__ + ("_int8" if scales else ""),
+        **grid,
         "max_abs_err": err, "norm_rel_err": norm_err,
         "ms": time_ms(lambda i: fn(q, pools[i][0], pools[i][1], tables,
                                    token_slot, token_pos, block_size=bs,
@@ -602,6 +611,51 @@ def attention_cases(torch, gen, dev):
             torch, f"paged_verify_attention{' int8' if int8 else ''}"
                    f"[S=8, K=5, ctx~300]",
             bf.paged_verify_attention, *args, iters=48, k_tokens=5))
+    return out
+
+
+#: phase 3's decode and verify cases beyond the served ones, at
+#: Llama-2-7B width: (label, slots, low and high context positions,
+#: table width in tokens, decode pad slots); each in decode and in verify
+#: (K = 5), over bf16 and int8 pools: 8 slots at long contexts, and a wide
+#: batch of 64 slots (the last 4 pads in decode)
+LONG_CASES = [("S=8, ctx~2000", 8, 1950, 2050, 2176, 0),
+              ("S=8, ctx~4000", 8, 3950, 4050, 4224, 0),
+              ("S=64, ctx~300", 64, 257, 330, 384, 4)]
+
+
+def long_cases(torch, gen, dev):
+    """Phase 3's LONG_CASES through the decode and the verify kernel; each
+    case also reads that two runs are bit-equal (``bit_equal``) and, with
+    pads, their largest magnitude (exact zeros wanted)."""
+    from deepspeed_tpu_torch.inference.v2.kernels import blocked_flash as bf
+
+    out = []
+    for label, slots, lo, hi, width, pads in LONG_CASES:
+        pos = torch.randint(lo, hi, (slots,), generator=gen,
+                            device=dev).tolist()
+        for int8 in (False, True):
+            for k_tokens, fn in ((1, bf.paged_decode_attention),
+                                 (5, bf.paged_verify_attention)):
+                q_pos = [list(range(p, p + k_tokens)) for p in pos]
+                if k_tokens == 1 and pads:
+                    q_pos[-pads:] = [[-1]] * pads
+                args = _attention_inputs(torch, gen, dev, slots, q_pos,
+                                         int8=int8, width=width)
+                kw = {"k_tokens": k_tokens} if k_tokens > 1 else {}
+                tag = f", K={k_tokens}" if k_tokens > 1 else ""
+                case = attention_case(
+                    torch, f"{fn.__name__}{' int8' if int8 else ''}"
+                           f"[{label}{tag}]", fn, *args, iters=24, **kw)
+                q, pools, tables, ts, tp = args
+                runs = [fn(q, pools[0][0], pools[0][1], tables, ts, tp,
+                           block_size=128, **pools[0][2], **kw)
+                        for _ in range(2)]
+                case["bit_equal"] = bool(torch.equal(*runs))
+                if (tp < 0).any():
+                    case["pad_max_abs"] = runs[0][tp < 0].abs().max().item()
+                out.append(case)
+                del args, pools, runs
     return out
 
 
@@ -3481,16 +3535,20 @@ def main() -> int:
     # inputs as before); PR 10's from their own generator
     gen_new = torch.Generator(device=dev)
     gen_new.manual_seed(SEED + 10)
+    gen_long = torch.Generator(device=dev)       # the long decode / verify cases
+    gen_long.manual_seed(SEED + 11)
     cases = (qmm_cases(torch, gen, dev, QMM_CASES[:8])
              + attention_cases(torch, gen, dev)
              + mixtral_attention_cases(torch, gen, dev)
              + gmm_cases(torch, gen, dev)
              + gmm_backward_cases(torch, gen, dev)
              + qmm_cases(torch, gen_new, dev, QMM_CASES[8:])
-             + b5_cases(torch, gen_new, dev))
+             + b5_cases(torch, gen_new, dev)
+             + long_cases(torch, gen_long, dev))
     for c in cases:
         extra = "".join(f" {k} {c[k]}" for k in ("pad_max_abs", "k_splits",
-                                                 "tile_rows",
+                                                 "tile_rows", "grid",
+                                                 "bit_equal",
                                                  "zeros_max_abs",
                                                  "generic_b5_ms", "library")
                         if k in c)
@@ -3501,11 +3559,13 @@ def main() -> int:
     bad = [c["name"] for c in cases if not (c["max_abs_err"] <= TOL
                                             and c["norm_rel_err"] <= NORM_TOL)
            or c.get("pad_max_abs", 0.0) != 0.0
-           or c.get("zeros_max_abs", 0.0) != 0.0]
+           or c.get("zeros_max_abs", 0.0) != 0.0
+           or not c.get("bit_equal", True)]
     if bad:
         return fail(f"kernels disagree with their plain versions (or a pad "
                     f"row of the tiled prefill, a dlhs row past the groups "
-                    f"or an empty group's drhs block is not zero): {bad}")
+                    f"or an empty group's drhs block is not zero, or two "
+                    f"runs of the decode / verify kernel differ): {bad}")
 
     # 4. slice end to end: kernels vs plain paths, 2 layers at 7B width
     rng = np.random.default_rng(SEED)
@@ -4017,7 +4077,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "build_s": secs,
-         "cases": cases, "slice": e2e, "served": served, "flash": flash,
+         "cases": cases, "slice": e2e,
+         "served": served, "flash": flash,
          "train_slice": t_slice, "trained": trained, "spec_slice": spec,
          "spec_served": spec_run, "mixtral_slice": mix,
          "mixtral_served": mixtral, "moe_layer": moe_layer,

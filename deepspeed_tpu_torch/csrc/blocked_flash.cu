@@ -9,14 +9,14 @@
 //   `dstt_paged_attention_bf16`, the tiled kernel below.
 // * `_decode_kernel` (pallas_call in `paged_decode_attention`), both modes:
 //   one query per slot walking only the slot's live blocks.  Here:
-//   `dstt_paged_decode_attention_{bf16,int8}`, one CUDA block per (slot, KV
-//   head).
+//   `dstt_paged_decode_attention_{bf16,int8}`, the decode and verify
+//   kernel below.
 // * `_verify_kernel` (pallas_call in `paged_verify_attention`), both modes:
 //   K query rows per slot (the fed token and K-1 drafts, at consecutive
 //   positions) share one walk of the slot's blocks, each row with its own
-//   causal frontier.  Here: `dstt_paged_verify_attention_{bf16,int8}`, one
-//   CUDA block per (slot, KV head) scoring every staged key against all
-//   K * G query rows of its KV head (G = H / Hkv).
+//   causal frontier.  Here: `dstt_paged_verify_attention_{bf16,int8}`, the
+//   same decode and verify kernel: all K * G query rows of a KV head (G = H /
+//   Hkv) are scored against every staged key.
 // * `dstt_paged_attention_int8`: the generic kernel over an int8 pool.  The
 //   JAX package has no TPU kernel for it: int8 prefill there is XLA (gather,
 //   dequantize, einsum; model_implementations/ragged_llama.py:263-275).
@@ -67,40 +67,51 @@
 // zeros; a tile's other keys are pool rows (finite: the pool is zeroed at
 // allocation and written with finite values).
 //
-// The decode and verify kernels (`paged_attention_kernel`): each block
-// walks its unit's live context in 32-key chunks per warp: it stages the K
-// rows in shared memory with 16-byte coalesced loads (8 bf16 or 16 int8
-// values), scores them against the unit's query rows (GQA: the KV rows
-// are read once for the whole group; verify: once for all K rows), folds
-// them into each warp's online-softmax state per row, and accumulates V
-// rows read straight from the pool (each lane owns D / 32 output
-// columns); the warps' states merge in shared memory at the end.  int8:
-// a key's score is scale_k * (q . k_q) and its probability is multiplied
-// by its v_scale before it weighs the int8 V row.
+// The decode and verify kernel (`paged_decode_verify_kernel`): a unit (a
+// decode token, or a verify slot's K rows) has R = K * G <= 16 query rows
+// per KV head, padded to the 16 rows of an mma tile.  One block takes one
+// (unit, KV head): the grid is units by Hkv.
+//   What bounds it on the H100 is bytes: it reads Σ live context × Hkv × D
+// × 2 (K and V) × (2 bytes bf16, or 1 byte + 4 / D of scale in int8), about
+// 39 / 20 MB per 7B layer at 8 × 300 tokens (~12 / ~6 us); its operations,
+// 4 · R · Hkv · ctx · D, sit three orders below the tensor cores' rate.  So
+// the design is about keeping enough bytes in flight, and reading each K /
+// V byte once per (unit, KV head):
+// * A ring of NS = 3 stages, each a whole 64-key tile of K and V together,
+//   loaded asynchronously while the tile before is multiplied: one TMA box
+//   per operand (per 64-column half in bf16) when block_size % 64 == 0, so
+//   that a tile lies in one pool block; otherwise 16-byte cp.async gathers
+//   through the table, each warp its own 16 keys.  A block walks only its
+//   unit's live tiles, from the window's edge to the deepest frontier,
+//   which it finds on the device from token_pos (no host sync).
+// * Tensor cores.  Each of the 4 warps takes 16 keys of every tile: S = Q
+//   K^T and O += P V on mma.sync m16n8k16 (wgmma's 64 rows would waste
+//   three quarters of each product, and the operations do not bind), with
+//   the online softmax in fp32 per warp.  P keeps about 16 bits where it
+//   weighs V, hi = bf16(p) and lo = bf16(p - hi), as in the generic
+//   kernel.  int8 pools: each warp converts its keys' rows to bf16 in
+//   shared memory (every int8 value is exact in bf16); k_scale multiplies
+//   S's columns and v_scale P's, in fp32.
+// * The 4 warps' states merge in shared memory, in warp order (so two runs
+//   are bit-equal), and the block writes its rows' output.
+//   Splitting a context over several blocks (flash-decoding, with a merge
+//   of the splits' states) is left out: at every served shape units × Hkv
+//   already fills the card (8 slots × 32 KV heads), and there a split only
+//   adds the merge's tail.  It pays where few units meet long contexts.
 //
-// What bounds it on the H100 (3.35 TB/s, 989 TFLOP/s bf16):
-// * Prefill (2 x 256 tokens, 32 heads, D = 128): each slot's K and V rows
-//   once, q and out once: ~10 MB in bf16 (~3 us), ~7 MB in int8, against
-//   ~1.1 GFLOP of causal products (~1 us), so bytes bind; the generic
-//   kernel reads a stripe's context once per KV head, and the 4 stripes
-//   of a 256-token prompt re-read the earlier tiles from L2.  Later work:
-//   stripes of 128 rows (two consumer warpgroups) and a warp-specialised
-//   producer, so that the softmax of one tile overlaps the products of the
-//   next.
-// * Decode reads Σ live context × Hkv × D × 2 (K and V) × (2 bytes bf16, or
-//   1 byte + 4 / D of scale in int8): about 39 / 20 MB per 7B layer at
-//   8 × 300 tokens, ~12 / ~6 us.  The grid is only S × Hkv = 256 blocks, so
-//   decode and verify use 8 warps a block to keep more loads in flight.
-//   Splitting each context over several blocks (flash-decoding) would put
-//   more blocks in flight; that is later work.
-// * Verify reads the same context once for all K rows (the generic kernel
-//   would read it once per 64-row stripe); its operations,
-//   4 · K · H · ctx · D, do not bind.
+// What bounds the generic kernel on the H100 (3.35 TB/s, 989 TFLOP/s bf16):
+// prefill (2 x 256 tokens, 32 heads, D = 128) reads each slot's K and V
+// rows once, q and out once: ~10 MB in bf16 (~3 us), ~7 MB in int8,
+// against ~1.1 GFLOP of causal products (~1 us), so bytes bind; the generic
+// kernel reads a stripe's context once per KV head, and the 4 stripes of a
+// 256-token prompt re-read the earlier tiles from L2.  Later work: stripes
+// of 128 rows (two consumer warpgroups) and a warp-specialised producer,
+// so that the softmax of one tile overlaps the products of the next.
 //
 // Shapes: q / out bf16 [T, H, D]; pools bf16 or int8 [rows, Hkv, D]; scales
 // fp32 [rows, Hkv] (int8 only); tables int32 [S, B]; token_slot /
 // token_pos int32 [T]; all contiguous.  D is 64 or 128; G at most 8;
-// query rows per block (K * G) at most 8 (decode) or 16 (verify).
+// query rows of a unit (K * G) at most 16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,314 +122,6 @@
 
 namespace {
 
-constexpr int kChunk = 32;        // keys a warp takes per step: one a lane
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
-
-struct Params {
-  const __nv_bfloat16* q;
-  const void* k_pool;
-  const void* v_pool;
-  const float* k_scale;           // int8 mode only
-  const float* v_scale;
-  const int* tables;
-  const int* token_slot;
-  const int* token_pos;
-  __nv_bfloat16* out;
-  int heads, kv_heads, table_width, block_size, window, k_tokens;
-  float scale;
-};
-
-// bytes of one staged K row: 16 bytes of padding keep the lanes' 16-byte
-// reads of their own rows free of bank conflicts
-template <int D, bool kInt8>
-__host__ __device__ constexpr int row_bytes() { return (kInt8 ? D : 2 * D) + 16; }
-
-// the warps' staged K rows during the walk, their accumulators after it
-template <int D, int W, int R, bool kInt8>
-__host__ __device__ constexpr size_t stage_bytes() {
-  constexpr size_t stage = static_cast<size_t>(W) * kChunk * row_bytes<D, kInt8>();
-  constexpr size_t acc = static_cast<size_t>(W) * R * D * sizeof(float);
-  return stage > acc ? stage : acc;
-}
-
-template <int D, int W, int R, bool kInt8>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return stage_bytes<D, W, R, kInt8>()
-         + static_cast<size_t>(R) * D * sizeof(float)           // q
-         + 2 * static_cast<size_t>(W) * R * sizeof(float);      // m, l
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// 16 staged bytes as floats: 8 bf16 or 16 int8 values
-template <bool kInt8>
-__device__ __forceinline__ void unpack16(const int4 raw, float* f) {
-  if constexpr (kInt8) {
-    const char4* c = reinterpret_cast<const char4*>(&raw);
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      f[4 * w] = static_cast<float>(c[w].x);
-      f[4 * w + 1] = static_cast<float>(c[w].y);
-      f[4 * w + 2] = static_cast<float>(c[w].z);
-      f[4 * w + 3] = static_cast<float>(c[w].w);
-    }
-  } else {
-    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 v = __bfloat1622float2(b[e]);
-      f[2 * e] = v.x;
-      f[2 * e + 1] = v.y;
-    }
-  }
-}
-
-// this lane's D / 32 columns of one V row as floats
-template <int D, bool kInt8>
-__device__ __forceinline__ void load_v(const void* v_pool, long long off, float* f) {
-  constexpr int kPer = D / 32;
-  if constexpr (kInt8) {
-    const int8_t* p = static_cast<const int8_t*>(v_pool) + off;
-    if constexpr (kPer == 4) {
-      const char4 c = __ldg(reinterpret_cast<const char4*>(p));
-      f[0] = c.x; f[1] = c.y; f[2] = c.z; f[3] = c.w;
-    } else {
-      const char2 c = __ldg(reinterpret_cast<const char2*>(p));
-      f[0] = c.x; f[1] = c.y;
-    }
-  } else {
-    const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(v_pool) + off;
-    if constexpr (kPer == 4) {
-      const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-      f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-    } else {
-      const unsigned raw = __ldg(reinterpret_cast<const unsigned*>(p));
-      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
-      f[0] = a.x; f[1] = a.y;
-    }
-  }
-}
-
-// One (unit, KV head): W warps walk the visible context in 32-key chunks for
-// the unit's k_tokens * G query rows (at most R).
-template <int D, int W, int R, bool kInt8>
-__global__ void __launch_bounds__(32 * W)
-paged_attention_kernel(const Params p) {
-  constexpr int kRowB = row_bytes<D, kInt8>();
-  constexpr int kElem = kInt8 ? 1 : 2;          // bytes per pool element
-  constexpr int kVecEl = 16 / kElem;            // elements per 16-byte vector
-  constexpr int kVecs = D / kVecEl;             // 16-byte vectors in a K row
-  constexpr int kPer = D / 32;                  // output columns a lane owns
-  constexpr size_t kStage = stage_bytes<D, W, R, kInt8>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* k_s = smem;
-  float* q_s = reinterpret_cast<float*>(smem + kStage);
-  float* m_s = q_s + R * D;
-  float* l_s = m_s + W * R;
-  float* acc_s = reinterpret_cast<float*>(smem);  // after the walk
-
-  const int u = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int group = p.heads / p.kv_heads;
-  const int rows = p.k_tokens * group;
-  const int t0 = u * p.k_tokens;                // the unit's first token
-  const int pos0 = p.token_pos[t0];
-  const int* table = p.tables + static_cast<size_t>(p.token_slot[t0]) * p.table_width;
-  const size_t row_stride = static_cast<size_t>(p.kv_heads) * D;   // elements
-  const size_t kv_off = static_cast<size_t>(kh) * D;
-  // q / out offset of query row r: token t0 + r / G, head kh * G + r % G
-  auto q_off = [&](int r) {
-    return (static_cast<size_t>(t0 + r / group) * p.heads + static_cast<size_t>(kh) * group
-            + r % group) * D;
-  };
-
-  for (int i = threadIdx.x; i < rows * D; i += 32 * W)
-    q_s[i] = __bfloat162float(p.q[q_off(i / D) + i % D]);
-  __syncthreads();
-
-  const int first = p.window > 0 ? max(0, pos0 - p.window + 1) : 0;
-  const int last = min(pos0 + p.k_tokens - 1, p.table_width * p.block_size - 1);
-
-  float m[R], l[R], acc[R][kPer];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) acc[r][e] = 0.f;
-  }
-
-  unsigned char* ks = k_s + static_cast<size_t>(warp) * kChunk * kRowB;
-  const unsigned char* k_bytes = static_cast<const unsigned char*>(p.k_pool);
-  for (int c0 = (first / kChunk) * kChunk + warp * kChunk; c0 <= last;
-       c0 += W * kChunk) {
-    // this lane's key and its pool row (-1: outside the walk, never read)
-    const int c = c0 + lane;
-    const bool valid = c >= first && c <= last;
-    long long row = -1;
-    if (valid) row = static_cast<long long>(table[c / p.block_size]) * p.block_size + c % p.block_size;
-    float k_sc = 1.f, v_sc = 1.f;
-    if constexpr (kInt8) {
-      if (valid) {
-        k_sc = __ldg(p.k_scale + row * p.kv_heads + kh);
-        v_sc = __ldg(p.v_scale + row * p.kv_heads + kh);
-      }
-    }
-
-    // stage the chunk's K rows, 16 bytes a lane per load
-#pragma unroll 4
-    for (int i = lane; i < kChunk * kVecs; i += 32) {
-      const int r = i / kVecs;
-      const int seg = i % kVecs;
-      const long long rr = __shfl_sync(kFull, row, r);
-      int4 val = make_int4(0, 0, 0, 0);
-      if (rr >= 0)
-        val = __ldg(reinterpret_cast<const int4*>(
-            k_bytes + (rr * row_stride + kv_off) * kElem + seg * 16));
-      *reinterpret_cast<int4*>(ks + r * kRowB + seg * 16) = val;
-    }
-    __syncwarp();
-
-    // scores of this lane's key against the unit's query rows
-    float s[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = 0.f;
-    const unsigned char* krow = ks + lane * kRowB;
-#pragma unroll 4
-    for (int d = 0; d < D; d += kVecEl) {
-      float kf[kVecEl];
-      unpack16<kInt8>(*reinterpret_cast<const int4*>(krow + d * kElem), kf);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (r < rows) {
-#pragma unroll
-          for (int e = 0; e < kVecEl; ++e) s[r] = fmaf(q_s[r * D + d + e], kf[e], s[r]);
-        }
-      }
-    }
-
-    // online softmax: fold the chunk into this warp's state, row by row;
-    // s[r] becomes the probability that weighs V (times v_scale in int8)
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r < rows) {
-        const int pr = pos0 + r / group;        // row r's causal frontier
-        const bool vis = valid && c <= pr && (p.window <= 0 || c > pr - p.window);
-        const float sc = vis ? s[r] * p.scale * k_sc : kNegInf;
-        const float m_new = fmaxf(m[r], warp_max(sc));
-        const float prob = vis ? __expf(sc - m_new) : 0.f;
-        const float corr = __expf(m[r] - m_new);
-        l[r] = l[r] * corr + warp_sum(prob);
-#pragma unroll
-        for (int e = 0; e < kPer; ++e) acc[r][e] *= corr;
-        m[r] = m_new;
-        s[r] = prob * v_sc;
-      }
-    }
-
-    // acc[r][:] += Σ_key prob(key, r) · v[key, lane's columns]
-#pragma unroll 4
-    for (int j = 0; j < kChunk; ++j) {
-      const long long rr = __shfl_sync(kFull, row, j);
-      if (rr < 0) continue;                     // uniform across the warp
-      float vf[kPer];
-      load_v<D, kInt8>(p.v_pool, rr * row_stride + kv_off + lane * kPer, vf);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (r < rows) {
-          const float pj = __shfl_sync(kFull, s[r], j);
-#pragma unroll
-          for (int e = 0; e < kPer; ++e) acc[r][e] = fmaf(pj, vf[e], acc[r][e]);
-        }
-      }
-    }
-    __syncwarp();       // the next chunk overwrites this warp's K rows
-  }
-
-  // merge the W warps' (m, l, acc) states
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      m_s[warp * R + r] = m[r];
-      l_s[warp * R + r] = l[r];
-    }
-  }
-  __syncthreads();                              // all warps are done with k_s
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (r < rows) {
-#pragma unroll
-      for (int e = 0; e < kPer; ++e)
-        acc_s[(warp * R + r) * D + lane * kPer + e] = acc[r][e];
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * D; i += 32 * W) {
-    const int r = i / D;
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < W; ++w) mx = fmaxf(mx, m_s[w * R + r]);
-    float num = 0.f, den = 0.f;
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      const float f = __expf(m_s[w * R + r] - mx);
-      num += f * acc_s[(w * R + r) * D + i % D];
-      den += f * l_s[w * R + r];
-    }
-    p.out[q_off(r) + i % D] = __float2bfloat16(den == 0.f ? 0.f : num / den);
-  }
-}
-
-template <int D, int W, int R, bool kInt8>
-int launch(const Params& p, int units, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D, W, R, kInt8>();
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<D, W, R, kInt8>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(units, p.kv_heads);
-  paged_attention_kernel<D, W, R, kInt8><<<grid, 32 * W, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int W, int R, bool kInt8>
-int dispatch(const void* q, const void* k_pool, const void* v_pool,
-             const void* k_scale, const void* v_scale, const void* tables,
-             const void* token_slot, const void* token_pos, void* out,
-             int units, int heads, int kv_heads, int head_dim, int table_width,
-             int block_size, int window, int k_tokens, float scale, void* stream) {
-  if (kv_heads <= 0 || heads % kv_heads || k_tokens < 1
-      || k_tokens * (heads / kv_heads) > R)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
-                 static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-                 static_cast<const int*>(tables), static_cast<const int*>(token_slot),
-                 static_cast<const int*>(token_pos), static_cast<__nv_bfloat16*>(out),
-                 heads, kv_heads, table_width, block_size, window, k_tokens, scale};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 128) return launch<128, W, R, kInt8>(p, units, s);
-  if (head_dim == 64) return launch<64, W, R, kInt8>(p, units, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-
 // two fp32 values as the packed bf16 pair hi and the packed bf16 pair of
 // what hi leaves over
 __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
@@ -427,6 +130,447 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&r);
 }
+
+// 4-byte asynchronous copy global -> shared (zero-filled when !pred)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(pred ? 4 : 0));
+}
+
+// 16 int8 values as 16 bf16 (two 16-byte vectors): every int8 is exact in
+// bf16
+__device__ __forceinline__ void int8x16_to_bf16(const int4 raw, int4& lo, int4& hi) {
+  const unsigned w[4] = {static_cast<unsigned>(raw.x) ^ 0x80808080u,
+                         static_cast<unsigned>(raw.y) ^ 0x80808080u,
+                         static_cast<unsigned>(raw.z) ^ 0x80808080u,
+                         static_cast<unsigned>(raw.w) ^ 0x80808080u};
+  uint32_t b[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(biased_byte_to_float(w[e / 2], 2 * (e % 2)),
+                                                   biased_byte_to_float(w[e / 2], 2 * (e % 2) + 1));
+    b[e] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+  lo = make_int4(b[0], b[1], b[2], b[3]);
+  hi = make_int4(b[4], b[5], b[6], b[7]);
+}
+
+// ------------------------------------------- the decode and verify kernel
+
+namespace decode {
+
+constexpr int kKeys = 64;                 // keys of a tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kWarpKeys = kKeys / kWarps; // each warp's keys of a tile
+constexpr int kRows = 16;                 // a unit's query rows, padded to mma's m16
+constexpr int kStages = 3;                // tiles in the ring
+
+struct Params {
+  const __nv_bfloat16* q;
+  const void* k_pool;
+  const void* v_pool;
+  const float* k_scale;          // int8 mode only
+  const float* v_scale;
+  const int* tables;
+  const int* token_slot;
+  const int* token_pos;
+  __nv_bfloat16* out;
+  int heads, kv_heads, table_width, block_size, window, k_tokens;
+  float scale_log2;              // log2(e) / sqrt(D)
+  int tma;                       // block_size % 64 == 0: a tile is one TMA box a pool
+};
+
+// Shared memory, in bytes from a 1024-aligned base: the q tile, NS stages
+// of K, then of V (bf16 [64, D] tiles, 128-byte swizzled, or the int8 rows
+// as read), in int8 mode each warp's 16 K and V rows converted to bf16 and
+// the stages' scales, the warps' softmax states and the stages'
+// mbarriers.  After the walk the stages hold the warps' O.
+template <int D, bool kInt8, int NS>
+struct Layout {
+  static constexpr int kStage = kInt8 ? kKeys * D : kKeys * D * 2;  // one operand
+  static constexpr int kWarpTile = kWarpKeys * D * 2;               // bf16 [16, D]
+  static constexpr int kQ = 0;                                      // bf16 [16, D]
+  static constexpr int kK = kQ + kRows * D * 2;
+  static constexpr int kV = kK + NS * kStage;
+  static constexpr int kConv = kV + NS * kStage;                    // int8: [4][K, V]
+  static constexpr int kScales = kConv + (kInt8 ? kWarps * 2 * kWarpTile : 0);
+  static constexpr int kState = kScales + (kInt8 ? NS * 2 * kKeys * 4 : 0);  // m, l [4][16]
+  static constexpr int kBars = kState + 2 * kWarps * kRows * 4;
+  static constexpr int kBytes = kBars + NS * 8 + 1024;              // + alignment slack
+  static_assert(kWarps * kRows * D * 4 <= 2 * NS * kStage, "the warps' O must fit the stages");
+};
+
+// One block: unit u's context for KV head kh (blockIdx.x = u, blockIdx.y =
+// kh).
+template <int D, bool kInt8, int NS>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_verify_kernel(const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map, const Params p) {
+  using L = Layout<D, kInt8, NS>;
+  constexpr int kElem = kInt8 ? 1 : 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* q_s = sm + L::kQ;
+  float* m_s = reinterpret_cast<float*>(sm + L::kState);     // [4][16]
+  float* l_s = m_s + kWarps * kRows;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::kBars);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int u = blockIdx.x;
+  const int kh = blockIdx.y;
+  const int group = p.heads / p.kv_heads;
+  const int rows = p.k_tokens * group;
+  const int t0 = u * p.k_tokens;                // the unit's first token
+  const int pos0 = __ldg(p.token_pos + t0);
+  const int c_len = p.table_width * p.block_size;
+  const int window = p.window;
+
+  // the unit's live tiles, from its window's edge to its deepest frontier
+  // (none for a pad unit, which writes zeros)
+  const int last = min(pos0 + p.k_tokens - 1, c_len - 1);
+  const int first = window > 0 ? max(0, pos0 - window + 1) : 0;
+  const int tile0 = first / kKeys;
+  const int tiles = last >= first ? last / kKeys - tile0 + 1 : 0;
+
+  const int* table = p.tables + static_cast<size_t>(__ldg(p.token_slot + t0)) * p.table_width;
+  const size_t kv_row = static_cast<size_t>(p.kv_heads) * D;   // pool row, elements
+  // q / out offset of query row r: token t0 + r / G, head kh * G + r % G
+  auto q_off = [&](int r) {
+    return (static_cast<size_t>(t0 + r / group) * p.heads + static_cast<size_t>(kh) * group
+            + r % group) * D;
+  };
+
+  // 1. the unit's q rows into the swizzled [16, D] tile (zeros past them)
+  for (int c = tid; c < kRows * D / 8; c += kThreads) {
+    const int r = c / (D / 8), col = (c % (D / 8)) * 8;
+    const bool ok = r < rows;
+    cp_async16(q_s + swizzle128(r, col, kRows), ok ? p.q + q_off(r) + col : p.q, ok);
+  }
+  cp_async_commit();
+  if (p.tma && tid == 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) mbar_init(&bars[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // this thread's key of a tile (TMA: thread 0's, key 0, places the
+  // boxes; int8 lanes read their key's scale; cp.async: two lanes a key)
+  // and its pool row in tile j (-1: past the table's end), looked up a
+  // tile ahead of the loads that use it
+  const int my_key = kWarpKeys * warp + (p.tma ? (lane & 15) : (lane >> 1));
+  auto key_row = [&](int j) -> long long {
+    const int c = (tile0 + j) * kKeys + my_key;
+    if (c >= c_len) return -1;
+    return static_cast<long long>(__ldg(table + c / p.block_size)) * p.block_size
+           + c % p.block_size;
+  };
+
+  // start the loads of the unit's live tile j into stage j % NS (`row`:
+  // key_row(j)): one TMA box per operand (and 64-column half, bf16) issued
+  // by thread 0, or each warp's 16 keys as 16-byte cp.async gathers, two
+  // lanes a key; int8: each warp's keys' scales as 4-byte cp.async copies
+  const unsigned char* k_bytes = static_cast<const unsigned char*>(p.k_pool);
+  const unsigned char* v_bytes = static_cast<const unsigned char*>(p.v_pool);
+  auto issue = [&](int j, long long row) {
+    const int s = j % NS;
+    unsigned char* kd = sm + L::kK + s * L::kStage;
+    unsigned char* vd = sm + L::kV + s * L::kStage;
+    float* sc_s = reinterpret_cast<float*>(sm + L::kScales) + s * 2 * kKeys;
+    if (p.tma) {
+      if (tid == 0) {
+        const int row0 = static_cast<int>(row);
+        mbar_arrive_expect_tx(&bars[s], 2 * L::kStage);
+        if constexpr (kInt8) {
+          tma_load_3d(kd, &k_map, &bars[s], 0, kh, row0);
+          tma_load_3d(vd, &v_map, &bars[s], 0, kh, row0);
+        } else {
+#pragma unroll
+          for (int h = 0; h < D / 64; ++h) {
+            tma_load_3d(kd + h * kKeys * 128, &k_map, &bars[s], 64 * h, kh, row0);
+            tma_load_3d(vd + h * kKeys * 128, &v_map, &bars[s], 64 * h, kh, row0);
+          }
+        }
+      }
+      if constexpr (kInt8)
+        cp_async4(sc_s + (lane >> 4) * kKeys + my_key,
+                  (lane < 16 ? p.k_scale : p.v_scale) + row * p.kv_heads + kh, true);
+    } else {
+      constexpr int kChunks = D * kElem / 16;   // 16-byte chunks of a row
+      const int key = my_key, part = lane & 1;
+      const bool ok = row >= 0;                 // keys past the table's end: zeros
+      if (!ok) row = 0;
+      const size_t off = (static_cast<size_t>(row) * kv_row + static_cast<size_t>(kh) * D) * kElem;
+#pragma unroll
+      for (int i = 0; i < kChunks / 2; ++i) {
+        const int ch = part * (kChunks / 2) + i;
+        const int dst =
+            kInt8 ? key * D + ch * 16 : static_cast<int>(swizzle128(key, ch * 8, kKeys));
+        cp_async16(kd + dst, k_bytes + off + ch * 16, ok);
+        cp_async16(vd + dst, v_bytes + off + ch * 16, ok);
+      }
+      if constexpr (kInt8)
+        cp_async4(sc_s + part * kKeys + key,
+                  (part ? p.v_scale : p.k_scale) + row * p.kv_heads + kh, ok);
+    }
+  };
+
+  // 2. the ring: tiles 0 .. NS-1 in flight (one cp.async group each, empty
+  // past the live tiles), then the q tile's A fragments
+  long long rows0[NS];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) rows0[j] = j < tiles ? key_row(j) : -1;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    if (j < tiles) issue(j, rows0[j]);
+    cp_async_commit();
+  }
+  cp_async_wait<NS>();                          // the q tile
+  __syncthreads();
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(qa[kk], q_s + swizzle128(lane & 15, kk * 16 + (lane >> 4) * 8, kRows));
+
+  // 3. the walk: this thread's rows g and g + 8 (their frontiers; -1 past
+  // the unit's rows, which see nothing), online softmax in fp32
+  int r_pos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = g + 8 * h;
+    r_pos[h] = r < rows ? pos0 + r / group : -1;
+  }
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  const float kInf = __int_as_float(0x7f800000);
+
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % NS;
+    const long long row_next = j + NS < tiles ? key_row(j + NS) : -1;
+    cp_async_wait<NS - 1>();                    // tile j's copies (later tiles may fly)
+    if (p.tma) mbar_wait(&bars[s], (j / NS) & 1);
+    __syncwarp();
+    const float* ksc = reinterpret_cast<const float*>(sm + L::kScales) + s * 2 * kKeys
+                       + kWarpKeys * warp;
+    const float* vsc = ksc + kKeys;
+
+    // this warp's 16 keys as bf16 [16, D] tiles: in place (bf16), or
+    // converted into the warp's own tiles (int8)
+    const unsigned char* kt;
+    const unsigned char* vt;
+    int r0, nrows;
+    if constexpr (kInt8) {
+      unsigned char* kc = sm + L::kConv + warp * 2 * L::kWarpTile;
+      unsigned char* vc = kc + L::kWarpTile;
+      const unsigned char* ks = sm + L::kK + s * L::kStage + kWarpKeys * warp * D;
+      const unsigned char* vs = sm + L::kV + s * L::kStage + kWarpKeys * warp * D;
+#pragma unroll
+      for (int c = lane; c < kWarpKeys * D / 16; c += 32) {
+        const int key = c / (D / 16), seg = c % (D / 16);
+        int4 lo, hi;
+        int8x16_to_bf16(*reinterpret_cast<const int4*>(ks + key * D + seg * 16), lo, hi);
+        *reinterpret_cast<int4*>(kc + swizzle128(key, seg * 16, kWarpKeys)) = lo;
+        *reinterpret_cast<int4*>(kc + swizzle128(key, seg * 16 + 8, kWarpKeys)) = hi;
+        int8x16_to_bf16(*reinterpret_cast<const int4*>(vs + key * D + seg * 16), lo, hi);
+        *reinterpret_cast<int4*>(vc + swizzle128(key, seg * 16, kWarpKeys)) = lo;
+        *reinterpret_cast<int4*>(vc + swizzle128(key, seg * 16 + 8, kWarpKeys)) = hi;
+      }
+      __syncwarp();
+      kt = kc;
+      vt = vc;
+      r0 = 0;
+      nrows = kWarpKeys;
+    } else {
+      kt = sm + L::kK + s * L::kStage;
+      vt = sm + L::kV + s * L::kStage;
+      r0 = kWarpKeys * warp;
+      nrows = kKeys;
+    }
+
+    // S = Q K^T over the warp's 16 keys (two n8 tiles)
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t b[4];
+      ldsm_x4(b, kt + swizzle128(r0 + (lane >> 4) * 8 + (lane & 7),
+                                 kk * 16 + ((lane >> 3) & 1) * 8, nrows));
+      mma16816(sc[0], qa[kk], b[0], b[1]);
+      mma16816(sc[1], qa[kk], b[2], b[3]);
+    }
+
+    // mask (a row sees keys up to its frontier, inside its window and the
+    // table), scale, online softmax
+    const int cw = (tile0 + j) * kKeys + kWarpKeys * warp;   // the warp's first key
+    float mx[2] = {-kInf, -kInf};
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int key = 8 * jj + 2 * t + (e & 1);
+        const int c = cw + key;
+        float v = sc[jj][e] * p.scale_log2;
+        if constexpr (kInt8) v *= ksc[key];
+        const bool vis = c <= r_pos[h] && c < c_len && (window <= 0 || c > r_pos[h] - window);
+        sc[jj][e] = vis ? v : -kInf;
+        mx[h] = fmaxf(mx[h], sc[jj][e]);
+      }
+    }
+    float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      corr[h] = exp2f(m[h] - m_new);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pr = exp2f(sc[jj][e] - m[e >> 1]);
+        rs[e >> 1] += pr;
+        if constexpr (kInt8) pr *= vsc[8 * jj + 2 * t + (e & 1)];
+        sc[jj][e] = pr;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+      l[h] = l[h] * corr[h] + rs[h];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      o[i][0] *= corr[0];
+      o[i][1] *= corr[0];
+      o[i][2] *= corr[1];
+      o[i][3] *= corr[1];
+    }
+
+    // O += P V: P (times v_scale in int8) as hi + lo bf16 A fragments, V
+    // the B operand read transposed from its [16, D] rows
+    uint32_t ph[4], pl[4];
+    split_bf16(sc[0][0], sc[0][1], ph[0], pl[0]);
+    split_bf16(sc[0][2], sc[0][3], ph[1], pl[1]);
+    split_bf16(sc[1][0], sc[1][1], ph[2], pl[2]);
+    split_bf16(sc[1][2], sc[1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int d0 = 0; d0 < D; d0 += 16) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, vt + swizzle128(r0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                       d0 + (lane >> 4) * 8, nrows));
+      mma16816(o[d0 / 8], ph, b[0], b[1]);
+      mma16816(o[d0 / 8], pl, b[0], b[1]);
+      mma16816(o[d0 / 8 + 1], ph, b[2], b[3]);
+      mma16816(o[d0 / 8 + 1], pl, b[2], b[3]);
+    }
+
+    // stage s is free again: a TMA stage once every warp is done with it,
+    // a gathered one (each warp its own keys) once this warp is
+    if (p.tma) __syncthreads();
+    else __syncwarp();
+    if (j + NS < tiles) issue(j + NS, row_next);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // 4. the warps' states, merged in warp order (O over the stages), and
+  // the output written
+  __syncthreads();
+  float* o_s = reinterpret_cast<float*>(sm + L::kK);          // [4][rows][D]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = g + 8 * h;
+    if (r < rows) {
+      if (t == 0) {
+        m_s[warp * kRows + r] = m[h];
+        l_s[warp * kRows + r] = l[h];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<float2*>(o_s + (warp * rows + r) * D + 8 * i + 2 * t) =
+            make_float2(o[i][2 * h], o[i][2 * h + 1]);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < rows * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    float mx = m_s[r];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, m_s[w * kRows + r]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = exp2f(m_s[w * kRows + r] - mx);
+      num += f * o_s[(w * rows + r) * D + d];
+      den += f * l_s[w * kRows + r];
+    }
+    p.out[q_off(r) + d] = __float2bfloat16(den == 0.f ? 0.f : num / den);
+  }
+}
+
+template <int D, bool kInt8>
+int launch(const Params& p, int units, int pool_rows, cudaStream_t stream) {
+  CUtensorMap k_map{}, v_map{};
+  if (p.tma) {
+    // pools [rows, Hkv, D]: a box is 64 rows of one KV head, 128 bytes wide
+    // (a 64-column half of a bf16 row, swizzled for ldmatrix; a whole int8
+    // row, converted in the kernel)
+    const int elem = kInt8 ? 1 : 2;
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(p.kv_heads),
+                                static_cast<cuuint64_t>(pool_rows)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * elem,
+                                   static_cast<cuuint64_t>(p.kv_heads) * D * elem};
+    const cuuint32_t box[3] = {kInt8 ? static_cast<cuuint32_t>(D) : 64u, 1u,
+                               static_cast<cuuint32_t>(kKeys)};
+    const auto type = kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const auto swz = kInt8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B;
+    if (encode_tiled(&k_map, type, 3, const_cast<void*>(p.k_pool), dims, strides, box, swz)
+            != CUDA_SUCCESS
+        || encode_tiled(&v_map, type, 3, const_cast<void*>(p.v_pool), dims, strides, box, swz)
+               != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int smem = Layout<D, kInt8, kStages>::kBytes;
+  auto kernel = paged_decode_verify_kernel<D, kInt8, kStages>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(units, p.kv_heads);
+  kernel<<<grid, kThreads, smem, stream>>>(k_map, v_map, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kInt8>
+int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+             const void* v_scale, const void* tables, const void* token_slot,
+             const void* token_pos, void* out, int units, int heads, int kv_heads,
+             int head_dim, int table_width, int block_size, int window, int k_tokens,
+             int pool_rows, float scale, void* stream) {
+  if (kv_heads <= 0 || heads % kv_heads || heads / kv_heads > 8 || k_tokens < 1
+      || k_tokens * (heads / kv_heads) > kRows || block_size <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (units == 0) return 0;
+  const Params p{static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
+                 static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                 static_cast<const int*>(tables), static_cast<const int*>(token_slot),
+                 static_cast<const int*>(token_pos), static_cast<__nv_bfloat16*>(out),
+                 heads, kv_heads, table_width, block_size, window, k_tokens,
+                 scale * 1.4426950408889634f, block_size % kKeys == 0 ? 1 : 0};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 128) return launch<128, kInt8>(p, units, pool_rows, s);
+  if (head_dim == 64) return launch<64, kInt8>(p, units, pool_rows, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace decode
 
 // ------------------------------------------------- the generic (tiled) kernel
 
@@ -702,24 +846,12 @@ paged_attention_tiled_kernel(const __grid_constant__ CUtensorMap k_map,
         const int key = c / (D / 16), seg = c % (D / 16);
 #pragma unroll
         for (int op = 0; op < 2; ++op) {
-          const int4 raw = *reinterpret_cast<const int4*>((op ? v_t : k_t) + key * D + seg * 16);
-          const unsigned w[4] = {static_cast<unsigned>(raw.x) ^ 0x80808080u,
-                                 static_cast<unsigned>(raw.y) ^ 0x80808080u,
-                                 static_cast<unsigned>(raw.z) ^ 0x80808080u,
-                                 static_cast<unsigned>(raw.w) ^ 0x80808080u};
-          uint32_t b[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const __nv_bfloat162 v =
-                __floats2bfloat162_rn(biased_byte_to_float(w[e / 2], 2 * (e % 2)),
-                                      biased_byte_to_float(w[e / 2], 2 * (e % 2) + 1));
-            b[e] = *reinterpret_cast<const uint32_t*>(&v);
-          }
+          int4 lo, hi;
+          int8x16_to_bf16(
+              *reinterpret_cast<const int4*>((op ? v_t : k_t) + key * D + seg * 16), lo, hi);
           unsigned char* dst = op ? vc : kc;
-          *reinterpret_cast<int4*>(dst + swizzle128(key, seg * 16, kKeys)) =
-              make_int4(b[0], b[1], b[2], b[3]);
-          *reinterpret_cast<int4*>(dst + swizzle128(key, seg * 16 + 8, kKeys)) =
-              make_int4(b[4], b[5], b[6], b[7]);
+          *reinterpret_cast<int4*>(dst + swizzle128(key, seg * 16, kKeys)) = lo;
+          *reinterpret_cast<int4*>(dst + swizzle128(key, seg * 16 + 8, kKeys)) = hi;
         }
       }
       fence_proxy_async();
@@ -928,33 +1060,33 @@ int dispatch_tiled(const void* q, const void* k_pool, const void* v_pool, const 
 
 }  // namespace
 
-// Every entry point takes the same arguments.  `units`: tokens (generic,
-// decode) or slots (verify: T = units * k_tokens rows, slot-major);
-// `k_tokens` is 1 outside verify; `window` <= 0 means no sliding window;
-// k_scale / v_scale are read in the int8 modes only.  Return: the CUDA error
-// code (0 ok).
+// The decode and verify entry points take the same arguments.  `units`:
+// tokens (decode) or slots (verify: T = units * k_tokens rows,
+// slot-major); `k_tokens` is 1 in decode; `window` <= 0 means no sliding
+// window; k_scale / v_scale are read in the int8 modes only; `pool_rows`:
+// the rows of each pool.  Return: the CUDA error code (0 ok).
 #define DSTT_ARGS                                                              \
   const void *q, const void *k_pool, const void *v_pool, const void *k_scale,  \
       const void *v_scale, const void *tables, const void *token_slot,         \
       const void *token_pos, void *out, int units, int heads, int kv_heads,    \
       int head_dim, int table_width, int block_size, int window, int k_tokens, \
-      float scale, void *stream
+      int pool_rows, float scale, void *stream
 #define DSTT_PASS                                                              \
   q, k_pool, v_pool, k_scale, v_scale, tables, token_slot, token_pos, out,     \
       units, heads, kv_heads, head_dim, table_width, block_size, window,       \
-      k_tokens, scale, stream
+      k_tokens, pool_rows, scale, stream
 
 extern "C" int dstt_paged_decode_attention_bf16(DSTT_ARGS) {
-  return dispatch<8, 8, false>(DSTT_PASS);
+  return decode::dispatch<false>(DSTT_PASS);
 }
 extern "C" int dstt_paged_decode_attention_int8(DSTT_ARGS) {
-  return dispatch<8, 8, true>(DSTT_PASS);
+  return decode::dispatch<true>(DSTT_PASS);
 }
 extern "C" int dstt_paged_verify_attention_bf16(DSTT_ARGS) {
-  return dispatch<8, 16, false>(DSTT_PASS);
+  return decode::dispatch<false>(DSTT_PASS);
 }
 extern "C" int dstt_paged_verify_attention_int8(DSTT_ARGS) {
-  return dispatch<8, 16, true>(DSTT_PASS);
+  return decode::dispatch<true>(DSTT_PASS);
 }
 
 // The generic kernel: `tokens` rows of q, any token order; `pool_rows`

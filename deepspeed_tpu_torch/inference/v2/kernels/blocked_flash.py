@@ -18,6 +18,13 @@ mode (``k_scale`` / ``v_scale`` given: int8 pools with fp32 scales
 * :func:`paged_verify_attention` — K query rows per slot (speculative
   verify) sharing one walk of the slot's blocks (``_verify_kernel``).
 
+Decode and verify share one tensor-core kernel.  A unit (a decode token,
+or a verify slot's K rows) holds K x G <= 16 query rows per KV head, and
+one block takes one (unit, KV head): it finds the unit's live 64-key tiles
+on the device from ``token_pos`` (so the wrapper never syncs), reads each
+tile's K and V asynchronously in a ring of stages and runs both products
+on ``mma.sync``; its warps' softmax states merge in a fixed order.
+
 All three compute the same function; their one plain PyTorch version,
 :func:`paged_attention_plain`, sits below.
 
@@ -51,8 +58,8 @@ LAUNCHES["paged_prefill_attention"] = 0
 
 _HEAD_DIMS = (64, 128)
 _MAX_GROUP = 8
-#: query rows (k_tokens x query heads per KV head) one verify block holds:
-#: each keeps a D-wide fp32 accumulator in registers
+#: query rows (k_tokens x query heads per KV head) of a decode or verify
+#: unit: the kernel pads them to one 16-row mma tile
 MAX_VERIFY_ROWS = 16
 #: rows of the prefill kernel's q tile: the stripes (tile_q) it takes are
 #: a multiple of it
@@ -284,9 +291,9 @@ def _launch(name, k_tokens, q, k_pool, v_pool, block_tables, token_slot,
     if t_count == 0:
         return out
     mode = "int8" if quantized else "bf16"
-    # the generic (tiled) kernel takes the pools' row count (its TMA tensor
-    # maps) where the decode and verify kernels take k_tokens
-    last = k_pool.shape[0] if name == "paged_attention" else k_tokens
+    # the decode and verify kernel takes k_tokens; every kernel takes the
+    # pools' row count (its TMA tensor maps)
+    k_arg = () if name == "paged_attention" else (k_tokens,)
     with torch.cuda.device(q.device):      # the launch goes to q's GPU
         rc = _kernel(name, mode)(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -295,8 +302,8 @@ def _launch(name, k_tokens, q, k_pool, v_pool, block_tables, token_slot,
             block_tables.data_ptr(), token_slot.data_ptr(),
             token_pos.data_ptr(), out.data_ptr(), t_count // k_tokens, h,
             hkv, d, block_tables.shape[1], block_size,
-            int(window) if window is not None else 0, last,
-            1.0 / math.sqrt(d),
+            int(window) if window is not None else 0, *k_arg,
+            k_pool.shape[0], 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} ({mode}): CUDA kernel launch failed "
@@ -338,7 +345,9 @@ def _check_layout(name, tensors, block_size):
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str, mode: str):
     fn = getattr(_build.load("blocked_flash"), f"dstt_{name}_{mode}")
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+    # 9 pointers and 8 ints (generic) or 9 (decode / verify: k_tokens)
+    ints = 8 if name == "paged_attention" else 9
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * ints + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

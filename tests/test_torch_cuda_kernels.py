@@ -65,12 +65,49 @@ def test_quantized_matmul_kernel(cuda_device, m, k, n):
     assert (got.float() - want.float()).abs().max().item() <= TOL
 
 
+#: decode / verify layouts of long contexts, 5 units of 2 KV heads over a
+#: 4096-key table (block size, query heads, table width): block 16
+#: (cp.async gathers) and block 64 (TMA boxes, G = 8); contexts of ~2000
+#: and ~4000 tokens, a one-tile context and a pad
+_LONG_LAYOUTS = {"long-b16": (16, 4, 256), "long-b64-g8": (64, 16, 64)}
+_LONG_POS = [2001, 10, -1, 4090, 3999]
+
+
+def _check_long_decode(dev, head_dim, window, layout, int8):
+    """The decode kernel at a long layout against the plain version: both
+    bars, the pad unit exact zeros, one launch."""
+    bs, h, width = _LONG_LAYOUTS[layout]
+    rng = np.random.default_rng(head_dim + bs + int8)
+    (kp, vp), scales, tb = _paged_inputs(rng, dev, bs, h, 2, head_dim, 5,
+                                         width, int8)
+    q = torch.from_numpy(rng.standard_normal((5, h, head_dim))).to(
+        dev, torch.bfloat16)
+    ts = torch.arange(5, dtype=torch.int32, device=dev)
+    tp = torch.tensor(_LONG_POS, dtype=torch.int32, device=dev)
+    key = "paged_decode_attention" + ("_int8" if int8 else "")
+    before = tbf.LAUNCHES[key]
+    got = tbf.paged_decode_attention(q, kp, vp, tb, ts, tp, block_size=bs,
+                                     window=window, **scales)
+    torch.cuda.synchronize()
+    assert tbf.LAUNCHES[key] == before + 1
+    want = tbf.paged_attention_plain(q, kp, vp, tb, ts, tp, block_size=bs,
+                                     window=window, **scales)
+    assert (got.float() - want.float()).abs().max().item() <= TOL
+    assert _norm_rel(got, want) <= NORM_TOL
+    assert got[_LONG_POS.index(-1)].abs().max().item() == 0.0
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["served", *_LONG_LAYOUTS])
 @pytest.mark.parametrize("window", [None, 100])
 @pytest.mark.parametrize("head_dim", [64, 128])
-def test_paged_attention_kernels(cuda_device, head_dim, window):
+def test_paged_attention_kernels(cuda_device, head_dim, window, layout):
     """Both kernels with GQA (4 query heads over 2 KV heads), a block edge,
-    a pad row (position -1 -> zeros) and two slots sharing a block."""
+    a pad row (position -1 -> zeros) and two slots sharing a block; the
+    decode kernel also at the long layouts."""
+    if layout != "served":
+        _check_long_decode(cuda_device, head_dim, window, layout, False)
+        return
     bs, h, hkv, slots, width = 128, 4, 2, 5, 4
     rng = np.random.default_rng(head_dim)
     nb = slots * width + 1
@@ -525,11 +562,16 @@ def _paged_inputs(rng, dev, bs, h, hkv, d, slots, width, int8):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["served", *_LONG_LAYOUTS])
 @pytest.mark.parametrize("window", [None, 100])
 @pytest.mark.parametrize("head_dim", [64, 128])
-def test_paged_attention_int8_kernels(cuda_device, head_dim, window):
+def test_paged_attention_int8_kernels(cuda_device, head_dim, window, layout):
     """The decode and generic kernels over an int8 pool with its scales:
-    GQA, a block edge, a pad row (position -1 -> zeros), a shared block."""
+    GQA, a block edge, a pad row (position -1 -> zeros), a shared block;
+    the decode kernel also at the long layouts."""
+    if layout != "served":
+        _check_long_decode(cuda_device, head_dim, window, layout, True)
+        return
     bs, h, hkv = 128, 4, 2
     rng = np.random.default_rng(head_dim + 1)
     (kp, vp), scales, tb = _paged_inputs(rng, cuda_device, bs, h, hkv,
@@ -556,21 +598,26 @@ def test_paged_attention_int8_kernels(cuda_device, head_dim, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["served", "long-b16", "long-b64"])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("window", [None, 24])
 @pytest.mark.parametrize("head_dim,h,hkv,k_tokens", [
     (128, 4, 4, 5), (64, 8, 2, 4), (128, 8, 2, 3)])
 def test_paged_verify_kernel(cuda_device, head_dim, h, hkv, k_tokens,
-                             window, int8):
+                             window, int8, layout):
     """K rows per slot against the plain version (the generic function):
     two slots share a block, one is a pad slot (position 0 over trash
-    tables, which must come out finite), contexts cross block edges."""
-    bs = 16
+    tables, which must come out finite), contexts cross block edges; the
+    long layouts (block 16: cp.async gathers, block 64: TMA boxes) put
+    contexts of ~2000 and ~4000 tokens and a one-tile context."""
+    bs, width = {"served": (16, 6), "long-b16": (16, 256),
+                 "long-b64": (64, 64)}[layout]
     rng = np.random.default_rng(head_dim + k_tokens)
     (kp, vp), scales, tb = _paged_inputs(rng, cuda_device, bs, h, hkv,
-                                         head_dim, 4, 6, int8)
+                                         head_dim, 4, width, int8)
     tb[3] = 0                                    # the pad slot: all trash
-    pos0 = np.asarray([37, 5, 61 + 16 - k_tokens, 0])
+    pos0 = (np.asarray([37, 5, 61 + 16 - k_tokens, 0]) if layout == "served"
+            else np.asarray([2001, 10, 4096 - k_tokens, 0]))
     ts = torch.from_numpy(np.repeat(np.arange(4), k_tokens).astype(
         np.int32)).to(cuda_device)
     tp = torch.from_numpy((pos0[:, None] + np.arange(k_tokens)).reshape(
@@ -591,36 +638,65 @@ def test_paged_verify_kernel(cuda_device, head_dim, h, hkv, k_tokens,
     assert torch.isfinite(got.float()).all()
 
 
-# A fault planted in a copy of csrc/blocked_flash.cu: each verify row's
-# causal frontier one key too far, so row k also sees row k + 1's key (the
-# walk stops at pos0 + K - 1: the last row, and every decode and generic
-# row, stay right).
-_VERIFY_FRONTIER = ("const bool vis = valid && c <= pr &&",
-                    "const bool vis = valid && c <= pr + 1 &&")
-
-
 @pytest.mark.cuda
-def test_paged_norm_bar_catches_planted_verify_frontier(cuda_device,
-                                                        tmp_path,
-                                                        monkeypatch):
-    """At chip_smoke.py's phase-3 verify shape (S=8, K=5, contexts
-    257-330, 32 heads, D=128, block 128), bf16 and int8 pools: the kernel
-    as built passes both bars, and the planted frontier fault, built from
-    a copy of the source in a temporary directory, reads above the norm
-    bar."""
-    bs, k_tokens = 128, 5
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_decode_verify_bit_equal_over_two_runs(cuda_device, int8):
+    """The decode and verify kernel merges its warps' softmax states in a
+    fixed order: two runs at long contexts give bit-equal outputs."""
+    bs, h, width = _LONG_LAYOUTS["long-b16"]
+    rng = np.random.default_rng(5)
+    (kp, vp), scales, tb = _paged_inputs(rng, cuda_device, bs, h, 2, 128, 5,
+                                         width, int8)
+    ts = torch.arange(5, dtype=torch.int32, device=cuda_device)
+    tp = torch.tensor(_LONG_POS, dtype=torch.int32, device=cuda_device)
+    q = torch.from_numpy(rng.standard_normal((5, h, 128))).to(
+        cuda_device, torch.bfloat16)
+    vts = torch.from_numpy(np.repeat(np.arange(5), 4).astype(np.int32)).to(
+        cuda_device)
+    vtp = torch.from_numpy((np.asarray([2001, 10, 0, 4000, 3990])[:, None]
+                            + np.arange(4)).reshape(-1).astype(np.int32)).to(
+        cuda_device)
+    vq = torch.from_numpy(rng.standard_normal((20, h, 128))).to(
+        cuda_device, torch.bfloat16)
+    runs = [(tbf.paged_decode_attention(q, kp, vp, tb, ts, tp, block_size=bs,
+                                        **scales),
+             tbf.paged_verify_attention(vq, kp, vp, tb, vts, vtp,
+                                        block_size=bs, k_tokens=4, **scales))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+# A fault planted in a copy of csrc/blocked_flash.cu: each decode and
+# verify row's causal frontier one key too far, so row k also sees row k +
+# 1's key (the generic kernel's rows stay right).
+_VERIFY_FRONTIER = ("r_pos[h] = r < rows ? pos0 + r / group : -1;",
+                    "r_pos[h] = r < rows ? pos0 + r / group + 1 : -1;")
+# ... and one in the merge of the block's warps: the last warp's softmax
+# state (a quarter of every tile's keys) dropped.
+_WARP_MERGE = ("for (int w = 0; w < kWarps; ++w) {",
+               "for (int w = 0; w < kWarps - 1; ++w) {")
+
+
+def _phase3_verify_cases(dev):
+    """chip_smoke.py's phase-3 verify shape (S=8, K=5, contexts 257-330,
+    32 heads, D=128, block 128), bf16 and int8 pools: a function giving
+    each mode's (max-abs, norm-rel) error against the plain version
+    through the library loaded at the time of the call."""
+    bs, k_tokens, slots = 128, 5, 8
     rng = np.random.default_rng(17)
-    pos0 = rng.integers(257, 327, size=8)
-    ts = torch.from_numpy(np.repeat(np.arange(8), k_tokens).astype(
-        np.int32)).to(cuda_device)
+    pos0 = rng.integers(257, 327, size=slots)
+    ts = torch.from_numpy(np.repeat(np.arange(slots), k_tokens).astype(
+        np.int32)).to(dev)
     tp = torch.from_numpy((pos0[:, None] + np.arange(k_tokens)).reshape(
-        -1).astype(np.int32)).to(cuda_device)
+        -1).astype(np.int32)).to(dev)
     q = torch.from_numpy(rng.standard_normal(
-        (8 * k_tokens, 32, 128))).to(cuda_device, torch.bfloat16)
+        (slots * k_tokens, 32, 128))).to(dev, torch.bfloat16)
     cases = {}
     for int8 in (False, True):
-        (kp, vp), scales, tb = _paged_inputs(rng, cuda_device, bs, 32, 32,
-                                             128, 8, 3, int8)
+        (kp, vp), scales, tb = _paged_inputs(rng, dev, bs, 32, 32, 128,
+                                             slots, 3, int8)
         want = tbf.paged_attention_plain(q, kp, vp, tb, ts, tp,
                                          block_size=bs, **scales)
         cases["int8" if int8 else "bf16"] = (kp, vp, scales, tb, want)
@@ -635,27 +711,49 @@ def test_paged_norm_bar_catches_planted_verify_frontier(cuda_device,
                          _norm_rel(got, want))
         return out
 
+    return errors
+
+
+def _planted_verify_bars(tmp_path, monkeypatch, dev, fault, label):
+    """The phase-3 verify errors of the built kernel and of one built from
+    a copy of its source with ``fault`` planted: the first pass both bars,
+    the second reads above the norm bar."""
+    errors = _phase3_verify_cases(dev)
     built = errors()
-    src = (_build.CSRC / "blocked_flash.cu").read_text()
-    assert src.count(_VERIFY_FRONTIER[0]) == 1
-    cu, so = tmp_path / "frontier.cu", tmp_path / "libfrontier.so"
-    cu.write_text(src.replace(*_VERIFY_FRONTIER))
-    proc = subprocess.run(
-        _build.nvcc_command(cu, so),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    assert proc.returncode == 0, proc.stdout.decode()[-2000:]
-    monkeypatch.setitem(_build._LIBS, "blocked_flash", ctypes.CDLL(str(so)))
+    monkeypatch.setitem(_build._LIBS, "blocked_flash",
+                        _planted(tmp_path, "blocked_flash", [fault]))
     tbf._kernel.cache_clear()
     try:
         planted = errors()
     finally:
         tbf._kernel.cache_clear()
-    for label, errs in (("built", built), ("planted frontier", planted)):
-        print(f"verify {label}: " + ", ".join(
+    for name, errs in (("built", built), (label, planted)):
+        print(f"verify {name}: " + ", ".join(
             f"{m} max-abs {a:.3g} norm-rel {n:.3g}"
             for m, (a, n) in errs.items()))
     assert all(a <= TOL and n <= NORM_TOL for a, n in built.values()), built
     assert all(n > NORM_TOL for _, n in planted.values()), planted
+
+
+@pytest.mark.cuda
+def test_paged_norm_bar_catches_planted_verify_frontier(cuda_device,
+                                                        tmp_path,
+                                                        monkeypatch):
+    """At chip_smoke.py's phase-3 verify shape, bf16 and int8 pools: the
+    kernel as built passes both bars, and the planted frontier fault,
+    built from a copy of the source in a temporary directory, reads above
+    the norm bar."""
+    _planted_verify_bars(tmp_path, monkeypatch, cuda_device,
+                         _VERIFY_FRONTIER, "planted frontier")
+
+
+@pytest.mark.cuda
+def test_paged_norm_bar_catches_planted_warp_merge(cuda_device, tmp_path,
+                                                   monkeypatch):
+    """At phase 3's verify shape: a merge of the block's warps that drops
+    the last warp's state reads above the norm bar."""
+    _planted_verify_bars(tmp_path, monkeypatch, cuda_device, _WARP_MERGE,
+                         "planted merge")
 
 
 @pytest.mark.cuda
