@@ -49,12 +49,14 @@ Phases, each fatal on failure:
    Every serving kernel's launch count is set to 0 just before and must be
    > 0 just after;
 6. the flash-attention kernels (forward, dQ, dK/dV) against their plain
-   versions in bf16 at four shapes — the bench model's, Llama-2-70B's head
-   geometry, a sliding window, a rectangular end-aligned case — o, lse,
-   delta, dq, dk, dv each within 3e-2 of the plain version's largest
-   magnitude and within 1e-2 in norm (|got - want|_2 / |want|_2), timed
-   beside the plain versions, ``F.scaled_dot_product_attention`` (a
-   yardstick only) and the bound;
+   versions in bf16 at five shapes — the bench model's, Llama-2-70B's head
+   geometry, a sliding window, a rectangular end-aligned case, the bench
+   width at S = 4096 — o, lse, delta, dq, dk, dv each within 3e-2 of the
+   plain version's largest magnitude and within 1e-2 in norm (|got -
+   want|_2 / |want|_2), two runs bit-equal, timed beside the plain
+   versions, ``F.scaled_dot_product_attention`` (forward, forward and
+   backward, and its backward alone: a yardstick only) and the bound, with
+   each launch's grid, tiles, registers, spills and tensor-map host time;
 7. the training slice: the bench Llama (hidden 768, 12 heads, vocab 32000)
    at 2 layers, batch 8 x 1024, 3 engine steps through the kernels and 3
    through the plain versions from the same init and ids: losses within
@@ -139,9 +141,9 @@ Phases, each fatal on failure:
    ``c_attn`` output), the bench model's TPU geometry (6 heads, d = 128,
    16 x 1024), Llama-2-70B's heads as views of a fused ``qkv_proj`` output,
    a sliding window, a rectangular end-aligned case (k / v views); the
-   contiguous mode on ``.contiguous()`` copies must give the same bits;
-   each timed beside the contiguous mode plus its copies, the plain
-   versions, SDPA (a yardstick) and the bound;
+   contiguous mode on ``.contiguous()`` copies must give the same bits, as
+   must two runs; each timed beside the contiguous mode plus its copies,
+   the plain versions, SDPA (a yardstick) and the bound;
 17. GPT-2-125M at full width and 12 layers, random fp32 weights drawn on
    the card from SEED, batch 8 x 1024, the bench ds_config with
    ``attention_layout`` "paired": 3 engine steps through the kernels and 3
@@ -1857,6 +1859,7 @@ FLASH_CASES = (
     ("70B heads B2 S2048 H64/8 D128", 2, 2048, 2048, 64, 8, 128, None),
     ("window 256 B2 S2048 H8 D64", 2, 2048, 2048, 8, 8, 64, 256),
     ("rect Sq512 Sk1024 B2 H8 D64", 2, 512, 1024, 8, 8, 64, None),
+    ("bench width B2 S4096 H12 D64", 2, 4096, 4096, 12, 12, 64, None),
 )
 
 
@@ -1941,13 +1944,30 @@ def flash_case(torch, gen, dev, name, b, sq, sk, h, hkv, d, window,
         ops.append(dict(q=q, k=k, v=v, do=do, qs=qs, o=o, lse=lse,
                         delta=delta))
     x = ops[0]
-    got = {"o": x["o"], "lse": x["lse"], "delta": x["delta"]}
-    got["dq"], _ = fa.flash_attention_bwd_dq(
+    got = {}
+    launch = {}
+    got["o"], got["lse"] = fwd(x["qs"], x["k"], x["v"])
+    launch["fwd"] = fa.last_launch_info()
+    got["dq"], got["delta"] = fa.flash_attention_bwd_dq(
         x["qs"], x["k"], x["v"], x["o"], x["do"], x["lse"], scale, True,
         window, entry)
+    launch["bwd_dq"] = fa.last_launch_info()
     got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(
         x["qs"], x["k"], x["v"], x["do"], x["lse"], x["delta"], True, window,
         entry)
+    launch["bwd_dkv"] = fa.last_launch_info()
+    # two runs give the same bits (every sum in a fixed order)
+    again = dict(zip(("o", "lse"), fwd(x["qs"], x["k"], x["v"])))
+    again["dq"], again["delta"] = fa.flash_attention_bwd_dq(
+        x["qs"], x["k"], x["v"], x["o"], x["do"], x["lse"], scale, True,
+        window, entry)
+    again["dk"], again["dv"] = fa.flash_attention_bwd_dkv(
+        x["qs"], x["k"], x["v"], x["do"], x["lse"], x["delta"], True, window,
+        entry)
+    reproducible = all(torch.equal(got[key], again[key]) for key in got) \
+        and torch.equal(got["o"], x["o"]) and torch.equal(got["delta"],
+                                                          x["delta"])
+    del again
     bit_equal = None
     if fused is not None:
         kc, vc = x["k"].contiguous(), x["v"].contiguous()
@@ -2069,16 +2089,35 @@ def flash_case(torch, gen, dev, name, b, sq, sk, h, hkv, d, window,
     with torch.no_grad():
         lib_fwd = time_ms(sdpa, sets, iters)
     lib_fwd_bwd = time_ms(sdpa_fwd_bwd, sets, iters)
+    # the backward alone: one autograd call over SDPA's saved forward
+    # computes dQ, dK and dV together (the yardstick of dQ + dK/dV)
+    saved = [sdpa(i) for i in range(sets)]
+    lib_bwd = time_ms(lambda i: torch.autograd.grad(
+        saved[i], lib[i][:3], lib[i][3], retain_graph=True), sets, iters)
+    del saved
     return {
         "name": name, "shape": [b, sq, sk, h, hkv, d, window],
         "fused": fused, "strides": {n: x[n].stride(1) for n in "qkv"},
         "bit_equal_to_contiguous": bit_equal,
+        "reproducible": reproducible, "launch": launch,
         "rel_err": rel, "norm_rel_err": norm_rel, "abs_err": abs_err,
         "ms": t, "plain_ms": plain,
-        "library_ms": {"fwd": lib_fwd, "fwd+bwd": lib_fwd_bwd},
+        "library_ms": {"fwd": lib_fwd, "fwd+bwd": lib_fwd_bwd,
+                       "bwd": lib_bwd},
         "bound_ms": {k: v[0] for k, v in bounds.items()},
         "bound_by": {k: v[1] for k, v in bounds.items()},
     }
+
+
+def print_launches(case):
+    """Each flash launch of a phase-6 / phase-16 case: its grid, tiles,
+    registers, spills and the host us spent encoding its tensor maps."""
+    for kname, li in case["launch"].items():
+        print(f"    [launch] {kname}: grid {li['blocks']} x {li['threads']} "
+              f"threads, tile {li['block_rows']} x {li['step_rows']} "
+              f"({li['stages']} stages, {li['smem_bytes']} B shared), "
+              f"registers {li['registers']}, spill {li['local_bytes']} B, "
+              f"tensor maps {li['encode_us']:.1f} us", flush=True)
 
 
 BENCH_DS_CONFIG = {
@@ -3166,7 +3205,13 @@ def block_sparse_case(torch, np, gen, dev, name, layout, b, h, s, d, block,
                 do)
 
         case["library_ms"]["fwd_bwd"] = time_ms(sdpa_fwd_bwd, 1, 3)
-        del deltas, leaves
+        # the backward alone: one autograd call over SDPA's saved forward
+        # computes dQ, dK and dV together
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        case["library_ms"]["bwd"] = time_ms(
+            lambda i: torch.autograd.grad(out, leaves, do,
+                                          retain_graph=True), 1, 3)
+        del deltas, leaves, out
     del res, ops, qs
     bounds = bsa_bounds(bsl, b, h, s, d, elt,
                         FP32_FLOPS if dt == torch.float32 else BF16_FLOPS,
@@ -3603,16 +3648,20 @@ def main() -> int:
               f"{c['plain_ms']['fwd']:.3f} fwd+bwd "
               f"{c['plain_ms']['fwd+bwd']:.3f} | library fwd "
               f"{c['library_ms']['fwd']:.4f} fwd+bwd "
-              f"{c['library_ms']['fwd+bwd']:.4f} | bound fwd "
+              f"{c['library_ms']['fwd+bwd']:.4f} bwd "
+              f"{c['library_ms']['bwd']:.4f} | bound fwd "
               f"{c['bound_ms']['fwd']:.4f} fwd+bwd "
               f"{c['bound_ms']['fwd+bwd']:.4f} "
-              f"({c['bound_by']['fwd+bwd']})", flush=True)
+              f"({c['bound_by']['fwd+bwd']}) | reproducible "
+              f"{c['reproducible']}", flush=True)
+        print_launches(c)
     bad = [c["name"] for c in flash
            if not all(v <= TOL for v in c["rel_err"].values())
-           or not all(v <= NORM_TOL for v in c["norm_rel_err"].values())]
+           or not all(v <= NORM_TOL for v in c["norm_rel_err"].values())
+           or not c["reproducible"]]
     if bad:
-        return fail(f"flash kernels disagree with their plain versions: "
-                    f"{bad}")
+        return fail(f"flash kernels disagree with their plain versions, or "
+                    f"two runs differ: {bad}")
 
     # 7. the training slice: kernels vs plain versions, 2 layers
     t_slice = training_kernel_vs_plain(torch, np, dev)
@@ -3759,15 +3808,21 @@ def main() -> int:
               f"{c['ms']['fwd+bwd contiguous + copies']:.4f} | plain "
               f"{c['plain_ms']['fwd+bwd']:.3f} | SDPA "
               f"{c['library_ms']['fwd+bwd']:.4f} | bound "
-              f"{c['bound_ms']['fwd+bwd']:.4f} ({c['bound_by']['fwd+bwd']})",
-              flush=True)
+              f"{c['bound_ms']['fwd+bwd']:.4f} ({c['bound_by']['fwd+bwd']})"
+              f" | ms fwd {c['ms']['fwd']:.4f} dq {c['ms']['bwd_dq']:.4f} "
+              f"dkv {c['ms']['bwd_dkv']:.4f} | SDPA fwd "
+              f"{c['library_ms']['fwd']:.4f} bwd {c['library_ms']['bwd']:.4f}"
+              f" | reproducible {c['reproducible']}", flush=True)
+        print_launches(c)
     bad = [c["name"] for c in strided
            if not all(v <= TOL for v in c["rel_err"].values())
            or not all(v <= NORM_TOL for v in c["norm_rel_err"].values())
-           or not all(c["bit_equal_to_contiguous"].values())]
+           or not all(c["bit_equal_to_contiguous"].values())
+           or not c["reproducible"]]
     if bad:
         return fail(f"strided flash kernels disagree with their plain "
-                    f"versions or with the contiguous mode: {bad}")
+                    f"versions or with the contiguous mode, or two runs "
+                    f"differ: {bad}")
 
     # 17. the slice checked: GPT-2-125M, 12 layers, paired; kernels vs
     # plain vs fp32, and the folded and bshd layouts against paired
@@ -3996,10 +4051,11 @@ def main() -> int:
                 "ms": c["ms"][kname], "plain_ms": c["plain_ms"][kname],
                 "bound_ms": c["bound_ms"][kname],
                 "bound_by": c["bound_by"][kname],
-                # SDPA's forward computes o; no one PyTorch call computes
-                # dQ or dK/dV alone (its fwd+bwd is in chip_smoke.json)
-                "library_ms": c["library_ms"]["fwd"] if kname == "fwd"
-                else None,
+                # SDPA's forward computes o; one autograd call over its
+                # saved forward computes dQ, dK and dV together: the
+                # yardstick of both backward launches
+                "library_ms": c["library_ms"]["fwd" if kname == "fwd"
+                                              else "bwd"],
             })
     # B7 / B8: the strided mode through the folded and paired entries (one
     # kernel family: a case's times serve both entries); launches from
@@ -4025,8 +4081,8 @@ def main() -> int:
                     "ms": c["ms"][kname], "plain_ms": c["plain_ms"][kname],
                     "bound_ms": c["bound_ms"][kname],
                     "bound_by": c["bound_by"][kname],
-                    "library_ms": c["library_ms"]["fwd"] if kname == "fwd"
-                    else None,
+                    "library_ms": c["library_ms"]["fwd" if kname == "fwd"
+                                                  else "bwd"],
                 })
     for c in qcases:
         kernels.append({
@@ -4066,11 +4122,12 @@ def main() -> int:
                 "plain_ms": c["plain_ms"][kname],
                 "bound_ms": c["bounds"][kname]["bound_ms"],
                 "bound_by": c["bounds"][kname]["bound_by"],
-                # SDPA over the expanded mask computes the forward; no one
-                # PyTorch call computes dQ or dK/dV alone (fwd+bwd is in
-                # chip_smoke.json)
-                "library_ms": c["library_ms"]["fwd"] if kname == "fwd"
-                else None,
+                # SDPA over the expanded mask computes the forward; one
+                # autograd call over its saved forward computes dQ, dK
+                # and dV together (the forward-only S = 16384 case has
+                # none)
+                "library_ms": c["library_ms"].get("fwd" if kname == "fwd"
+                                                  else "bwd"),
             })
     record = {"kernels": kernels}
     out_dir = ROOT / "chiprun_out"

@@ -9,14 +9,17 @@ Hkv*D]``, and return ``[B, Sq, H*D]``.  All three are one
 ``torch.autograd.Function`` mirroring the JAX package's ``custom_vjp``
 (``flash_attention.py:436-458``): the forward pre-scales q once, rounds it
 to the input type, and saves ``(q_scaled, k, v, o, lse)``; the backward runs
-dQ (which also forms ``delta = rowsum(dO * O)``), then dK / dV.
+dQ (which also forms ``delta = rowsum(dO * O)``), then dK / dV: two
+launches whose sums run in a fixed order, so two runs give the same bits.
 
-On CUDA tensors the three steps are the hand-written kernels of
-``deepspeed_tpu_torch/csrc/flash_attention.cu`` (forward, dQ, dK/dV), which
-take bf16 or fp16 with a head dim of 64 or 128 and raise on anything else.
-They read every operand through its own row stride, so k and v may be
-column slices of one fused projection output (GPT-2's ``c_attn``, Llama's
-``qkv_proj``) and are never copied; each row must start on 16 bytes.  The
+On CUDA tensors the three steps are the hand-written Hopper kernels of
+``deepspeed_tpu_torch/csrc/flash_attention.cu``: warp-specialised blocks
+(one TMA producer warpgroup, one or two wgmma warpgroups of 64 rows; the
+tiles are :data:`KERNEL_TILES`), bf16 or fp16 with a head dim of 64 or
+128; anything else raises.  Each operand is read through a TMA tensor map
+over its own row stride, so q, k and v may be column slices of one fused
+projection output (GPT-2's ``c_attn``, Llama's ``qkv_proj``) and are never
+copied; each row must start on 16 bytes.  The
 folded and paired entries launch the same kernels (on Hopper there are no
 lanes to fill by pairing heads: ``csrc/flash_attention.cu`` says why); each
 keeps its own eligibility rule and its own launch counters.  On CPU tensors
@@ -25,7 +28,14 @@ the steps are the plain versions, :func:`flash_attention_plain_fwd` and
 rounding (P and dS rounded to the input type before their products) in fp32
 math.  ``LAUNCHES`` counts the kernel launches by kernel and entry:
 ``flash_attention_fwd`` for the bshd entry, ``flash_attention_fwd_folded``
-and ``flash_attention_fwd_paired`` for the others.
+and ``flash_attention_fwd_paired`` for the others; :func:`last_launch_info`
+reports the last launch's grid, tiles, registers and tensor-map cost.
+
+:func:`flash_tile_walk` is the kernels' tile walk in plain Python (which
+tiles each launch visits, which pay the mask, the launch order) and
+:func:`flash_attention_tiled_plain` the kernels' arithmetic over it (online
+softmax in exp2, P and dS rounded per tile, dK/dV summed over the GQA
+group); the tests hold both to the mask and to the JAX kernels.
 
 Masking is end-aligned causal (row ``r`` sees column ``c`` when
 ``r + Sk - Sq >= c``), optionally limited to the last ``window`` columns.
@@ -186,6 +196,185 @@ def flash_attention_plain_bwd(qs, k, v, o, lse, do, *, scale: float,
         qs, k, v, do, lse, delta, causal=causal, window=window)
 
 
+#: the kernels' tiles by head dim (csrc/flash_attention.cu ``Tiles``), as
+#: :func:`flash_tile_walk`'s ``(block_q, block_k)``: for the forward and
+#: dQ, the q rows of a block (one or two warpgroups of 64, each masking
+#: its own 64 rows) and the keys a step; for dK/dV, the q rows a step and
+#: the keys of a block (one warpgroup)
+KERNEL_TILES = {
+    64: {"fwd": (64, 128), "bwd_dq": (64, 64), "bwd_dkv": (64, 64)},
+    128: {"fwd": (128, 128), "bwd_dq": (128, 64), "bwd_dkv": (32, 64)},
+}
+#: rows of one warpgroup's tile, the granularity of the mask decision
+MASK_ROWS = 64
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _k_tiles(sq, sk, causal, window, r0, r1, bk):
+    """The k tiles [begin, end) of ``bk`` keys that rows [r0, r1) see
+    (``k_tiles`` in the kernels)."""
+    off = sk - sq
+    begin, end = 0, _cdiv(sk, bk)
+    if not causal:
+        return begin, end
+    hi = r1 - 1 + off                       # the last key row r1 - 1 sees
+    end = 0 if hi < 0 else min(end, hi // bk + 1)
+    lo = r0 + off - (window or 0) + 1       # the first key row r0 sees
+    if window and lo > 0:
+        begin = lo // bk
+    return begin, end
+
+
+def _q_tiles(sq, sk, causal, window, c0, c1, bq):
+    """The q tiles [begin, end) of ``bq`` rows whose rows see keys [c0, c1)
+    (``q_tiles`` in the kernels)."""
+    off = sk - sq
+    begin, end = 0, _cdiv(sq, bq)
+    if not causal:
+        return begin, end
+    lo = c0 - off                           # the first row that sees key c0
+    if lo > 0:
+        begin = min(lo // bq, end)
+    if window:
+        hi = c1 - 1 - off + window - 1      # the last row that sees key c1 - 1
+        end = 0 if hi < 0 else min(end, hi // bq + 1)
+    return begin, end
+
+
+def _whole_tile(sq, sk, causal, window, r0, nr, c0, nc) -> bool:
+    """Whether every (row, key) of rows [r0, r0 + nr) x keys [c0, c0 + nc)
+    is visible and in range (``whole_tile`` in the kernels): such a tile
+    skips the per-score mask."""
+    if r0 + nr > sq or c0 + nc > sk:
+        return False
+    if not causal:
+        return True
+    off = sk - sq
+    return (r0 + off >= c0 + nc - 1
+            and (not window or c0 > r0 + nr - 1 + off - window))
+
+
+def flash_tile_walk(sq: int, sk: int, causal: bool, window: Optional[int],
+                    block_q: int, block_k: int) -> dict:
+    """The kernels' tile walk, in plain Python (``csrc/flash_attention.cu``
+    mirrors it): which tiles a launch visits, which of them pay the mask,
+    and in which order the tiles are launched.
+
+    * ``"q"``: for the forward and dQ, one entry per q tile of
+      ``block_q`` rows, ``(r0, r1, begin, end, whole)``: its rows [r0, r1)
+      (r1 <= Sq), the k tiles [begin, end) of ``block_k`` keys it visits,
+      and for each of them whether the tile of rows x keys is whole (no
+      mask);
+    * ``"k"``: for dK/dV, one entry per k tile of ``block_k`` keys,
+      ``(c0, c1, begin, end, whole)``: its keys, the q tiles of
+      ``block_q`` rows it visits (for each query head of the GQA group),
+      and whether each is whole;
+    * ``"q_order"`` / ``"k_order"``: the order in which the blocks are
+      launched, the causal tiles that do the most work first (the last q
+      tile first; the first k tile first).
+
+    A forward or dQ block of the kernels walks ``"q"`` at its 128 rows
+    and decides the mask per 64-row warpgroup, as the walk at
+    ``block_q = 64`` gives it (:data:`KERNEL_TILES`, :data:`MASK_ROWS`).
+    """
+    window = window or None
+    q_walk = []
+    for r0 in range(0, sq, block_q):
+        r1 = min(r0 + block_q, sq)
+        begin, end = _k_tiles(sq, sk, causal, window, r0, r1, block_k)
+        q_walk.append((r0, r1, begin, end, [
+            _whole_tile(sq, sk, causal, window, r0, block_q, j * block_k,
+                        block_k) for j in range(begin, end)]))
+    k_walk = []
+    for c0 in range(0, sk, block_k):
+        c1 = min(c0 + block_k, sk)
+        begin, end = _q_tiles(sq, sk, causal, window, c0, c1, block_q)
+        k_walk.append((c0, c1, begin, end, [
+            _whole_tile(sq, sk, causal, window, i * block_q, block_q, c0,
+                        block_k) for i in range(begin, end)]))
+    return {"q": q_walk, "k": k_walk,
+            "q_order": list(range(len(q_walk)))[::-1],
+            "k_order": list(range(len(k_walk)))}
+
+
+def flash_attention_tiled_plain(qs, k, v, do=None, *, causal: bool = True,
+                                window: Optional[int] = None,
+                                block_q: int = 128, block_k: int = 128):
+    """The kernels' arithmetic over :func:`flash_tile_walk`'s tiles, in
+    plain PyTorch: the forward's online softmax in fp32 (exp2, the running
+    max in log2 units), P rounded to the input type before P V, the mask
+    only on tiles that are not whole; with ``do``, dK/dV as the dK/dV
+    launch forms them, P^T and dS^T rounded before their products, each KV
+    head's gradient summed over its query heads in fp32 and rounded once.
+    Returns ``(o, lse)``, or ``(o, lse, dk, dv)`` with ``do`` (delta is
+    rowsum(dO * O) of the rounded o).  For the tests: the main path runs
+    the kernels (CUDA) or the dense plain versions (CPU)."""
+    b, sq, h, d = qs.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    dtype = qs.dtype
+    log2e = 1.0 / math.log(2.0)
+    walk = flash_tile_walk(sq, sk, causal, window, block_q, block_k)
+    keep = _keep(sq, sk, causal, window, qs.device)
+    qf = qs.float().transpose(1, 2)                     # [B, H, Sq, D]
+    kf = k.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(g, dim=2).transpose(1, 2)
+
+    def rnd(x):
+        return x.to(dtype).float()
+
+    o = torch.zeros((b, h, sq, d), dtype=torch.float32, device=qs.device)
+    lse = torch.full((b, h, sq), NEG_INF, dtype=torch.float32,
+                     device=qs.device)
+    for r0, r1, begin, end, whole in walk["q"]:
+        m = torch.full((b, h, r1 - r0), NEG_INF, device=qs.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, h, r1 - r0, d), device=qs.device)
+        for j, is_whole in zip(range(begin, end), whole):
+            c0, c1 = j * block_k, min((j + 1) * block_k, sk)
+            s = qf[:, :, r0:r1] @ kf[:, :, c0:c1].transpose(-1, -2)
+            if not is_whole:
+                s = s.masked_fill(~keep[r0:r1, c0:c1], float("-inf"))
+            m_new = torch.maximum(m, s.amax(-1) * log2e)
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s * log2e - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + rnd(p) @ vf[:, :, c0:c1]
+            m = m_new
+        safe = torch.where(l == 0, torch.ones_like(l), l)
+        o[:, :, r0:r1] = acc / safe[..., None]
+        lse[:, :, r0:r1] = torch.where(l == 0, torch.full_like(l, NEG_INF),
+                                       m * math.log(2.0) + torch.log(safe))
+    o = o.transpose(1, 2).to(dtype)
+    if do is None:
+        return o, lse
+    dof = do.float().transpose(1, 2)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)   # [B, H, Sq]
+    dk = torch.zeros((b, hkv, sk, d), device=qs.device)
+    dv = torch.zeros_like(dk)
+    for c0, c1, begin, end, whole in walk["k"]:
+        for hq in range(g):                 # the group's heads, in order
+            heads = slice(hq, h, g)         # head kh * g + hq of each KV head
+            for i, is_whole in zip(range(begin, end), whole):
+                r0, r1 = i * block_q, min((i + 1) * block_q, sq)
+                kk, qq = kf[:, heads, c0:c1], qf[:, heads, r0:r1]
+                st = kk @ qq.transpose(-1, -2)                 # [B, Hkv, keys, rows]
+                p = torch.exp2(st * log2e
+                               - lse[:, heads, None, r0:r1] * log2e)
+                if not is_whole:
+                    p = p.masked_fill(~keep[r0:r1, c0:c1].T, 0.0)
+                dpt = vf[:, heads, c0:c1] @ dof[:, heads, r0:r1].transpose(
+                    -1, -2)
+                ds = p * (dpt - delta[:, heads, None, r0:r1])
+                dv[:, :, c0:c1] += rnd(p) @ dof[:, heads, r0:r1]
+                dk[:, :, c0:c1] += rnd(ds) @ qq
+    return (o, lse, dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
 def _bshd_rows(t) -> bool:
     """Whether ``t`` [B, S, H, D] is laid out as the kernels read it: each
     head's D values contiguous at offset h * D of a row, and the batch
@@ -203,7 +392,7 @@ def _rows(t):
 
 def _aligned(t) -> bool:
     """Every row of ``t`` starts on 16 bytes (base pointer and row
-    stride), as the kernels' 16-byte loads need."""
+    stride), as the kernels' TMA loads need."""
     return (t.data_ptr() % 16 == 0
             and (t.shape[1] == 1 or t.stride(1) * t.element_size() % 16 == 0))
 
@@ -226,8 +415,8 @@ def _check(name, operands, stats, head_dim):
             raise ValueError(
                 f"{name}: every row must start on 16 bytes (base pointer "
                 f"{t.data_ptr()} and row stride {t.stride(1)} elements of "
-                f"{t.element_size()} bytes): the kernel reads 16-byte "
-                f"vectors")
+                f"{t.element_size()} bytes): the kernel reads rows by "
+                f"TMA")
     for t in stats:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: lse / delta must be contiguous")
@@ -564,6 +753,28 @@ def flash_attention_paired(q, k, v, *, num_heads: int,
     return _layout_attention("paired", paired_heads_per_block, q, k, v,
                              num_heads, num_kv_heads, causal, mask, scale,
                              window, block_q, block_k, use_kernel)
+
+
+_INFO_KEYS = ("blocks", "threads", "smem_bytes", "block_rows", "step_rows",
+              "stages", "registers", "local_bytes", "encode_us")
+
+
+def last_launch_info() -> dict:
+    """What the library's last kernel launch was (for reports): its
+    blocks, threads a block, dynamic shared memory, the rows of a block's
+    tile (q rows, or keys for dK/dV) and of a step's tile (keys, or q rows
+    for dK/dV), ring stages, registers a thread at launch, local memory a
+    thread (spills), and the host us spent encoding its TMA tensor maps."""
+    fn = _build.load("flash_attention").dstt_flash_launch_info
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(_INFO_KEYS))()
+    rc = fn(out)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch info: CUDA error {rc}")
+    info = dict(zip(_INFO_KEYS, out))
+    info["encode_us"] = info["encode_us"] / 1e3
+    return info
 
 
 @functools.lru_cache(maxsize=None)

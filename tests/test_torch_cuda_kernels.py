@@ -206,6 +206,9 @@ def _flash_errors(b, sq, sk, h, hkv, d, causal, window, dtype):
     (1, 200, 200, 4, 2, 64, True, None, "fp16"),
     (2, 333, 333, 4, 1, 128, True, 77, "fp16"),
     (1, 130, 300, 4, 2, 128, False, None, "fp16"),
+    (2, 4096, 4096, 12, 12, 64, True, None, "bf16"),    # bench width, S 4096
+    (3, 200, 200, 4, 2, 128, True, None, "bf16"),       # B > 1, TMA box past S
+    (2, 1, 300, 4, 2, 128, True, None, "bf16"),         # Sq = 1
 ])
 def test_flash_attention_kernels(cuda_device, b, sq, sk, h, hkv, d, causal,
                                  window, dtype):
@@ -218,23 +221,31 @@ def test_flash_attention_kernels(cuda_device, b, sq, sk, h, hkv, d, causal,
         assert rel <= TOL and norm_rel <= NORM_TOL, (name, rel, norm_rel)
 
 
-# Two faults planted in a copy of csrc/flash_attention.cu, each at the shape
+# Three faults planted in a copy of csrc/flash_attention.cu, each at the shape
 # where it shows: (text, replacement, shape as _flash_errors takes it).
 _PLANTED = {
-    # one key too many at the window's edge (keep() serves all three
-    # kernels): 257 keys a row where 256 are right
+    # one key too many at the window's edge (row_keys() serves the forward
+    # and dQ): 257 keys a row where 256 are right
     "window_edge": (
-        "(window <= 0 || c > r + off - window)",
-        "(window <= 0 || c >= r + off - window)",
+        "if (sh.window > 0) lo = r + off - sh.window + 1;",
+        "if (sh.window > 0) lo = r + off - sh.window;",
         (2, 2048, 2048, 8, 8, 64, True, 256)),
     # the forward's last q tile skips its last k tile (the diagonal one):
-    # 64 rows of 1024 lose their nearest 64 keys
+    # 64 rows of 1024 lose their nearest 64-128 keys
     "dropped_tile": (
-        "    const int c0 = nt * kTile;\n    __syncthreads();"
-        "                                // the last tile's reads are done",
-        "    if (blockIdx.x + 1 == gridDim.x && nt + 1 == n_end) break;\n"
-        "    const int c0 = nt * kTile;\n    __syncthreads();",
+        "int begin, end;                                 // the k tiles the "
+        "block's rows see\n"
+        "  k_tiles(sh, q0, min(q0 + kBlock, sh.sq), BK, begin, end);\n",
+        "int begin, end;\n"
+        "  k_tiles(sh, q0, min(q0 + kBlock, sh.sq), BK, begin, end);\n"
+        "  if (q0 + kBlock >= sh.sq && end > begin) --end;\n",
         (8, 1024, 1024, 12, 12, 64, True, None)),
+    # the dK/dV launch drops the last query head of each GQA group: at
+    # Llama-2-70B's heads (groups of 8) dK and dV lose an eighth of their sum
+    "dropped_group_head": (
+        "  const int n = group * per_head;\n",
+        "  const int n = (group - 1) * per_head;\n",
+        (2, 2048, 2048, 64, 8, 128, True, None)),
 }
 
 
@@ -242,8 +253,8 @@ _PLANTED = {
 def test_flash_norm_bar_catches_planted_faults(cuda_device, tmp_path,
                                                monkeypatch):
     """The norm bar of test_flash_attention_kernels sees faults that touch
-    only some rows: each planted fault, built from a copy of the source in
-    a temporary directory, puts some output above it."""
+    only some rows or some heads: each planted fault, built from a copy of
+    the source in a temporary directory, puts some output above it."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
     builds = {}
     for name, (old, new, _) in _PLANTED.items():
@@ -267,6 +278,35 @@ def test_flash_norm_bar_catches_planted_faults(cuda_device, tmp_path,
             f"{k} max-rel {r:.3g} norm-rel {n:.3g}"
             for k, (r, n) in errs.items()))
         assert max(n for _, n in errs.values()) > NORM_TOL, (name, errs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d,window", [
+    (2, 2048, 64, 8, 128, None),        # Llama-2-70B heads, GQA 8
+    (3, 333, 4, 2, 64, 77),             # window, tails, B > 1
+])
+def test_flash_kernels_are_bit_reproducible(cuda_device, b, s, h, hkv, d,
+                                            window):
+    """Two runs of the forward, dQ and dK/dV launches on the same inputs
+    give the same bits: every sum runs in a fixed order (no atomics)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + h)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=cuda_device,
+                               dtype=torch.bfloat16)
+                   for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d),
+                                 (b, s, h, d)))
+    scale = d ** -0.5
+    qs = (q.float() * scale).to(q.dtype)
+    runs = []
+    for _ in range(2):
+        o, lse = tfa.flash_attention_fwd(qs, k, v, True, window)
+        dq, delta = tfa.flash_attention_bwd_dq(qs, k, v, o, do, lse, scale,
+                                               True, window)
+        dk, dv = tfa.flash_attention_bwd_dkv(qs, k, v, do, lse, delta, True,
+                                             window)
+        runs.append((o, lse, delta, dq, dk, dv))
+    torch.cuda.synchronize()
+    for name, a, c in zip(("o", "lse", "delta", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, c), name
 
 
 @pytest.mark.cuda
