@@ -189,20 +189,28 @@ Phases, each fatal on failure:
    of one launch before each (what tells a slower tree from a slower
    process);
 22. Evoformer attention (``DS4Sci_EvoformerAttention``) against the plain
-   version, in bf16 through the tensor-core kernel at upstream DeepSpeed's
-   test shapes [1, 256, 256, 4, 32] (triangle attention at crop 256,
-   OpenFold's 4 pair heads of 32) and [1, 512, 256, 8, 8], OpenFold's MSA
-   row attention [1, 128, 256, 8, 32], a ragged S = 250, no biases, and
-   rows whose keys are all masked (-1e9: the mean of v), with the mask bias
+   version, in bf16 / fp16 through the tensor-core kernel (wgmma fed by a
+   TMA ring, every bias it is given) at upstream DeepSpeed's test shapes
+   [1, 256, 256, 4, 32] (triangle attention at crop 256, OpenFold's 4 pair
+   heads of 32) and [1, 512, 256, 8, 8], AlphaFold's crop 384 triangle
+   [1, 384, 384, 4, 32], OpenFold's MSA row attention [1, 128, 256, 8, 32],
+   a ragged S = 250, no biases, rows whose keys are all masked (-1e9: the
+   mean of v), three and eight biases, an fp32 mask with bf16 Q/K/V and
+   pair bias (autocast), fp16, D = 64 and D = 128, with the mask bias
    [B, N, 1, 1, S] and the pair bias [B, 1, H, S, S]; and through the
-   general kernel in fp32 at the triangle shape and in bf16 with a third
-   (per-row) bias at the MSA shape: the forward within 3e-2 max (fp32:
-   1e-4) and 1e-2 in norm, dQ, dK, dV and d(pair bias) of the autograd
-   Function within 5e-2 in norm of dense autograd; exactly one launch of
-   the routed kernel and none of the other a forward (counts set to 0 just
-   before each call); timed beside the plain version, SDPA over the summed
-   biases as one float mask (a yardstick) and the bound, with each
-   forward's peak memory;
+   general kernel in fp32 at the triangle shape: the forward within 3e-2
+   max (fp32: 1e-4) and 1e-2 in norm, dQ, dK, dV and d(pair bias) of the
+   autograd Function within 5e-2 in norm of dense autograd; exactly one
+   launch of the routed kernel and none of the other a forward (counts set
+   to 0 just before each call); every bf16 / fp16 case on the tensor-core
+   kernel and fp32 on the general one; two runs of the tensor-core kernel
+   bit-equal; each case's route, bias kinds and launch shape, timed beside
+   its time before the redesign (PERF.md row 22), the plain version, SDPA
+   over the summed biases as one float mask (a yardstick), the bound and
+   the exponentials' floor, with each forward's peak memory; and two faults
+   planted in copies of the kernel's source (the last key step dropped, the
+   bias tiles staged only at the first step), each of which must miss the
+   norm bar at the triangle shape;
 23. block-sparse attention (B11) at BERT width (12 heads of 64, S = 4096,
    batch 4, block 16) through ``SparseSelfAttention`` (implementation
    "auto": the kernels), forward and backward, under Fixed (upstream's
@@ -251,6 +259,7 @@ and prints no result.  Details of every kernel case go to
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -303,6 +312,15 @@ def bound(nbytes: float, flops: float, flops_per_s: float = None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / (flops_per_s or BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@functools.lru_cache(maxsize=None)
+def max_sm_clock_hz() -> float:
+    """The card's largest SM clock (nvidia-smi ``clocks.max.sm``), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0]) * 1e6
 
 
 COLD_BYTES = 100e6          # operand sets span twice the 50 MB L2
@@ -2832,76 +2850,141 @@ def quantized_served_run(torch, np, dev, prompts, gen_tokens=16):
 # --------------------------------------------------------------------- #
 # Phase 22: Evoformer attention (B12)
 # --------------------------------------------------------------------- #
-#: (name, lead dims, S, heads, d, biases, type): Q/K/V [*lead, S, H, d], the
-#: mask bias [B, N, 1, 1, S] (-1e9 on masked keys) and the pair bias
-#: [B, 1, H, S, S] ("three": and a per-row bias [B, N, H, S, 1]).  bf16 with
-#: at most two biases takes the tensor-core kernel; fp32 and three biases
-#: the general one
+#: (name, lead dims, S, heads, d, biases, type, old ms): Q/K/V [*lead, S,
+#: H, d] and the biases of ``evo_operands``.  Every bf16 / fp16 case takes
+#: the tensor-core kernel (mixed bias types, three and eight biases
+#: included); fp32 the general one.  "old ms" is the case's time before the
+#: tensor-core kernel's redesign (PERF.md row 22, on an NVIDIA H100 80GB
+#: HBM3 at 700 W; None for the cases added with it), printed beside this
+#: run's time; ``deepspeed_tpu_torch/tools/evo_variants.py --parent`` times
+#: the parent's kernels in the same run
 EVO_CASES = (
     ("triangle crop 256 (1,256,256,4,32)", (1, 256), 256, 4, 32, "both",
-     "bf16"),
-    ("DS4Sci test (1,512,256,8,8)", (1, 512), 256, 8, 8, "both", "bf16"),
-    ("MSA row (1,128,256,8,32)", (1, 128), 256, 8, 32, "both", "bf16"),
-    ("ragged S=250 (1,64,250,4,32)", (1, 64), 250, 4, 32, "both", "bf16"),
-    ("no biases (1,256,256,4,32)", (1, 256), 256, 4, 32, "none", "bf16"),
+     "bf16", 0.3143),
+    ("DS4Sci test (1,512,256,8,8)", (1, 512), 256, 8, 8, "both", "bf16",
+     0.9001),
+    ("MSA row (1,128,256,8,32)", (1, 128), 256, 8, 32, "both", "bf16",
+     0.3223),
+    ("ragged S=250 (1,64,250,4,32)", (1, 64), 250, 4, 32, "both", "bf16",
+     0.0951),
+    ("no biases (1,256,256,4,32)", (1, 256), 256, 4, 32, "none", "bf16",
+     0.2535),
     ("masked rows (1,256,256,4,32)", (1, 256), 256, 4, 32, "masked",
-     "bf16"),
+     "bf16", None),
     ("fp32 triangle crop 256 (1,256,256,4,32)", (1, 256), 256, 4, 32,
-     "both", "fp32"),
+     "both", "fp32", 1.2433),
     ("three biases MSA row (1,128,256,8,32)", (1, 128), 256, 8, 32, "three",
-     "bf16"),
+     "bf16", 1.3379),
+    ("triangle crop 384 (1,384,384,4,32)", (1, 384), 384, 4, 32, "both",
+     "bf16", None),
+    ("eight biases MSA row (1,128,256,8,32)", (1, 128), 256, 8, 32, "eight",
+     "bf16", None),
+    ("fp32 mask, bf16 pair (1,256,256,4,32)", (1, 256), 256, 4, 32,
+     "fp32_mask", "bf16", None),
+    ("fp16 triangle crop 256 (1,256,256,4,32)", (1, 256), 256, 4, 32, "both",
+     "fp16", None),
+    ("D=64 (1,128,256,8,64)", (1, 128), 256, 8, 64, "both", "bf16", None),
+    ("D=128 (1,64,256,4,128)", (1, 64), 256, 4, 128, "both", "bf16", None),
 )
 EVO_GRAD_NORM_TOL = 5e-2
 #: the general kernel in fp32 against the dense version in fp32
 EVO_FP32_TOL = 1e-4
 EVO_KEYS = {"mma": "evoformer_attention", "simt": "evoformer_attention_simt"}
+EVO_TYPES = {"bf16": "bfloat16", "fp16": "float16", "fp32": "float32"}
+#: the faults planted in copies of csrc/evoformer_attn.cu (each must miss
+#: the norm bar at the triangle shape): the last key step dropped (its
+#: scores -inf), and the bias tiles staged by TMA only at the first step
+#: (every later step reads a ring stage no load wrote)
+EVO_PLANTED = {
+    "dropped last key tile": ("const int valid = a.sk - c0;",
+                              "const int valid = i == n - 1 ? 0 : a.sk - c0;"),
+    "bias tile never staged": ("const bool stage_bias = true;",
+                               "const bool stage_bias = i == 0;"),
+}
 
 
-def evoformer_case(torch, gen, dev, name, lead, s, h, d, biases, dtype):
+def evo_operands(torch, gen, dev, lead, s, h, d, biases, dtype):
+    """Q/K/V [*lead, S, H, d] of ``dtype`` ("bf16", "fp16", "fp32") and the
+    biases: "both" the mask bias [B, N, 1, 1, S] (-1e9 on masked keys) and
+    the pair bias [B, 1, H, S, S] in Q's type; "masked" the same with every
+    key of 16 rows masked; "fp32_mask" the mask in fp32 (autocast's mixed
+    types); "three" both and a per-row bias [B, N, H, S, 1]; "eight" those
+    three and a scalar (fp32), a per-head value [H, 1, 1], a per-head key
+    bias [B, 1, H, 1, S] (fp16), a tile full in N [B, N, 1, S, S] and a pair
+    bias in fp32."""
+    dt = getattr(torch, EVO_TYPES[dtype])
+    b, n = lead
+
+    def rand(shape, t=dt):
+        return torch.randn(shape, generator=gen, device=dev, dtype=t)
+
+    q, k, v = (rand(lead + (s, h, d)) for _ in range(3))
+    if biases == "none":
+        return q, k, v, []
+    keep = torch.randint(0, 2, (b, n, s), generator=gen, device=dev)
+    if biases == "masked":
+        keep[:, :16] = 0                         # every key of 16 rows
+    mask = (1e9 * (keep - 1)).to(torch.float32 if biases == "fp32_mask"
+                                 else dt)[:, :, None, None, :]
+    bs = [mask, rand((b, 1, h, s, s))]
+    if biases in ("three", "eight"):
+        bs.append(rand((b, n, h, s, 1)))
+    if biases == "eight":
+        bs += [rand((1,), torch.float32), rand((h, 1, 1)),
+               rand((b, 1, h, 1, s), torch.float16),
+               rand((b, n, 1, s, s)), rand((b, 1, h, s, s), torch.float32)]
+    return q, k, v, bs
+
+
+def evo_sets(torch, lead, s, h, d, dtype) -> int:
+    """Operand sets for a phase-22 case's timing (each call cold in L2)."""
+    elt = torch.tensor([], dtype=getattr(torch, EVO_TYPES[dtype])).element_size()
+    return n_sets(4 * math.prod(lead) * s * h * d * elt + h * s * s * elt)
+
+
+def evoformer_case(torch, gen, dev, name, lead, s, h, d, biases, dtype,
+                   old_ms):
     """One phase-22 case: the forward through ``DS4Sci_EvoformerAttention``
     (one launch of the kernel ``kernel_route`` names, none of the other)
-    against the plain version, the gradients of the autograd Function
-    against dense autograd, times beside the plain version, SDPA over the
-    summed biases (a yardstick) and the bound, peak memory of each
-    forward."""
+    against the plain version, two runs of the kernel bit-equal, the
+    gradients of the autograd Function against dense autograd, times beside
+    the plain version, SDPA over the summed biases (a yardstick) and the
+    bound, peak memory of each forward, and the tensor-core launch's
+    shape."""
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops import evoformer_attn as evo
 
-    b, n = lead
-    L = b * n
-    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+    L = math.prod(lead)
+    dt = getattr(torch, EVO_TYPES[dtype])
     elt = torch.tensor([], dtype=dt).element_size()
     qkv_bytes = L * s * h * d * elt
-    sets = n_sets(4 * qkv_bytes + h * s * s * elt)
+    sets = evo_sets(torch, lead, s, h, d, dtype)
 
     def operands():
-        q, k, v = (torch.randn(lead + (s, h, d), generator=gen, device=dev,
-                               dtype=dt) for _ in range(3))
-        if biases == "none":
-            return q, k, v, []
-        keep = torch.randint(0, 2, (b, n, s), generator=gen, device=dev)
-        if biases == "masked":
-            keep[:, :16] = 0                     # every key of 16 rows
-        mask = (1e9 * (keep - 1)).to(dt)[:, :, None, None, :]
-        pair = torch.randn((b, 1, h, s, s), generator=gen, device=dev,
-                           dtype=dt)
-        if biases == "three":
-            row = torch.randn((b, n, h, s, 1), generator=gen, device=dev,
-                              dtype=dt)
-            return q, k, v, [mask, pair, row]
-        return q, k, v, [mask, pair]
+        return evo_operands(torch, gen, dev, lead, s, h, d, biases, dtype)
 
     ops = [operands() for _ in range(sets)]
     q, k, v, bs = ops[0]
-    key = EVO_KEYS[evo.kernel_route(q, k, v, bs)]
-    case = {"name": name, "kernel": key, "dtype": dtype,
-            "shape": list(lead) + [s, h, d], "biases": biases}
+    route = evo.kernel_route(q, k, v, bs)
+    key = EVO_KEYS[route]
+    case = {"name": name, "kernel": key, "route": route, "dtype": dtype,
+            "shape": list(lead) + [s, h, d], "biases": biases,
+            "bias_kinds": [p["kind"] for p in evo.bias_plan(
+                bs, tuple(lead), h, s, s)],
+            "old_ms": old_ms}
     reset_launches()
     with torch.no_grad():
         got = evo.DS4Sci_EvoformerAttention(q, k, v, bs)
     torch.cuda.synchronize()
     case["fwd_launches"] = dict(evo.LAUNCHES)
+    if route == "mma":
+        case["launch"] = evo.launch_info()
+    with torch.no_grad():
+        again = evo.evoformer_attention_kernel(q, k, v, bs)
+    torch.cuda.synchronize()
+    case["bit_equal"] = bool(torch.equal(got, again))
+    del again
     want = evo.evoformer_attention_dense(q, k, v, bs)
     case["max_abs_err"] = (got.float() - want.float()).abs().max().item()
     case["norm_rel_err"] = rel_norm(got, want)
@@ -2955,10 +3038,13 @@ def evoformer_case(torch, gen, dev, name, lead, s, h, d, biases, dtype):
                                                  attn_mask=sd[i][1]),
         sets, 20)
     del sd
-    bias_bytes = sum(t.numel() * elt for t in bs)
+    bias_bytes = sum(t.numel() * t.element_size() for t in bs)
     case["bound_ms"], case["bound_by"] = bound(
         4 * qkv_bytes + bias_bytes, 4.0 * L * h * s * s * d,
-        BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS)
+        FP32_FLOPS if dt == torch.float32 else BF16_FLOPS)
+    # one MUFU exponential a score, 16 a clock an SM (132 SMs at the
+    # card's largest SM clock): the floor the exponentials set
+    case["exp_floor_ms"] = L * h * s * s / (16 * 132 * max_sm_clock_hz()) * 1e3
     for route, fn in (("kernel", fwd), ("dense", plain)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2968,6 +3054,59 @@ def evoformer_case(torch, gen, dev, name, lead, s, h, d, biases, dtype):
         case[f"{route}_fwd_peak_extra_mb"] = (
             torch.cuda.max_memory_allocated() - base) / 1e6
     return case
+
+
+def start_planted_builds():
+    """Start one ``nvcc`` for each of ``EVO_PLANTED``'s faults, on a copy of
+    csrc/evoformer_attn.cu under build/ (phase 22 loads them)."""
+    from deepspeed_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "evoformer_attn.cu").read_text()
+    out = ROOT / "build" / "evo_planted"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (fault, (text, planted)) in enumerate(EVO_PLANTED.items()):
+        assert src.count(text) == 1, text
+        cu, lib = out / f"planted{i}.cu", out / f"libplanted{i}.so"
+        cu.write_text(src.replace(text, planted))
+        procs[fault] = (subprocess.Popen(
+            _build.nvcc_command(cu, lib), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT), lib)
+    return procs
+
+
+def evoformer_planted(torch, dev, procs):
+    """The triangle case's forward through each planted library against
+    the dense version: max abs and norm errors by fault."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops import evoformer_attn as evo
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 14)
+    q, k, v, bs = evo_operands(torch, gen, dev, (1, 256), 256, 4, 32, "both",
+                               "bf16")
+    want = evo.evoformer_attention_dense(q, k, v, bs)
+    built = _build.load("evoformer_attn")
+    out = {}
+    try:
+        for fault, (proc, lib) in procs.items():
+            log = proc.communicate()[0].decode()
+            if proc.returncode:
+                raise RuntimeError(f"planted {fault}: nvcc failed\n{log[-2000:]}")
+            _build._LIBS["evoformer_attn"] = ctypes.CDLL(str(lib))
+            evo._kernel.cache_clear()
+            got = evo.evoformer_attention_kernel(q, k, v, bs)
+            torch.cuda.synchronize()
+            out[fault] = {"max_abs_err": (got.float() - want.float()).abs()
+                          .nan_to_num(float("inf")).max().item(),
+                          "norm_rel_err": rel_norm(got.float().nan_to_num(
+                              1e30), want)}
+    finally:
+        _build._LIBS["evoformer_attn"] = built
+        evo._kernel.cache_clear()
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -3563,6 +3702,7 @@ def main() -> int:
     from deepspeed_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    planted_builds = start_planted_builds()
     secs = _build.build()
     print(f"[build] {time.perf_counter() - t0:.1f} s wall; per source "
           f"{ {k: round(v, 1) for k, v in secs.items()} }", flush=True)
@@ -3928,19 +4068,29 @@ def main() -> int:
             and qserved["tokens_shape"] == [8, qserved["gen_tokens"]]):
         return fail(f"phase 21 served output malformed: {qserved}")
 
-    # 22. Evoformer attention: the kernel route against the plain version
-    evo_cases = [evoformer_case(torch, gen, dev, *c) for c in EVO_CASES]
+    # 22. Evoformer attention: the kernel route against the plain version;
+    # the first eight cases draw from `gen` in their old order (the same
+    # inputs as before), the rest from their own generator
+    gen_evo = torch.Generator(device=dev)
+    gen_evo.manual_seed(SEED + 13)
+    evo_cases = [evoformer_case(torch, gen if i < 8 else gen_evo, dev, *c)
+                 for i, c in enumerate(EVO_CASES)]
     for c in evo_cases:
-        print(f"[evoformer] {c['name']}: err {c['max_abs_err']:.3g} norm "
+        old = f"{c['old_ms']:.4f}" if c["old_ms"] is not None else "n/a"
+        print(f"[evoformer] {c['name']}: route {c['route']} "
+              f"{c['bias_kinds']} err {c['max_abs_err']:.3g} norm "
               f"err {c['norm_rel_err']:.3g} grads "
               f"{ {k: float(f'{v:.3g}') for k, v in c['grad_norm_rel_err'].items()} }"
-              f" | ms {c['ms']:.4f} plain {c['plain_ms']:.4f} SDPA "
+              f" bit-equal {c['bit_equal']} | ms {c['ms']:.4f} old {old} "
+              f"(PERF.md row 22) plain {c['plain_ms']:.4f} SDPA "
               f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
-              f"({c['bound_by']}) | peak MB kernel "
-              f"{c['kernel_fwd_peak_extra_mb']:.1f} dense "
+              f"({c['bound_by']}) exp floor {c['exp_floor_ms']:.4f} | peak "
+              f"MB kernel {c['kernel_fwd_peak_extra_mb']:.1f} dense "
               f"{c['dense_fwd_peak_extra_mb']:.1f}"
               + (f" | masked rows vs mean v {c['masked_rows_vs_mean_v']:.3g}"
                  if "masked_rows_vs_mean_v" in c else ""), flush=True)
+        if "launch" in c:
+            print(f"  [launch] {c['launch']}", flush=True)
     bad = [c["name"] for c in evo_cases
            if not (c["max_abs_err"] <= (EVO_FP32_TOL if c["dtype"] == "fp32"
                                         else TOL)
@@ -3958,6 +4108,21 @@ def main() -> int:
     if bad:
         return fail(f"Evoformer launches: not one launch of the routed "
                     f"kernel a forward call (and none of the other): {bad}")
+    bad = [c["name"] for c in evo_cases
+           if (c["dtype"] != "fp32") != (c["route"] == "mma")
+           or (c["route"] == "mma" and not c["bit_equal"])]
+    if bad:
+        return fail(f"Evoformer: a bf16 / fp16 case off the tensor-core "
+                    f"kernel, an fp32 case on it, or two runs of the "
+                    f"tensor-core kernel not bit-equal: {bad}")
+    evo_planted = evoformer_planted(torch, dev, planted_builds)
+    for fault, errs in evo_planted.items():
+        print(f"[evoformer] planted {fault}: max {errs['max_abs_err']:.3g} "
+              f"norm {errs['norm_rel_err']:.3g}", flush=True)
+    bad = [f for f, e in evo_planted.items()
+           if e["norm_rel_err"] <= NORM_TOL]
+    if bad:
+        return fail(f"Evoformer: planted faults meet the norm bar: {bad}")
 
     # 23. block-sparse attention (B11) at BERT width, through
     # SparseSelfAttention ("auto": the kernels, key-padding masks included)
@@ -4142,7 +4307,8 @@ def main() -> int:
          "moe_slice": moe_model, "moe_trained": moe_runs,
          "strided": strided, "gpt2_slice": g_slice, "layout_trained": runs,
          "quantizer": qcases, "from_hf": hf, "quantized_served": qserved,
-         "evoformer": evo_cases, "block_sparse": bsa_cases,
+         "evoformer": evo_cases, "evoformer_planted": evo_planted,
+         "block_sparse": bsa_cases,
          "scheduler": sched_run},
         indent=1))
     print(json.dumps(record))

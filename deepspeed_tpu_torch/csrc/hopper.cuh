@@ -140,11 +140,20 @@ __device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r):
 // (K contiguous): sbo = 1024, the stride of 8-row groups; lbo unused.
 // MN-major operand (M or N contiguous, B transposed): lbo = the stride of
 // the 64-element column blocks, sbo = 1024, the stride of 8-row groups
-// along K.
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+// along K.  `layout` 2 and 3 are the 64- and 32-byte swizzles (rows of 64
+// or 32 bytes, TMA's CU_TENSOR_MAP_SWIZZLE_64B / _32B): sbo is then 8 rows
+// of that width (512 or 256) and lbo the stride of 32- or 16-element column
+// blocks; `swizzle_layout` gives the code of a swizzle width.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo, uint32_t sbo,
+                                               uint32_t layout = 1) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4)
          | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16)
-         | (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         | (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32)
+         | (static_cast<uint64_t>(layout) << 62);
+}
+
+__host__ __device__ constexpr uint32_t swizzle_layout(int bytes) {
+  return bytes == 128 ? 1u : bytes == 64 ? 2u : 3u;
 }
 
 // byte offset of bf16 element (row, col) in a swizzled tile of `rows`
@@ -497,15 +506,67 @@ __device__ __forceinline__ void wgmma_ss_t(float (&d)[N / 2], uint64_t da, uint6
   }
 }
 
+// O += P V at the narrow head dims of Evoformer attention (N = 16, 32):
+// A from registers, B MN-major, accumulating.
+__device__ __forceinline__ void wgmma_rs_bf16_16(float (&d)[8], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, "
+      "0;\nwgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs_f16_16(float (&d)[8], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, "
+      "0;\nwgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs_bf16_32(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, "
+      "0;\nwgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs_f16_32(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, "
+      "0;\nwgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2], const uint32_t (&a)[4],
                                            uint64_t db) {
-  static_assert(N == 64 || N == 128, "wgmma_rs_t: N is 64 or 128");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "wgmma_rs_t: N is 16, 32, 64 or 128");
   if constexpr (std::is_same<T, __half>::value) {
-    if constexpr (N == 64) wgmma_rs_f16_64(d, a, db);
+    if constexpr (N == 16) wgmma_rs_f16_16(d, a, db);
+    else if constexpr (N == 32) wgmma_rs_f16_32(d, a, db);
+    else if constexpr (N == 64) wgmma_rs_f16_64(d, a, db);
     else wgmma_rs_f16_128(d, a, db);
   } else {
-    wgmma_rs<N, 1>(d, a, db);
+    if constexpr (N == 16) wgmma_rs_bf16_16(d, a, db);
+    else if constexpr (N == 32) wgmma_rs_bf16_32(d, a, db);
+    else wgmma_rs<N, 1>(d, a, db);
   }
 }
 

@@ -14,12 +14,13 @@ Every call goes through one autograd Function:
 * forward on CUDA tensors: the hand-written kernels of
   ``csrc/evoformer_attn.cu`` (:func:`evoformer_attention_kernel`), routed by
   :func:`kernel_route`: the tensor-core kernel (``LAUNCHES
-  ["evoformer_attention"]``) for bf16 / fp16 Q/K/V with D a multiple of 8
-  up to 128 and at most two biases of Q's type; the general kernel
-  (``LAUNCHES["evoformer_attention_simt"]``) for the rest, fp32 included,
-  up to D = 256 and eight biases, each of its own float type.  What
-  neither takes raises ``NotImplementedError`` naming ROADMAP C: a CUDA
-  tensor never reaches the dense version;
+  ["evoformer_attention"]``, wgmma fed by a TMA ring) for bf16 / fp16
+  Q/K/V with D a multiple of 8 up to 128; the general kernel
+  (``LAUNCHES["evoformer_attention_simt"]``) for fp32 Q/K/V, D not a
+  multiple of 8 and D from 136 to 256.  Both take up to eight biases, each
+  fp32, bf16 or fp16, of any broadcast pattern.  What neither takes raises
+  ``NotImplementedError`` naming ROADMAP C: a CUDA tensor never reaches the
+  dense version;
 * forward on CPU tensors: :func:`evoformer_attention_dense`, the plain
   version;
 * backward, on either: the JAX package's ``_bwd_chunked``, the dense
@@ -30,6 +31,15 @@ Every call goes through one autograd Function:
 A row whose scores are all -inf (an fp16 mask bias of -1e9 is -inf) comes
 out of the kernels as zeros, where the dense softmax gives NaN; a finite
 mask (-1e9 in fp32 or bf16) gives the dense answer, the mean of v.
+
+The tensor-core kernel stages each bias by what it varies over within one
+(lead slice, head) (:func:`bias_plan`): a tile (the pair bias) by TMA when
+its rows are 16-byte aligned, else copied by the producer warpgroup's lanes
+(4-byte cp.async, or read and summed in fp32); a key row (the mask) summed
+by the lanes; a value a row or a scalar read once.
+:func:`evoformer_attention_tiled_plain` is its walk in plain PyTorch (row
+blocks, key steps, exp2 with log2(e), biases added by pattern, the running
+max guarded at -inf), tested on the CPU against the JAX kernel.
 
 Deliberate differences from the JAX package: a backward chunk holds as many
 lead slices as fit ``BWD_CHUNK_BYTES`` of fp32 score buffers (JAX: one
@@ -51,7 +61,8 @@ import torch
 from deepspeed_tpu_torch.ops import _build
 
 __all__ = ["DS4Sci_EvoformerAttention", "EvoformerAttnBuilder",
-           "evoformer_attention_dense", "evoformer_attention_kernel",
+           "bias_plan", "evoformer_attention_dense",
+           "evoformer_attention_kernel", "evoformer_attention_tiled_plain",
            "kernel_route"]
 
 #: launches of the tensor-core kernel and of the general kernel
@@ -63,8 +74,15 @@ BWD_CHUNK_BYTES = 1 << 30
 _BWD_BUFFERS = 5
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-_MMA_MAX_BIASES, _MMA_MAX_D = 2, 128
-_SIMT_MAX_BIASES, _SIMT_MAX_D = 8, 256
+_MAX_BIASES, _MMA_MAX_D, _SIMT_MAX_D = 8, 128, 256
+
+#: the tensor-core kernel's walk: query rows a block, keys a step
+#: (``kRows`` * C and ``kKeys`` in ``csrc/evoformer_attn.cu``)
+KERNEL_ROWS, KERNEL_KEYS = 128, 64
+#: bias kinds, the codes of ``BiasKind`` in ``csrc/evoformer_attn.cu``
+BIAS_KINDS = ("scalar", "row", "key_sum", "tile_tma", "tile_async",
+              "tile_sum", "key_async")
+_LOG2E = 1.4426950408889634
 
 
 def evoformer_attention_dense(Q, K, V, biases=None):
@@ -148,9 +166,9 @@ def _check_shapes(Q, K, V, biases: Sequence) -> None:
 def kernel_route(Q, K, V, biases: Sequence = ()) -> str:
     """Which kernel of ``csrc/evoformer_attn.cu`` takes these inputs on the
     card: ``"mma"``, the tensor-core kernel (Q/K/V bf16 or fp16, D a multiple
-    of 8 up to 128, at most two biases of Q's type), or ``"simt"``, the
-    general kernel (Q/K/V fp32, bf16 or fp16, D up to 256, at most eight
-    biases, each of any of those types).  Raises ``NotImplementedError``
+    of 8 up to 128), or ``"simt"``, the general kernel (Q/K/V fp32, or D not
+    a multiple of 8, or D from 136 to 256); either with at most eight
+    biases, each fp32, bf16 or fp16.  Raises ``NotImplementedError``
     (ROADMAP C, "Evoformer on the card") for what neither kernel takes."""
     d = Q.shape[-1]
     why = None
@@ -159,18 +177,132 @@ def kernel_route(Q, K, V, biases: Sequence = ()) -> str:
     elif Q.dtype not in _DTYPE_CODE or any(b.dtype not in _DTYPE_CODE
                                            for b in biases):
         why = "fp32, bf16 or fp16 inputs and biases"
-    elif d > _SIMT_MAX_D or len(biases) > _SIMT_MAX_BIASES:
-        why = (f"D <= {_SIMT_MAX_D} and at most {_SIMT_MAX_BIASES} biases "
+    elif d > _SIMT_MAX_D or len(biases) > _MAX_BIASES:
+        why = (f"D <= {_SIMT_MAX_D} and at most {_MAX_BIASES} biases "
                f"(got D = {d}, {len(biases)} biases)")
     if why is not None:
         raise NotImplementedError(
             f"DS4Sci_EvoformerAttention on the card: the kernels take {why}; "
             f"see ROADMAP C, Evoformer on the card")
-    if Q.dtype != torch.float32 and d % 8 == 0 and d <= _MMA_MAX_D \
-            and len(biases) <= _MMA_MAX_BIASES \
-            and all(b.dtype == Q.dtype for b in biases):
+    if Q.dtype != torch.float32 and d % 8 == 0 and d <= _MMA_MAX_D:
         return "mma"
     return "simt"
+
+
+def bias_kind(strides: Tuple[int, int, int], sq: int, sk: int) -> str:
+    """What a bias varies over within one (lead slice, head), from its (h,
+    r, c) strides in the expanded view (0 on a broadcast dimension; a
+    dimension of size 1 counts as broadcast): ``"scalar"``, ``"row"`` (a
+    value a query row), ``"key"`` (a value a key: the mask) or ``"tile"``
+    (both: the pair bias)."""
+    _, sr, sc = strides
+    rows, keys = sr != 0 and sq > 1, sc != 0 and sk > 1
+    return ("tile" if rows and keys else "row" if rows
+            else "key" if keys else "scalar")
+
+
+def bias_plan(biases: Sequence, lead: Tuple[int, ...], h: int, sq: int,
+              sk: int) -> List[dict]:
+    """How the tensor-core kernel stages each bias: its kind (one of
+    :data:`BIAS_KINDS`; a tile is ``"tile_tma"`` when TMA can read its rows
+    (last stride 1, base and row pitch 16-byte aligned, every (lead slice,
+    head) plane starting on a row), ``"tile_async"`` when the producer's
+    lanes can copy it 4 bytes at a time (last stride 1, base, row pitch and
+    plane offsets 4-byte aligned) and ``"tile_sum"`` otherwise (the lanes
+    read it element by element and sum it in fp32); a key row likewise
+    ``"key_async"`` or ``"key_sum"``), its (h, r, c) strides
+    with size-1 dimensions set to 0, the largest plane offset
+    (``lead_off[l] + h * sh``, elements) and the canonical view."""
+    n = len(lead)
+    out = []
+    for b in biases:
+        c = _canon_bias(b, lead, h, sq, sk)
+        st = list(c.expand(tuple(lead) + (h, sq, sk)).stride())
+        for i, size in enumerate(tuple(lead) + (h, sq, sk)):
+            if size == 1:
+                st[i] = 0
+        sh, sr, sc = st[n:]
+        max_plane = sum((size - 1) * s for size, s in
+                        zip(tuple(lead) + (h,), st[:n + 1]))
+        kind = bias_kind((sh, sr, sc), sq, sk)
+        elt, planes = c.element_size(), st[:n + 1]
+        four = (sc == 1 and c.data_ptr() % 4 == 0
+                and all((s * elt) % 4 == 0 for s in planes + [sr]))
+        if kind == "tile":
+            tma = (sc == 1 and sr >= sk and (sr * elt) % 16 == 0
+                   and c.data_ptr() % 16 == 0
+                   and all(s % sr == 0 for s in planes))
+            kind = "tile_tma" if tma else "tile_async" if four else "tile_sum"
+        elif kind == "key":
+            kind = "key_async" if four else "key_sum"
+        out.append({"kind": kind, "strides": (sh, sr, sc),
+                    "lead_strides": tuple(st[:n]), "max_plane": max_plane,
+                    "view": c})
+    return out
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (TMA reads rows of Q, K and V)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def evoformer_attention_tiled_plain(Q, K, V, biases: Sequence = (),
+                                    block_rows: int = KERNEL_ROWS,
+                                    block_keys: int = KERNEL_KEYS
+                                    ) -> torch.Tensor:
+    """The tensor-core kernel's walk in plain PyTorch: blocks of
+    ``block_rows`` query rows of one (lead slice, head), steps of
+    ``block_keys`` keys; scores in log2 units (the scale times log2(e),
+    the biases by :func:`bias_plan`: values a row and scalars summed once,
+    staged tiles and key rows (TMA, cp.async) added one by one in their
+    order, the other tiles and key rows each summed first); exp2 with the
+    running max guarded at -inf;
+    P rounded to the input type before P V; a row whose sum is 0 comes out
+    as zeros."""
+    *lead, sq, h, d = Q.shape
+    lead = tuple(lead)
+    L = int(np.prod(lead)) if lead else 1
+    sk = K.shape[-3]
+    q, k, v = (t.reshape((L, -1, h, d)).float().transpose(1, 2)
+               for t in (Q, K, V))                   # [L, H, S, d]
+    full = lead + (h, sq, sk)
+    terms = {kind: [] for kind in BIAS_KINDS}
+    plans = bias_plan(biases, lead, h, sq, sk)
+    views = [p["view"].float().expand(full).reshape(L, h, sq, sk)
+             for p in plans]
+    for plan, b in zip(plans, views):
+        terms[plan["kind"]].append(b)
+    zero = Q.new_zeros((L, h, sq, sk), dtype=torch.float32)
+    row = sum(terms["scalar"] + terms["row"], zero) * _LOG2E
+    summed = sum(terms["tile_sum"], zero) * _LOG2E
+    keys = sum(terms["key_sum"], zero) * _LOG2E
+    staged = [(kind, b) for plan, b in zip(plans, views)
+              if (kind := plan["kind"]) in ("tile_tma", "tile_async",
+                                            "key_async")]
+    scale = _LOG2E / math.sqrt(d)
+    out = torch.zeros_like(q)
+    for r0 in range(0, sq, block_rows):
+        rs = slice(r0, min(sq, r0 + block_rows))
+        m = torch.full_like(q[:, :, rs, :1], -math.inf)
+        lsum = torch.zeros_like(m)
+        acc = torch.zeros_like(q[:, :, rs])
+        for c0 in range(0, sk, block_keys):
+            cs = slice(c0, min(sk, c0 + block_keys))
+            x = q[:, :, rs] @ k[:, :, cs].transpose(-1, -2) * scale \
+                + row[:, :, rs, cs]
+            for _, b in staged:
+                x = x + b[:, :, rs, cs] * _LOG2E
+            x = x + summed[:, :, rs, cs] + keys[:, :, rs, cs]
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            base = torch.where(m_new == -math.inf, 0.0, m_new)
+            corr = torch.exp2(m - base)
+            p = torch.exp2(x - base)
+            lsum = lsum * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p.to(Q.dtype).float() @ v[:, :, cs]
+            m = m_new
+        out[:, :, rs] = acc / torch.where(lsum == 0, 1.0, lsum)
+    return out.transpose(1, 2).reshape(Q.shape).to(Q.dtype)
 
 
 def evoformer_attention_kernel(Q, K, V, biases: Sequence = ()
@@ -189,22 +321,23 @@ def evoformer_attention_kernel(Q, K, V, biases: Sequence = ()
     lead = tuple(lead)
     sk = K.shape[-3]
     L = int(np.prod(lead)) if lead else 1
-    q, k, v = (t.contiguous() for t in (Q, K, V))
-    if route == "mma" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        route = "simt"      # the tensor-core kernel reads 16-byte vectors
+    q, k, v = (_aligned(t) for t in (Q, K, V))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out.view(Q.shape)
+    if sk == 0:                     # rows that see no key: zeros, no launch
+        return out.zero_().view(Q.shape)
     n = len(lead)
-    ptrs, tables, codes, strides = [], [], [], []
-    for b in biases:
-        c = _canon_bias(b, lead, h, sq, sk)
-        st = c.expand(lead + (h, sq, sk)).stride()    # 0 where broadcast
-        table = _lead_table(lead, tuple(c.shape[:n]), st[:n], q.device)
+    ptrs, tables, info, strides = [], [], [], []
+    for plan in bias_plan(biases, lead, h, sq, sk):
+        c = plan["view"]
+        table = _lead_table(lead, tuple(c.shape[:n]), plan["lead_strides"],
+                            q.device)
         ptrs.append(c.data_ptr())
         tables.append(table.data_ptr())
-        codes.append(_DTYPE_CODE[c.dtype])
-        strides.extend(st[n:])
+        info += [_DTYPE_CODE[c.dtype], BIAS_KINDS.index(plan["kind"]),
+                 int(not any(plan["lead_strides"]))]
+        strides += [*plan["strides"], plan["max_plane"]]
     nb = len(biases)
     with torch.cuda.device(q.device):
         rc = _kernel()(_DTYPE_CODE[q.dtype], int(route == "simt"),
@@ -212,8 +345,8 @@ def evoformer_attention_kernel(Q, K, V, biases: Sequence = ()
                        out.data_ptr(), L, sq, sk, h, d, nb,
                        (ctypes.c_void_p * max(nb, 1))(*ptrs),
                        (ctypes.c_void_p * max(nb, 1))(*tables),
-                       (ctypes.c_int * max(nb, 1))(*codes),
-                       (ctypes.c_longlong * max(3 * nb, 1))(*strides),
+                       (ctypes.c_int * max(3 * nb, 1))(*info),
+                       (ctypes.c_longlong * max(4 * nb, 1))(*strides),
                        torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"evoformer_attention_kernel: CUDA kernel launch "
@@ -306,11 +439,33 @@ def _kernel():
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_void_p)] * 2   # biases, tables
-                   + [ctypes.POINTER(ctypes.c_int),          # bias types
-                      ctypes.POINTER(ctypes.c_longlong),     # bias strides
+                   + [ctypes.POINTER(ctypes.c_int),          # types, kinds
+                      ctypes.POINTER(ctypes.c_longlong),     # strides, planes
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+LAUNCH_INFO_KEYS = ("grid", "threads", "smem", "block_rows", "stages",
+                    "staged_tiles", "summed_tiles", "key_rows", "resident",
+                    "per_sm", "registers", "spill_bytes")
+
+
+def launch_info() -> dict:
+    """The last tensor-core launch's shape (``dstt_evoformer_launch_info``):
+    blocks (persistent), threads and shared bytes a block, query rows a
+    block, ring stages, bias tiles staged in their own type (TMA or
+    cp.async) and summed by the producer's lanes, key rows staged, tiles
+    resident for all of a block's items, blocks an SM, registers a thread at
+    launch and spill bytes."""
+    fn = _build.load("evoformer_attn").dstt_evoformer_launch_info
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(LAUNCH_INFO_KEYS))()
+    rc = fn(out)
+    if rc != 0:
+        raise RuntimeError(f"dstt_evoformer_launch_info failed with {rc}")
+    return dict(zip(LAUNCH_INFO_KEYS, out))
 
 
 class EvoformerAttnBuilder:

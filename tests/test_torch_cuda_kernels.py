@@ -1534,18 +1534,31 @@ _EVO_CASES = [
     ((2, 3), 70, 2, 24, "both", torch.float16, "mma"),      # d 24 -> 32
     ((1, 4), 130, 2, 128, "both", torch.bfloat16, "mma"),
     ((3,), 64, 4, 16, "pair", torch.bfloat16, "mma"),       # [H, S, S] bias
-    ((1, 8), 96, 4, 32, "fp32_mask", torch.bfloat16, "simt"),
+    ((1, 8), 96, 4, 32, "fp32_mask", torch.bfloat16, "mma"),
     ((1, 64), 256, 4, 32, "masked", torch.float32, "simt"),
-    ((2, 3), 70, 2, 24, "three", torch.bfloat16, "simt"),
+    ((2, 3), 70, 2, 24, "three", torch.bfloat16, "mma"),
     ((1, 4), 100, 2, 12, "both", torch.bfloat16, "simt"),
     ((1, 4), 66, 2, 160, "both", torch.float16, "simt"),
+    # chip_smoke.py phase 22's cases since the tensor-core kernel's redesign
+    ((1, 384), 384, 4, 32, "both", torch.bfloat16, "mma"),  # triangle, 384
+    ((1, 128), 256, 8, 32, "eight", torch.bfloat16, "mma"),
+    ((1, 256), 256, 4, 32, "fp32_mask", torch.bfloat16, "mma"),
+    ((1, 256), 256, 4, 32, "both", torch.float16, "mma"),
+    ((1, 128), 256, 8, 64, "both", torch.bfloat16, "mma"),
+    ((1, 64), 256, 4, 128, "both", torch.bfloat16, "mma"),
+    ((1, 8), 96, 2, 32, "views", torch.bfloat16, "mma"),  # the lanes' fp32 sums
 ]
 
 
 def _evo_inputs(gen, dev, lead, s, h, d, biases, dtype):
     """Q/K/V and biases: "both" the mask bias (-1e9 on masked keys; "masked":
     every key of 16 rows masked; "fp32_mask": the mask in fp32) and the pair
-    bias, "three" both and a per-row bias, "pair" a [H, S, S] bias alone."""
+    bias, "three" both and a per-row bias, "eight" those three and a scalar
+    (fp32), a per-head value, a per-head key bias (fp16), a tile full in the
+    last lead dim and a pair bias in fp32, "pair" a [H, S, S] bias alone,
+    "views" a mask 2 bytes off 4-byte alignment and a pair bias read through
+    transposed keys (neither cp.async nor TMA can copy them: the producer's
+    lanes read and sum them in fp32)."""
     q, k, v = (torch.randn(lead + (s, h, d), generator=gen, device=dev,
                            dtype=dtype) for _ in range(3))
     if biases == "none":
@@ -1554,15 +1567,31 @@ def _evo_inputs(gen, dev, lead, s, h, d, biases, dtype):
                        dtype=dtype)
     if biases == "pair":
         return q, k, v, [pair[0]]
+    if biases == "views":
+        keys = torch.randn(lead + (s + 1,), generator=gen, device=dev,
+                           dtype=dtype)[..., 1:]
+        pair_t = torch.randn(lead[:-1] + (1, h, s, s), generator=gen,
+                             device=dev, dtype=dtype).transpose(-1, -2)
+        return q, k, v, [keys[..., None, None, :], pair_t]
     keep = torch.randint(0, 2, lead + (s,), generator=gen, device=dev)
     if biases == "masked":
         keep[..., :16, :] = 0                    # every key of 16 rows
     mask = (1e9 * (keep - 1)).to(
         torch.float32 if biases == "fp32_mask" else dtype)[..., None, None, :]
-    if biases == "three":
+    if biases in ("three", "eight"):
         row = torch.randn(lead + (h, s, 1), generator=gen, device=dev,
                           dtype=dtype)
-        return q, k, v, [mask, pair, row]
+        if biases == "three":
+            return q, k, v, [mask, pair, row]
+
+        def rand(shape, t=dtype):
+            return torch.randn(shape, generator=gen, device=dev, dtype=t)
+
+        return q, k, v, [mask, pair, row, rand((1,), torch.float32),
+                         rand((h, 1, 1)),
+                         rand(lead[:-1] + (1, h, 1, s), torch.float16),
+                         rand(lead + (1, s, s)),
+                         rand(lead[:-1] + (1, h, s, s), torch.float32)]
     return q, k, v, [mask, pair]
 
 
@@ -1598,8 +1627,9 @@ _EVO_KEY = {"mma": "evoformer_attention", "simt": "evoformer_attention_simt"}
 @pytest.mark.parametrize("lead,s,h,d,biases,dtype,route", _EVO_CASES)
 def test_evoformer_kernel(cuda_device, lead, s, h, d, biases, dtype, route):
     """chip_smoke.py phase 22's shapes and bars, more head dims, fp32, three
-    biases and an fp32 mask on bf16 inputs: one launch of the routed kernel
-    a forward call, none of the other (fp32: within EVO_FP32_TOL)."""
+    and eight biases and an fp32 mask on bf16 inputs: one launch of the
+    routed kernel a forward call, none of the other (fp32: within
+    EVO_FP32_TOL)."""
     e = _evo_errors(cuda_device, lead, s, h, d, biases, dtype)
     assert e["fwd_launches"] == {key: int(r == route)
                                  for r, key in _EVO_KEY.items()}
@@ -1640,19 +1670,47 @@ def test_evoformer_refusals_and_fp16_masked_rows(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("biases", ["both", "eight", "none"])
+def test_evoformer_kernel_is_bit_reproducible(cuda_device, biases):
+    """Two runs of the tensor-core kernel on the same inputs give the same
+    bits: every sum runs in a fixed order, without atomics."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v, bs = _evo_inputs(gen, cuda_device, (1, 64), 250, 4, 32, biases,
+                              torch.bfloat16)
+    assert tevo.kernel_route(q, k, v, bs) == "mma"
+    runs = [tevo.evoformer_attention_kernel(q, k, v, bs) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_evoformer_no_keys_gives_zeros(cuda_device):
+    """Sk = 0: every row sees no key and comes out as zeros (the kernels'
+    rule for a row with nothing to attend to), with no launch."""
+    q = torch.randn((1, 2, 16, 2, 32), device=cuda_device,
+                    dtype=torch.bfloat16)
+    kv = torch.zeros((1, 2, 0, 2, 32), device=cuda_device,
+                     dtype=torch.bfloat16)
+    before = dict(tevo.LAUNCHES)
+    got = tevo.DS4Sci_EvoformerAttention(q, kv, kv)
+    assert torch.equal(got, torch.zeros_like(q))
+    assert tevo.LAUNCHES == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("route,shape,loop", [
     ("mma", ((1, 256), 256, 4, 32, "both", torch.bfloat16),
-     ("for (int nt = 0; nt < n_tiles; ++nt) {",
-      "for (int nt = 0; nt < n_tiles - 1; ++nt) {")),
+     ("const int valid = a.sk - c0;",
+      "const int valid = i == n - 1 ? 0 : a.sk - c0;")),
     ("simt", ((1, 64), 256, 4, 32, "both", torch.float32),
      ("for (int c0 = 0; c0 < sk; c0 += kSimtKeys) {",
       "for (int c0 = 0; c0 + kSimtKeys < sk; c0 += kSimtKeys) {")),
 ])
 def test_evoformer_norm_bar_catches_planted_dropped_tile(
         cuda_device, tmp_path, monkeypatch, route, shape, loop):
-    """A copy of csrc/evoformer_attn.cu whose blocks of one kernel skip the
-    last k tile misses the norm bar at the triangle shape; as built it
-    meets it."""
+    """A copy of csrc/evoformer_attn.cu whose blocks of one kernel drop the
+    last k tile (the tensor-core kernel: its scores set to -inf; the general
+    kernel: the loop stops short) misses the norm bar at the triangle shape;
+    as built it meets it."""
     built = _evo_errors(cuda_device, *shape)
     monkeypatch.setitem(_build._LIBS, "evoformer_attn", _planted(
         tmp_path, "evoformer_attn", (loop,)))

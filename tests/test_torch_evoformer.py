@@ -111,9 +111,9 @@ def test_routing_and_counts():
     forward (no launch counted), three biases and D = 12 included.
     :func:`kernel_route`, which the card's forward asks, reads only types
     and shapes: the tensor-core kernel for bf16 / fp16 with D % 8 == 0 up
-    to 128 and at most two biases of Q's type, the general kernel for the
-    rest up to D = 256 and eight biases (of any float type),
-    NotImplementedError past that."""
+    to 128 and up to eight biases of any float type (three, eight and an
+    fp32 bias on bf16 inputs included), the general kernel for fp32, D not
+    a multiple of 8 and D up to 256, NotImplementedError past that."""
     (q, k, v), bs = _inputs((1, 2), 16, 2, 8, seed=0)
     t = [torch.from_numpy(a) for a in (q, k, v)]
     tb = [torch.from_numpy(b) for b in bs]
@@ -136,9 +136,11 @@ def test_routing_and_counts():
 
     assert route(torch.bfloat16) == route(torch.float16) == "mma"
     assert route(torch.bfloat16, d=128, n_biases=0) == "mma"
+    for kw in ({"n_biases": 3}, {"n_biases": 8},
+               {"bias_dtype": torch.float32}):
+        assert route(torch.bfloat16, **kw) == "mma", kw
     assert route(torch.float32) == "simt"
-    for kw in ({"d": 12}, {"d": 136}, {"n_biases": 3}, {"n_biases": 8},
-               {"d": 256}, {"bias_dtype": torch.float32}):
+    for kw in ({"d": 12}, {"d": 136}, {"d": 256}):
         assert route(torch.bfloat16, **kw) == "simt", kw
     for kw in ({"d": 264}, {"n_biases": 9}, {"bias_dtype": torch.float64}):
         with pytest.raises(NotImplementedError, match="ROADMAP C"):
