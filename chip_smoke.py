@@ -798,14 +798,18 @@ def gmm_cases(torch, gen, dev):
     return out
 
 
-def _routed_sizes(torch, gen, dev, tokens, empty=None, experts=8):
+def _routed_sizes(torch, gen, dev, tokens, empty=None, experts=8,
+                  boost=None):
     """Group sizes of ``tokens`` routed top-2 over ``experts`` from seeded
-    logits; expert ``empty`` is never chosen."""
+    logits; expert ``empty`` is never chosen; ``boost`` = (expert, c) raises
+    that expert's logits by c."""
     from deepspeed_tpu_torch.ops import grouped_gemm as gg
 
     logits = torch.randn((tokens, experts), generator=gen, device=dev)
     if empty is not None:
         logits[:, empty] = -float("inf")
+    if boost is not None:
+        logits[:, boost[0]] += boost[1]
     topi, _ = gg.exact_topk_routing(logits, 2)
     return torch.bincount(topi.reshape(-1).long(), minlength=experts).to(
         torch.int32)
@@ -830,38 +834,44 @@ def _yardstick_ms(torch, lib_call, loop_call, want, iters):
             time_ms(lambda i: loop_call(), 1, iters), None)
 
 
-def gmm_backward_cases(torch, gen, dev):
+def gmm_backward_cases(torch, gen, dev, gen_skew):
     """Phase 3's grouped GEMM gradient cases (B9 backward: dlhs and drhs)
     at Mixtral-8x7B training shapes: T = 4096 tokens (batch 4 x 1024)
     routed top-2 over 8 experts, M = 8192 rows; the gradients of the gate /
     up projection (4096 -> 14336) and of the down projection (14336 ->
-    4096); and a ragged case with expert 2 empty and 4000 tokens in an
+    4096); a ragged case with expert 2 empty and 4000 tokens in an
     8192-row buffer (192 rows past the groups), where dlhs's rows past the
-    groups and drhs's empty block must be exact zeros.  Operands are
+    groups and drhs's empty block must be exact zeros; and (drawn from
+    ``gen_skew``, so that the other cases keep their inputs) a skewed
+    case, expert 0's logits raised by 1.4 so that it takes ~3000 of the
+    8192 rows, which shows whether drhs's tiles are balanced.  Operands are
     scaled so that every output is ~N(0, 1/4): the 3e-2 max bar then sits
     above one bf16 ulp of the largest outputs, and the 1e-2 norm bar does
-    the finer work."""
+    the finer work.  Each case also reports two runs bit-equal, its
+    TFLOP/s and its launch's shape."""
     from deepspeed_tpu_torch.ops import grouped_gemm as gg
 
     out = []
     m = 8192
     full = _routed_sizes(torch, gen, dev, m // 2)
     ragged = _routed_sizes(torch, gen, dev, 4000, empty=2)
-    for label, sizes, k, n in (("", full, 4096, 14336),
-                               ("", full, 14336, 4096),
-                               ("ragged, expert 2 empty, ", ragged, 4096,
-                                14336)):
+    for label, sizes, k, n, g in (
+            ("", full, 4096, 14336, gen), ("", full, 14336, 4096, gen),
+            ("ragged, expert 2 empty, ", ragged, 4096, 14336, gen),
+            ("skewed, expert 0 boosted, ", None, 4096, 14336, gen_skew)):
+        if sizes is None:
+            sizes = _routed_sizes(torch, g, dev, m // 2, boost=(0, 1.4))
         total = int(sizes.sum())
         offs = torch.cumsum(sizes, 0, dtype=torch.int32)
         touched = int((sizes > 0).sum())
         rows = [0] + offs.tolist()
-        dout = torch.randn((m, n), generator=gen, device=dev,
+        dout = torch.randn((m, n), generator=g, device=dev,
                            dtype=torch.bfloat16)
         # dlhs = dout @ rhs[g]^T sums over n: rhs ~ N(0, 1 / (4 n))
-        rhs = torch.randn((8, k, n), generator=gen, device=dev,
+        rhs = torch.randn((8, k, n), generator=g, device=dev,
                           dtype=torch.bfloat16).mul_(0.5 / math.sqrt(n))
         # drhs = lhs[rows_g]^T @ dout[rows_g] sums over a group's rows
-        lhs = torch.randn((m, k), generator=gen, device=dev,
+        lhs = torch.randn((m, k), generator=g, device=dev,
                           dtype=torch.bfloat16).mul_(
             0.5 / math.sqrt(total / touched))
         flops = 2.0 * total * k * n
@@ -885,6 +895,8 @@ def gmm_backward_cases(torch, gen, dev):
         )
         for kernel, name, run, plain, lib_call, loop_call, nbytes in specs:
             got = run()
+            launch = gg.launch_info()
+            again = run()
             want = plain()
             torch.cuda.synchronize()
             b_ms, b_by = bound(nbytes, flops)
@@ -893,13 +905,20 @@ def gmm_backward_cases(torch, gen, dev):
                     "max_abs_err": (got.float() - want.float()).abs().max()
                     .item(),
                     "norm_rel_err": rel_norm(got, want),
+                    "bit_equal": torch.equal(got, again),
                     "ms": time_ms(lambda i: run(), 1, 5),
                     "plain_ms": time_ms(lambda i: plain(), 1, 2),
-                    "bound_ms": b_ms, "bound_by": b_by}
+                    "bound_ms": b_ms, "bound_by": b_by, "launch": launch}
+            case["tflops"] = flops / case["ms"] / 1e9
             if kernel == "grouped_gemm_dlhs":
                 # rows past the groups: exact zeros
                 case["zeros_max_abs"] = (got[total:].abs().max().item()
                                          if total < m else 0.0)
+                # MACs the boundary tiles spend on other units' rows
+                units = gg.gmm_tile_walk(sizes.tolist(), m, k, n)["units"]
+                valid = [u for u in units if u[0] >= 0]
+                case["boundary_mac_waste"] = 1.0 - total / (
+                    len(valid) * gg.GRAD_TILES["bm"])
             else:
                 # the empty groups' blocks: exact zeros
                 empty = (sizes == 0).nonzero().flatten().tolist()
@@ -909,8 +928,58 @@ def gmm_backward_cases(torch, gen, dev):
              case["library_max_abs_err"]) = _yardstick_ms(
                 torch, lib_call, loop_call, want, 5)
             out.append(case)
-            del got, want
+            del got, again, want
         del dout, rhs, lhs
+    torch.cuda.empty_cache()
+    return out
+
+
+def gmm_training_forward_cases(torch, gen, dev):
+    """Phase 3's grouped GEMM forward (B9, row 15) at the MoE training shape,
+    measurement only: M = 8192 rows of 4096 tokens routed top-2
+    over 8 experts, 4096 -> 14336 and 14336 -> 4096, beside its plain
+    version, its library call and its bound.  The kernel is the one phases
+    11-15 run."""
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+
+    out = []
+    m = 8192
+    sizes = _routed_sizes(torch, gen, dev, m // 2)
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    rows = [0] + offs.tolist()
+    for k, n in ((4096, 14336), (14336, 4096)):
+        lhs = torch.randn((m, k), generator=gen, device=dev,
+                          dtype=torch.bfloat16)
+        # outputs ~N(0, 1/4), as the gradient cases scale theirs: one bf16
+        # ulp of the largest of 117 M outputs then sits under the 3e-2 bar
+        rhs = torch.randn((8, k, n), generator=gen, device=dev,
+                          dtype=torch.bfloat16).mul_(0.5 / math.sqrt(k))
+        got = gg.gmm(lhs, rhs, sizes)
+        want = gg.gmm_plain(lhs, rhs, sizes)
+        torch.cuda.synchronize()
+        flops = 2.0 * int(sizes.sum()) * k * n
+        b_ms, b_by = bound(m * k * 2 + 8 * k * n * 2 + m * n * 2 + 8 * 4,
+                           flops)
+        case = {
+            "name": f"grouped_gemm[training M={m}, {k}->{n}, E=8]",
+            "kernel": "grouped_gemm", "path": "moe_training",
+            "group_sizes": sizes.tolist(),
+            "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "norm_rel_err": rel_norm(got, want),
+            "ms": time_ms(lambda i: gg.gmm(lhs, rhs, sizes), 1, 5),
+            "plain_ms": time_ms(lambda i: gg.gmm_plain(lhs, rhs, sizes), 1,
+                                2),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        case["tflops"] = flops / case["ms"] / 1e9
+        (case["library"], case["library_ms"],
+         case["library_max_abs_err"]) = _yardstick_ms(
+            torch, lambda lib: lib(lhs, rhs, offs=offs),
+            lambda: [torch.matmul(lhs[a:b], rhs[e])
+                     for e, (a, b) in enumerate(zip(rows, rows[1:]))],
+            want, 5)
+        out.append(case)
+        del lhs, rhs, got, want
     torch.cuda.empty_cache()
     return out
 
@@ -2453,23 +2522,27 @@ def profile_window(torch, fn, steps, top=6):
     if busy_us == 0:
         return None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    by_kind = {}
+    by_kind, gmm = {}, {}
     for kname, us in by_name.items():
         kind = next((kind for kind, keys in KERNEL_KINDS
                      if any(key in kname.lower() for key in keys)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us / steps / 1e3
+        if kind == "grouped_gemm":
+            gmm[kname[:90]] = us / steps / 1e3
     return {"wall_ms_per_step": wall_us / steps / 1e3,
             "device_busy_ms_per_step": busy_us / steps / 1e3,
             "device_idle_share": 1.0 - busy_us / wall_us,
             "kind_ms_per_step": by_kind,
             "top_kernels_ms_per_step": {k[:70]: v / steps / 1e3
-                                        for k, v in top}}
+                                        for k, v in top},
+            "grouped_gemm_ms_per_step": gmm}
 
 
 # device kernels by kind, first match wins: the port's own kernels, the
 # library GEMMs, then PyTorch's elementwise / reduction / copy kernels
 KERNEL_KINDS = (
-    ("grouped_gemm", ("gmm_kernel", "gmm_drhs_kernel")),
+    # gmm_drhs_kernel: the drhs kernel of earlier builds (a parent's)
+    ("grouped_gemm", ("gmm_kernel", "gmm_grad_kernel", "gmm_drhs_kernel")),
     ("flash_attention", ("flash_fwd", "flash_bwd")),
     ("port_serving", ("qmm", "paged_")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
@@ -3722,25 +3795,32 @@ def main() -> int:
     gen_new.manual_seed(SEED + 10)
     gen_long = torch.Generator(device=dev)       # the long decode / verify cases
     gen_long.manual_seed(SEED + 11)
+    gen_gmm = torch.Generator(device=dev)        # the skewed / forward gmm cases
+    gen_gmm.manual_seed(SEED + 14)
     cases = (qmm_cases(torch, gen, dev, QMM_CASES[:8])
              + attention_cases(torch, gen, dev)
              + mixtral_attention_cases(torch, gen, dev)
              + gmm_cases(torch, gen, dev)
-             + gmm_backward_cases(torch, gen, dev)
+             + gmm_backward_cases(torch, gen, dev, gen_gmm)
              + qmm_cases(torch, gen_new, dev, QMM_CASES[8:])
              + b5_cases(torch, gen_new, dev)
-             + long_cases(torch, gen_long, dev))
+             + long_cases(torch, gen_long, dev)
+             + gmm_training_forward_cases(torch, gen_gmm, dev))
     for c in cases:
         extra = "".join(f" {k} {c[k]}" for k in ("pad_max_abs", "k_splits",
                                                  "tile_rows", "grid",
                                                  "bit_equal",
                                                  "zeros_max_abs",
+                                                 "boundary_mac_waste",
+                                                 "tflops",
                                                  "generic_b5_ms", "library")
                         if k in c)
         print(f"[kernel] {c['name']}: err {c['max_abs_err']:.3g} "
               f"norm err {c['norm_rel_err']:.3g} ms {c['ms']:.4f} plain {c['plain_ms']:.4f} "
               f"library {c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
               f"({c['bound_by']}){extra}", flush=True)
+        if "launch" in c:
+            print(f"  [launch] {c['launch']}", flush=True)
     bad = [c["name"] for c in cases if not (c["max_abs_err"] <= TOL
                                             and c["norm_rel_err"] <= NORM_TOL)
            or c.get("pad_max_abs", 0.0) != 0.0
@@ -3750,7 +3830,8 @@ def main() -> int:
         return fail(f"kernels disagree with their plain versions (or a pad "
                     f"row of the tiled prefill, a dlhs row past the groups "
                     f"or an empty group's drhs block is not zero, or two "
-                    f"runs of the decode / verify kernel differ): {bad}")
+                    f"runs of the decode / verify or a grouped GEMM "
+                    f"gradient kernel differ): {bad}")
 
     # 4. slice end to end: kernels vs plain paths, 2 layers at 7B width
     rng = np.random.default_rng(SEED)
@@ -3926,6 +4007,12 @@ def main() -> int:
     for phase, dropless in ((14, True), (15, False)):
         run = moe_trained_run(torch, np, dev, dropless)
         print(f"[moe-trained {run['model']}] {json.dumps(run)}", flush=True)
+        if run["trace"] is not None:
+            print(f"[moe-trained {run['model']}] traced step "
+                  f"{run['trace']['wall_ms_per_step']:.2f} ms, grouped GEMM "
+                  f"device ms by kernel: "
+                  f"{json.dumps(run['trace']['grouped_gemm_ms_per_step'])}",
+                  flush=True)
         if not (run["finite"] and run["last_loss"] < run["first_loss"]):
             return fail(f"phase {phase}: MoE training did not converge: "
                         f"{run['losses']}")

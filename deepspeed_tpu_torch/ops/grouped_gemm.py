@@ -19,7 +19,12 @@ dout @ rhs[g]^T`` per group with zeros past the total, and ``drhs[E, K, N]
 = lhs[rows_g]^T @ dout[rows_g]`` per group with zeros for an empty group;
 ``group_sizes`` takes no gradient.  All three are hand-written CUDA kernels
 in ``deepspeed_tpu_torch/csrc/grouped_gemm.cu``, the gradients wrapped by
-:func:`gmm_dlhs` and :func:`gmm_drhs`.  For CUDA tensors each is
+:func:`gmm_dlhs` and :func:`gmm_drhs`: the forward on ``mma.sync``, the
+gradients warp-specialised on ``wgmma`` fed by TMA (one block a 128 x 256
+output tile, :data:`GRAD_TILES`).  :func:`gmm_tile_walk` is the
+gradient kernels' tile walk in plain Python, which the ``.cu`` mirrors, and
+:func:`gmm_dlhs_tiled_plain` / :func:`gmm_drhs_tiled_plain` evaluate it (for
+the CPU tests).  For CUDA tensors each is
 launched at every M — the JAX package sends an M that is not a multiple of
 its tile to the dense ``gmm_reference`` (``_use_kernel``); here the
 kernels mask the ragged edge themselves — or raises; for CPU tensors (and
@@ -56,6 +61,17 @@ _ALIGN = 8
 #: rows of an m-tile: 16 for decode-sized M (each of the few work units
 #: streams its group's weights once), 64 above
 _SMALL_M = 64
+#: the gradient kernels' tiles (``GradTiles`` in the ``.cu``): output rows
+#: ``bm`` (two warpgroups of 64) by columns ``bn``, reduction steps of
+#: ``bk``; dlhs orders its (unit, n-tile) pairs in bands of ``band`` units;
+#: drhs hands out its groups' tiles largest group first (``by_work``), and
+#: within a group changes fastest the tile of the shorter of K and N
+#: (``n_fast`` 2; 0: the K-tile, 1: the N-tile)
+GRAD_TILES = {"bm": 128, "bn": 256, "bk": 64, "band": 16, "by_work": True,
+              "n_fast": 2}
+#: the keys of :func:`launch_info`
+LAUNCH_INFO_KEYS = ("grid", "threads", "smem", "tiles", "bn", "stages",
+                    "registers", "spill_bytes", "encode_ns")
 
 
 def _group_rows(group_sizes: torch.Tensor, m: int):
@@ -238,7 +254,7 @@ def _launch_dlhs(dout, rhs, group_sizes):
     if m and k:
         _run("dstt_grouped_gemm_dlhs_bf16", "grouped_gemm_dlhs", dout.device,
              dout.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
-             out.data_ptr(), m, k, n, e, 16 if m <= _SMALL_M else 64)
+             out.data_ptr(), m, k, n, e)
     return out
 
 
@@ -262,11 +278,179 @@ def _launch_drhs(lhs, dout, group_sizes):
 @functools.lru_cache(maxsize=None)
 def _kernel(symbol: str):
     fn = getattr(_build.load("grouped_gemm"), symbol)
-    ints = 4 if symbol == "dstt_grouped_gemm_drhs_bf16" else 5
+    ints = 5 if symbol == "dstt_grouped_gemm_bf16" else 4
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * ints + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch_info() -> dict:
+    """The last gradient launch's shape (``dstt_gmm_launch_info``): blocks,
+    threads and shared bytes a block, output tiles, columns
+    of a tile, ring stages, registers a thread at launch, spill bytes, and
+    the host ns spent encoding its tensor maps."""
+    fn = _build.load("grouped_gemm").dstt_gmm_launch_info
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(LAUNCH_INFO_KEYS))()
+    rc = fn(out)
+    if rc != 0:
+        raise RuntimeError(f"dstt_gmm_launch_info failed with {rc}")
+    return dict(zip(LAUNCH_INFO_KEYS, out))
+
+
+def _find_unit(sizes, m: int, bm: int, w: int):
+    """Unit ``w`` of the static list (``find_unit`` in the ``.cu``):
+    (group or -1, m-tile, product rows [lo, hi), zero rows [zlo, zhi))."""
+    group, m_tile, lo, hi, zlo, zhi = -1, 0, 0, 0, 0, 0
+    start = work = 0
+    for e, size in enumerate(sizes):
+        end = min(start + max(int(size), 0), m)
+        if end > start:
+            first = start // bm
+            tiles = (end - 1) // bm - first + 1
+            if group < 0 and w < work + tiles:
+                group, m_tile, lo, hi = e, first + (w - work), start, end
+            work += tiles
+        start = end
+    total = start
+    if group >= 0:
+        if w == work - 1:                       # the last valid unit
+            zlo, zhi = total, min(m, (m_tile + 1) * bm)
+    else:                                       # a spare unit: zeros
+        m_tile = -(-total // bm) + (w - work)
+        zlo = m_tile * bm
+        zhi = min(m, zlo + bm)
+    return group, m_tile, lo, hi, zlo, zhi
+
+
+def gmm_tile_walk(group_sizes, m: int, k: int, n: int,
+                  tiles: dict = None) -> dict:
+    """The gradient kernels' walk, in plain Python (``gmm_grad_kernel`` in
+    ``csrc/grouped_gemm.cu`` mirrors it), for ``lhs [M, K]``, ``rhs [E, K,
+    N]``, ``dout [M, N]`` and the tiles ``tiles`` (default
+    :data:`GRAD_TILES`).
+
+    dlhs (``dout @ rhs[g]^T``, ``[M, K]``):
+
+    * ``"units"``: per unit ``w``, ``(group, m_tile, lo, hi, zlo, zhi)``:
+      the rows [lo, hi) it writes with the product of its group (-1: a
+      spare unit) and the rows [zlo, zhi) it writes as zeros;
+    * ``"dlhs_order"``: the (unit, n-tile) pairs in launch order, in bands
+      of ``band`` units, the n-tile slowest within a band;
+    * ``"dlhs_stores"``: per unit, for each half of its m-tile below M (a
+      consumer warpgroup's rows), ``(r0, r1, by_tma)``: whether every row
+      is the unit's (stored whole by TMA) or the half goes out from
+      registers, row by row.
+
+    drhs (``lhs[rows_g]^T @ dout[rows_g]``, ``[E, K, N]``):
+
+    * ``"drhs_order"``: the (group, k_tile, n_tile) triples in launch
+      order, the largest group first with ``by_work`` (of equal ones the
+      lower index), within a group the tile of the shorter of K and N
+      fastest (``n_fast``);
+    * ``"groups"``: per group ``(start, end, chunks, tail)``: its rows,
+      the 64-row chunks ``(r0, r1)`` it loads (r1 = r0 + bk, rows past M
+      read as zeros) and the rows [end, r1) of its last chunk that the
+      kernel zeroes in lhs (None for an empty group).
+    """
+    t = dict(GRAD_TILES, **(tiles or {}))
+    bm, bn, bk, band = t["bm"], t["bn"], t["bk"], t["band"]
+    sizes = [int(s) for s in group_sizes]
+    e = len(sizes)
+    units = [_find_unit(sizes, m, bm, w) for w in range(-(-m // bm) + e - 1)]
+    nt = -(-k // bn)
+    order = []
+    for b0 in range(0, len(units), band):
+        width = min(band, len(units) - b0)
+        order += [(b0 + i % width, i // width) for i in range(width * nt)]
+    stores, half = [], bm // 2            # a warpgroup's rows
+    for group, m_tile, lo, hi, zlo, zhi in units:
+        halves = []
+        for r0 in range(m_tile * bm, m_tile * bm + bm, half):
+            r1 = min(r0 + half, m)
+            if r1 > r0:
+                mine = (max(0, min(r1, hi) - max(r0, lo))
+                        + max(0, min(r1, zhi) - max(r0, zlo)))
+                halves.append((r0, r1, mine == r1 - r0))
+        stores.append(halves)
+    groups, start = [], 0
+    for size in sizes:
+        end = min(start + max(size, 0), m)
+        chunks = [(r0, r0 + bk) for r0 in range(start, end, bk)]
+        groups.append((start, end, chunks,
+                       (end, chunks[-1][1]) if chunks else None))
+        start = end
+    rank = sorted(range(e), key=lambda g: (-(groups[g][1] - groups[g][0]), g)
+                  if t["by_work"] else g)
+    kt, ntr = -(-k // bm), -(-n // bn)
+    n_fast = t["n_fast"] == 1 or (t["n_fast"] == 2 and n < k)
+    drhs_order = [(g, r // ntr, r % ntr) if n_fast else (g, r % kt, r // kt)
+                  for g in rank for r in range(kt * ntr)]
+    return {"units": units, "dlhs_order": order, "dlhs_stores": stores,
+            "drhs_order": drhs_order, "groups": groups}
+
+
+def _rows(x: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
+    """Rows [r0, r1) of ``x`` in fp32, zeros past its end (a TMA box)."""
+    out = torch.zeros((r1 - r0,) + tuple(x.shape[1:]), dtype=torch.float32)
+    out[:max(0, min(r1, x.shape[0]) - r0)] = x[r0:r1].float()
+    return out
+
+
+def gmm_dlhs_tiled_plain(dout: torch.Tensor, rhs: torch.Tensor,
+                         group_sizes: torch.Tensor,
+                         tiles: dict = None) -> torch.Tensor:
+    """dlhs over :func:`gmm_tile_walk`'s tiles, in plain PyTorch (fp32, one
+    rounding to ``dout.dtype``): each (unit, n-tile) multiplies its whole
+    m-tile (rows of the next group and past M included, as the kernel
+    loads them) and writes only the rows the unit owns.  An element no
+    tile writes stays NaN.  For the tests: the main path runs the kernel
+    (CUDA) or :func:`gmm_dlhs_plain` (CPU)."""
+    t = dict(GRAD_TILES, **(tiles or {}))
+    (m, n), k = dout.shape, rhs.shape[1]
+    walk = gmm_tile_walk(group_sizes.tolist(), m, k, n, t)
+    out = torch.full((m, k), float("nan"))
+    for w, j in walk["dlhs_order"]:
+        group, m_tile, lo, hi, zlo, zhi = walk["units"][w]
+        r0, c0 = m_tile * t["bm"], j * t["bn"]
+        cols = slice(c0, min(c0 + t["bn"], k))
+        if group >= 0:
+            acc = _rows(dout, r0, r0 + t["bm"]) @ rhs[group, cols].float().t()
+        for i in range(t["bm"]):
+            r = r0 + i
+            if lo <= r < hi:
+                out[r, cols] = acc[i]
+            elif zlo <= r < zhi:
+                out[r, cols] = 0.0
+    return out.to(dout.dtype)
+
+
+def gmm_drhs_tiled_plain(lhs: torch.Tensor, dout: torch.Tensor,
+                         group_sizes: torch.Tensor,
+                         tiles: dict = None) -> torch.Tensor:
+    """drhs over :func:`gmm_tile_walk`'s tiles, in plain PyTorch (fp32, one
+    rounding to ``lhs.dtype``): each (group, K-tile, N-tile) sums its
+    group's 64-row chunks, the last chunk's rows past the group zeroed in
+    lhs only (dout's are the next group's, as the kernel loads them).  An
+    element no tile writes stays NaN.  For the tests: the main path runs
+    the kernel (CUDA) or :func:`gmm_drhs_plain` (CPU)."""
+    t = dict(GRAD_TILES, **(tiles or {}))
+    (m, k), n = lhs.shape, dout.shape[1]
+    walk = gmm_tile_walk(group_sizes.tolist(), m, k, n, t)
+    out = torch.full((group_sizes.shape[0], k, n), float("nan"))
+    for g, kt, nt in walk["drhs_order"]:
+        start, end, chunks, _ = walk["groups"][g]
+        ks = slice(kt * t["bm"], min(kt * t["bm"] + t["bm"], k))
+        ns = slice(nt * t["bn"], min(nt * t["bn"] + t["bn"], n))
+        acc = torch.zeros((ks.stop - ks.start, ns.stop - ns.start))
+        for r0, r1 in chunks:
+            a = _rows(lhs, r0, r1)[:, ks]
+            a[max(0, end - r0):] = 0.0             # the tail: the next group's rows
+            acc += a.t() @ _rows(dout, r0, r1)[:, ns]
+        out[g, ks, ns] = acc
+    return out.to(lhs.dtype)
 
 
 def exact_topk_routing(logits: torch.Tensor, k: int):

@@ -1183,15 +1183,30 @@ def test_grouped_gemm_backward_kernels(cuda_device, m, k, n, sizes):
 
 
 # A fault planted in a copy of csrc/grouped_gemm.cu: drhs takes the next
-# group's first row into each group's sum.
+# group's first row into each group's sum (each group's end one row late).
 _DRHS_BOUNDARY = (
-    ("const int end = min(start + max(group_sizes[blockIdx.z], 0), m);",
-     "const int end = min(start + max(group_sizes[blockIdx.z], 0) + 1, m);"),)
+    ("ends[e] = start;                            // the group's end",
+     "ends[e] = min(start + 1, p.m);"),)
+
+# A fault planted in a copy of csrc/grouped_gemm.cu: the dlhs kernel writes
+# the first row of a group that starts inside an m-tile from the previous
+# group's unit, with the previous group's weights.
+_DLHS_BOUNDARY = (
+    ("lo = tl.lo, hi = tl.hi;",
+     "lo = tl.lo + (tl.lo % kGradBM != 0), "
+     "hi = tl.hi + (tl.hi % kGradBM != 0 && tl.hi < p.m);"),)
+
+# A fault planted in a copy of csrc/grouped_gemm.cu: the drhs kernel leaves
+# the first row past a group's end in its last chunk (the next group's first
+# row) unzeroed, so it enters the group's sum.
+_DRHS_TAIL = (
+    ("for (int x = valid * 8 + ct;", "for (int x = (valid + 1) * 8 + ct;"),)
 
 
-# A fault planted in a copy of csrc/grouped_gemm.cu: the first row of a
-# group that starts inside an m-tile is written by the previous group's
-# unit, with the previous group's weights.
+# A fault planted in a copy of csrc/grouped_gemm.cu, in `find_unit` (the
+# forward's work units; dlhs walks the same list): the first row of a group
+# that starts inside an m-tile is written by the previous group's unit,
+# with the previous group's weights.
 _GMM_BOUNDARY = (("u.lo = start;", "u.lo = start + (start % BM != 0);"),
                  ("u.hi = end;", "u.hi = end + (end % BM != 0 && end < m);"))
 
@@ -1285,6 +1300,100 @@ def test_drhs_norm_bar_catches_planted_boundary_row(cuda_device, tmp_path,
         print(f"drhs {label}: max-abs {a:.3g} norm-rel {n:.3g}")
     assert built[1] <= NORM_TOL, built
     assert planted[1] > NORM_TOL, planted
+
+
+#: chip_smoke.py's phase-3 training routing: 8192 rows over 8 experts, each
+#: group starting inside a 128-row m-tile
+_TRAIN_SIZES = [1100, 980, 1010, 1050, 990, 1020, 1000, 1042]
+
+
+@pytest.mark.cuda
+def test_dlhs_norm_bar_catches_planted_boundary_row(cuda_device, tmp_path,
+                                                    monkeypatch):
+    """At chip_smoke.py's phase-3 training shape (M = 8192 routed rows,
+    14336 -> 4096, 8 experts): dlhs as built passes both bars and writes
+    zeros past the groups, and the planted boundary-row fault (a group's
+    first row from the previous group's unit), built from a copy of the
+    source in a temporary directory, reads above the norm bar."""
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    gs = torch.tensor(_TRAIN_SIZES, dtype=torch.int32, device=cuda_device)
+    dout = torch.randn((8192, 14336), generator=gen, device=cuda_device,
+                       dtype=torch.bfloat16)
+    # scaled as phase 3 scales it: outputs ~N(0, 1/4), so one bf16 ulp of
+    # the largest sits under the 3e-2 max bar
+    rhs = (torch.randn((8, 4096, 14336), generator=gen, device=cuda_device)
+           * (0.5 / 14336 ** 0.5)).to(torch.bfloat16)
+    want = tgg.gmm_dlhs_plain(dout, rhs, gs)
+
+    def errors():
+        got = tgg.gmm_dlhs(dout, rhs, gs)
+        return ((got.float() - want.float()).abs().max().item(),
+                _norm_rel(got, want))
+
+    built = errors()
+    monkeypatch.setitem(_build._LIBS, "grouped_gemm", _planted_gmm_boundary(
+        tmp_path, _DLHS_BOUNDARY))
+    tgg._kernel.cache_clear()
+    try:
+        planted = errors()
+    finally:
+        tgg._kernel.cache_clear()
+    for label, (a, n) in (("built", built), ("planted boundary row",
+                                             planted)):
+        print(f"dlhs {label}: max-abs {a:.3g} norm-rel {n:.3g}")
+    assert built[0] <= TOL and built[1] <= NORM_TOL, built
+    assert planted[1] > NORM_TOL, planted
+
+
+@pytest.mark.cuda
+def test_drhs_norm_bar_catches_planted_tail_row(cuda_device, tmp_path,
+                                                monkeypatch):
+    """At chip_smoke.py's phase-3 training shape (M = 8192 routed rows,
+    4096 x 14336, 8 experts): the planted fault that leaves one row of a
+    group's last chunk past its end unzeroed, built from a copy of the
+    source in a temporary directory, reads above the norm bar."""
+    gen = torch.Generator(device=cuda_device).manual_seed(37)
+    lhs, _, gs = _gmm_inputs(gen, cuda_device, 8192, 4096, 8, _TRAIN_SIZES)
+    dout = torch.randn((8192, 14336), generator=gen, device=cuda_device,
+                       dtype=torch.bfloat16)
+    want = tgg.gmm_drhs_plain(lhs, dout, gs)
+
+    def errors():
+        got = tgg.gmm_drhs(lhs, dout, gs)
+        return ((got.float() - want.float()).abs().max().item(),
+                _norm_rel(got, want))
+
+    built = errors()
+    monkeypatch.setitem(_build._LIBS, "grouped_gemm", _planted_gmm_boundary(
+        tmp_path, _DRHS_TAIL))
+    tgg._kernel.cache_clear()
+    try:
+        planted = errors()
+    finally:
+        tgg._kernel.cache_clear()
+    for label, (a, n) in (("built", built), ("planted tail row", planted)):
+        print(f"drhs {label}: max-abs {a:.3g} norm-rel {n:.3g}")
+    assert built[1] <= NORM_TOL, built
+    assert planted[1] > NORM_TOL, planted
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,sizes", [
+    (8192, 4096, 1024, _TRAIN_SIZES),
+    (1000, 136, 200, [10, 0, 330, 400, 0, 0, 70, 0]),  # edges, rows past
+])
+def test_grouped_gemm_gradients_bit_equal(cuda_device, m, k, n, sizes):
+    """Two runs of the dlhs and of the drhs kernel on the same inputs give
+    the same bits (each element is summed in a fixed order by one block,
+    without atomics)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k)
+    lhs, rhs, gs = _gmm_inputs(gen, cuda_device, m, k, n, sizes)
+    dout = torch.randn((m, n), generator=gen, device=cuda_device,
+                       dtype=torch.bfloat16)
+    for run in (lambda: tgg.gmm_dlhs(dout, rhs, gs),
+                lambda: tgg.gmm_drhs(lhs, dout, gs)):
+        first, again = run(), run()
+        assert torch.equal(first, again)
 
 
 def _load_chip_smoke():
