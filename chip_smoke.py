@@ -21,8 +21,10 @@ Phases, each fatal on failure:
    served 2 x 256 prefill, with pad rows (exact zeros) and with a window,
    each also timed beside the generic kernel, and decode at G = 4; the
    grouped expert GEMM at 4096 -> 14336 and 14336 -> 4096 over 8 experts,
-   M = 1024 (a prefill, one expert empty) and M = 16 (a decode step),
-   beside ``torch._grouped_mm`` where the installed PyTorch has it; its
+   M = 1024 (a prefill, one expert empty) and M = 16 (a decode step), both
+   on the wgmma forward, beside ``torch._grouped_mm`` where
+   the installed PyTorch has it, each also two runs bit-equal, exact zeros
+   past the groups and its launch's kernel and shape; its
    gradient kernels dlhs and drhs at Mixtral training shapes (4 x 1024
    tokens routed top-2, M = 8192; the gate / up and the down projection)
    and a ragged case (an empty expert, 192 rows past the groups), whose
@@ -112,7 +114,9 @@ Phases, each fatal on failure:
    beside the bounds from the script's own weight-byte count, peak memory,
    one traced decode step by kernel kind; counts set to 0 just before and
    read just after: tiled prefill 4 x 16, decode 47 x 16, grouped GEMM
-   3 x 16 x (4 + 47), and no other kernel;
+   3 x 16 x (4 + 47), and no other kernel; then, outside the count, one
+   traced 2 x 256 prefill ``put``: its grouped-GEMM device ms by kernel
+   beside the forward's bound;
 13. MoE training, kernels vs plain versions: one dropless ``MoE`` layer at
    full width on the same bf16 input and upstream gradient (4 x 1024
    tokens) through the kernels, the plain versions and fp32 (the same
@@ -262,6 +266,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -754,7 +759,9 @@ def gmm_cases(torch, gen, dev):
     """Phase 3's grouped GEMM (B9) cases at Mixtral-8x7B's expert shapes (8
     experts; 4096 -> 14336 and 14336 -> 4096): a 512-token prefill (M =
     1024 routed rows, expert 2 never chosen: an empty group) and a decode
-    step (8 tokens, M = 16), routed top-2 from seeded logits."""
+    step (8 tokens, M = 16), routed top-2 from seeded logits.  Each also
+    reports two runs bit-equal, the rows past the groups (exact zeros), its
+    TFLOP/s and its launch (``launch_info``)."""
     from deepspeed_tpu_torch.ops import grouped_gemm as gg
 
     out = []
@@ -769,8 +776,11 @@ def gmm_cases(torch, gen, dev):
             rhs = torch.randn((8, k, n), generator=gen, device=dev,
                               dtype=torch.bfloat16).mul_(1.0 / math.sqrt(k))
             got = gg.gmm(lhs, rhs, sizes)
+            launch = gg.launch_info()
+            again = gg.gmm(lhs, rhs, sizes)
             want = gg.gmm_plain(lhs, rhs, sizes)
             torch.cuda.synchronize()
+            total = int(sizes.sum())
             touched = int((sizes > 0).sum())
             # bytes: lhs and out once, the touched experts' weights once
             nbytes = m * k * 2 + touched * k * n * 2 + m * n * 2 + 8 * 4
@@ -782,11 +792,15 @@ def gmm_cases(torch, gen, dev):
                 "group_sizes": sizes.tolist(),
                 "max_abs_err": (got.float() - want.float()).abs().max().item(),
                 "norm_rel_err": rel_norm(got, want),
+                "bit_equal": torch.equal(got, again),
+                "zeros_max_abs": (got[total:].abs().max().item()
+                                  if total < m else 0.0),
                 "ms": time_ms(lambda i: gg.gmm(lhs, rhs, sizes), 1, iters),
                 "plain_ms": time_ms(lambda i: gg.gmm_plain(lhs, rhs, sizes),
                                     1, 2),
-                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_ms": b_ms, "bound_by": b_by, "launch": launch,
             }
+            case["tflops"] = 2.0 * total * k * n / case["ms"] / 1e9
             (case["library"], case["library_ms"],
              case["library_max_abs_err"]) = _yardstick_ms(
                 torch, lambda lib: lib(lhs, rhs, offs=offs),
@@ -794,7 +808,7 @@ def gmm_cases(torch, gen, dev):
                          for e, (a, b) in enumerate(zip(rows, rows[1:]))],
                 want, iters)
             out.append(case)
-            del lhs, rhs, got, want
+            del lhs, rhs, got, again, want
     return out
 
 
@@ -935,19 +949,31 @@ def gmm_backward_cases(torch, gen, dev, gen_skew):
 
 
 def gmm_training_forward_cases(torch, gen, dev):
-    """Phase 3's grouped GEMM forward (B9, row 15) at the MoE training shape,
-    measurement only: M = 8192 rows of 4096 tokens routed top-2
-    over 8 experts, 4096 -> 14336 and 14336 -> 4096, beside its plain
-    version, its library call and its bound.  The kernel is the one phases
-    11-15 run."""
+    """Phase 3's grouped GEMM forward (B9, row 15) at the MoE training shape:
+    M = 8192 rows of 4096 tokens routed top-2 over 8 experts, 4096 -> 14336
+    and 14336 -> 4096, then (drawn after them, so that they keep their
+    inputs) a ragged case (4000 tokens, expert 2 empty: 192 rows past the
+    groups) and a skewed one (expert 0's logits raised by 1.4), as
+    ``gmm_backward_cases`` has them; each beside its plain version, its
+    library call and its bound, two runs bit-equal, the rows past the
+    groups exact zeros, its TFLOP/s and its launch.  The kernel is the one
+    phases 13-14 run."""
     from deepspeed_tpu_torch.ops import grouped_gemm as gg
 
     out = []
     m = 8192
-    sizes = _routed_sizes(torch, gen, dev, m // 2)
-    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
-    rows = [0] + offs.tolist()
-    for k, n in ((4096, 14336), (14336, 4096)):
+    full = _routed_sizes(torch, gen, dev, m // 2)
+    for label, sizes, k, n in (
+            ("", full, 4096, 14336), ("", full, 14336, 4096),
+            ("ragged, expert 2 empty, ", {"tokens": 4000, "empty": 2}, 4096,
+             14336),
+            ("skewed, expert 0 boosted, ", {"tokens": m // 2,
+                                            "boost": (0, 1.4)}, 4096, 14336)):
+        if isinstance(sizes, dict):       # drawn after the cases before it
+            sizes = _routed_sizes(torch, gen, dev, **sizes)
+        total = int(sizes.sum())
+        offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+        rows = [0] + offs.tolist()
         lhs = torch.randn((m, k), generator=gen, device=dev,
                           dtype=torch.bfloat16)
         # outputs ~N(0, 1/4), as the gradient cases scale theirs: one bf16
@@ -955,21 +981,27 @@ def gmm_training_forward_cases(torch, gen, dev):
         rhs = torch.randn((8, k, n), generator=gen, device=dev,
                           dtype=torch.bfloat16).mul_(0.5 / math.sqrt(k))
         got = gg.gmm(lhs, rhs, sizes)
+        launch = gg.launch_info()
+        again = gg.gmm(lhs, rhs, sizes)
         want = gg.gmm_plain(lhs, rhs, sizes)
         torch.cuda.synchronize()
-        flops = 2.0 * int(sizes.sum()) * k * n
-        b_ms, b_by = bound(m * k * 2 + 8 * k * n * 2 + m * n * 2 + 8 * 4,
-                           flops)
+        flops = 2.0 * total * k * n
+        touched = int((sizes > 0).sum())
+        b_ms, b_by = bound(m * k * 2 + touched * k * n * 2 + m * n * 2
+                           + 8 * 4, flops)
         case = {
-            "name": f"grouped_gemm[training M={m}, {k}->{n}, E=8]",
+            "name": f"grouped_gemm[training {label}M={m}, {k}->{n}, E=8]",
             "kernel": "grouped_gemm", "path": "moe_training",
             "group_sizes": sizes.tolist(),
             "max_abs_err": (got.float() - want.float()).abs().max().item(),
             "norm_rel_err": rel_norm(got, want),
+            "bit_equal": torch.equal(got, again),
+            "zeros_max_abs": (got[total:].abs().max().item()
+                              if total < m else 0.0),
             "ms": time_ms(lambda i: gg.gmm(lhs, rhs, sizes), 1, 5),
             "plain_ms": time_ms(lambda i: gg.gmm_plain(lhs, rhs, sizes), 1,
                                 2),
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "launch": launch,
         }
         case["tflops"] = flops / case["ms"] / 1e9
         (case["library"], case["library_ms"],
@@ -979,7 +1011,7 @@ def gmm_training_forward_cases(torch, gen, dev):
                      for e, (a, b) in enumerate(zip(rows, rows[1:]))],
             want, 5)
         out.append(case)
-        del lhs, rhs, got, want
+        del lhs, rhs, got, again, want
     torch.cuda.empty_cache()
     return out
 
@@ -1633,6 +1665,12 @@ def mixtral_served_run(torch, np, prompts, gen_tokens=48):
     trace = profile_window(torch, lambda: eng.decode_step(
         uids, [int(t) for t in toks[:, -1]]), 1)
     eng.flush(uids)
+    # and one traced 2 x 256 prefill (outside the count): the grouped GEMM
+    # forward at M = 1024, 48 launches
+    prefill_trace = profile_window(torch, lambda: eng.put([200, 201],
+                                                          prompts[:2]), 1,
+                                   top=8)
+    eng.flush([200, 201])
     sm = eng.state_manager
     all_free = sm.free_blocks == sm.allocator.num_blocks - 1
     # top-2 of 8 experts over 8 uniformly routed tokens leaves an expert
@@ -1645,6 +1683,13 @@ def mixtral_served_run(torch, np, prompts, gen_tokens=48):
     prefill_flops = 2 * 512 * cfg.num_hidden_layers * (
         2 * h * h + 2 * h * kv
         + cfg.num_experts_per_tok * 3 * h * cfg.intermediate_size)
+    # the prefill's grouped GEMMs alone: 3 a layer at M = 1024 routed rows,
+    # each reading the 8 experts' weights (512 tokens touch all 8), its rows
+    # and its output once
+    f = cfg.intermediate_size
+    gmm_bound = bound(cfg.num_hidden_layers * 3 * (
+        cfg.num_local_experts * h * f * 2 + 1024 * (h + f) * 2),
+        cfg.num_hidden_layers * 3 * 2.0 * 1024 * h * f)[0]
     out = {
         "layers": cfg.num_hidden_layers, "requests": len(uids),
         "prompt_len": len(prompts[0]), "gen_tokens": gen_tokens,
@@ -1665,16 +1710,20 @@ def mixtral_served_run(torch, np, prompts, gen_tokens=48):
         "prefill_forward_bound_ms": bound(prefill_b, prefill_flops)[0],
         "prefill_forward_bytes": prefill_b,
         "prefill_forward_flops": prefill_flops,
+        "prefill_gmm_bound_ms": gmm_bound,
         "finite": finite, "all_blocks_free": bool(all_free),
         "tokens_shape": list(toks.shape),
         "tokens_in_vocab": bool(((toks >= 0) & (toks < cfg.vocab_size))
                                 .all()),
-        "trace": trace,
+        "trace": trace, "prefill_trace": prefill_trace,
     }
     if trace is not None:
         kinds = trace["kind_ms_per_step"]
         out["decode_gmm_share"] = (kinds.get("grouped_gemm", 0.0)
                                    / trace["device_busy_ms_per_step"])
+    if prefill_trace is not None:
+        out["prefill_gmm_ms"] = prefill_trace["kind_ms_per_step"].get(
+            "grouped_gemm", 0.0)
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2528,7 +2577,8 @@ def profile_window(torch, fn, steps, top=6):
                      if any(key in kname.lower() for key in keys)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us / steps / 1e3
         if kind == "grouped_gemm":
-            gmm[kname[:90]] = us / steps / 1e3
+            label = gmm_kernel_label(kname)
+            gmm[label] = gmm.get(label, 0.0) + us / steps / 1e3
     return {"wall_ms_per_step": wall_us / steps / 1e3,
             "device_busy_ms_per_step": busy_us / steps / 1e3,
             "device_idle_share": 1.0 - busy_us / wall_us,
@@ -2538,11 +2588,19 @@ def profile_window(torch, fn, steps, top=6):
             "grouped_gemm_ms_per_step": gmm}
 
 
+def gmm_kernel_label(kname: str) -> str:
+    """Which grouped-GEMM kernel a traced kernel name is: its
+    ``launch_info()`` name (``gmm_wgmma_kernel<kFwd>`` the forward,
+    ``<kDlhs>`` / ``<kDrhs>`` the gradients); else the name itself."""
+    from deepspeed_tpu_torch.ops import grouped_gemm
+
+    return grouped_gemm.traced_kernel(kname) or kname[:90]
+
+
 # device kernels by kind, first match wins: the port's own kernels, the
 # library GEMMs, then PyTorch's elementwise / reduction / copy kernels
 KERNEL_KINDS = (
-    # gmm_drhs_kernel: the drhs kernel of earlier builds (a parent's)
-    ("grouped_gemm", ("gmm_kernel", "gmm_grad_kernel", "gmm_drhs_kernel")),
+    ("grouped_gemm", ("gmm_wgmma_kernel",)),
     ("flash_attention", ("flash_fwd", "flash_bwd")),
     ("port_serving", ("qmm", "paged_")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
@@ -3828,10 +3886,10 @@ def main() -> int:
            or not c.get("bit_equal", True)]
     if bad:
         return fail(f"kernels disagree with their plain versions (or a pad "
-                    f"row of the tiled prefill, a dlhs row past the groups "
-                    f"or an empty group's drhs block is not zero, or two "
-                    f"runs of the decode / verify or a grouped GEMM "
-                    f"gradient kernel differ): {bad}")
+                    f"row of the tiled prefill, a grouped GEMM forward or "
+                    f"dlhs row past the groups or an empty group's drhs "
+                    f"block is not zero, or two runs of the decode / verify "
+                    f"or a grouped GEMM kernel differ): {bad}")
 
     # 4. slice end to end: kernels vs plain paths, 2 layers at 7B width
     rng = np.random.default_rng(SEED)
@@ -3970,6 +4028,14 @@ def main() -> int:
     # before, read just after)
     mixtral = mixtral_served_run(torch, np, prompts)
     print(f"[mixtral-served] {json.dumps(mixtral)}", flush=True)
+    if mixtral["prefill_trace"] is not None:
+        print(f"[mixtral-served] traced 2 x 256 prefill: device "
+              f"{mixtral['prefill_trace']['device_busy_ms_per_step']:.2f} ms,"
+              f" grouped GEMM {mixtral['prefill_gmm_ms']:.2f} ms by kernel "
+              f"{json.dumps(mixtral['prefill_trace']['grouped_gemm_ms_per_step'])}"
+              f"; bounds: the grouped GEMMs "
+              f"{mixtral['prefill_gmm_bound_ms']:.2f} ms, the forward "
+              f"{mixtral['prefill_forward_bound_ms']:.2f} ms", flush=True)
     mix_l = mixtral["launches"]
     want_l = mixtral["expected_launches"]
     if any(mix_l[k] != v for k, v in want_l.items()) or any(

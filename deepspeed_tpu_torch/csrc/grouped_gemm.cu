@@ -31,21 +31,14 @@
 // and never written, so any M works (the TPU path sends an M that is not a
 // multiple of its tile to the dense reference; that is a TPU rule).
 //
-// The forward, `gmm_kernel<BM>`: blockIdx.x is the unit and blockIdx.y the
-// 128-column n-tile, so the units of one group at one n-tile run side by
-// side and share the group's weight slice through the 50 MB L2.  A
-// decode-sized M takes 16-row m-tiles (BM = 16: W = E units, each
-// streaming one group's 128 columns) and larger M 64-row tiles.  A 4-stage
-// cp.async ring keeps three 32-deep k-steps of copies in flight behind
-// mma.sync m16n8k16, operands from ldmatrix (.trans for the [K, N] weight
-// tile).  At a decode step the expert weights bound it (a Mixtral-8x7B gate
-// projection reads 0.94 GB for 16 rows).
-//
-// The gradients, `gmm_grad_kernel<kDlhs / kDrhs>`, run at training sizes
-// (M = 8192 routed rows), where the tensor cores bound them: a 4096 x 14336
-// expert product is 0.96 TFLOP (0.97 ms at 989 TFLOP/s) against 0.3-1.2 GB
-// of operands and results (0.1-0.4 ms at 3.35 TB/s).  One design serves
-// both, built for Hopper rather than carried over from the TPU's grid:
+// One kernel, `gmm_wgmma_kernel<KIND>`, serves the forward, dlhs and drhs
+// at every M: where the tensor cores bound it (training, M = 8192 routed
+// rows: a 4096 x 14336 expert product is 0.96 TFLOP, 0.97 ms at 989
+// TFLOP/s) and where the expert weights do (prefill, M = 1024: 7 experts'
+// 0.82 GB, 0.25 ms at 3.35 TB/s; a decode step, M = 16: a Mixtral-8x7B
+// gate projection reads up to 0.94 GB for 16 rows, each of E units
+// streaming its group's weights once).  It is built for Hopper rather
+// than carried over from the TPU's grid:
 //
 // * one block a 128 x 256 output tile, in the order of a static tile list
 //   that every block derives from group_sizes on the device; the hardware
@@ -63,16 +56,28 @@
 //   4-stage ring leaves room for no more), and sends them out by TMA
 //   store.
 //
-// dlhs is the plain "TN" product: A = dout [M, N_fwd] and B = rhs[g]
-// [K_fwd, N_fwd] both hold the reduction dim contiguous (K-major, wgmma
-// reads them without transposes; a later forward on this kernel would take
-// rhs[g] MN-major).  Its tiles are (unit, n-tile) pairs at BM = 128 rows,
-// ordered in bands of kBand units: within a band the n-tile changes
-// slowest, so the blocks in flight cover ~kBand units by a few n-tiles and
-// share both the units' dout rows and each group's rhs slice through L2.
-// A warpgroup's 64 rows go out by TMA store when every one of them (below
-// M) is its unit's, as product or as zeros; rows a boundary tile shares
-// with another unit go out from registers, masked by row.
+// The forward and dlhs walk the unit list (128-row units): their tiles
+// are (unit, n-tile) pairs, ordered in bands of units; within a band the
+// n-tile changes slowest, so the blocks in flight cover the band's units
+// by a few n-tiles, the units of one group at one n-tile run side by side,
+// and they share the units' rows and each group's weight slice through
+// the 50 MB L2.  A warpgroup's 64 rows go out by TMA store when every one
+// of them (below M) is its unit's, as product or as zeros; rows a boundary
+// tile shares with another unit (the next group's rows, multiplied with
+// this group's weights because TMA zero-fills only past M) go out from
+// registers, masked by row.  Boundary tiles multiply rows that are not
+// their own: ~10% of the MACs at M = 8192; at M = 1024 (7 groups of ~146
+// rows) the units multiply ~1.75x the routed rows.  64-row units halve
+// that waste but load each weight tile from L2 for half as many rows, and
+// timed slower at every M (PERF.md).  The forward's bands are 8 units,
+// dlhs's 16 (timed: tools/gmm_variants.py, PERF.md).
+//
+// The forward is A = lhs [M, K], K-major (a [BM rows x 64 of K] box), by
+// B = rhs[g] [K, N] with N contiguous: MN-major [64 of K x 64 of N] boxes
+// of the rank-3 map of rhs, read with wgmma's transpose-B; nothing is
+// transposed in memory.  dlhs is the plain "TN" product: A = dout [M,
+// N_fwd] and B = rhs[g] [K_fwd, N_fwd] both hold the reduction dim
+// contiguous (K-major, wgmma reads them without transposes).
 //
 // drhs reduces over the group's rows, so both operands are MN-major: A =
 // lhs[rows_g]^T (a [64 rows x 64 of K] TMA box, K contiguous; wgmma's
@@ -103,17 +108,8 @@
 #include <chrono>
 
 #include "hopper.cuh"
-#include "mma.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;          // 4 warps
-constexpr int kBN = 128;               // columns of an n-tile
-constexpr int kBK = 32;                // depth of one k step
-constexpr int kStages = 4;             // cp.async ring depth
-constexpr int kLDA = kBK + 8;          // smem row strides in elements: the
-constexpr int kLDB = kBN + 8;          // 16 bytes of padding keep ldmatrix
-                                       // free of bank conflicts
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -159,111 +155,9 @@ __device__ __forceinline__ Unit find_unit(const int* __restrict__ group_sizes,
 }
 
 // ----------------------------------------------------------------------------
-// The forward: C[M, N] = A[M, K] @ rhs[g] per row group
+// The forward, dlhs and drhs on wgmma, fed by TMA
 // ----------------------------------------------------------------------------
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-gmm_kernel(const __nv_bfloat16* __restrict__ lhs, const __nv_bfloat16* __restrict__ rhs,
-           const int* __restrict__ group_sizes, __nv_bfloat16* __restrict__ out,
-           int m, int k, int n, int e_count) {
-  constexpr int WM = BM / 16;                  // warps along M
-  constexpr int WN = 4 / WM;                   // warps along N
-  constexpr int MF = BM / (16 * WM);           // m16 fragments a warp holds
-  constexpr int NF = kBN / (8 * WN);           // n8 fragments a warp holds
-  constexpr int kBStage = kBK * kLDB;
-  static_assert(WM * WN == 4 && MF == 1 && NF % 2 == 0, "warp layout");
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem);    // [stages][BM][kLDA]
-  __nv_bfloat16* b_s = a_s + kStages * BM * kLDA;  // [stages][kBK][kLDB]
-
-  const Unit u = find_unit<BM>(group_sizes, e_count, m, blockIdx.x);
-  const int n0 = blockIdx.y * kBN;
-  const int m0 = u.m_tile * BM;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp % WM, wn = warp / WM;
-  const int row_base = m0 + wm * 16 + g;        // this lane's rows: +0, +8
-  const int col_base = n0 + wn * (NF * 8) + 2 * t;
-
-  float acc[NF][4];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  if (u.group >= 0) {
-    const __nv_bfloat16* b_g = rhs + static_cast<size_t>(u.group) * k * n;
-    const int k_steps = (k + kBK - 1) / kBK;
-    // copies of k step `ks` into ring slot `slot`: BM x 32 of A and the
-    // 32 x 128 block of the group's weight, zero-filled past M, K and N
-    auto load = [&](int ks, int slot) {
-      const int k0 = ks * kBK;
-      __nv_bfloat16* as = a_s + slot * BM * kLDA;
-      __nv_bfloat16* bs = b_s + slot * kBStage;
-      for (int i = threadIdx.x; i < BM * (kBK / 8); i += kThreads) {
-        const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-        const bool ok = m0 + r < m && k0 + c < k;
-        cp_async16(as + r * kLDA + c,
-                   ok ? lhs + static_cast<size_t>(m0 + r) * k + k0 + c : lhs, ok);
-      }
-#pragma unroll
-      for (int i = threadIdx.x; i < kBK * (kBN / 8); i += kThreads) {
-        const int r = i / (kBN / 8), c = (i % (kBN / 8)) * 8;
-        const bool ok = k0 + r < k && n0 + c < n;
-        cp_async16(bs + r * kLDB + c,
-                   ok ? b_g + static_cast<size_t>(k0 + r) * n + n0 + c : b_g, ok);
-      }
-    };
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < k_steps) load(s, s);
-      cp_async_commit();                        // empty groups keep the count
-    }
-    for (int ks = 0; ks < k_steps; ++ks) {
-      cp_async_wait<kStages - 2>();             // this thread's copies of step ks
-      __syncthreads();                          // everyone's; step ks-1 is consumed
-      if (ks + kStages - 1 < k_steps) load(ks + kStages - 1, (ks + kStages - 1) % kStages);
-      cp_async_commit();
-      const __nv_bfloat16* as = a_s + (ks % kStages) * BM * kLDA + wm * 16 * kLDA;
-      const __nv_bfloat16* bs = b_s + (ks % kStages) * kBStage + wn * (NF * 8);
-#pragma unroll
-      for (int k0 = 0; k0 < kBK; k0 += 16) {
-        uint32_t af[4];
-        ldsm_x4(af, as + (lane % 16) * kLDA + k0 + (lane / 16) * 8);
-#pragma unroll
-        for (int j = 0; j < NF; j += 2) {
-          uint32_t bf[4];
-          ldsm_x4_trans(bf, bs + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * kLDB
-                                + j * 8 + (lane / 16) * 8);
-          mma16816(acc[j], af, bf[0], bf[1]);
-          mma16816(acc[j + 1], af, bf[2], bf[3]);
-        }
-      }
-    }
-    cp_async_wait<0>();
-  }
-
-  // each row goes out once: the product for the unit's group rows, zeros
-  // for the rows it owns past the groups, nothing for the rest
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row_base + 8 * i;
-    const bool prod = r >= u.lo && r < u.hi;
-    if (!prod && !(r >= u.zlo && r < u.zhi)) continue;
-    __nv_bfloat16* orow = out + static_cast<size_t>(r) * n;
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      const int c = col_base + 8 * j;
-      if (c >= n) continue;
-      const __nv_bfloat162 v = prod ? __floats2bfloat162_rn(acc[j][2 * i], acc[j][2 * i + 1])
-                                    : __floats2bfloat162_rn(0.f, 0.f);
-      *reinterpret_cast<__nv_bfloat162*>(orow + c) = v;
-    }
-  }
-}
-
-// ----------------------------------------------------------------------------
-// The gradients: dlhs and drhs on wgmma, fed by TMA
-// ----------------------------------------------------------------------------
-constexpr int kDlhs = 0, kDrhs = 1;
+constexpr int kDlhs = 0, kDrhs = 1, kFwd = 2;
 constexpr int kGradBM = 128;           // output rows of a tile: two warpgroups of 64
 constexpr int kGradBK = 64;            // depth of a k-step (one 128-byte swizzle row)
 
@@ -271,27 +165,32 @@ constexpr int kGradBK = 64;            // depth of a k-step (one 128-byte swizzl
 // one block an SM: at two, ptxas caps a thread of these 384-thread blocks
 // at 80 registers, too few for a wgmma m64n128).  kBN: output columns a
 // tile; kStages: ring stages; kPersistent (0: one block a tile); kBand
-// (dlhs): units a band of the tile order; kByWork (drhs): groups largest
-// first, else in index order; kNFast (drhs, within a group): 0 the K-tile
-// changes fastest, 1 the N-tile, 2 that of the shorter of K and N, so
-// that the tiles in flight cover the short dimension whole and a few tiles
-// of the long one, the least of lhs and dout.
+// (forward and dlhs): units a band of the tile order; kByWork (drhs):
+// groups largest first, else in index order; kNFast (drhs, within a
+// group): 0 the K-tile changes fastest, 1 the N-tile, 2 that of the
+// shorter of K and N, so that the tiles in flight cover the short
+// dimension whole and a few tiles of the long one, the least of lhs and
+// dout.
 template <int KIND>
-struct GradTiles;
+struct GmmTiles;
 template <>
-struct GradTiles<kDlhs> {
+struct GmmTiles<kDlhs> {
   static constexpr int kBN = 256, kStages = 4, kPersistent = 0, kBand = 16;
 };
 template <>
-struct GradTiles<kDrhs> {
+struct GmmTiles<kDrhs> {
   static constexpr int kBN = 256, kStages = 4, kPersistent = 0, kByWork = 1, kNFast = 2;
+};
+template <>
+struct GmmTiles<kFwd> {
+  static constexpr int kBN = 256, kStages = 4, kPersistent = 0, kBand = 8;
 };
 
 template <int KIND>
-struct GradSmem {
-  using T = GradTiles<KIND>;
+struct GmmSmem {
+  using T = GmmTiles<KIND>;
   static constexpr int kA = kGradBM * kGradBK * 2;      // [128 x 64] (drhs: 2 blocks of 64 x 64)
-  static constexpr int kB = T::kBN * kGradBK * 2;       // [kBN x 64] (drhs: kBN / 64 of 64 x 64)
+  static constexpr int kB = T::kBN * kGradBK * 2;       // [kBN x 64] (drhs, forward: kBN / 64 of 64 x 64)
   static constexpr int kStage = kA + kB;
   static constexpr int kOut = T::kStages * kStage;      // staging: [2][kBN / 128][64][128 B]
   static constexpr int kBars = kOut + 2 * 64 * T::kBN;  // full[kStages], empty[kStages]
@@ -300,18 +199,18 @@ struct GradSmem {
   static constexpr int kProducerRegs = 40, kConsumerRegs = 232;   // of 168 at launch
 };
 
-struct GradArgs {
+struct GmmArgs {
   const int* group_sizes;
-  __nv_bfloat16* out;            // dlhs [M, K] or drhs [E, K, N]
+  __nv_bfloat16* out;            // forward [M, N], dlhs [M, K] or drhs [E, K, N]
   int m, k, n, e_count;          // the forward's M, K, N and E
   int tiles;
 };
 
-// One output tile.  dlhs: the unit's group (-1: a spare unit) and m-tile
-// rows from row0, the rows written with the product [lo, hi) and as zeros
-// [zlo, zhi).  drhs: the group, its rows [row0, hi), the K-tile from k0.
-// Both: the n-tile from col0 and the k-steps of 64.
-struct GradTile {
+// One output tile.  Forward and dlhs: the unit's group (-1: a spare unit)
+// and m-tile rows from row0, the rows written with the product [lo, hi)
+// and as zeros [zlo, zhi).  drhs: the group, its rows [row0, hi), the
+// K-tile from k0.  All: the n-tile from col0 and the k-steps of 64.
+struct GmmTile {
   int group, row0, col0, k0, steps, lo, hi, zlo, zhi;
 };
 
@@ -323,13 +222,23 @@ __device__ __forceinline__ int overlap(int a0, int a1, int b0, int b1) {
   return max(0, min(a1, b1) - max(a0, b0));
 }
 
+// d[N/2] (+)= A[64 x 16] B[16 x N] from shared memory, N = 128 / 256
+template <int N, int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  if constexpr (N == 256) wgmma_ss_bf16_256t<kTransA, kTransB>(d, da, db, scale_d);
+  else wgmma_ss_bf16_128t<kTransA, kTransB>(d, da, db, scale_d);
+}
+
 template <int KIND>
-__device__ __forceinline__ GradTile grad_tile(const GradArgs& p, const int* order,
-                                              const int* starts, const int* ends, int t) {
-  using T = GradTiles<KIND>;
-  GradTile tl{};
-  if constexpr (KIND == kDlhs) {
-    const int nt = cdiv(p.k, T::kBN);
+__device__ __forceinline__ GmmTile gmm_tile(const GmmArgs& p, const int* order,
+                                            const int* starts, const int* ends, int t) {
+  using T = GmmTiles<KIND>;
+  GmmTile tl{};
+  if constexpr (KIND != kDrhs) {
+    // dlhs writes [M, K] and sums over N, the forward [M, N] over K
+    const int cols = KIND == kDlhs ? p.k : p.n, depth = KIND == kDlhs ? p.n : p.k;
+    const int nt = cdiv(cols, T::kBN);
     const int units = cdiv(p.m, kGradBM) + p.e_count - 1;
     const int band = t / (T::kBand * nt);
     const int in = t - band * T::kBand * nt;
@@ -339,7 +248,7 @@ __device__ __forceinline__ GradTile grad_tile(const GradArgs& p, const int* orde
     tl.group = u.group;
     tl.row0 = u.m_tile * kGradBM;
     tl.col0 = (in / width) * T::kBN;
-    tl.steps = u.group >= 0 ? cdiv(p.n, kGradBK) : 0;
+    tl.steps = u.group >= 0 ? cdiv(depth, kGradBK) : 0;
     tl.lo = u.lo;
     tl.hi = u.hi;
     tl.zlo = u.zlo;
@@ -360,7 +269,7 @@ __device__ __forceinline__ GradTile grad_tile(const GradArgs& p, const int* orde
 
 // drhs: each group's rows [start, end), clamped to M as the plain version
 // clamps them, and the groups in the order their tiles are handed out
-__device__ void group_table(const GradArgs& p, bool by_work, int* order, int* starts,
+__device__ void group_table(const GmmArgs& p, bool by_work, int* order, int* starts,
                             int* ends) {
   if (threadIdx.x == 0) {
     int start = 0;
@@ -387,11 +296,12 @@ __device__ void group_table(const GradArgs& p, bool by_work, int* order, int* st
 
 template <int KIND>
 __global__ void __launch_bounds__(384, 1)
-gmm_grad_kernel(const __grid_constant__ CUtensorMap a_map,
-                const __grid_constant__ CUtensorMap b_map,
-                const __grid_constant__ CUtensorMap out_map, const GradArgs p) {
-  using T = GradTiles<KIND>;
-  using L = GradSmem<KIND>;
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
+                 const __grid_constant__ CUtensorMap b_map,
+                 const __grid_constant__ CUtensorMap out_map, const GmmArgs p) {
+  using T = GmmTiles<KIND>;
+  using L = GmmSmem<KIND>;
+  constexpr bool kUnits = KIND != kDrhs;          // forward and dlhs: the unit list
   constexpr int BN = T::kBN, NS = T::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
@@ -421,7 +331,7 @@ gmm_grad_kernel(const __grid_constant__ CUtensorMap a_map,
     if (threadIdx.x == 0) {
       int it = 0;
       for (int i = first; i < last; i += stride) {
-        const GradTile tl = grad_tile<KIND>(p, order, starts, ends, base + i);
+        const GmmTile tl = gmm_tile<KIND>(p, order, starts, ends, base + i);
         for (int s = 0; s < tl.steps; ++s, ++it) {
           const int st = it % NS;
           if (it >= NS) mbar_wait(&empty[st], ((it / NS) & 1) ^ 1);
@@ -431,12 +341,17 @@ gmm_grad_kernel(const __grid_constant__ CUtensorMap a_map,
           if constexpr (KIND == kDlhs) {
             tma_load_2d(a_s, &a_map, &full[st], s * kGradBK, tl.row0);
             tma_load_3d(b_s, &b_map, &full[st], s * kGradBK, tl.col0, tl.group);
-          } else {
+          } else if constexpr (KIND == kDrhs) {
             const int r0 = tl.row0 + s * kGradBK;
             for (int c = 0; c < 2; ++c)
               tma_load_2d(a_s + c * 8192, &a_map, &full[st], tl.k0 + 64 * c, r0);
             for (int c = 0; c < BN / 64; ++c)
               tma_load_2d(b_s + c * 8192, &b_map, &full[st], tl.col0 + 64 * c, r0);
+          } else {
+            tma_load_2d(a_s, &a_map, &full[st], s * kGradBK, tl.row0);
+            for (int c = 0; c < BN / 64; ++c)
+              tma_load_3d(b_s + c * 8192, &b_map, &full[st], tl.col0 + 64 * c, s * kGradBK,
+                          tl.group);
           }
         }
       }
@@ -457,7 +372,7 @@ gmm_grad_kernel(const __grid_constant__ CUtensorMap a_map,
       if (lane == 0) mbar_arrive(&empty[i % NS]);
     };
     for (int i = first; i < last; i += stride) {
-      const GradTile tl = grad_tile<KIND>(p, order, starts, ends, base + i);
+      const GmmTile tl = gmm_tile<KIND>(p, order, starts, ends, base + i);
       for (int s = 0; s < tl.steps; ++s, ++it) {
         const int st = it % NS;
         mbar_wait(&full[st], (it / NS) & 1);
@@ -480,18 +395,23 @@ gmm_grad_kernel(const __grid_constant__ CUtensorMap a_map,
 #pragma unroll
         for (int kk = 0; kk < kGradBK / 16; ++kk) {
           const int scale_d = s > 0 || kk > 0;
-          if constexpr (KIND == kDlhs) {
-            // K-major: 16 columns of the 128-byte rows, 8-row groups 1024 apart
-            const uint64_t da = wgmma_desc(a_s + cw * 64 * 128 + kk * 32, 16, 1024);
-            const uint64_t db = wgmma_desc(b_s + kk * 32, 16, 1024);
-            if constexpr (BN == 256) wgmma_ss_bf16_256t<0, 0>(acc, da, db, scale_d);
-            else wgmma_ss_bf16_128t<0, 0>(acc, da, db, scale_d);
-          } else {
+          if constexpr (KIND == kDrhs) {
             // MN-major: 16 rows of the chunk, 64-column blocks 8192 apart
             const uint64_t da = wgmma_desc(a_s + cw * 8192 + kk * 2048, 8192, 1024);
             const uint64_t db = wgmma_desc(b_s + kk * 2048, 8192, 1024);
-            if constexpr (BN == 256) wgmma_ss_bf16_256t<1, 1>(acc, da, db, scale_d);
-            else wgmma_ss_bf16_128t<1, 1>(acc, da, db, scale_d);
+            wgmma_bf16<BN, 1, 1>(acc, da, db, scale_d);
+          } else {
+            // A K-major: 16 columns of the 128-byte rows, 8-row groups 1024 apart
+            const uint64_t da = wgmma_desc(a_s + cw * 64 * 128 + kk * 32, 16, 1024);
+            if constexpr (KIND == kDlhs) {
+              // B K-major as A
+              const uint64_t db = wgmma_desc(b_s + kk * 32, 16, 1024);
+              wgmma_bf16<BN, 0, 0>(acc, da, db, scale_d);
+            } else {
+              // B MN-major: 16 rows of K, 64-column blocks 8192 apart
+              const uint64_t db = wgmma_desc(b_s + kk * 2048, 8192, 1024);
+              wgmma_bf16<BN, 0, 1>(acc, da, db, scale_d);
+            }
           }
         }
         wgmma_commit();
@@ -509,9 +429,9 @@ gmm_grad_kernel(const __grid_constant__ CUtensorMap a_map,
       }
 
       // The epilogue.  This warpgroup's rows are r0 + 16 warp + g (+ 8);
-      // acc[4 j + 2 h + x] is row + 8 h, column 8 j + 2 t4 + x.
+      // acc[4 j + 2 h + x] is row + 8 h, column col0 + 8 j + 2 t4 + x.
       int r0, r1, lo = 0, hi = 0, zlo = 0, zhi = 0;
-      if constexpr (KIND == kDlhs) {
+      if constexpr (kUnits) {
         r0 = tl.row0 + 64 * cw;
         r1 = min(r0 + 64, p.m);
         lo = tl.lo, hi = tl.hi;                   // the rows written with the product
@@ -521,7 +441,7 @@ gmm_grad_kernel(const __grid_constant__ CUtensorMap a_map,
         r1 = min(r0 + 64, p.k);
       }
       if (r1 <= r0) continue;
-      const bool whole = KIND == kDrhs
+      const bool whole = !kUnits
                          || overlap(r0, r1, lo, hi) + overlap(r0, r1, zlo, zhi) == r1 - r0;
       if (whole) {
         // round (zeros for the rows the unit writes as zeros), stage in the
@@ -533,7 +453,7 @@ gmm_grad_kernel(const __grid_constant__ CUtensorMap a_map,
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int row = 16 * warp + g + 8 * h;
-            const bool prod = have && (KIND == kDrhs || (r0 + row >= lo && r0 + row < hi));
+            const bool prod = have && (!kUnits || (r0 + row >= lo && r0 + row < hi));
 #pragma unroll
             for (int jj = 0; jj < OC / 8; ++jj) {
               const int j = pass * (OC / 8) + jj;
@@ -549,7 +469,7 @@ gmm_grad_kernel(const __grid_constant__ CUtensorMap a_map,
           if (ct == 0) {
             const int c0 = tl.col0 + pass * OC;
             for (int c = 0; c < OC / 64; ++c) {
-              if constexpr (KIND == kDlhs)
+              if constexpr (kUnits)
                 tma_store_2d(&out_map, staging + c * 8192, c0 + 64 * c, r0);
               else
                 tma_store_3d(&out_map, staging + c * 8192, c0 + 64 * c, r0, tl.group);
@@ -565,8 +485,8 @@ gmm_grad_kernel(const __grid_constant__ CUtensorMap a_map,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = r0 + 16 * warp + g + 8 * h;
-          const bool prod = have && (KIND == kDrhs || (r >= lo && r < hi));
-          if (r >= r1 || !(KIND == kDrhs || prod || (r >= zlo && r < zhi))) continue;
+          const bool prod = have && (!kUnits || (r >= lo && r < hi));
+          if (r >= r1 || !(!kUnits || prod || (r >= zlo && r < zhi))) continue;
           __nv_bfloat16* orow = out + static_cast<size_t>(r) * cols;
 #pragma unroll
           for (int j = 0; j < BN / 8; ++j) {
@@ -592,21 +512,13 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int BM>
-int launch(const void* lhs, const void* rhs, const void* group_sizes, void* out, int m,
-           int k, int n, int e_count, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kStages) * (BM * kLDA + kBK * kLDB)
-                      * sizeof(__nv_bfloat16);
-  auto kernel = gmm_kernel<BM>;
-  const cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((m + BM - 1) / BM + e_count - 1, (n + kBN - 1) / kBN);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(lhs), static_cast<const __nv_bfloat16*>(rhs),
-      static_cast<const int*>(group_sizes), static_cast<__nv_bfloat16*>(out), m, k, n,
-      e_count);
-  return static_cast<int>(cudaGetLastError());
-}
+// What the last launch was, for reports (`dstt_gmm_launch_info`): which
+// kernel (kDlhs, kDrhs or kFwd) and its shape.
+struct LaunchInfo {
+  const void* fn;
+  long long kernel, grid, threads, smem, tiles, bm, bn, stages, band, encode_ns;
+};
+LaunchInfo g_last{};
 
 // The map of `depth` row-major bf16 [rows, cols] matrices, one after
 // another (rank 3; rank 2 for one matrix): a box is 64 columns (128 bytes,
@@ -624,13 +536,6 @@ bool encode(CUtensorMap* map, const void* base, int cols, int rows, int depth, i
                       CU_TENSOR_MAP_SWIZZLE_128B) == CUDA_SUCCESS;
 }
 
-// What the last gradient launch was, for reports (`dstt_gmm_launch_info`).
-struct LaunchInfo {
-  const void* fn;
-  long long grid, threads, smem, tiles, bn, stages, encode_ns;
-};
-LaunchInfo g_last{};
-
 int sm_count() {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess
@@ -639,43 +544,51 @@ int sm_count() {
   return sms;
 }
 
-// dlhs: a = dout [M, N], b = rhs [E, K, N], out [M, K]; drhs: a = lhs
-// [M, K], b = dout [M, N], out [E, K, N].
+// forward: a = lhs [M, K], b = rhs [E, K, N], out [M, N]; dlhs: a = dout
+// [M, N], b = rhs [E, K, N], out [M, K]; drhs: a = lhs [M, K], b = dout
+// [M, N], out [E, K, N].
 template <int KIND>
-int launch_grad(const void* a, const void* b, const void* group_sizes, void* out, int m,
-                int k, int n, int e_count, cudaStream_t stream) {
-  using T = GradTiles<KIND>;
-  using L = GradSmem<KIND>;
+int launch_wgmma(const void* a, const void* b, const void* group_sizes, void* out, int m,
+                 int k, int n, int e_count, cudaStream_t stream) {
+  using T = GmmTiles<KIND>;
+  using L = GmmSmem<KIND>;
   const auto t0 = std::chrono::steady_clock::now();
   CUtensorMap a_map{}, b_map{}, out_map{};
   bool ok;
-  long long tiles;
+  long long tiles, band = 0;
+  if constexpr (KIND != kDrhs) band = T::kBand;
   if constexpr (KIND == kDlhs) {
     tiles = static_cast<long long>(cdiv(m, kGradBM) + e_count - 1) * cdiv(k, T::kBN);
     ok = encode(&a_map, a, n, m, 1, kGradBM, 2) && encode(&b_map, b, n, k, e_count, T::kBN, 3)
          && encode(&out_map, out, k, m, 1, 64, 2);
-  } else {
+  } else if constexpr (KIND == kDrhs) {
     tiles = static_cast<long long>(e_count) * cdiv(k, kGradBM) * cdiv(n, T::kBN);
     // with M = 0 every group is empty: nothing is loaded and no map is made
     ok = (m == 0 || (encode(&a_map, a, k, m, 1, 64, 2) && encode(&b_map, b, n, m, 1, 64, 2)))
          && encode(&out_map, out, n, k, e_count, 64, 3);
+  } else {
+    tiles = static_cast<long long>(cdiv(m, kGradBM) + e_count - 1) * cdiv(n, T::kBN);
+    ok = encode(&a_map, a, k, m, 1, kGradBM, 2)
+         && encode(&b_map, b, n, k, e_count, 64, 3)
+         && encode(&out_map, out, n, m, 1, 64, 2);
   }
   if (!ok || tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const long long encode_ns = std::chrono::duration_cast<std::chrono::nanoseconds>(
                                   std::chrono::steady_clock::now() - t0)
                                   .count();
   const size_t smem = L::kBytes + (KIND == kDrhs ? 12 * static_cast<size_t>(e_count) : 0);
-  auto kernel = gmm_grad_kernel<KIND>;
+  auto kernel = gmm_wgmma_kernel<KIND>;
   const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long slots = sm_count();
   const long long grid = T::kPersistent ? (tiles < slots ? tiles : slots) : tiles;
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const GradArgs args{static_cast<const int*>(group_sizes), static_cast<__nv_bfloat16*>(out),
-                      m, k, n, e_count, static_cast<int>(tiles)};
+  const GmmArgs args{static_cast<const int*>(group_sizes), static_cast<__nv_bfloat16*>(out),
+                     m, k, n, e_count, static_cast<int>(tiles)};
   kernel<<<static_cast<unsigned>(grid), 384, smem, stream>>>(a_map, b_map, out_map, args);
-  g_last = LaunchInfo{reinterpret_cast<const void*>(kernel), grid, 384,
-                      static_cast<long long>(smem), tiles, T::kBN, T::kStages, encode_ns};
+  g_last = LaunchInfo{reinterpret_cast<const void*>(kernel), KIND, grid, 384,
+                      static_cast<long long>(smem), tiles, kGradBM, T::kBN, T::kStages,
+                      band, encode_ns};
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -685,16 +598,14 @@ bool shape_ok(int m, int k, int n, int e_count) {
 
 }  // namespace
 
-// The forward: lhs [M, K], rhs [E, K, N] -> out [M, N].  tile_m: 16 or 64
-// rows an m-tile.  Return: the CUDA error code (0 ok).
+// The forward: lhs [M, K], rhs [E, K, N] -> out [M, N].  Return: the CUDA
+// error code (0 ok).
 extern "C" int dstt_grouped_gemm_bf16(const void* lhs, const void* rhs,
                                       const void* group_sizes, void* out, int m, int k,
-                                      int n, int e_count, int tile_m, void* stream) {
+                                      int n, int e_count, void* stream) {
   if (m <= 0 || !shape_ok(m, k, n, e_count)) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (tile_m == 16) return launch<16>(lhs, rhs, group_sizes, out, m, k, n, e_count, s);
-  if (tile_m == 64) return launch<64>(lhs, rhs, group_sizes, out, m, k, n, e_count, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_wgmma<kFwd>(lhs, rhs, group_sizes, out, m, k, n, e_count,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // dlhs: dout [M, N], rhs [E, K, N] -> dlhs [M, K] (the forward's K and N).
@@ -702,8 +613,8 @@ extern "C" int dstt_grouped_gemm_dlhs_bf16(const void* dout, const void* rhs,
                                            const void* group_sizes, void* dlhs, int m,
                                            int k, int n, int e_count, void* stream) {
   if (m <= 0 || !shape_ok(m, k, n, e_count)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_grad<kDlhs>(dout, rhs, group_sizes, dlhs, m, k, n, e_count,
-                            static_cast<cudaStream_t>(stream));
+  return launch_wgmma<kDlhs>(dout, rhs, group_sizes, dlhs, m, k, n, e_count,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // drhs: lhs [M, K], dout [M, N] -> drhs [E, K, N].  M may be 0 (every
@@ -712,24 +623,26 @@ extern "C" int dstt_grouped_gemm_drhs_bf16(const void* lhs, const void* dout,
                                            const void* group_sizes, void* drhs, int m,
                                            int k, int n, int e_count, void* stream) {
   if (!shape_ok(m, k, n, e_count)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_grad<kDrhs>(lhs, dout, group_sizes, drhs, m, k, n, e_count,
-                            static_cast<cudaStream_t>(stream));
+  return launch_wgmma<kDrhs>(lhs, dout, group_sizes, drhs, m, k, n, e_count,
+                             static_cast<cudaStream_t>(stream));
 }
 
-// The last gradient launch of this library, for reports: out[0..9] =
-// blocks, threads a block, dynamic shared memory (bytes), output tiles,
-// columns of a tile, ring stages, registers a thread at launch, local
-// memory a thread (bytes: spills), and the host ns spent encoding its
-// tensor maps.
+// The last launch of this library, for reports: out[0..11] = the kernel
+// (0 dlhs, 1 drhs, 2 the forward), blocks,
+// threads a block, dynamic shared memory (bytes), output tiles, rows and
+// columns of a tile, ring stages, units a band of the tile order (0: not a
+// unit walk), registers a thread at launch, local memory a thread (bytes:
+// spills), and the host ns spent encoding its tensor maps.
 extern "C" int dstt_gmm_launch_info(long long* out) {
   cudaFuncAttributes attr{};
   if (g_last.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncGetAttributes(&attr, g_last.fn);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long vals[9] = {g_last.grid,  g_last.threads, g_last.smem,
-                             g_last.tiles, g_last.bn,      g_last.stages,
-                             attr.numRegs, static_cast<long long>(attr.localSizeBytes),
-                             g_last.encode_ns};
-  for (int i = 0; i < 9; ++i) out[i] = vals[i];
+  const long long vals[12] = {g_last.kernel, g_last.grid,   g_last.threads,
+                              g_last.smem,   g_last.tiles,  g_last.bm,
+                              g_last.bn,     g_last.stages, g_last.band,
+                              attr.numRegs,  static_cast<long long>(attr.localSizeBytes),
+                              g_last.encode_ns};
+  for (int i = 0; i < 12; ++i) out[i] = vals[i];
   return 0;
 }

@@ -19,12 +19,14 @@ dout @ rhs[g]^T`` per group with zeros past the total, and ``drhs[E, K, N]
 = lhs[rows_g]^T @ dout[rows_g]`` per group with zeros for an empty group;
 ``group_sizes`` takes no gradient.  All three are hand-written CUDA kernels
 in ``deepspeed_tpu_torch/csrc/grouped_gemm.cu``, the gradients wrapped by
-:func:`gmm_dlhs` and :func:`gmm_drhs`: the forward on ``mma.sync``, the
-gradients warp-specialised on ``wgmma`` fed by TMA (one block a 128 x 256
-output tile, :data:`GRAD_TILES`).  :func:`gmm_tile_walk` is the
-gradient kernels' tile walk in plain Python, which the ``.cu`` mirrors, and
-:func:`gmm_dlhs_tiled_plain` / :func:`gmm_drhs_tiled_plain` evaluate it (for
-the CPU tests).  For CUDA tensors each is
+:func:`gmm_dlhs` and :func:`gmm_drhs`.  One kernel, warp-specialised on
+``wgmma`` fed by TMA, runs all three at every M (one block a 128 x 256
+output tile: :data:`GRAD_TILES`, :data:`FWD_TILES`), and raises if it
+fails.
+:func:`gmm_tile_walk` is the wgmma kernel's tile walk in plain Python, which
+the ``.cu`` mirrors, and :func:`gmm_fwd_tiled_plain`,
+:func:`gmm_dlhs_tiled_plain` and :func:`gmm_drhs_tiled_plain` evaluate it
+(for the CPU tests).  For CUDA tensors each is
 launched at every M — the JAX package sends an M that is not a multiple of
 its tile to the dense ``gmm_reference`` (``_use_kernel``); here the
 kernels mask the ragged edge themselves — or raises; for CPU tensors (and
@@ -45,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
 
 import torch
 import torch.nn.functional as F
@@ -58,10 +61,11 @@ LAUNCHES = {"grouped_gemm": 0, "grouped_gemm_dlhs": 0,
 #: the kernels read their operands in 16-byte vectors: K and N multiples
 #: of 8
 _ALIGN = 8
-#: rows of an m-tile: 16 for decode-sized M (each of the few work units
-#: streams its group's weights once), 64 above
-_SMALL_M = 64
-#: the gradient kernels' tiles (``GradTiles`` in the ``.cu``): output rows
+#: the wgmma forward's tiles (``GmmTiles<kFwd>`` in the ``.cu``): 128-row
+#: units (``bm``) by ``bn`` output columns, reduction steps of ``bk``, its
+#: (unit, n-tile) pairs in bands of ``band`` units
+FWD_TILES = {"bm": 128, "bn": 256, "bk": 64, "band": 8}
+#: the gradient kernels' tiles (``GmmTiles`` in the ``.cu``): output rows
 #: ``bm`` (two warpgroups of 64) by columns ``bn``, reduction steps of
 #: ``bk``; dlhs orders its (unit, n-tile) pairs in bands of ``band`` units;
 #: drhs hands out its groups' tiles largest group first (``by_work``), and
@@ -70,8 +74,22 @@ _SMALL_M = 64
 GRAD_TILES = {"bm": 128, "bn": 256, "bk": 64, "band": 16, "by_work": True,
               "n_fast": 2}
 #: the keys of :func:`launch_info`
-LAUNCH_INFO_KEYS = ("grid", "threads", "smem", "tiles", "bn", "stages",
-                    "registers", "spill_bytes", "encode_ns")
+LAUNCH_INFO_KEYS = ("kernel", "grid", "threads", "smem", "tiles", "bm", "bn",
+                    "stages", "band", "registers", "spill_bytes", "encode_ns")
+#: :func:`launch_info`'s kernel names by the ``.cu``'s codes
+LAUNCH_KERNELS = ("gmm_wgmma_kernel<kDlhs>", "gmm_wgmma_kernel<kDrhs>",
+                  "gmm_wgmma_kernel<kFwd>")
+
+
+def traced_kernel(name: str):
+    """The :data:`LAUNCH_KERNELS` name of a kernel as a device trace names
+    it (the kind as its ``.cu`` code: ``gmm_wgmma_kernel<2>`` is the
+    forward), or None for another kernel."""
+    flat = re.sub(r"\(int\)|\s", "", name)
+    for code, kernel in enumerate(LAUNCH_KERNELS):
+        if re.sub(r"<k\w+>", f"<{code}>", kernel) in flat:
+            return kernel
+    return None
 
 
 def _group_rows(group_sizes: torch.Tensor, m: int):
@@ -237,7 +255,7 @@ def _launch(lhs, rhs, group_sizes):
     if m and n:
         _run("dstt_grouped_gemm_bf16", "grouped_gemm", lhs.device,
              lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
-             out.data_ptr(), m, k, n, e, 16 if m <= _SMALL_M else 64)
+             out.data_ptr(), m, k, n, e)
     return out
 
 
@@ -278,18 +296,19 @@ def _launch_drhs(lhs, dout, group_sizes):
 @functools.lru_cache(maxsize=None)
 def _kernel(symbol: str):
     fn = getattr(_build.load("grouped_gemm"), symbol)
-    ints = 5 if symbol == "dstt_grouped_gemm_bf16" else 4
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * ints + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def launch_info() -> dict:
-    """The last gradient launch's shape (``dstt_gmm_launch_info``): blocks,
-    threads and shared bytes a block, output tiles, columns
-    of a tile, ring stages, registers a thread at launch, spill bytes, and
-    the host ns spent encoding its tensor maps."""
+    """The last launch's kernel and shape (``dstt_gmm_launch_info``): the
+    kernel (a name of :data:`LAUNCH_KERNELS`), blocks, threads and shared
+    bytes a block, output tiles, rows and columns of a tile, ring stages,
+    units a band of the tile order (0 where the kernel walks no units in
+    bands), registers a thread at launch, spill bytes, and the host ns
+    spent encoding its tensor maps."""
     fn = _build.load("grouped_gemm").dstt_gmm_launch_info
     fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
@@ -297,7 +316,9 @@ def launch_info() -> dict:
     rc = fn(out)
     if rc != 0:
         raise RuntimeError(f"dstt_gmm_launch_info failed with {rc}")
-    return dict(zip(LAUNCH_INFO_KEYS, out))
+    info = dict(zip(LAUNCH_INFO_KEYS, out))
+    info["kernel"] = LAUNCH_KERNELS[info["kernel"]]
+    return info
 
 
 def _find_unit(sizes, m: int, bm: int, w: int):
@@ -325,12 +346,52 @@ def _find_unit(sizes, m: int, bm: int, w: int):
     return group, m_tile, lo, hi, zlo, zhi
 
 
+def _unit_tiles(sizes, m: int, cols: int, bm: int, bn: int, band: int):
+    """The unit list at ``bm`` rows and its (unit, n-tile) pairs over
+    ``cols`` output columns in launch order: bands of ``band`` units, the
+    n-tile slowest within a band (``gmm_tile`` in the ``.cu``)."""
+    units = [_find_unit(sizes, m, bm, w)
+             for w in range(-(-m // bm) + len(sizes) - 1)]
+    nt = -(-cols // bn)
+    order = []
+    for b0 in range(0, len(units), band):
+        width = min(band, len(units) - b0)
+        order += [(b0 + i % width, i // width) for i in range(width * nt)]
+    return units, order
+
+
+def _halves(units, bm: int, m: int):
+    """Per unit, for each half of its m-tile below M (a consumer
+    warpgroup's rows), ``(r0, r1, by_tma)``: whether every row is the
+    unit's, as product or as zeros (stored whole by TMA), or the half goes
+    out from registers, row by row."""
+    stores = []
+    for group, m_tile, lo, hi, zlo, zhi in units:
+        halves = []
+        for r0 in range(m_tile * bm, m_tile * bm + bm, bm // 2):
+            r1 = min(r0 + bm // 2, m)
+            if r1 > r0:
+                mine = (max(0, min(r1, hi) - max(r0, lo))
+                        + max(0, min(r1, zhi) - max(r0, zlo)))
+                halves.append((r0, r1, mine == r1 - r0))
+        stores.append(halves)
+    return stores
+
+
 def gmm_tile_walk(group_sizes, m: int, k: int, n: int,
-                  tiles: dict = None) -> dict:
-    """The gradient kernels' walk, in plain Python (``gmm_grad_kernel`` in
+                  tiles: dict = None, fwd_tiles: dict = None) -> dict:
+    """The wgmma kernel's walk, in plain Python (``gmm_wgmma_kernel`` in
     ``csrc/grouped_gemm.cu`` mirrors it), for ``lhs [M, K]``, ``rhs [E, K,
-    N]``, ``dout [M, N]`` and the tiles ``tiles`` (default
-    :data:`GRAD_TILES`).
+    N]``, ``dout [M, N]``, the gradients' tiles ``tiles`` (default
+    :data:`GRAD_TILES`) and the forward's ``fwd_tiles`` (default
+    :data:`FWD_TILES`).
+
+    The forward (``lhs @ rhs[g]``, ``[M, N]``):
+
+    * ``"fwd_units"``: per unit, as ``"units"`` below at the forward's rows;
+    * ``"fwd_order"``: the (unit, n-tile) pairs over N in launch order, in
+      bands of ``band`` units, the n-tile slowest within a band;
+    * ``"fwd_stores"``: per unit, as ``"dlhs_stores"`` below.
 
     dlhs (``dout @ rhs[g]^T``, ``[M, K]``):
 
@@ -359,22 +420,10 @@ def gmm_tile_walk(group_sizes, m: int, k: int, n: int,
     bm, bn, bk, band = t["bm"], t["bn"], t["bk"], t["band"]
     sizes = [int(s) for s in group_sizes]
     e = len(sizes)
-    units = [_find_unit(sizes, m, bm, w) for w in range(-(-m // bm) + e - 1)]
-    nt = -(-k // bn)
-    order = []
-    for b0 in range(0, len(units), band):
-        width = min(band, len(units) - b0)
-        order += [(b0 + i % width, i // width) for i in range(width * nt)]
-    stores, half = [], bm // 2            # a warpgroup's rows
-    for group, m_tile, lo, hi, zlo, zhi in units:
-        halves = []
-        for r0 in range(m_tile * bm, m_tile * bm + bm, half):
-            r1 = min(r0 + half, m)
-            if r1 > r0:
-                mine = (max(0, min(r1, hi) - max(r0, lo))
-                        + max(0, min(r1, zhi) - max(r0, zlo)))
-                halves.append((r0, r1, mine == r1 - r0))
-        stores.append(halves)
+    units, order = _unit_tiles(sizes, m, k, bm, bn, band)
+    f = dict(FWD_TILES, **(fwd_tiles or {}))
+    fwd_units, fwd_order = _unit_tiles(sizes, m, n, f["bm"], f["bn"],
+                                       f["band"])
     groups, start = [], 0
     for size in sizes:
         end = min(start + max(size, 0), m)
@@ -388,8 +437,11 @@ def gmm_tile_walk(group_sizes, m: int, k: int, n: int,
     n_fast = t["n_fast"] == 1 or (t["n_fast"] == 2 and n < k)
     drhs_order = [(g, r // ntr, r % ntr) if n_fast else (g, r % kt, r // kt)
                   for g in rank for r in range(kt * ntr)]
-    return {"units": units, "dlhs_order": order, "dlhs_stores": stores,
-            "drhs_order": drhs_order, "groups": groups}
+    return {"units": units, "dlhs_order": order,
+            "dlhs_stores": _halves(units, bm, m),
+            "drhs_order": drhs_order, "groups": groups,
+            "fwd_units": fwd_units, "fwd_order": fwd_order,
+            "fwd_stores": _halves(fwd_units, f["bm"], m)}
 
 
 def _rows(x: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
@@ -397,6 +449,37 @@ def _rows(x: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
     out = torch.zeros((r1 - r0,) + tuple(x.shape[1:]), dtype=torch.float32)
     out[:max(0, min(r1, x.shape[0]) - r0)] = x[r0:r1].float()
     return out
+
+
+def gmm_fwd_tiled_plain(lhs: torch.Tensor, rhs: torch.Tensor,
+                        group_sizes: torch.Tensor,
+                        tiles: dict = None) -> torch.Tensor:
+    """The forward over :func:`gmm_tile_walk`'s tiles, in plain PyTorch
+    (fp32, one rounding to ``lhs.dtype``): each (unit, n-tile) multiplies
+    its whole m-tile (rows of the next group and past M included, as the
+    kernel loads them), and each consumer warpgroup writes its half of the
+    rows as the kernel stores them: by TMA every row (the product for the
+    unit's group rows, zeros for the rest), from registers only the rows
+    the unit owns.  An element no tile writes stays NaN.  For the
+    tests: the main path runs the kernel (CUDA) or :func:`gmm_plain`
+    (CPU)."""
+    (m, k), n = lhs.shape, rhs.shape[2]
+    f = dict(FWD_TILES, **(tiles or {}))
+    walk = gmm_tile_walk(group_sizes.tolist(), m, k, n, fwd_tiles=tiles)
+    out = torch.full((m, n), float("nan"))
+    for w, j in walk["fwd_order"]:
+        group, m_tile, lo, hi, zlo, zhi = walk["fwd_units"][w]
+        row0 = m_tile * f["bm"]
+        cols = slice(j * f["bn"], min(j * f["bn"] + f["bn"], n))
+        if group >= 0:
+            acc = _rows(lhs, row0, row0 + f["bm"]) @ rhs[group, :, cols].float()
+        for r0, r1, by_tma in walk["fwd_stores"][w]:
+            for r in range(r0, r1):
+                if group >= 0 and lo <= r < hi:
+                    out[r, cols] = acc[r - row0]
+                elif by_tma or zlo <= r < zhi:
+                    out[r, cols] = 0.0
+    return out.to(lhs.dtype)
 
 
 def gmm_dlhs_tiled_plain(dout: torch.Tensor, rhs: torch.Tensor,

@@ -1,30 +1,38 @@
-"""Launch-shape variants of the grouped-GEMM gradient kernels (dlhs and drhs)
-against each other on one card, and against a parent commit's kernels.
+"""Launch-shape variants of the grouped-GEMM wgmma kernel (the forward, dlhs
+and drhs) against each other on one card, and against a parent commit's
+kernels.
 
 Builds ``csrc/grouped_gemm.cu`` as it stands and copies of it with the
-edits of each named variant (other ``GradTiles`` choices: tile width,
-ring stages, persistent or not, tile order), checks each library against
-the plain versions (3e-2 of the largest magnitude, 1e-2 in norm, exact
-zeros past the groups and in empty groups, two runs bit-equal) on small
-cases and at the training shape, then
-times every library on the gradient cases of ``chip_smoke.py`` phase 3
-(M = 8192: 4096 <-> 14336, ragged, skewed) with its ``time_ms``, in turns:
-the libraries in order, then in reverse, each case's best of the two.
+edits of each named variant (other ``GmmTiles`` choices: tile width, ring
+stages, persistent or not, tile order), checks each library against the
+plain versions (3e-2 of the largest magnitude, 1e-2 in norm, exact zeros
+past the groups and in empty groups, two runs bit-equal) on small cases and
+at the training shape, then times every library with
+``chip_smoke.time_ms`` in ``--rounds`` turns: the libraries in order, then
+in reverse, and so on; each case reports every turn's reading and the
+best.  The forward is timed at M = 16 (a decode step), M = 1024 (a
+512-token prefill, one expert empty), M = 2048 and 4096, and M = 8192
+(training: 4096 <-> 14336, ragged, skewed); the gradients at M = 8192.
 
     python3 deepspeed_tpu_torch/tools/gmm_variants.py \\
-        [--variants persist,bn128] [--parent DIR] [--iters 10] [--step]
+        [--variants fs3,fband16] [--kinds fwd,dlhs,drhs] [--rounds 2]
+        [--parent DIR] [--iters 10] [--step] [--decode]
 
 ``--parent DIR`` also builds ``DIR/grouped_gemm.cu`` (a parent commit's
 source, from ``git archive <commit> deepspeed_tpu_torch/csrc``; headers from
 DIR first, then ``csrc/``) as the library "parent", called through the
-parent's C interface (its dlhs takes the m-tile rows), and times the
-forward too.  ``--step`` then runs ``chip_smoke.py``'s phase 14 (2
-full-width dropless Mixtral layers trained through the engine) once with
-the parent's gradient kernels and once with the tree's, in that order, and
-reports each run's ms a step and its traced grouped-GEMM device ms by
-kernel.  A summary JSON object is the last line of stdout; every timing is
-also written to ``chiprun_out/gmm_variants.json``.  Needs a CUDA device and
-``nvcc``.
+parent's C interface (its forward takes 16- or 64-row units by M, its
+gradients no unit rows).  ``--step`` then runs ``chip_smoke.py``'s phase 14
+(2 full-width dropless Mixtral layers trained through the engine) once with
+the parent's forward and once with the tree's (the tree's gradients both
+times), in that order, and reports each run's ms a step and its traced
+grouped-GEMM device ms by kernel.  ``--decode`` (with ``--parent``) runs
+phase 12 (Mixtral served at full width, 16 layers) four times, with the
+parent's forward, the tree's, the tree's and the parent's, and reports
+each run's decode ms a step and the grouped-GEMM device ms by kernel of
+its traced decode step (M = 16) and 2 x 256 prefill (M = 1024).  A summary
+JSON object is the last line of stdout; every timing is also written to
+``chiprun_out/gmm_variants.json``.  Needs a CUDA device and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -41,10 +49,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
-#: name -> {kind ("dlhs" / "drhs"): {GradTiles field: value}}
+#: name -> {kind ("fwd" / "dlhs" / "drhs"): {GmmTiles field: value}}
 _BOTH = ("dlhs", "drhs")
 VARIANTS = {
-    "s2": {kind: {"kStages": 2} for kind in _BOTH},
+    "fs3": {"fwd": {"kStages": 3}},
+    "fbn128": {"fwd": {"kBN": 128, "kStages": 6}},
+    "fpersist": {"fwd": {"kPersistent": 1}},
+    "fband4": {"fwd": {"kBand": 4}},
+    "fband16": {"fwd": {"kBand": 16}},
     "s3": {kind: {"kStages": 3} for kind in _BOTH},
     "bn128": {kind: {"kBN": 128, "kStages": 6} for kind in _BOTH},
     "persist": {kind: {"kPersistent": 1} for kind in _BOTH},
@@ -55,7 +67,7 @@ VARIANTS = {
     "nfast": {"drhs": {"kNFast": 1}},
 }
 
-_KIND = {"dlhs": "kDlhs", "drhs": "kDrhs"}
+_KIND = {"dlhs": "kDlhs", "drhs": "kDrhs", "fwd": "kFwd"}
 
 #: small cases for the correctness check: m, k, n, group sizes
 CHECK_CASES = [
@@ -76,7 +88,7 @@ def variant_source(text: str, spec) -> str:
             text = variant_source(text, VARIANTS[part])
         return text
     for kind, fields in spec.items():
-        start = text.index(f"struct GradTiles<{_KIND[kind]}> {{")
+        start = text.index(f"struct GmmTiles<{_KIND[kind]}> {{")
         end = text.index("};", start)
         block = text[start:end]
         for field, value in fields.items():
@@ -109,24 +121,39 @@ def build_all(build_dir: Path, names, parent):
         log = proc.communicate()[0].decode()
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log[-4000:]}")
-        regs = sorted({line.split(":")[-1].strip() for line in log.splitlines()
-                       if "registers" in line})
-        spills = sorted({line.strip() for line in log.splitlines()
-                         if "spill" in line and " 0 bytes spill stores" not in line})
-        print(f"[build] {name}: ok; {regs}; spills: {spills or 'none'}",
-              flush=True)
+        lines = log.splitlines()
+        regs, fn = [], "?"
+        for line in lines:           # each entry function, then its usage
+            entry = re.search(r"entry function '(\S+)'", line)
+            fn = entry.group(1) if entry else fn
+            if "registers" in line:
+                regs.append(f"{fn}: {line.split(':')[-1].strip()}")
+        warn = sorted({line.strip() for line in lines
+                       if "warning" in line or ("spill" in line and
+                                                " 0 bytes spill stores"
+                                                not in line)})
+        print(f"[build] {name}: ok; {regs}; warnings / spills: "
+              f"{warn or 'none'}", flush=True)
         libs[name] = ctypes.CDLL(str(jobs[name][1]))
     return libs
 
 
+def parent_label(name: str) -> str:
+    """A traced kernel name, as the parent's forward where it is one
+    (``gmm_kernel<64>`` above M = 64, ``gmm_kernel<16>`` at M <= 64)."""
+    tile = re.search(r"gmm_kernel<(?:\(int\))?(\d+)>", name)
+    return f"parent gmm_kernel<{tile.group(1)}>" if tile else name
+
+
 class Parent:
-    """The parent's three kernels through its C interface."""
+    """The parent's three kernels through its C interface (the forward
+    takes the unit rows, 16 or 64; the gradients none)."""
 
     def __init__(self, lib):
         self.fwd, self.dl, self.dr = (lib.dstt_grouped_gemm_bf16,
                                       lib.dstt_grouped_gemm_dlhs_bf16,
                                       lib.dstt_grouped_gemm_drhs_bf16)
-        for fn, ints in ((self.fwd, 5), (self.dl, 5), (self.dr, 4)):
+        for fn, ints in ((self.fwd, 5), (self.dl, 4), (self.dr, 4)):
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * ints
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -144,8 +171,10 @@ class Parent:
 
         (m, k), (e, _, n) = lhs.shape, rhs.shape
         out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
-        self._call(self.fwd, lhs.data_ptr(), rhs.data_ptr(), gs.data_ptr(),
-                   out.data_ptr(), m, k, n, e, 16 if m <= 64 else 64)
+        if m:
+            self._call(self.fwd, lhs.data_ptr(), rhs.data_ptr(),
+                       gs.data_ptr(), out.data_ptr(), m, k, n, e,
+                       16 if m <= 64 else 64)
         return out
 
     def dlhs(self, dout, rhs, gs):
@@ -155,7 +184,7 @@ class Parent:
         out = torch.empty((m, k), dtype=dout.dtype, device=dout.device)
         if m:
             self._call(self.dl, dout.data_ptr(), rhs.data_ptr(), gs.data_ptr(),
-                       out.data_ptr(), m, k, n, e, 16 if m <= 64 else 64)
+                       out.data_ptr(), m, k, n, e)
         return out
 
     def drhs(self, lhs, dout, gs):
@@ -168,8 +197,18 @@ class Parent:
         return out
 
 
-def check(torch, cs, gg, run_dlhs, run_drhs, dev):
-    """The failed (kind, case) pairs of one library on CHECK_CASES."""
+def _ok(torch, cs, got, again, want, total):
+    ok = torch.equal(got, again) and bool(torch.isfinite(got.float()).all())
+    if total:
+        err = (got.float() - want.float()).abs().max()
+        ok &= bool(err <= cs.TOL * want.float().abs().max())
+        ok &= cs.rel_norm(got, want) <= cs.NORM_TOL
+    return ok
+
+
+def check(torch, cs, gg, fns, dev):
+    """The failed (kind, case) pairs of one library on CHECK_CASES: the
+    forward, dlhs and drhs."""
     failed = []
     for i, (m, k, n, sizes) in enumerate(CHECK_CASES):
         gen = torch.Generator(device=dev).manual_seed(i + 7)
@@ -180,20 +219,25 @@ def check(torch, cs, gg, run_dlhs, run_drhs, dev):
                * (0.5 / math.sqrt(n))).to(torch.bfloat16)
         lhs = (torch.randn((m, k), generator=gen, device=dev)
                * (0.5 / math.sqrt(max(1, max(sizes))))).to(torch.bfloat16)
+        x = (torch.randn((m, k), generator=gen, device=dev)
+             * (0.5 / math.sqrt(k))).to(torch.bfloat16)
         total = sum(sizes)
-        for kind, run, plain in (
-                ("dlhs", lambda: run_dlhs(dout, rhs, gs),
+        runs = [("dlhs", lambda: fns["dlhs"](dout, rhs, gs),
                  lambda: gg.gmm_dlhs_plain(dout, rhs, gs)),
-                ("drhs", lambda: run_drhs(lhs, dout, gs),
-                 lambda: gg.gmm_drhs_plain(lhs, dout, gs))):
-            got, again, want = run(), run(), plain()
-            torch.cuda.synchronize()
-            ok = torch.equal(got, again) and bool(torch.isfinite(got.float()).all())
-            if total:
-                err = (got.float() - want.float()).abs().max()
-                ok &= bool(err <= cs.TOL * want.float().abs().max())
-                ok &= cs.rel_norm(got, want) <= cs.NORM_TOL
-            if kind == "dlhs" and total < m:
+                ("drhs", lambda: fns["drhs"](lhs, dout, gs),
+                 lambda: gg.gmm_drhs_plain(lhs, dout, gs))]
+        if m:
+            runs.append(("fwd", lambda: fns["fwd"](x, rhs, gs),
+                         lambda: gg.gmm_plain(x, rhs, gs)))
+        for kind, run, plain in runs:
+            try:
+                got, again, want = run(), run(), plain()
+                torch.cuda.synchronize()
+            except RuntimeError as exc:
+                failed.append((kind, m, k, n, str(exc)[:200]))
+                continue
+            ok = _ok(torch, cs, got, again, want, total)
+            if kind != "drhs" and total < m:
                 ok &= got[total:].abs().max().item() == 0.0
             if kind == "drhs":
                 ok &= all(got[e].abs().max().item() == 0.0
@@ -203,13 +247,41 @@ def check(torch, cs, gg, run_dlhs, run_drhs, dev):
     return failed
 
 
+def forward_cases(torch, cs, gen, dev):
+    """(label, group sizes, k, n) of the forward's timed cases, drawn as
+    chip_smoke.py's phase 3 draws them."""
+    m = 8192
+    full = cs._routed_sizes(torch, gen, dev, m // 2)
+    ragged = cs._routed_sizes(torch, gen, dev, 4000, empty=2)
+    skewed = cs._routed_sizes(torch, gen, dev, m // 2, boost=(0, 1.4))
+    prefill = cs._routed_sizes(torch, gen, dev, 512, empty=2)
+    decode = cs._routed_sizes(torch, gen, dev, 8)
+    mid = {t: cs._routed_sizes(torch, gen, dev, t) for t in (1024, 2048)}
+    return [("M=16 4096->14336", decode, 4096, 14336),
+            ("M=16 14336->4096", decode, 14336, 4096),
+            ("M=1024 4096->14336", prefill, 4096, 14336),
+            ("M=1024 14336->4096", prefill, 14336, 4096),
+            ("M=2048 4096->14336", mid[1024], 4096, 14336),
+            ("M=2048 14336->4096", mid[1024], 14336, 4096),
+            ("M=4096 4096->14336", mid[2048], 4096, 14336),
+            ("M=4096 14336->4096", mid[2048], 14336, 4096),
+            ("M=8192 4096->14336", full, 4096, 14336),
+            ("M=8192 14336->4096", full, 14336, 4096),
+            ("M=8192 ragged", ragged, 4096, 14336),
+            ("M=8192 skewed", skewed, 4096, 14336)]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--kinds", default="fwd,dlhs,drhs")
+    ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--parent", type=Path, default=None)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--step", action="store_true")
+    ap.add_argument("--decode", action="store_true")
     args = ap.parse_args()
+    kinds = args.kinds.split(",")
     sys.path.insert(0, str(ROOT))        # chip_smoke.py and the package
 
     import numpy as np
@@ -220,6 +292,12 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from deepspeed_tpu_torch.ops import _build
+
+    # a trace books the parent's forward (gmm_kernel<16 / 64>) as grouped
+    # GEMM too
+    assert cs.KERNEL_KINDS[0][0] == "grouped_gemm"
+    cs.KERNEL_KINDS = ((("grouped_gemm", cs.KERNEL_KINDS[0][1]
+                         + ("gmm_kernel",)),) + cs.KERNEL_KINDS[1:])
     from deepspeed_tpu_torch.ops import grouped_gemm as gg
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -236,14 +314,25 @@ def main() -> int:
 
     def fns(name):
         if name == "parent":
-            return parent.dlhs, parent.drhs
-        return gg.gmm_dlhs, gg.gmm_drhs
+            return {"fwd": parent.gmm, "dlhs": parent.dlhs,
+                    "drhs": parent.drhs}
+        return {"fwd": gg._launch, "dlhs": gg.gmm_dlhs, "drhs": gg.gmm_drhs}
+
+    def turns():
+        """The libraries in order, then in reverse, ``--rounds`` times."""
+        for r in range(args.rounds):
+            yield from (names if r % 2 == 0 else names[::-1])
+
+    def summary(times):
+        """Per key the best reading and every turn's."""
+        return {key: {"best": min(ts), "turns": ts}
+                for key, ts in times.items()}
 
     failed = []
     for name in names + (["parent"] if parent else []):
         if name != "parent":
             use(name)
-        bad = check(torch, cs, gg, *fns(name), dev)
+        bad = check(torch, cs, gg, fns(name), dev)
         failed += [(name,) + b for b in bad]
     print(f"[check] {len(names)} libraries x {len(CHECK_CASES)} cases: "
           f"{'ok' if not failed else failed}", flush=True)
@@ -251,16 +340,54 @@ def main() -> int:
     if parent:
         names.append("parent")
     use("current")
+    rows = []
+    if "fwd" in kinds:
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED + 15)
+        for label, sizes, k, n in forward_cases(torch, cs, gen, dev):
+            m = int(label.split()[0][2:])
+            total = int(sizes.sum())
+            x = torch.randn((m, k), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            w = torch.randn((8, k, n), generator=gen, device=dev,
+                            dtype=torch.bfloat16).mul_(0.5 / math.sqrt(k))
+            offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+            flops = 2.0 * total * k * n
+            times, info = {}, {}
+            for name in turns():
+                if name != "parent":
+                    use(name)
+                fwd, key = fns(name)["fwd"], f"fwd {name}"
+                times.setdefault(key, []).append(cs.time_ms(
+                    lambda i: fwd(x, w, sizes), 1, args.iters))
+                if name != "parent":
+                    fwd(x, w, sizes)
+                    info[key] = gg.launch_info()
+            lib = getattr(torch, "_grouped_mm", None)
+            if lib is not None:
+                times["torch._grouped_mm"] = [cs.time_ms(
+                    lambda i: lib(x, w, offs=offs), 1, args.iters)]
+            del x, w
+            torch.cuda.empty_cache()
+            print(f"[time] forward {label} sizes {sizes.tolist()}: "
+                  + " | ".join(f"{key} {min(ts):.4f} ({flops / min(ts) / 1e9:.0f} "
+                               f"TFLOP/s; turns {' '.join(f'{t:.4f}' for t in ts)})"
+                               for key, ts in times.items()),
+                  flush=True)
+            rows.append({"case": f"forward {label}",
+                         "group_sizes": sizes.tolist(), "flops": flops,
+                         "ms": summary(times), "launch": info})
+
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     m = 8192
     full = cs._routed_sizes(torch, gen, dev, m // 2)
     ragged = cs._routed_sizes(torch, gen, dev, 4000, empty=2)
     skewed = cs._routed_sizes(torch, gen, dev, m // 2, boost=(0, 1.4))
-    rows = []
-    for label, sizes, k, n in (("4096->14336", full, 4096, 14336),
-                               ("14336->4096", full, 14336, 4096),
-                               ("ragged", ragged, 4096, 14336),
-                               ("skewed", skewed, 4096, 14336)):
+    grads = [kind for kind in ("dlhs", "drhs") if kind in kinds]
+    for label, sizes, k, n in ((("4096->14336", full, 4096, 14336),
+                                ("14336->4096", full, 14336, 4096),
+                                ("ragged", ragged, 4096, 14336),
+                                ("skewed", skewed, 4096, 14336))
+                               if grads else ()):
         total = int(sizes.sum())
         dout = torch.randn((m, n), generator=gen, device=dev,
                            dtype=torch.bfloat16)
@@ -269,62 +396,76 @@ def main() -> int:
         lhs = torch.randn((m, k), generator=gen, device=dev,
                           dtype=torch.bfloat16).mul_(0.5 / math.sqrt(total / 8))
         flops = 2.0 * total * k * n
-        best, info = {}, {}
-        for name in names + names[::-1]:
+        times, info = {}, {}
+        for name in turns():
             if name != "parent":
                 use(name)
-            run_dl, run_dr = fns(name)
-            for kind, run in (("dlhs", lambda: run_dl(dout, rhs, sizes)),
-                              ("drhs", lambda: run_dr(lhs, dout, sizes))):
-                t = cs.time_ms(lambda i: run(), 1, args.iters)
+            f = fns(name)
+            for kind, run in (("dlhs", lambda: f["dlhs"](dout, rhs, sizes)),
+                              ("drhs", lambda: f["drhs"](lhs, dout, sizes))):
+                if kind not in grads:
+                    continue
                 key = f"{kind} {name}"
-                best[key] = min(t, best.get(key, t))
+                times.setdefault(key, []).append(
+                    cs.time_ms(lambda i: run(), 1, args.iters))
                 if name != "parent":
                     run()
                     info[key] = gg.launch_info()
-        if parent and label != "ragged" and label != "skewed":
-            # the forward at the training shape, parent and tree (one kernel)
-            x = torch.randn((m, k), generator=gen, device=dev,
-                            dtype=torch.bfloat16)
-            w = torch.randn((8, k, n), generator=gen, device=dev,
-                            dtype=torch.bfloat16).mul_(1.0 / math.sqrt(k))
-            for name in ("parent", "current", "current", "parent"):
-                use("current")
-                fwd = parent.gmm if name == "parent" else gg.gmm
-                t = cs.time_ms(lambda i: fwd(x, w, sizes), 1, args.iters)
-                key = f"forward {name}"
-                best[key] = min(t, best.get(key, t))
-            del x, w
         del dout, rhs, lhs
         torch.cuda.empty_cache()
         print(f"[time] {label} sizes {sizes.tolist()}: " + " | ".join(
-            f"{key} {t:.4f} ({flops / t / 1e9:.0f} TFLOP/s)"
-            for key, t in best.items()), flush=True)
+            f"{key} {min(ts):.4f} ({flops / min(ts) / 1e9:.0f} TFLOP/s; "
+            f"turns {' '.join(f'{t:.4f}' for t in ts)})"
+            for key, ts in times.items()), flush=True)
         rows.append({"case": label, "group_sizes": sizes.tolist(),
-                     "flops": flops, "ms": best, "launch": info})
+                     "flops": flops, "ms": summary(times), "launch": info})
+
+    def with_forward(name, fn):
+        """``fn()`` with the parent's forward (``name`` "parent") or the
+        tree's, the tree's gradients both times."""
+        use("current")
+        saved = gg._launch
+        if name == "parent":
+            gg._launch = parent.gmm
+        try:
+            return fn()
+        finally:
+            gg._launch = saved
+
+    def gmm_ms(trace):
+        return {parent_label(key): ms for key, ms in
+                ((trace or {}).get("grouped_gemm_ms_per_step") or {}).items()}
 
     steps = {}
-    if args.step and parent:
-        saved = (gg._launch_dlhs, gg._launch_drhs)
-        for name in ("parent", "current"):
-            use("current")
-            if name == "parent":
-                gg._launch_dlhs, gg._launch_drhs = parent.dlhs, parent.drhs
-            try:
-                run = cs.moe_trained_run(torch, np, dev, True)
-            finally:
-                gg._launch_dlhs, gg._launch_drhs = saved
-            steps[name] = {k: run[k] for k in ("ms_per_step", "tokens_per_s",
-                                               "mfu", "first_loss",
-                                               "last_loss")}
-            trace = run["trace"] or {}
-            steps[name]["traced_wall_ms"] = trace.get("wall_ms_per_step")
-            steps[name]["device_busy_ms"] = trace.get(
-                "device_busy_ms_per_step")
-            steps[name]["kind_ms"] = trace.get("kind_ms_per_step")
-            steps[name]["grouped_gemm_ms"] = trace.get(
-                "grouped_gemm_ms_per_step")
-            print(f"[step] {name}: {json.dumps(steps[name])}", flush=True)
+    for name in (("parent", "current") if args.step and parent else ()):
+        run = with_forward(name, lambda: cs.moe_trained_run(torch, np, dev,
+                                                            True))
+        steps[name] = {k: run[k] for k in ("ms_per_step", "tokens_per_s",
+                                           "mfu", "first_loss", "last_loss")}
+        trace = run["trace"] or {}
+        steps[name]["traced_wall_ms"] = trace.get("wall_ms_per_step")
+        steps[name]["device_busy_ms"] = trace.get("device_busy_ms_per_step")
+        steps[name]["kind_ms"] = trace.get("kind_ms_per_step")
+        steps[name]["grouped_gemm_ms"] = gmm_ms(trace)
+        print(f"[step] {name}: {json.dumps(steps[name])}", flush=True)
+
+    decode = []
+    rng = np.random.default_rng(cs.SEED)
+    prompts = [rng.integers(0, 32000, size=256).tolist() for _ in range(8)]
+    for name in (("parent", "current", "current", "parent")
+                 if args.decode and parent else ()):
+        run = with_forward(name, lambda: cs.mixtral_served_run(torch, np,
+                                                               prompts))
+        trace = run["trace"] or {}
+        decode.append({
+            "forward": name,
+            "decode_ms_per_step": run["decode_ms_per_step"],
+            "ttft_ms_per_pair": run["ttft_ms_per_pair"],
+            "decode_device_busy_ms": trace.get("device_busy_ms_per_step"),
+            "decode_grouped_gemm_ms": gmm_ms(trace),
+            "prefill_grouped_gemm_ms": gmm_ms(run["prefill_trace"]),
+            "launches": run["launches"].get("grouped_gemm")})
+        print(f"[decode] {json.dumps(decode[-1])}", flush=True)
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -334,10 +475,11 @@ def main() -> int:
     (out / "gmm_variants.json").write_text(json.dumps(
         {"device": smi, "variants": {n: VARIANTS.get(n) for n in names},
          "failed": [list(map(str, f)) for f in failed], "cases": rows,
-         "step": steps}, indent=1, default=str))
+         "step": steps, "decode": decode}, indent=1, default=str))
     print(smi)
     print(json.dumps({"ok": not failed, "device": smi, "libraries": names,
-                      "cases": len(rows), "step": sorted(steps)}))
+                      "cases": len(rows), "step": sorted(steps),
+                      "decode": len(decode)}))
     return 0 if not failed else 1
 
 

@@ -1115,12 +1115,17 @@ def _gmm_inputs(gen, dev, m, k, n, sizes):
 
 
 _GMM_CASES = [
-    (16, 4096, 14336, [2, 3, 0, 1, 4, 2, 2, 2]),      # decode, 16-row tiles
+    (16, 4096, 14336, [2, 3, 0, 1, 4, 2, 2, 2]),      # a decode step
     (16, 14336, 4096, [0, 5, 0, 0, 4, 2, 2, 1]),      # 2 rows past the sum
     (100, 256, 136, [10, 0, 33, 40, 0, 0, 7, 0]),     # ragged M, N edge
     (1024, 512, 1024, [200, 130, 0, 180, 100, 150, 120, 144]),
     (70, 64, 64, [0, 0, 0, 0]),                       # no rows: zeros
     (200, 64, 256, [64, 1, 0, 60]),                   # 75 rows past
+    # around the kernel's row blocks: M = 64 one consumer warpgroup's rows,
+    # 65 one row past them, 129 one row past a 128-row unit
+    (64, 256, 136, [20, 0, 30, 10]),                  # 4 rows past
+    (65, 256, 136, [20, 0, 30, 15]),                  # every row in a group
+    (129, 4096, 1024, [40, 0, 50, 30]),               # 9 rows past
 ]
 
 
@@ -1394,6 +1399,55 @@ def test_grouped_gemm_gradients_bit_equal(cuda_device, m, k, n, sizes):
                 lambda: tgg.gmm_drhs(lhs, dout, gs)):
         first, again = run(), run()
         assert torch.equal(first, again)
+
+
+#: forward cases at prefill and training sizes: m, k, n, sizes
+_GMM_FWD_CASES = [
+    (1024, 4096, 1024, [200, 130, 0, 180, 100, 150, 120, 144]),
+    (8192, 1024, 2048, _TRAIN_SIZES),
+    (1000, 136, 200, [10, 0, 330, 400, 0, 0, 70, 0]),  # edges, rows past
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,sizes", _GMM_FWD_CASES)
+def test_grouped_gemm_forward_wgmma(cuda_device, m, k, n, sizes):
+    """The wgmma forward against its plain version: 3e-2 max, 1e-2 in norm,
+    rows past the groups exact zeros, and its launch described as that
+    kernel, in its bands of :data:`FWD_TILES` units, with no spills.  The
+    weights are scaled so that outputs are ~N(0, 1/4), as phase 3 scales
+    its training cases: one bf16 ulp of outputs above 4 (3.1e-2) would sit
+    above the max bar."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k)
+    lhs, rhs, gs = _gmm_inputs(gen, cuda_device, m, k, n, sizes)
+    rhs.mul_(0.5)
+    got = tgg.gmm(lhs, rhs, gs)
+    info = tgg.launch_info()
+    want = tgg.gmm_plain(lhs, rhs, gs)
+    assert info["kernel"] == "gmm_wgmma_kernel<kFwd>"
+    assert (info["bm"], info["band"], info["spill_bytes"]) == (
+        128, tgg.FWD_TILES["band"], 0)
+    assert (got.float() - want.float()).abs().max().item() <= TOL
+    assert _norm_rel(got, want) <= NORM_TOL
+    if sum(sizes) < m:
+        assert got[sum(sizes):].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,sizes", [(16, 4096, 1024, [2, 3, 0, 1, 4, 2,
+                                                          2, 2])]
+                         + _GMM_FWD_CASES)
+def test_grouped_gemm_forward_bit_equal(cuda_device, m, k, n, sizes):
+    """Two runs of the forward on the same inputs give the same bits (each
+    element is summed in a fixed order by one block, without atomics), and
+    the wgmma kernel is the one launched, at every M."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + n)
+    lhs, rhs, gs = _gmm_inputs(gen, cuda_device, m, k, n, sizes)
+    first = tgg.gmm(lhs, rhs, gs)
+    info = tgg.launch_info()
+    again = tgg.gmm(lhs, rhs, gs)
+    assert torch.equal(first, again)
+    assert (info["kernel"], info["bm"]) == ("gmm_wgmma_kernel<kFwd>", 128)
 
 
 def _load_chip_smoke():

@@ -1,16 +1,18 @@
-"""The grouped-GEMM gradient kernels' tile walk (``gmm_tile_walk``, mirrored
-by ``gmm_grad_kernel`` in ``csrc/grouped_gemm.cu``) and its arithmetic
-(``gmm_dlhs_tiled_plain`` / ``gmm_drhs_tiled_plain``) on the CPU.
+"""The grouped-GEMM wgmma kernel's tile walk (``gmm_tile_walk``, mirrored
+by ``gmm_wgmma_kernel`` in ``csrc/grouped_gemm.cu``) and its arithmetic
+(``gmm_fwd_tiled_plain``, ``gmm_dlhs_tiled_plain`` /
+``gmm_drhs_tiled_plain``) on the CPU.
 
 The walk is held by brute force: every output element is written by
-exactly one dlhs unit or drhs tile, and in the launch order exactly once;
-a dlhs row is written with its own group's product, or as zeros past the
-groups; a half-tile stored whole by TMA holds only rows its unit owns;
+exactly one forward or dlhs unit or drhs tile, and in the launch order
+exactly once; a forward or dlhs row is written with its own group's
+product, or as zeros past the groups; a warpgroup's rows stored whole by
+TMA hold only rows its unit owns;
 every row of a group is summed once into its own group's drhs and never
 into another's (the rows of the next group in the last chunk are the
 zeroed tail); an empty group and M = 0 give zeros.  The arithmetic is held
-to the JAX package's ``_gmm_dlhs_kernel`` / ``_gmm_drhs_kernel`` in
-interpret mode, in f32, at 1e-4 max abs.  Inputs are made with numpy from a
+to the JAX package's ``_gmm_kernel``, ``_gmm_dlhs_kernel`` and
+``_gmm_drhs_kernel`` in interpret mode, in f32, at 1e-4 max abs.  Inputs are made with numpy from a
 seed: ragged sizes, an empty group, rows past the sum.
 """
 
@@ -29,6 +31,11 @@ TOL = 1e-4
 SMALL = {"bm": 32, "bn": 32, "bk": 16, "band": 2}
 TILES = [SMALL, {"bm": 16, "bn": 64, "bk": 8, "band": 3, "by_work": False,
                  "n_fast": 1}, {}]
+#: the forward's: the above (the kernel's own: 128-row units in bands of
+#: 8), 64-row units with several n-tiles, and 128-row units in bands of 16
+#: (dlhs's band)
+FWD_TILES = TILES + [{"bm": 64, "bn": 64, "band": 2}, {"band": 16}]
+FWD_IDS = ["small", "narrow", "kernel", "rows64", "band16"]
 
 #: m, k, n, group sizes
 WALK_SHAPES = [
@@ -126,6 +133,56 @@ def test_drhs_walk_sums_each_row_once_into_its_group(m, k, n, sizes, tiles):
             assert tail == (end, chunks[-1][1]) and chunks[0][0] == start
 
 
+@pytest.mark.parametrize("tiles", FWD_TILES, ids=FWD_IDS)
+@pytest.mark.parametrize("m,k,n,sizes", WALK_SHAPES)
+def test_fwd_walk_writes_every_element_once(m, k, n, sizes, tiles):
+    """The forward's (unit, n-tile) pairs cover every unit and n-tile once,
+    a band's units changing fastest; each warpgroup's stores write every
+    element of the output once: a row in a group with its own group's
+    product, a row past the groups as zeros, and a TMA store only where
+    every row is its unit's."""
+    f = dict(tgg.FWD_TILES, **tiles)
+    walk = tgg.gmm_tile_walk(sizes, m, k, n, fwd_tiles=tiles)
+    units = walk["fwd_units"]
+    assert len(units) == -(-m // f["bm"]) + len(sizes) - 1
+    nt = -(-n // f["bn"])
+    order = walk["fwd_order"]
+    assert sorted(order) == [(w, j) for w in range(len(units))
+                             for j in range(nt)]
+    # within a band the units change fastest: a group's units at one n-tile
+    # run side by side
+    for b0 in range(0, len(units), f["band"]):
+        width = min(f["band"], len(units) - b0)
+        assert order[b0 * nt:(b0 + width) * nt] == [
+            (b0 + i % width, i // width) for i in range(width * nt)]
+    group_of = np.full(m, -1)
+    for g, (start, end) in enumerate(_starts(sizes, m)):
+        group_of[start:end] = g
+    count = np.zeros((m, n), int)
+    prod = np.zeros((m, n), int)
+    for w, j in order:
+        group, m_tile, lo, hi, zlo, zhi = units[w]
+        halves = walk["fwd_stores"][w]
+        # the halves cover the unit's rows below M once
+        assert [r for r0, r1, _ in halves for r in range(r0, r1)] == list(
+            range(m_tile * f["bm"], min(m_tile * f["bm"] + f["bm"], m)))
+        cols = slice(j * f["bn"], min(j * f["bn"] + f["bn"], n))
+        for r0, r1, by_tma in halves:
+            assert r1 - r0 <= f["bm"] // 2
+            assert by_tma == all(lo <= r < hi or zlo <= r < zhi
+                                 for r in range(r0, r1))
+            for r in range(r0, r1):
+                if group >= 0 and lo <= r < hi:
+                    assert group_of[r] == group, (w, r)
+                    count[r, cols] += 1
+                    prod[r, cols] += 1
+                elif by_tma or zlo <= r < zhi:
+                    assert group_of[r] == -1, (w, r)     # zeros past the sum
+                    count[r, cols] += 1
+    assert (count == 1).all()
+    assert (prod[group_of >= 0] == 1).all() and (prod[group_of < 0] == 0).all()
+
+
 def _inputs(seed, m, k, n, sizes):
     rng = np.random.default_rng(seed)
     dout = rng.standard_normal((m, n)).astype(np.float32)
@@ -172,6 +229,25 @@ def test_tiled_plain_matches_pallas_interpret(m, k, n, sizes, tm, tn, tiles):
             assert np.all(got_dr[e] == 0)
 
 
+@pytest.mark.parametrize("tiles", FWD_TILES, ids=FWD_IDS)
+@pytest.mark.parametrize("m,k,n,sizes,tm,tn", JAX_CASES)
+def test_fwd_tiled_plain_matches_pallas_interpret(m, k, n, sizes, tm, tn,
+                                                  tiles):
+    """The forward's walk (each unit multiplying its whole m-tile, each
+    warpgroup storing as the kernel stores) against the Pallas forward
+    kernel in interpret mode; every element written (no NaN left), rows
+    past the groups exact zeros."""
+    lhs, _, rhs, gs = _inputs(m + k + n + 1, m, k, n, sizes)
+    want = np.asarray(jgg._gmm_fwd_kernel_call(
+        jnp.asarray(lhs), jnp.asarray(rhs), jnp.asarray(gs), tm, tn, True))
+    got = tgg.gmm_fwd_tiled_plain(torch.from_numpy(lhs),
+                                  torch.from_numpy(rhs),
+                                  torch.from_numpy(gs), tiles).numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= TOL
+    assert np.all(got[sum(sizes):] == 0)
+
+
 def test_tiled_plain_at_m0_and_past_m():
     """M = 0: drhs of every group zeros (dlhs has no rows); group sizes
     that sum past M are clamped to M as the kernels clamp them."""
@@ -183,6 +259,8 @@ def test_tiled_plain_at_m0_and_past_m():
     gs = torch.tensor([30, 25], dtype=torch.int32)          # 55 > 40 rows
     l2, d2, r2 = (torch.from_numpy(a) for a in (l2, d2, r2))
     for tiles in (SMALL, {}):
+        assert torch.allclose(tgg.gmm_fwd_tiled_plain(l2, r2, gs, tiles),
+                              tgg.gmm_plain(l2, r2, gs), atol=TOL)
         assert torch.allclose(tgg.gmm_drhs_tiled_plain(l2, d2, gs, tiles),
                               tgg.gmm_drhs_plain(l2, d2, gs), atol=TOL)
         assert torch.allclose(tgg.gmm_dlhs_tiled_plain(d2, r2, gs, tiles),
