@@ -228,10 +228,13 @@ Phases, each fatal on failure:
    within 5e-2 in norm; exactly one launch of each kernel a call and no
    dense call (counts set to 0 just before each call and read just after);
    tables that drop the last live key tile of every query tile must miss
-   the bars; each kernel timed beside its plain version, SDPA over the
-   expanded boolean mask (a yardstick: forward and forward + backward) and
-   its bound (bytes, or the FLOPs of the layout's live cells; the FLOPs of
-   the live 64 x 64 tiles beside them); time against density at the
+   the bars; two runs of dQ and dK/dV on the same inputs bit-equal; each
+   backward launch's shape and walk (``launch_info``: grid, stages,
+   registers, spills, split lists, slot fill); each kernel timed beside
+   its plain version, SDPA over the expanded boolean mask (a yardstick:
+   forward, forward + backward, the backward alone) and its bound (bytes,
+   or the FLOPs of the layout's live cells; the FLOPs of the live 64 x 64
+   tiles beside them), and its TFLOP/s on both; time against density at the
    Fixed / BSLongformer / Dense layouts; with a key-padding mask, "auto"
    takes the dense composition, counted under its own key;
 24. the continuous-batching scheduler (``ContinuousBatchScheduler``)
@@ -3449,6 +3452,22 @@ def block_sparse_case(torch, np, gen, dev, name, layout, b, h, s, d, block,
         lambda i: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
         1, 3)}
     if not forward_only:
+        # two runs of dQ and dK/dV on the same inputs must give the same
+        # bits (no atomics on the outputs; split lists sum in part order)
+        runs, case["launch"] = [], {}
+        for _ in range(2):
+            dq_, delta_ = bsa.block_sparse_attention_bwd_dq(
+                *ops[0][:3], *res[0], ops[0][3], bsl, scale, bias)
+            if dt != torch.float32:
+                case["launch"]["bwd_dq"] = bsa.launch_info()
+            runs.append((dq_, delta_) + bsa.block_sparse_attention_bwd_dkv(
+                *ops[0][:3], ops[0][3], res[0][1], delta_, bsl, bias))
+            if dt != torch.float32:
+                case["launch"]["bwd_dkv"] = bsa.launch_info()
+        torch.cuda.synchronize()
+        case["bwd_bit_equal"] = all(torch.equal(a, c)
+                                    for a, c in zip(*runs))
+        del runs, dq_, delta_
         deltas = [bsa.block_sparse_attention_bwd_dq(
             *o[:3], r[0], r[1], o[3], bsl, scale, bias)[1]
             for o, r in zip(ops, res)]
@@ -3487,6 +3506,11 @@ def block_sparse_case(torch, np, gen, dev, name, layout, b, h, s, d, block,
                         FP32_FLOPS if dt == torch.float32 else BF16_FLOPS,
                         0 if bias is None else bias.numel() * 4)
     case["bounds"] = {kn: bounds[kn] for kn in case["ms"]}
+    # achieved TFLOP/s on the layout's live cells and on its live 64 x 64
+    # tiles (the work before 16-wide slices are skipped)
+    case["tflops"] = {kn: {"cells": bounds[kn]["cell_flops"] / ms / 1e9,
+                           "tiles": bounds[kn]["tile_flops"] / ms / 1e9}
+                      for kn, ms in case["ms"].items()}
     bsl._elem.clear()
     return case
 
@@ -3514,6 +3538,8 @@ def bsa_failures(case) -> list:
             case["fault_k_grad_norm_rel_err"][g] <= BSA_GRAD_NORM_TOL
             for g in ("dk", "dv")):
         bad.append("planted key-major fault passes the gradient bar")
+    if not fwd_only and not case["bwd_bit_equal"]:
+        bad.append("dQ / dK/dV not bit-equal over two runs")
     want = {BSA_KEYS[0]: 1, BSA_KEYS[1]: int(not fwd_only),
             BSA_KEYS[2]: int(not fwd_only), BSA_DENSE: 0}
     if case["launches"] != want:
@@ -4299,6 +4325,14 @@ def main() -> int:
               f"{ {k: round(x, 3) for k, x in r['library_ms'].items()} } "
               f"bound { {k: round(x['bound_ms'], 4) for k, x in r['bounds'].items()} }",
               flush=True)
+        if "bwd_bit_equal" in r:
+            print(f"[block-sparse]   {r['name']}: bwd bit-equal "
+                  f"{r['bwd_bit_equal']}; TFLOP/s (cells / tiles) "
+                  f"{ {k: (round(x['cells'], 1), round(x['tiles'], 1)) for k, x in r['tflops'].items()} }",
+                  flush=True)
+        for kname, info in r.get("launch", {}).items():
+            print(f"[launch] {r['name']} {kname}: {json.dumps(info)}",
+                  flush=True)
         bad = bsa_failures(r)
         if bad:
             return fail(f"phase 23 {r['name']}: {bad}")

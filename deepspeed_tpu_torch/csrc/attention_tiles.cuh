@@ -101,3 +101,15 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&pa)[N / 16][4],
     pa[c][3] = pack2<T>(s[2 * c + 1][2], s[2 * c + 1][3]);
   }
 }
+
+// An accumulator tile [64 x N] of a warpgroup (the wgmma layout, d[4j + e])
+// rounded to T as the register A operand of the next wgmma, one fragment
+// per 16 columns.
+template <typename T, int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&d)[N / 2]) {
+#pragma unroll
+  for (int ks = 0; ks < N / 16; ++ks) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) a[ks][f] = pack2<T>(d[8 * ks + 2 * f], d[8 * ks + 2 * f + 1]);
+  }
+}

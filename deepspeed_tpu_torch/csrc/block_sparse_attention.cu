@@ -40,47 +40,61 @@
 // 16-bit mask of the tile's 16 x 16 sub-blocks, bit (qs * 4 + ks) set when
 // the layout keeps sub-block (qs, ks); the layout's block is a multiple of 16,
 // so each sub-block lies in one layout cell, and sub-blocks past S are 0.
-// The forward and dQ blocks walk only the live key tiles of their query
-// tile; the dK/dV block walks only the live query tiles of its key tile.
-// Inside a live tile, the mask is per warp and per 16 columns: a warp of the
-// tensor-core kernels holds 16 rows (one sub-block row), so its four bits
-// name which 16-column slices it keeps, and a dead slice skips its products
-// and is masked whole (no per-element test, no cell expansion: the TPU
+// The forward and the general kernels walk those lists; inside a live tile a
+// warp of 16 rows keeps four bits, one a 16-column slice, and a dead slice
+// skips its products and is masked whole (no per-element test: the TPU
 // kernel's `_cell_mask` matmuls at :57 have no counterpart).
 //
-// Two kernel families:
+// Three kernel families:
 //
-// * the tensor-core kernels (bf16 / fp16, D a multiple of 8 up to 128, padded
-//   with zeros in shared memory to DP = 16, 32, 64 or 128): B1's simple
-//   design (csrc/flash_attention.cu): 4 warps a block, 16 rows a warp,
-//   64-row tiles staged in shared memory with 16-byte loads, products by
-//   mma.sync.m16n8k16 (csrc/attention_tiles.cuh), the online softmax in
-//   registers.  The dK/dV kernel takes 64 query rows a step at DP <= 64 and
-//   32 at DP = 128 (registers);
+// * the forward's tensor-core kernel (bf16 / fp16, D a multiple of 8 up to
+//   128, padded with zeros in shared memory to DP = 16, 32, 64 or 128): 4
+//   warps a block, 16 rows a warp, 64-row tiles staged with 16-byte loads,
+//   products by mma.sync.m16n8k16 (csrc/attention_tiles.cuh), the online
+//   softmax in registers;
+// * the backward's tensor-core kernels (bf16 / fp16, the same D), on wgmma
+//   fed by TMA: the flash backward (csrc/flash_attention.cu) on a walk
+//   of 16-row slices instead of 64-row tiles.  A block holds up to four
+//   stationary slices of one (batch, head) -- query slices for dQ, key
+//   slices for dK/dV, gathered into one 64-row wgmma tile -- and streams
+//   the live slices of the other side through a TMA ring, four to a stage,
+//   each gathered by a 16-row box, so that only live slices cross the ring
+//   and a stage's 64 columns are mostly live: Fixed's global columns (one
+//   live 16-key slice in each 64 x 64 tile) pack four to a stage for dQ,
+//   and its global-column keys, grouped four to a block, fill dK/dV's rows.
+//   The host groups the slices (`bsa_tile_walk`: "heavy" slices, a global
+//   row's or column's, among themselves, the rest in their 64-row tile),
+//   splits a list that is long against the launch's work into parts whose
+//   fp32 partials the last part to finish sums in part order (no atomics on
+//   the outputs: two runs give the same bits), and orders the blocks
+//   longest list first;
 // * the general kernels (fp32, any D up to 128; the TPU kernel takes fp32
-//   too, and the JAX package's parity test runs it): the same tiles and
-//   lists, products in fp32 on the CUDA cores, 8 warps a
-//   block, 8 rows (or keys) a warp and one key (or query) a lane, as B12's
-//   general kernel (csrc/evoformer_attn.cu).
+//   too, and the JAX package's parity test runs it): the tile lists,
+//   products in fp32 on the CUDA cores, 8 warps a block, 8 rows (or keys) a
+//   warp and one key (or query) a lane, as B12's general kernel
+//   (csrc/evoformer_attn.cu).
 //
 // What bounds them on the H100: at BERT width (D = 64, S = 4096, batch 4,
 // block 16) the products of the live layout cells, 4 S_live D flops forward
 // and 14 S_live D backward (S_live = kept score entries), at 989 TFLOP/s
 // bf16 (67 TFLOP/s fp32), from ~15% density up; below that the bytes (q,
-// k, v, o, lse read or written once).  The kernels run whole live 16 x 16
-// sub-blocks at mma.sync rates without a load pipeline, and a block walks
-// its list in sequence, so the longest list (a global row's every key tile,
-// a global column's every query tile) sets a layout's time: they run well
-// above the bound (PERF.md section 6).
+// k, v, o, lse read or written once).  The backward kernels multiply whole
+// 64 x 64 slot pairs whose 16 x 16 sub-blocks are live in part, so their
+// work is the stages' (PERF.md section 6 gives both); the forward runs
+// whole live sub-blocks at mma.sync rates without a load pipeline, and its
+// block walks its list in sequence, so the longest list sets its time.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <chrono>
 #include <type_traits>
 
 #include "attention_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -292,204 +306,660 @@ bsa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   }
 }
 
-template <typename T, int DP, bool BIAS>
-__global__ void __launch_bounds__(kThreads)
-bsa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const T* __restrict__ o, const T* __restrict__ dout,
-                  const float* __restrict__ lse, float* __restrict__ delta,
-                  T* __restrict__ dq, const float* __restrict__ kbias, int seq, int heads,
-                  int d, float scale, Lists lists) {
-  constexpr int LD = DP + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* do_s = q_s + kTile * LD;
-  T* k_s = do_s + kTile * LD;
-  T* v_s = k_s + kTile * LD;
+// ----------------------------------------------------------------------------
+// Backward on wgmma (bf16 / fp16): the 16-row slice walk
+// ----------------------------------------------------------------------------
+// A block is one producer warpgroup and one consumer warpgroup, two blocks
+// an SM.  Its item (a row of the block table, `bsa_tile_walk`) names up to
+// four stationary 16-row slices of one (batch, head) -- query slices for
+// dQ, key slices for dK/dV -- and a range of stages, each kSlots streamed
+// slices of the other side with a mask (bit r * 4 + c: stationary slot r
+// keeps streamed slot c).  Warp w of the consumer warpgroup holds the rows
+// of stationary slot w (the wgmma accumulator rows 16w .. 16w + 15 of the
+// warpgroup's 64), so a warp's four bits of the mask
+// say which 16-column slices of its scores are live; a dead slice's P and dS
+// are 0 before rounding.  The producer's first thread gathers every slice
+// by a 16-row TMA box into consecutive slots of a tile (columns past D read
+// zeros), through a ring of NS stages; its warp's lanes copy the stage's key
+// bias (dQ) or lse and delta (dK/dV).
+constexpr int kSlots = 4;                     // slices a warpgroup, and a stage
+constexpr int kSlice = 16;
+constexpr int kRows = kSlots * kSlice;        // a wgmma tile: 64 rows
+constexpr int kStageInts = 8;                 // slot[4], mask, -
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 232;            // after setmaxnreg
+constexpr int kBwdThreads = 256;              // producer + consumer warpgroup
+constexpr int kItemInts = 8 + kSlots;         // a block-table row (`item_of`)
+constexpr float kLog2e = 1.4426950408889634f;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * kTile;
-  const size_t row_base = (static_cast<size_t>(b) * heads + h) * seq;
-  const T* kb = k + row_base * d;
-  const T* vb = v + row_base * d;
+// The walk of one launch (device arrays of `bsa_tile_walk`) and the scratch
+// of its split lists: fp32 partials, one [64 x DP] tile (two for dK/dV) a
+// (part, batch row), and one counter a (split group, batch row), zeroed by
+// the host before the launch.
+struct Walk {
+  const int* blocks;
+  const int* stages;
+  float* ws;
+  int* counters;
+};
 
-  load_tile<T, DP, kTile>(q_s, q + row_base * d, d, q0, seq);
-  load_tile<T, DP, kTile>(do_s, dout + row_base * d, d, q0, seq);
+// A block-table row: head, stat[kSlots], begin, end, part, parts, partial
+// slot, split group, -.
+struct Item {
+  int head, stat[kSlots], begin, end, part, parts, ws_base, group;
+};
 
-  const int r0 = q0 + warp * 16 + g;
-  __syncthreads();                                  // do_s is loaded
-  // delta = rowsum(do * o) of rows r0 and r0 + 8: each lane of the row's
-  // quad takes every fourth 16-byte vector, then the quad sums
-  float row_lse[2], row_delta[2];
+__device__ __forceinline__ Item item_of(const int* blocks, int row) {
+  const int* r = blocks + static_cast<size_t>(row) * kItemInts;
+  Item it;
+  it.head = r[0];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 8 * i;
-    float part = 0.f;
-    if (r < seq) {
-      const T* orow = o + (row_base + r) * d;
-      const T* drow = do_s + (r - q0) * LD;
-      for (int c = 8 * t; c < d; c += 32)
-        part += dot8<T>(*reinterpret_cast<const int4*>(orow + c),
-                        *reinterpret_cast<const int4*>(drow + c));
+  for (int s = 0; s < kSlots; ++s) it.stat[s] = r[1 + s];
+  it.begin = r[kSlots + 1];
+  it.end = r[kSlots + 2];
+  it.part = r[kSlots + 3];
+  it.parts = r[kSlots + 4];
+  it.ws_base = r[kSlots + 5];
+  it.group = r[kSlots + 6];
+  return it;
+}
+
+// the shared-memory geometry of a [64 x DP] tile: rows of SW bytes (D
+// padded to DP = 16, 32, 64 or 128; 128-byte rows in DP / 64 column blocks
+// at DP = 128), swizzled as TMA's CU_TENSOR_MAP_SWIZZLE_<SW>B writes it
+template <int DP>
+struct Geo {
+  static constexpr int kSw = DP >= 64 ? 128 : DP * 2;
+  static constexpr int kCols = kSw / 2;
+  static constexpr int kCb = DP / kCols;
+  static constexpr uint32_t kLayout = swizzle_layout(kSw);
+  static constexpr int kTile = kRows * DP * 2;
+};
+
+template <int SW>
+__device__ __forceinline__ uint32_t swz(int row, int col, int rows) {
+  constexpr int kCols = SW / 2;
+  const uint32_t o =
+      static_cast<uint32_t>((col / kCols) * rows * SW + row * SW + (col % kCols) * 2);
+  return o ^ (((o >> 7) & (SW / 16 - 1)) << 4);
+}
+
+// K-major descriptor of k-step kk (16 columns) of a [64 x DP] tile, from
+// row row0 on
+template <int DP>
+__device__ __forceinline__ uint64_t kdesc(const unsigned char* tile, int row0, int kk) {
+  using G = Geo<DP>;
+  const int cb = kk * 16 / G::kCols, in = (kk * 32) % G::kSw;
+  return wgmma_desc(tile + cb * kRows * G::kSw + row0 * G::kSw + in, 16, 8 * G::kSw, G::kLayout);
+}
+
+// MN-major descriptor of rows [r0, r0 + 16) of a [64 x DP] tile, the B
+// operand whose N is DP
+template <int DP>
+__device__ __forceinline__ uint64_t mndesc(const unsigned char* tile, int r0) {
+  using G = Geo<DP>;
+  return wgmma_desc(tile + r0 * G::kSw, kRows * G::kSw, 8 * G::kSw, G::kLayout);
+}
+
+// The gathered tile of four slices: slice slices[r] into rows [16r, 16r +
+// 16) of `dst` ([64 x DP]), every column block.
+template <int DP>
+__device__ __forceinline__ void load_slices(unsigned char* dst, const CUtensorMap* map,
+                                            uint64_t* bar, const int (&slices)[kSlots], int bh) {
+  using G = Geo<DP>;
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r)
+#pragma unroll
+    for (int cb = 0; cb < G::kCb; ++cb)
+      tma_load_3d(dst + cb * kRows * G::kSw + r * kSlice * G::kSw, map, bar, cb * G::kCols,
+                  kSlice * slices[r], bh);
+}
+
+// a[i] without indexing a register array at run time (which would put the
+// array in local memory)
+__device__ __forceinline__ int pick(const int (&a)[kSlots], int i) {
+  int v = a[0];
+#pragma unroll
+  for (int k = 1; k < kSlots; ++k) v = i == k ? a[k] : v;
+  return v;
+}
+
+// The stationary slices of an item, an empty slot (-1) replaced by slot 0's:
+// its rows are masked and never stored, and slot 0 is always a slice.
+__device__ __forceinline__ void slices_of(const int (&row)[kSlots], int (&out)[kSlots]) {
+#pragma unroll
+  for (int c = 0; c < kSlots; ++c) out[c] = row[c] >= 0 ? row[c] : row[0];
+}
+
+// The producer warp's view of its item's stages: lane l holds the four
+// streamed slices of stage 32 j + l of the current chunk j, loaded once a
+// chunk, so that a stage's slices cost the producer a shuffle and not a
+// load's latency.  Every lane calls `get` for every stage, in order.
+struct StageSlots {
+  const int* stages;
+  int begin, n, base = -32;
+  int4 mine;
+  __device__ __forceinline__ void get(int i, int lane, int (&out)[kSlots]) {
+    if (i - base >= 32) {
+      base = i;
+      mine = i + lane < n ? __ldg(reinterpret_cast<const int4*>(
+                                stages + static_cast<size_t>(begin + i + lane) * kStageInts))
+                          : make_int4(0, 0, 0, 0);
     }
-    part += __shfl_xor_sync(kFull, part, 1);
-    part += __shfl_xor_sync(kFull, part, 2);
-    row_delta[i] = part;
-    row_lse[i] = r < seq ? lse[row_base + r] : 0.f;
-    if (t == 0 && r < seq) delta[row_base + r] = part;
+    const int src = i - base;
+    out[0] = __shfl_sync(kFull, mine.x, src);
+    out[1] = __shfl_sync(kFull, mine.y, src);
+    out[2] = __shfl_sync(kFull, mine.z, src);
+    out[3] = __shfl_sync(kFull, mine.w, src);
+#pragma unroll
+    for (int c = 1; c < kSlots; ++c) out[c] = out[c] >= 0 ? out[c] : out[0];
   }
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+};
 
-  const int li = h * gridDim.x + qt;
-  for (int it = lists.ptr[li], end = lists.ptr[li + 1]; it < end; ++it) {
-    const int c0 = lists.idx[it] * kTile;
-    const int live = (lists.mask[it] >> (4 * warp)) & 0xF;
-    __syncthreads();
-    load_tile<T, DP, kTile>(k_s, kb, d, c0, seq);
-    load_tile<T, DP, kTile>(v_s, vb, d, c0, seq);
-    __syncthreads();
-    if (!live) continue;
+// 4 bytes global -> shared, asynchronously (no register holds them)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
 
-    float s[kTile / 8][4], dp[kTile / 8][4];
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    }
-    mma_abt_live<T, DP, kTile, LD>(s, q_s + warp * 16 * LD, k_s, lane, live);
-    mma_abt_live<T, DP, kTile, LD>(dp, do_s + warp * 16 * LD, v_s, lane, live);
-    const float* kb = BIAS ? kbias + static_cast<size_t>(b) * seq + c0 + 2 * t : nullptr;
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      const bool keep = (live >> (j >> 1)) & 1;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const float x = s[j][e] + (BIAS && keep ? kb[8 * j + (e & 1)] : 0.f);
-        const float p = keep ? expf(x - row_lse[i]) : 0.f;
-        s[j][e] = p * (dp[j][e] - row_delta[i]);    // ds
-      }
-    }
-    uint32_t dsa[kTile / 16][4];
-    to_a_frags<T, kTile>(dsa, s);
-    mma_pb_live<T, kTile, DP, LD>(acc, dsa, k_s, lane, live);
-  }
+// one arrival on `bar` once this thread's cp.async copies so far have landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
 
+// A split list's partials, in the consumer warpgroup (128 threads): slot p
+// of the launch's scratch for this batch row holds part p's fp32 sums, each
+// thread's N floats thread-major in float4s.
+template <int N>
+__device__ __forceinline__ void put_partial(float* slot, const float (&acc)[N], int ct) {
+  float4* w = reinterpret_cast<float4*>(slot);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 8 * i;
-    if (r >= seq) continue;
-    T* row = dq + (row_base + r) * d;
+  for (int j = 0; j < N / 4; ++j)
+    w[j * 128 + ct] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+}
+
+template <int N>
+__device__ __forceinline__ void add_partial(float (&acc)[N], const float* slot, int ct) {
+  const float4* r = reinterpret_cast<const float4*>(slot);
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j)
-      if (8 * j < d) store2<T>(row + 8 * j + 2 * t, acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
+  for (int j = 0; j < N / 4; ++j) {
+    const float4 x = __ldcg(r + j * 128 + ct);    // another SM wrote it: not from L1
+    acc[4 * j] += x.x;
+    acc[4 * j + 1] += x.y;
+    acc[4 * j + 2] += x.z;
+    acc[4 * j + 3] += x.w;
   }
 }
 
-// BQ query rows a step: 64 at DP <= 64; 32 at DP = 128, so that the two
-// [16 x BQ] score tiles and the two [16 x DP] accumulators stay in registers.
-template <typename T, int DP, int BQ, bool BIAS>
-__global__ void __launch_bounds__(kThreads)
-bsa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const T* __restrict__ dout, const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                   const float* __restrict__ kbias, int seq, int heads, int d, Lists lists) {
-  constexpr int LD = DP + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + kTile * LD;
-  T* q_s = v_s + kTile * LD;
-  T* do_s = q_s + BQ * LD;
-  float* lse_s = reinterpret_cast<float*>(do_s + BQ * LD);
-  float* delta_s = lse_s + BQ;
+// After every thread of the consumer warpgroup (named barrier 1) put its
+// partial: count this part in, on the counter of its group and batch row;
+// true in the last part to arrive, which then sums every part's partial in
+// part order (so the sum is the same whichever part finishes last).
+__device__ __forceinline__ bool last_part(const Item& it, const Walk& walk, int b, int batch,
+                                          int ct, int* flag) {
+  __threadfence();
+  named_barrier(1, 128);
+  if (ct == 0)
+    *flag = atomicAdd(walk.counters + static_cast<size_t>(it.group) * batch + b, 1) ==
+            it.parts - 1;
+  named_barrier(1, 128);
+  if (*flag) __threadfence();
+  return *flag;
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * kTile;
-  const size_t row_base = (static_cast<size_t>(b) * heads + h) * seq;
-  const T* qb = q + row_base * d;
-  const T* dob = dout + row_base * d;
-  load_tile<T, DP, kTile>(k_s, k + row_base * d, d, k0, seq);
-  load_tile<T, DP, kTile>(v_s, v + row_base * d, d, k0, seq);
+// the partial slot of part `p` of this item and batch row, `floats` long
+__device__ __forceinline__ float* partial_slot(const Item& it, const Walk& walk, int p, int b,
+                                               int batch, int floats) {
+  return walk.ws + (static_cast<size_t>(it.ws_base + p) * batch + b) * floats;
+}
 
-  const int c_0 = k0 + warp * 16 + g;               // this thread's keys c_0, c_0 + 8
-  float key_b[2] = {0.f, 0.f};                      // their bias
+// The consumer warpgroup's [64 x DP] accumulator (this thread's rows 16
+// warp + g and + 8, the wgmma layout), times `mul` and rounded, into the
+// swizzled [64 x DP] staging tile `tile`.
+template <typename T, int DP>
+__device__ __forceinline__ void stage_rows(unsigned char* tile, const float (&acc)[DP / 2],
+                                           float mul, int warp, int g, int t) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = c_0 + 8 * i;
-    if (BIAS && c < seq) key_b[i] = kbias[static_cast<size_t>(b) * seq + c];
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = 16 * warp + g + 8 * hr;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+      *reinterpret_cast<uint32_t*>(tile + swz<Geo<DP>::kSw>(row, 8 * j + 2 * t, kRows)) =
+          pack2<T>(acc[4 * j + 2 * hr] * mul, acc[4 * j + 2 * hr + 1] * mul);
   }
-  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-    dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.f;
-    dv_acc[j][0] = dv_acc[j][1] = dv_acc[j][2] = dv_acc[j][3] = 0.f;
+}
+
+// The staged rows of each stationary slice that is not empty to the
+// slice's rows of `dst` (one head, row stride d), 16 bytes a thread,
+// columns past d dropped.
+template <int DP>
+__device__ __forceinline__ void store_slices(const unsigned char* tile, const Item& it, void* dst,
+                                             int d, int ct) {
+  for (int c = ct; c < kRows * DP / 8; c += 128) {
+    const int rr = c / (DP / 8), col = (c % (DP / 8)) * 8;
+    const int slice = pick(it.stat, rr / kSlice);
+    if (slice >= 0 && col < d)
+      *reinterpret_cast<int4*>(static_cast<unsigned char*>(dst)
+                               + (static_cast<size_t>(kSlice * slice + rr % kSlice) * d + col) * 2) =
+          *reinterpret_cast<const int4*>(tile + swz<Geo<DP>::kSw>(rr, col, kRows));
   }
+}
 
-  const int li = h * gridDim.x + kt;
-  for (int it = lists.ptr[li], end = lists.ptr[li + 1]; it < end; ++it) {
-    // the query sub-blocks this warp's 16 keys (key sub-block `warp`) keep
-    const int col = column_bits(lists.mask[it], warp);
-#pragma unroll 1
-    for (int half = 0; half < kTile / BQ; ++half) {
-      const int r0 = lists.idx[it] * kTile + half * BQ;
-      const int live = (col >> (half * BQ / 16)) & ((1 << (BQ / 16)) - 1);
-      __syncthreads();
-      load_tile<T, DP, BQ>(q_s, qb, d, r0, seq);
-      load_tile<T, DP, BQ>(do_s, dob, d, r0, seq);
-      if (threadIdx.x < BQ) {
-        const int r = r0 + threadIdx.x;
-        lse_s[threadIdx.x] = r < seq ? lse[row_base + r] : 0.f;
-        delta_s[threadIdx.x] = r < seq ? delta[row_base + r] : 0.f;
-      }
-      __syncthreads();
-      if (!live) continue;
+template <int DP, int NS>
+struct DqSmem {
+  static constexpr int kTile = Geo<DP>::kTile;
+  static constexpr int kQ = 0;                        // the gathered Q rows
+  static constexpr int kDo = kTile;                   // and dO rows
+  static constexpr int kK = 2 * kTile;                // [NS] K stages
+  static constexpr int kV = kK + NS * kTile;          // [NS] V stages
+  static constexpr int kBias = kV + NS * kTile;       // [NS][64] fp32 key bias
+  static constexpr int kBars = kBias + NS * kRows * 4;    // stat, full[NS], empty[NS]
+  static constexpr int kFlag = kBars + (1 + 2 * NS) * 8;  // int
+  static constexpr int kBytes = kFlag + 16 + 1024;
+};
 
-      // transposed scores: rows are this warp's 16 keys, columns BQ queries
-      float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-        st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
-        dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
+// dQ: stationary query slices, streamed key slices.  S = Q K^T and dP =
+// dO V^T from shared memory, dS = P (dP - delta) masked and rounded in
+// registers, dQ += dS K from registers, step i's S and dP beside step i - 1's
+// dQ product (the loop of flash_bwd_dq_kernel, csrc/flash_attention.cu).
+template <typename T, int DP, int NS, bool BIAS>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+bsa_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map, const T* __restrict__ o,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ kbias, int seq, int heads, int d, int batch,
+                    float scale, Walk walk) {
+  using L = DqSmem<DP, NS>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  unsigned char* q_s = sm + L::kQ;
+  unsigned char* do_s = sm + L::kDo;
+  uint64_t* stat_bar = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = stat_bar + 1;
+  uint64_t* empty = full + NS;
+  int* flag = reinterpret_cast<int*>(sm + L::kFlag);
+
+  const int b = blockIdx.x % batch;
+  const Item it = item_of(walk.blocks, blockIdx.x / batch);
+  const int bh = b * heads + it.head;
+  const int n = it.end - it.begin;
+
+  if (threadIdx.x == 0) {
+    mbar_init(stat_bar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], BIAS ? 33 : 1);         // with a bias, + the lanes' copies
+      mbar_init(&empty[s], 4);                    // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 32 && n > 0) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        int stat[kSlots];
+        slices_of(it.stat, stat);
+        mbar_arrive_expect_tx(stat_bar, 2 * L::kTile);
+        load_slices<DP>(q_s, &q_map, stat_bar, stat, bh);
+        load_slices<DP>(do_s, &do_map, stat_bar, stat, bh);
       }
-      mma_abt_live<T, DP, BQ, LD>(st, k_s + warp * 16 * LD, q_s, lane, live);
-      mma_abt_live<T, DP, BQ, LD>(dpt, v_s + warp * 16 * LD, do_s, lane, live);
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-        const bool keep = (live >> (j >> 1)) & 1;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int rl = 8 * j + 2 * t + (e & 1);
-          const float x = BIAS ? st[j][e] + key_b[e >> 1] : st[j][e];
-          const float p = keep ? expf(x - lse_s[rl]) : 0.f;
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - delta_s[rl]);   // ds^T
+      StageSlots table{walk.stages, it.begin, n};
+      for (int i = 0; i < n; ++i) {
+        const int s = i % NS;
+        int slot[kSlots];
+        table.get(i, lane, slot);
+        if (i >= NS) mbar_wait(&empty[s], ((i / NS) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], 2 * L::kTile);
+          load_slices<DP>(sm + L::kK + s * L::kTile, &k_map, &full[s], slot, bh);
+          load_slices<DP>(sm + L::kV + s * L::kTile, &v_map, &full[s], slot, bh);
+        }
+        if (BIAS) {                               // lane l: keys l and l + 32 of the stage
+          float* bt = reinterpret_cast<float*>(sm + L::kBias) + s * kRows;
+          const float* kb = kbias + static_cast<size_t>(b) * seq + lane % kSlice;
+          cp_async4(bt + lane, kb + kSlice * (lane < kSlice ? slot[0] : slot[1]));
+          cp_async4(bt + 32 + lane, kb + kSlice * (lane < kSlice ? slot[2] : slot[3]));
+          cp_async_arrive(&full[s]);
         }
       }
-      uint32_t pa[BQ / 16][4];
-      to_a_frags<T, BQ>(pa, st);
-      mma_pb_live<T, BQ, DP, LD>(dv_acc, pa, do_s, lane, live);   // dV += P^T dO
-      to_a_frags<T, BQ>(pa, dpt);
-      mma_pb_live<T, BQ, DP, LD>(dk_acc, pa, q_s, lane, live);    // dK += dS^T q
     }
-  }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int ct = threadIdx.x % 128;
+    const int warp = ct / 32, lane = ct % 32, g = lane / 4, t = lane % 4;
+    const int mine = pick(it.stat, warp), slice = mine >= 0 ? mine : it.stat[0];
+    const size_t row_base = static_cast<size_t>(bh) * seq;
 
+    // delta = rowsum(do * o) of this thread's rows (of slot `warp`), written
+    // for dK/dV by the list's first part: each lane of the row's quad takes
+    // every fourth 16-byte vector
+    float lse2[2], dlt[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = c_0 + 8 * i;
-    if (c >= seq) continue;
-    T* dk_row = dk + (row_base + c) * d;
-    T* dv_row = dv + (row_base + c) * d;
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      if (8 * j >= d) continue;
-      store2<T>(dk_row + 8 * j + 2 * t, dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
-      store2<T>(dv_row + 8 * j + 2 * t, dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
+    for (int hr = 0; hr < 2; ++hr) {
+      const size_t r = row_base + kSlice * slice + g + 8 * hr;
+      float part = 0.f;
+      for (int c = 8 * t; c < d; c += 32)
+        part += dot8<T>(*reinterpret_cast<const int4*>(o + r * d + c),
+                        *reinterpret_cast<const int4*>(dout + r * d + c));
+      part += __shfl_xor_sync(kFull, part, 1);
+      part += __shfl_xor_sync(kFull, part, 2);
+      dlt[hr] = part;
+      lse2[hr] = lse[r] * kLog2e;
+      if (t == 0 && it.part == 0 && mine >= 0) delta[r] = part;
     }
+
+    float acc[DP / 2], s[kRows / 2], dp[kRows / 2];
+    uint32_t ds[kRows / 16][4];
+    zero(acc);
+    zero(s);
+    zero(dp);
+    auto release = [&](int i) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[i % NS]);
+    };
+    auto s_dp = [&](int i) {                      // S = Q K_i^T, dP = dO V_i^T
+      const unsigned char* k_t = sm + L::kK + (i % NS) * L::kTile;
+      const unsigned char* v_t = sm + L::kV + (i % NS) * L::kTile;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_t<T, kRows>(s, kdesc<DP>(q_s, 0, kk), kdesc<DP>(k_t, 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_t<T, kRows>(dp, kdesc<DP>(do_s, 0, kk), kdesc<DP>(v_t, 0, kk), kk);
+    };
+    auto dq_step = [&](int i) {                   // dQ += round(dS) K_i
+      const unsigned char* k_t = sm + L::kK + (i % NS) * L::kTile;
+#pragma unroll
+      for (int ks = 0; ks < kSlots; ++ks) wgmma_rs_t<T, DP>(acc, ds[ks], mndesc<DP>(k_t, 16 * ks));
+    };
+    // step i's dS = P (dP - delta) in s, 0 on this warp's dead slots: this
+    // thread's columns are 8 (j / 4) + 2t + j % 2, in slot j / 8
+    auto to_ds = [&](int i, int live) {
+      const float* bt = reinterpret_cast<const float*>(sm + L::kBias) + (i % NS) * kRows;
+#pragma unroll
+      for (int j = 0; j < kRows / 2; ++j) {
+        const int hr = (j >> 1) & 1;
+        const float x = BIAS ? s[j] + bt[8 * (j >> 2) + 2 * t + (j & 1)] : s[j];
+        const float pr = exp2_ftz(fmaf(x, kLog2e, -lse2[hr]));
+        s[j] = (live >> (j >> 3)) & 1 ? pr * (dp[j] - dlt[hr]) : 0.f;
+      }
+    };
+    auto live_of = [&](int i) {
+      return (__ldg(walk.stages + static_cast<size_t>(it.begin + i) * kStageInts + kSlots)
+              >> (4 * warp)) & 0xF;
+    };
+    auto operands_ready = [&]() {                 // as flash_attention.cu's
+      fence_all(s);
+      fence_all(dp);
+      fence_all(acc);
+      fence_all(ds);
+      wgmma_fence();
+    };
+
+    if (n > 0) {
+      int live = live_of(0);
+      mbar_wait(stat_bar, 0);
+      mbar_wait(&full[0], 0);
+      operands_ready();
+      s_dp(0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_all(s);
+      fence_all(dp);
+      to_ds(0, live);
+      to_a<T, kRows>(ds, s);
+      for (int i = 1; i < n; ++i) {
+        live = live_of(i);
+        mbar_wait(&full[i % NS], (i / NS) & 1);
+        operands_ready();
+        s_dp(i);
+        wgmma_commit();
+        dq_step(i - 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_all(s);
+        fence_all(dp);
+        to_ds(i, live);
+        wgmma_wait<0>();
+        fence_all(acc);
+        fence_all(ds);
+        release(i - 1);
+        to_a<T, kRows>(ds, s);
+      }
+      operands_ready();
+      dq_step(n - 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_all(acc);
+      fence_all(ds);
+      release(n - 1);
+    }
+
+    if (it.parts > 1) {
+      constexpr int kSlot = 128 * DP / 2;
+      put_partial(partial_slot(it, walk, it.part, b, batch, kSlot), acc, ct);
+      if (!last_part(it, walk, b, batch, ct, flag)) return;
+      zero(acc);
+      for (int p = 0; p < it.parts; ++p)
+        add_partial(acc, partial_slot(it, walk, p, b, batch, kSlot), ct);
+    }
+    // stage dQ (scaled, rounded once) in the Q tile, which no product reads
+    // any more, and write each slice's rows
+    stage_rows<T, DP>(q_s, acc, scale, warp, g, t);
+    named_barrier(1, 128);
+    store_slices<DP>(q_s, it, dq + row_base * d, d, ct);
+  }
+}
+
+template <int DP, int NS>
+struct DkvSmem {
+  static constexpr int kTile = Geo<DP>::kTile;
+  static constexpr int kK = 0;                        // the gathered K rows
+  static constexpr int kV = kTile;                    // and V rows
+  static constexpr int kQ = 2 * kTile;                // [NS] Q stages
+  static constexpr int kDo = kQ + NS * kTile;         // [NS] dO stages
+  static constexpr int kStats = kDo + NS * kTile;     // [NS] lse[64], delta[64]
+  static constexpr int kBars = kStats + NS * 2 * kRows * 4;  // stat, full[NS], empty[NS]
+  static constexpr int kFlag = kBars + (1 + 2 * NS) * 8;     // int
+  static constexpr int kBytes = kFlag + 16 + 1024;
+};
+
+// dK/dV: stationary key slices, streamed query slices, BQ query rows a step
+// (64; 32 at DP = 128, so that both sums and both score tiles stay in
+// registers).  S^T = K Q^T and dP^T = V dO^T from shared memory; P^T (the
+// key bias of this thread's two keys held in registers) and dS^T masked and
+// rounded in registers; dV += P^T dO and dK += dS^T Q from registers (the
+// loop of flash_bwd_dkv_kernel).
+template <typename T, int DP, int NS, int BQ, bool BIAS>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+bsa_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                     const float* __restrict__ kbias, int seq, int heads, int d, int batch,
+                     Walk walk) {
+  using L = DkvSmem<DP, NS>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  unsigned char* k_s = sm + L::kK;
+  unsigned char* v_s = sm + L::kV;
+  uint64_t* stat_bar = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = stat_bar + 1;
+  uint64_t* empty = full + NS;
+  int* flag = reinterpret_cast<int*>(sm + L::kFlag);
+
+  const int b = blockIdx.x % batch;
+  const Item it = item_of(walk.blocks, blockIdx.x / batch);
+  const int bh = b * heads + it.head;
+  const int n = it.end - it.begin;
+  const size_t row_base = static_cast<size_t>(bh) * seq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(stat_bar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 33);                    // TMA, + the producer lanes' copies
+      mbar_init(&empty[s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 32 && n > 0) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        int stat[kSlots];
+        slices_of(it.stat, stat);
+        mbar_arrive_expect_tx(stat_bar, 2 * L::kTile);
+        load_slices<DP>(k_s, &k_map, stat_bar, stat, bh);
+        load_slices<DP>(v_s, &v_map, stat_bar, stat, bh);
+      }
+      StageSlots table{walk.stages, it.begin, n};
+      for (int i = 0; i < n; ++i) {
+        const int s = i % NS;
+        int slot[kSlots];
+        table.get(i, lane, slot);
+        if (i >= NS) mbar_wait(&empty[s], ((i / NS) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], 2 * L::kTile);
+          load_slices<DP>(sm + L::kQ + s * L::kTile, &q_map, &full[s], slot, bh);
+          load_slices<DP>(sm + L::kDo + s * L::kTile, &do_map, &full[s], slot, bh);
+        }
+        // lane l: lse and delta of the stage's rows l and l + 32
+        float* st = reinterpret_cast<float*>(sm + L::kStats) + s * 2 * kRows;
+        const size_t r0 = row_base + kSlice * (lane < kSlice ? slot[0] : slot[1]) + lane % kSlice;
+        const size_t r1 = row_base + kSlice * (lane < kSlice ? slot[2] : slot[3]) + lane % kSlice;
+        cp_async4(st + lane, lse + r0);
+        cp_async4(st + 32 + lane, lse + r1);
+        cp_async4(st + kRows + lane, delta + r0);
+        cp_async4(st + kRows + 32 + lane, delta + r1);
+        cp_async_arrive(&full[s]);
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int ct = threadIdx.x % 128;
+    const int warp = ct / 32, lane = ct % 32, g = lane / 4, t = lane % 4;
+    const int mine = pick(it.stat, warp), slice = mine >= 0 ? mine : it.stat[0];
+    float kb[2] = {0.f, 0.f};                     // the key bias of keys g and g + 8
+    if (BIAS) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        kb[hr] = kbias[static_cast<size_t>(b) * seq + kSlice * slice + g + 8 * hr];
+    }
+
+    float dk_acc[DP / 2], dv_acc[DP / 2], st[BQ / 2], dpt[BQ / 2];
+    uint32_t fr[BQ / 16][4];
+    zero(dk_acc);
+    zero(dv_acc);
+    zero(st);
+    zero(dpt);
+    auto release = [&](int i) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[i % NS]);
+    };
+    auto operands_ready = [&]() {
+      fence_all(st);
+      fence_all(dpt);
+      fence_all(dk_acc);
+      fence_all(dv_acc);
+      fence_all(fr);
+      wgmma_fence();
+    };
+
+    if (n > 0) mbar_wait(stat_bar, 0);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % NS;
+      const unsigned char* q_t = sm + L::kQ + s * L::kTile;
+      const unsigned char* do_t = sm + L::kDo + s * L::kTile;
+      const float* lse_t = reinterpret_cast<const float*>(sm + L::kStats) + s * 2 * kRows;
+      const float* delta_t = lse_t + kRows;
+      const int live =
+          (__ldg(walk.stages + static_cast<size_t>(it.begin + i) * kStageInts + kSlots)
+           >> (4 * warp)) & 0xF;
+      mbar_wait(&full[s], (i / NS) & 1);
+#pragma unroll 1
+      for (int h0 = 0; h0 < kRows; h0 += BQ) {
+        operands_ready();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_ss_t<T, BQ>(st, kdesc<DP>(k_s, 0, kk), kdesc<DP>(q_t, h0, kk), kk);
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_ss_t<T, BQ>(dpt, kdesc<DP>(v_s, 0, kk), kdesc<DP>(do_t, h0, kk), kk);
+        wgmma_commit();
+        wgmma_wait<0>();                          // and the last step's dK product
+        fence_all(st);
+        fence_all(dpt);
+        fence_all(dk_acc);
+        fence_all(dv_acc);
+        fence_all(fr);
+        if (i > 0 && h0 == 0) release(i - 1);
+
+        // P^T: this thread's keys (rows) against the step's queries h0 + x,
+        // x = 8 (j / 4) + 2t + j % 2, in slot (h0 + x) / 16
+#pragma unroll
+        for (int j = 0; j < BQ / 2; ++j) {
+          const int hr = (j >> 1) & 1, x = h0 + 8 * (j >> 2) + 2 * t + (j & 1);
+          const float y = BIAS ? st[j] + kb[hr] : st[j];
+          const float pr = exp2_ftz(fmaf(y, kLog2e, -lse_t[x] * kLog2e));
+          st[j] = (live >> (x >> 4)) & 1 ? pr : 0.f;
+        }
+        to_a<T, BQ>(fr, st);
+        operands_ready();
+#pragma unroll
+        for (int ks = 0; ks < BQ / 16; ++ks)      // dV += round(P^T) dO
+          wgmma_rs_t<T, DP>(dv_acc, fr[ks], mndesc<DP>(do_t, h0 + 16 * ks));
+        wgmma_commit();
+        // dS^T = P^T (dP^T - delta) while the tensor cores run dV
+#pragma unroll
+        for (int j = 0; j < BQ / 2; ++j)
+          dpt[j] = st[j] * (dpt[j] - delta_t[h0 + 8 * (j >> 2) + 2 * t + (j & 1)]);
+        wgmma_wait<0>();
+        fence_all(dv_acc);
+        fence_all(fr);
+        to_a<T, BQ>(fr, dpt);
+        operands_ready();
+#pragma unroll
+        for (int ks = 0; ks < BQ / 16; ++ks)      // dK += round(dS^T) Q
+          wgmma_rs_t<T, DP>(dk_acc, fr[ks], mndesc<DP>(q_t, h0 + 16 * ks));
+        wgmma_commit();
+      }
+    }
+    wgmma_wait<0>();
+    fence_all(dk_acc);
+    fence_all(fr);
+    if (n > 0) release(n - 1);
+
+    if (it.parts > 1) {                           // dK's sums, then dV's, a slot
+      constexpr int kHalf = 128 * DP / 2;
+      float* part = partial_slot(it, walk, it.part, b, batch, 2 * kHalf);
+      put_partial(part, dk_acc, ct);
+      put_partial(part + kHalf, dv_acc, ct);
+      if (!last_part(it, walk, b, batch, ct, flag)) return;
+      zero(dk_acc);
+      zero(dv_acc);
+      for (int p = 0; p < it.parts; ++p) {
+        const float* sums = partial_slot(it, walk, p, b, batch, 2 * kHalf);
+        add_partial(dk_acc, sums, ct);
+        add_partial(dv_acc, sums + kHalf, ct);
+      }
+    }
+    // stage dK and dV (rounded once) in the K and V tiles, which no product
+    // reads any more, and write each slice's rows
+    stage_rows<T, DP>(k_s, dk_acc, 1.f, warp, g, t);
+    stage_rows<T, DP>(v_s, dv_acc, 1.f, warp, g, t);
+    named_barrier(1, 128);
+    store_slices<DP>(k_s, it, dk + row_base * d, d, ct);
+    store_slices<DP>(v_s, it, dv + row_base * d, d, ct);
   }
 }
 
@@ -834,6 +1304,7 @@ bsa_bwd_dkv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+
 // ----------------------------------------------------------------------------
 // Launchers
 // ----------------------------------------------------------------------------
@@ -855,10 +1326,60 @@ struct Args {
   int batch, heads, seq, d;
   float scale;
   Lists lists;
+  Walk walk;
+  int n_blocks;
 };
 
 inline dim3 grid_of(const Args& a) {
   return dim3((a.seq + kTile - 1) / kTile, a.heads, a.batch);
+}
+
+// The backward launches' shape by padded head dim: ring stages of dQ and of
+// dK/dV, and dK/dV's query rows a step (measured on the card, PERF.md).
+template <int DP>
+struct BwdTiles {
+  static constexpr int kDqStages = DP == 128 ? 2 : 3;
+  static constexpr int kDkvStages = DP == 128 ? 2 : 3;
+  static constexpr int kDkvRows = DP == 128 ? 32 : 64;
+};
+
+// What the last backward launch was, for `dstt_bsa_launch_info`.
+struct LaunchInfo {
+  const void* fn;
+  long long grid, threads, smem, stages, step_rows, encode_ns;
+};
+LaunchInfo g_last{};
+
+inline long long ns_since(std::chrono::steady_clock::time_point t0) {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(std::chrono::steady_clock::now()
+                                                              - t0)
+      .count();
+}
+
+// The 3-D map (D, S, B * H) of a BHSD operand: a box is the Geo<DP>
+// column block (SW bytes, swizzled for wgmma) of one 16-row slice; columns
+// past D read zeros.
+template <typename T, int DP>
+bool encode_slices(CUtensorMap* map, const void* base, const Args& a) {
+  using G = Geo<DP>;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(a.d), static_cast<cuuint64_t>(a.seq),
+                              static_cast<cuuint64_t>(a.batch) * a.heads};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(a.d) * 2,
+                                 static_cast<cuuint64_t>(a.seq) * a.d * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(G::kCols), kSlice, 1u};
+  const auto type = std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto swizzle = G::kSw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : G::kSw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode_tiled(map, type, 3, const_cast<void*>(base), dims, strides, box, swizzle) ==
+         CUDA_SUCCESS;
+}
+
+template <typename T, int DP>
+bool encode_all(CUtensorMap (&maps)[4], const Args& a) {
+  return encode_slices<T, DP>(&maps[0], a.q, a) && encode_slices<T, DP>(&maps[1], a.k, a) &&
+         encode_slices<T, DP>(&maps[2], a.v, a) && encode_slices<T, DP>(&maps[3], a.dout, a);
 }
 
 template <typename T, int DP>
@@ -875,29 +1396,48 @@ int fwd(const Args& a, cudaStream_t stream) {
 
 template <typename T, int DP>
 int bwd_dq(const Args& a, cudaStream_t stream) {
-  const size_t smem = 4 * kTile * (DP + 8) * sizeof(T);
-  auto kernel = a.kbias ? bsa_bwd_dq_kernel<T, DP, true> : bsa_bwd_dq_kernel<T, DP, false>;
-  if (int rc = prepare(kernel, grid_of(a), smem)) return rc;
-  kernel<<<grid_of(a), kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<float*>(a.delta),
-      static_cast<T*>(a.out0), a.kbias, a.seq, a.heads, a.d, a.scale, a.lists);
+  constexpr int NS = BwdTiles<DP>::kDqStages;
+  const long long blocks = static_cast<long long>(a.n_blocks) * a.batch;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const auto t0 = std::chrono::steady_clock::now();
+  CUtensorMap maps[4];
+  if (!encode_all<T, DP>(maps, a)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long encode_ns = ns_since(t0);
+  constexpr int smem = DqSmem<DP, NS>::kBytes;
+  auto kernel = a.kbias ? bsa_dq_wgmma_kernel<T, DP, NS, true>
+                        : bsa_dq_wgmma_kernel<T, DP, NS, false>;
+  if (int rc = prepare(kernel, dim3(1), smem)) return rc;
+  kernel<<<static_cast<unsigned>(blocks), kBwdThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const T*>(a.o),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<float*>(a.delta), static_cast<T*>(a.out0), a.kbias, a.seq, a.heads, a.d,
+      a.batch, a.scale, a.walk);
+  g_last = LaunchInfo{reinterpret_cast<const void*>(kernel), blocks, kBwdThreads, smem, NS,
+                      kRows, encode_ns};
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int DP>
 int bwd_dkv(const Args& a, cudaStream_t stream) {
-  constexpr int BQ = DP <= 64 ? 64 : 32;
-  const size_t smem = (2 * kTile + 2 * BQ) * (DP + 8) * sizeof(T) + 2 * BQ * sizeof(float);
-  auto kernel =
-      a.kbias ? bsa_bwd_dkv_kernel<T, DP, BQ, true> : bsa_bwd_dkv_kernel<T, DP, BQ, false>;
-  if (int rc = prepare(kernel, grid_of(a), smem)) return rc;
-  kernel<<<grid_of(a), kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+  constexpr int NS = BwdTiles<DP>::kDkvStages, BQ = BwdTiles<DP>::kDkvRows;
+  const long long blocks = static_cast<long long>(a.n_blocks) * a.batch;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const auto t0 = std::chrono::steady_clock::now();
+  CUtensorMap maps[4];
+  if (!encode_all<T, DP>(maps, a)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long encode_ns = ns_since(t0);
+  constexpr int smem = DkvSmem<DP, NS>::kBytes;
+  auto kernel = a.kbias ? bsa_dkv_wgmma_kernel<T, DP, NS, BQ, true>
+                        : bsa_dkv_wgmma_kernel<T, DP, NS, BQ, false>;
+  if (int rc = prepare(kernel, dim3(1), smem)) return rc;
+  kernel<<<static_cast<unsigned>(blocks), kBwdThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<T*>(a.out0), static_cast<T*>(a.out1),
-      a.kbias, a.seq, a.heads, a.d, a.lists);
+      a.kbias, a.seq, a.heads, a.d, a.batch, a.walk);
+  g_last = LaunchInfo{reinterpret_cast<const void*>(kernel), blocks, kBwdThreads, smem, NS,
+                      BQ, encode_ns};
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -957,6 +1497,8 @@ int dispatch(int which, const Args& a, cudaStream_t s) {
 #undef DSTT_SIMT
   } else {
     if (d % 8) return static_cast<int>(cudaErrorInvalidValue);
+    if (which != 0 && (a.walk.blocks == nullptr || a.walk.stages == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
 #define DSTT_MMA(DP)                                         \
   return which == 0 ? fwd<T, DP>(a, s)                       \
          : which == 1 ? bwd_dq<T, DP>(a, s)                  \
@@ -987,13 +1529,20 @@ int run(int which, int dtype, const Args& a, void* stream) {
 // fp32 [batch, seq] (added to every row's scores, key by key) or null.  Lists:
 // device int32 arrays (ptr of heads * ceil(seq / 64) + 1 entries, idx, mask)
 // of the query-major orientation for the forward and dQ, of the key-major
-// orientation for dK/dV.  Return: the CUDA error code (0 ok).
+// orientation for dK/dV (the general kernels).  The bf16 / fp16 backward
+// walks `blocks` (n_blocks rows of 12 int32) and `stages` (rows of 8 int32)
+// of `bsa_tile_walk`, the dQ walk or the dK/dV walk; `ws` holds the fp32
+// partials of its split lists (one [64 x DP] tile, two for dK/dV, a (part,
+// batch row)) and `counters` one int32 a (split group, batch row), zeroed
+// by the caller (both may be null when no list is split); the general
+// kernels ignore all five.
+// Return: the CUDA error code (0 ok).
 extern "C" int dstt_bsa_fwd(int dtype, const void* q, const void* k, const void* v,
                             void* o, void* lse, const float* kbias, int batch, int heads,
                             int seq, int d, const int* ptr, const int* idx, const int* mask,
                             void* stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr, o, lse, nullptr, kbias, batch, heads, seq, d, 1.f,
-         Lists{ptr, idx, mask}};
+         Lists{ptr, idx, mask}, Walk{}, 0};
   return run(0, dtype, a, stream);
 }
 
@@ -1002,9 +1551,11 @@ extern "C" int dstt_bsa_bwd_dq(int dtype, const void* q, const void* k,
                                const void* v, const void* o, const void* dout,
                                const void* lse, void* delta, void* dq, const float* kbias,
                                int batch, int heads, int seq, int d, float scale,
-                               const int* ptr, const int* idx, const int* mask, void* stream) {
+                               const int* ptr, const int* idx, const int* mask,
+                               const int* blocks, const int* stages, int n_blocks, float* ws,
+                               int* counters, void* stream) {
   Args a{q, k, v, o, dout, lse, dq, nullptr, delta, kbias, batch, heads, seq, d, scale,
-         Lists{ptr, idx, mask}};
+         Lists{ptr, idx, mask}, Walk{blocks, stages, ws, counters}, n_blocks};
   return run(1, dtype, a, stream);
 }
 
@@ -1012,8 +1563,26 @@ extern "C" int dstt_bsa_bwd_dkv(int dtype, const void* q, const void* k,
                                 const void* v, const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv, const float* kbias,
                                 int batch, int heads, int seq, int d, const int* ptr,
-                                const int* idx, const int* mask, void* stream) {
+                                const int* idx, const int* mask, const int* blocks,
+                                const int* stages, int n_blocks, float* ws, int* counters,
+                                void* stream) {
   Args a{q, k, v, nullptr, dout, lse, dk, dv, const_cast<void*>(delta), kbias, batch, heads,
-         seq, d, 1.f, Lists{ptr, idx, mask}};
+         seq, d, 1.f, Lists{ptr, idx, mask}, Walk{blocks, stages, ws, counters}, n_blocks};
   return run(2, dtype, a, stream);
+}
+
+// The last bf16 / fp16 backward launch of this library, for reports:
+// out[0..7] = blocks, threads a block, dynamic shared memory (bytes), ring
+// stages, streamed rows a step, registers a thread at launch, local memory
+// a thread (bytes: spills), and the host ns spent encoding its tensor maps.
+extern "C" int dstt_bsa_launch_info(long long* out) {
+  cudaFuncAttributes attr{};
+  if (g_last.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, g_last.fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long vals[8] = {g_last.grid,      g_last.threads,   g_last.smem,
+                             g_last.stages,    g_last.step_rows, attr.numRegs,
+                             static_cast<long long>(attr.localSizeBytes), g_last.encode_ns};
+  for (int i = 0; i < 8; ++i) out[i] = vals[i];
+  return 0;
 }

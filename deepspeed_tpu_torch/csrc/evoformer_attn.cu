@@ -320,31 +320,6 @@ __device__ __forceinline__ void add_keys(float (&s)[BK / 2], const unsigned char
   }
 }
 
-template <int N>
-__device__ __forceinline__ void fence_all(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) fence_reg(d[i]);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_all(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int f = 0; f < 4; ++f) fence_reg(a[i][f]);
-}
-
-// 2^x in one MUFU op (results below 2^-126 flush to 0)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
 // 4 bytes global -> shared, of which the first `src_bytes` (0-4) are read
 // and the rest are zeros
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {

@@ -234,10 +234,6 @@ __device__ __forceinline__ bool whole_tile(const Shape& sh, int r0, int nr, int 
 
 // ----------------------------------------------------------------- helpers
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
 // sum over 8 elements of a * b, each 16-byte vector of T in fp32
 template <typename T>
 __device__ __forceinline__ float dot8(int4 a, int4 b) {
@@ -258,44 +254,6 @@ __device__ __forceinline__ float dot8(int4 a, int4 b) {
     acc = fmaf(fa.y, fb.y, acc);
   }
   return acc;
-}
-
-// An accumulator tile [64 x N] (the wgmma layout, d[4j + e]) rounded to T as
-// the register A operand of the next product, one fragment per 16 columns.
-template <typename T, int N>
-__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&d)[N / 2]) {
-#pragma unroll
-  for (int ks = 0; ks < N / 16; ++ks) {
-#pragma unroll
-    for (int f = 0; f < 4; ++f) a[ks][f] = pack2<T>(d[8 * ks + 2 * f], d[8 * ks + 2 * f + 1]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void fence_all(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) fence_reg(d[i]);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_all(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int f = 0; f < 4; ++f) fence_reg(a[i][f]);
-}
-
-// 2^x in one MUFU op (results below 2^-126 flush to 0)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = 0.f;
 }
 
 // K-major descriptor of k-step kk (16 columns) of a swizzled [rows x D] tile

@@ -214,10 +214,6 @@ struct GmmTile {
   int group, row0, col0, k0, steps, lo, hi, zlo, zhi;
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
 __device__ __forceinline__ int overlap(int a0, int a1, int b0, int b1) {
   return max(0, min(a1, b1) - max(a0, b0));
 }

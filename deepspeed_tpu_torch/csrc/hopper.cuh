@@ -30,6 +30,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// the first 1024-byte boundary at or after p (a 128-byte-swizzled tile's
+// base)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
 // ---------------------------------------------------------------- mbarrier
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -168,6 +174,33 @@ __device__ __forceinline__ void wgmma_wait() {
 // reuse nor move them before the wgmma that reads them has completed.
 __device__ __forceinline__ void fence_reg(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
 __device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+template <int N>
+__device__ __forceinline__ void fence_all(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_reg(d[i]);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) fence_reg(a[i][f]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// 2^x in one MUFU op (results below 2^-126 flush to 0)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // Descriptor of a 128-byte-swizzled tile (layout type 1).  K-major operand
 // (K contiguous): sbo = 1024, the stride of 8-row groups; lbo unused.

@@ -14,10 +14,17 @@ the forward pre-scales q once, rounds it to the input type and saves
 On CUDA tensors the three steps are the hand-written kernels of
 ``deepspeed_tpu_torch/csrc/block_sparse_attention.cu``: the tensor-core
 kernels for bf16 / fp16 with D a multiple of 8 up to 128, the general
-kernels for fp32 up to D = 128, each walking only the live 64 x 64 tiles of
-the layout (compacted lists per head that :class:`BlockSparseLayout` builds
-and keeps on the device) and, inside a tile, only its live 16 x 16
-sub-blocks.  Other inputs on the card (another type, D > 128, a layout
+kernels for fp32 up to D = 128.  The forward and the general kernels walk
+only the live 64 x 64 tiles of the layout (compacted lists per head that
+:class:`BlockSparseLayout` builds and keeps on the device) and, inside a
+tile, only its live 16 x 16 sub-blocks.  The bf16 / fp16 backward (dQ and
+dK/dV on wgmma fed by TMA) walks 16-row slices instead: a block holds up to
+four slices of one side (query slices for dQ, key slices for dK/dV) and
+streams the live slices of the other side, four to a stage, gathered by
+TMA; :func:`bsa_tile_walk` builds those tables (groups, stages, the split
+of long lists, the longest-first order) and
+:func:`block_sparse_tiled_plain_bwd` evaluates them in fp32 on any
+device.  Other inputs on the card (another type, D > 128, a layout
 block that is not a multiple of 16) raise ``NotImplementedError`` naming
 ROADMAP C: a CUDA tensor never reaches the plain version.  On CPU tensors
 the steps are the plain versions, :func:`block_sparse_plain_fwd`,
@@ -52,7 +59,8 @@ __all__ = ["BlockSparseLayout", "block_sparse_attention",
            "block_sparse_attention_reference", "block_sparse_plain_fwd",
            "block_sparse_plain_bwd_dq", "block_sparse_plain_bwd_dkv",
            "block_sparse_attention_fwd", "block_sparse_attention_bwd_dq",
-           "block_sparse_attention_bwd_dkv"]
+           "block_sparse_attention_bwd_dkv", "bsa_tile_walk",
+           "block_sparse_tiled_plain_bwd", "launch_info"]
 
 #: kernel launches (plain CPU calls do not count)
 LAUNCHES = {"block_sparse_attention_fwd": 0,
@@ -66,6 +74,23 @@ KERNEL_TILE = 64
 SUB_BLOCK = 16
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _MAX_D = 128
+#: the bf16 / fp16 backward's walk (csrc/block_sparse_attention.cu): a
+#: block holds SLOTS 16-row slices of one side, a stage SLOTS slices of the
+#: other; a block-table row is ITEM_INTS ints, a stage-table row STAGE_INTS
+SLOTS = 4
+ITEM_INTS = 8 + SLOTS
+STAGE_INTS = 8
+#: a stationary slice whose streamed set is larger than HEAVY_FACTOR times
+#: the median (and than HEAVY_MIN slices) is "heavy" (a global row or
+#: column): heavy slices are grouped among themselves, the rest stay in
+#: their 64-row tile
+HEAVY_FACTOR = 4
+HEAVY_MIN = 16
+#: the blocks the card runs at once (132 SMs x 2 blocks of the backward
+#: kernels): a list longer than twice the launch's stages over WAVE (and
+#: than SPLIT_MIN) is split into parts of at most that many stages
+WAVE = 264
+SPLIT_MIN = 8
 
 
 def kernel_tile_masks(layout: np.ndarray, block: int) -> np.ndarray:
@@ -101,6 +126,133 @@ def _csr(masks: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     ptr = np.zeros(h * n + 1, np.int64)
     np.cumsum(np.bincount(rows, minlength=h * n), out=ptr[1:])
     return ptr.astype(np.int32), cols.astype(np.int32), flat[rows, cols]
+
+
+def _slice_sets(masks: np.ndarray, n_slices: int, key_major: bool
+                ) -> np.ndarray:
+    """``[h, n, n]`` tile masks -> ``[h, n_slices, n_slices]`` bool: entry
+    (h, a, c) whether stationary slice a keeps streamed slice c (query x
+    key for the query-major masks, key x query for the key-major ones,
+    whose entry (j, i) holds tile (i, j)'s bits)."""
+    h, n, _ = masks.shape
+    bits = ((masks[..., None] >> np.arange(16)) & 1).astype(bool)
+    bits = bits.reshape(h, n, n, SLOTS, SLOTS)          # [.., qs, ks]
+    if key_major:
+        bits = bits.swapaxes(-1, -2)
+    sub = bits.transpose(0, 1, 3, 2, 4).reshape(h, n * SLOTS, n * SLOTS)
+    return sub[:, :n_slices, :n_slices]
+
+
+def _groups(sets: np.ndarray):
+    """The stationary groups of one head, SLOTS slices at most: heavy
+    slices (largest first), then every other slice with the rest of its
+    64-row tile (empty slices too: their outputs are written as zeros)."""
+    ns = sets.shape[0]
+    sizes = sets.sum(1)
+    heavy = np.zeros(ns, bool)
+    live = sizes[sizes > 0]
+    if live.size:
+        heavy = sizes > max(HEAVY_FACTOR * float(np.median(live)), HEAVY_MIN)
+    hv = np.nonzero(heavy)[0]
+    hv = hv[np.argsort(-sizes[hv], kind="stable")]
+    out = [hv[i:i + SLOTS] for i in range(0, hv.size, SLOTS)]
+    for t in range(0, ns, SLOTS):
+        rest = [a for a in range(t, min(t + SLOTS, ns)) if not heavy[a]]
+        if rest:
+            out.append(np.asarray(rest))
+    return out
+
+
+def _stages(sets: np.ndarray, grp: np.ndarray) -> np.ndarray:
+    """The stage rows of one group: its live streamed slices in order, four
+    to a stage (-1 past the end), with the stage's mask."""
+    union = np.nonzero(sets[grp].any(0))[0]
+    slots = np.full(-(-union.size // SLOTS) * SLOTS, -1, np.int64)
+    slots[:union.size] = union
+    slots = slots.reshape(-1, SLOTS)
+    rows = np.zeros((slots.shape[0], STAGE_INTS), np.int64)
+    rows[:, :SLOTS] = slots
+    live = sets[grp][:, np.maximum(slots, 0)] & (slots >= 0)   # [r, n, c]
+    bit = (np.arange(grp.size)[:, None] * SLOTS
+           + np.arange(SLOTS)[None, :])                         # [r, c]
+    rows[:, SLOTS] = (live.transpose(1, 0, 2).astype(np.int64)
+                      << bit[None]).sum((1, 2))
+    return rows
+
+
+def bsa_tile_walk(masks: np.ndarray, seq_len: int, key_major: bool,
+                  batch: int) -> Dict[str, object]:
+    """The bf16 / fp16 backward kernels' walk, as they read it.
+
+    ``masks``: the ``[h, n, n]`` 16-bit tile masks, query-major
+    (:func:`kernel_tile_masks`; the dQ walk, query slices stationary) or
+    key-major (their transpose; the dK/dV walk, key slices stationary).
+    Every stationary 16-row slice lies in exactly one group of at most
+    :data:`SLOTS` (:func:`_groups`); a group's list is the union of its
+    slices' live streamed slices, packed :data:`SLOTS` to a stage.  A list
+    longer than twice the launch's stages over :data:`WAVE` (and than
+    :data:`SPLIT_MIN`) is cut into parts of equal length, whose fp32
+    partials the last part to finish sums in part order.  Blocks are
+    ordered longest list first.
+
+    Returns ``blocks`` (int32 ``[n, ITEM_INTS]``: head, the group's
+    stationary slices (-1: none), stage range [begin, end), part, parts,
+    the partials' first slot, split group (-1: not split), 0), ``stages``
+    (int32 ``[m, STAGE_INTS]``: four streamed slices (-1: none) and the
+    mask, bit ``r * 4 + c`` set when stationary slot r keeps streamed slot
+    c), ``groups`` (split groups) and ``parts`` (partial slots a batch
+    row)."""
+    sub = _slice_sets(masks, seq_len // SUB_BLOCK, key_major)
+    items, stages, begin = [], [], 0
+    for hh in range(sub.shape[0]):
+        for grp in _groups(sub[hh]):
+            rows = _stages(sub[hh], grp)
+            stages.append(rows)
+            items.append((hh, grp, begin, begin + rows.shape[0]))
+            begin += rows.shape[0]
+    split_stages = max(SPLIT_MIN, -(-2 * begin * batch // WAVE))
+    blocks, groups, parts_all = [], 0, 0
+    for hh, grp, b0, b1 in items:
+        n = b1 - b0
+        parts = -(-n // split_stages) if n > split_stages else 1
+        head = [hh, *grp.tolist(), *[-1] * (SLOTS - grp.size)]
+        for p in range(parts):
+            blocks.append(head + [b0 + p * n // parts,
+                                  b0 + (p + 1) * n // parts, p, parts,
+                                  parts_all if parts > 1 else 0,
+                                  groups if parts > 1 else -1, 0])
+        if parts > 1:
+            groups += 1
+            parts_all += parts
+    blocks = np.asarray(blocks, np.int64).reshape(-1, ITEM_INTS)
+    order = np.argsort(-_lens(blocks), kind="stable")
+    stages = np.concatenate(stages) if stages else \
+        np.zeros((0, STAGE_INTS), np.int64)
+    return {"blocks": blocks[order].astype(np.int32),
+            "stages": stages.astype(np.int32), "groups": groups,
+            "parts": parts_all}
+
+
+def _lens(blocks: np.ndarray) -> np.ndarray:
+    """Stages a block of a block table."""
+    return blocks[:, SLOTS + 2] - blocks[:, SLOTS + 1]
+
+
+def walk_stats(walk: Dict[str, object]) -> Dict[str, float]:
+    """A walk's packing and split figures: blocks, stages, the longest and
+    mean list a block, split groups and partial slots, and the share of
+    the stages' 16 x 16 slot pairs that are live."""
+    blocks, stages = walk["blocks"], walk["stages"]
+    lens = _lens(blocks)
+    pairs = SLOTS * SLOTS * len(stages)
+    bits = int(np.unpackbits(stages[:, SLOTS].astype(">u4").view(np.uint8)
+                             ).sum()) if len(stages) else 0
+    return {"blocks": int(len(blocks)), "stages": int(len(stages)),
+            "max_stages": int(lens.max()) if len(lens) else 0,
+            "mean_stages": float(lens.mean()) if len(lens) else 0.0,
+            "split_groups": int(walk["groups"]),
+            "partial_slots": int(walk["parts"]),
+            "slot_fill": bits / pairs if pairs else 0.0}
 
 
 class BlockSparseLayout:
@@ -157,6 +309,32 @@ class BlockSparseLayout:
             views = torch.split(flat, [p.size for p in parts])
             got = {"q": views[:3], "k": views[3:]}
             self._lists[device] = got
+        return got
+
+    def bwd_tables(self, device, batch: int) -> Dict[str, Dict]:
+        """The bf16 / fp16 backward kernels' walks on ``device`` for a
+        batch of ``batch``: ``"dq"`` from the query-major masks and
+        ``"dkv"`` from the key-major ones (:func:`bsa_tile_walk`), each as
+        device tensors ``blocks`` and ``stages`` beside ``n_blocks``,
+        ``groups``, ``parts`` and ``stats`` (:func:`walk_stats`); kept
+        with :meth:`kernel_lists`' lists, per device and batch."""
+        lists = self.kernel_lists(device)
+        key = ("bwd", int(batch))
+        got = lists.get(key)
+        if got is None:
+            got = {}
+            for name, masks, key_major in (("dq", self._masks, False),
+                                           ("dkv", self._masks_t, True)):
+                w = bsa_tile_walk(masks, self.seq_len, key_major, batch)
+                nb = w["blocks"].size
+                flat = torch.from_numpy(np.concatenate(
+                    [w["blocks"].ravel(), w["stages"].ravel()])).to(
+                        lists["q"][0].device)
+                got[name] = {"blocks": flat[:nb], "stages": flat[nb:],
+                             "n_blocks": len(w["blocks"]),
+                             "groups": w["groups"], "parts": w["parts"],
+                             "stats": walk_stats(w)}
+            lists[key] = got
         return got
 
     def element_mask(self, device) -> torch.Tensor:
@@ -227,6 +405,95 @@ def block_sparse_plain_bwd_dkv(qs, k, v, do, lse, delta, keep, bias=None):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _walk_pairs(walk: Dict[str, object], dev):
+    """Every (block, stage) pair of a walk, in order: the block's index,
+    head and stationary slices, the stage's four streamed slices and its
+    mask as a ``[pairs, 64, 64]`` bool (stationary rows x streamed rows)."""
+    blocks = torch.as_tensor(np.asarray(walk["blocks"], np.int64), device=dev)
+    stages = torch.as_tensor(np.asarray(walk["stages"], np.int64), device=dev)
+    lens = blocks[:, SLOTS + 2] - blocks[:, SLOTS + 1]
+    blk = torch.repeat_interleave(torch.arange(len(blocks), device=dev), lens)
+    first = torch.cumsum(lens, 0) - lens
+    st = blocks[blk, SLOTS + 1] + torch.arange(len(blk), device=dev) \
+        - first[blk]
+    bits = (stages[st, SLOTS][:, None]
+            >> torch.arange(SLOTS * SLOTS, device=dev)) & 1
+    m = bits.bool().reshape(-1, SLOTS, SLOTS).repeat_interleave(
+        SUB_BLOCK, 1).repeat_interleave(SUB_BLOCK, 2)
+    return (blk, blocks[blk, 0], blocks[blk, 1:1 + SLOTS],
+            stages[st, :SLOTS], m)
+
+
+def _gather(x, heads, slices):
+    """Rows of ``x`` [B, H, S, ...] for each pair's 16-row slices (slice -1
+    reads slice 0: masked, never stored) -> [B, pairs, 16 slices, ...]."""
+    rows = (slices.clamp(min=0)[:, :, None] * SUB_BLOCK
+            + torch.arange(SUB_BLOCK, device=x.device)).reshape(len(heads), -1)
+    return x[:, heads[:, None], rows]
+
+
+def _scatter(part, walk, blk, n_heads, seq):
+    """Sum each pair's ``[B, pairs, 64, D]`` into its block, then each
+    block's valid slots into their rows -> [B, H, S, D] fp32."""
+    blocks = torch.as_tensor(np.asarray(walk["blocks"], np.int64),
+                             device=part.device)
+    acc = part.new_zeros((part.shape[0], len(blocks)) + part.shape[2:])
+    acc.index_add_(1, blk, part)
+    slices = blocks[:, 1:1 + SLOTS]
+    rows = (blocks[:, :1] * seq + slices.clamp(min=0) * SUB_BLOCK)[..., None] \
+        + torch.arange(SUB_BLOCK, device=part.device)        # [n, 4, 16]
+    valid = (slices >= 0)[..., None].expand_as(rows).reshape(-1)
+    out = part.new_zeros((part.shape[0], n_heads * seq, part.shape[-1]))
+    out.index_add_(1, rows.reshape(-1)[valid],
+                   acc.reshape(acc.shape[0], -1, acc.shape[-1])[:, valid])
+    return out.reshape(part.shape[0], n_heads, seq, part.shape[-1])
+
+
+def block_sparse_tiled_plain_bwd(qs, k, v, o, lse, do, walks, scale: float,
+                                 bias=None):
+    """The bf16 / fp16 backward kernels' walk evaluated in fp32 on any
+    device: ``walks`` holds :func:`bsa_tile_walk`'s ``"dq"`` and ``"dkv"``
+    tables; each (block, stage) pair computes what the kernels compute on
+    its 64 x 64 slot pairs (dead pairs 0 by the mask, P and dS rounded to
+    the input type), and the pairs sum into their blocks' stationary rows,
+    split parts included.  Returns ``(dq, dk, dv, delta)``."""
+    dt, (b, h, s, d) = qs.dtype, qs.shape
+    f = [t.float() for t in (qs, k, v, do)]
+    delta = (do.float() * o.float()).sum(-1)
+
+    def key_bias(heads, slices):
+        return 0.0 if bias is None else _gather(
+            bias.float()[:, None, :, None].expand(b, h, s, 1), heads,
+            slices)[..., 0]
+
+    zero = torch.zeros((), device=qs.device)
+    blk, heads, stat, strm, m = _walk_pairs(walks["dq"], qs.device)
+    q_t, do_t = _gather(f[0], heads, stat), _gather(f[3], heads, stat)
+    k_t, v_t = _gather(f[1], heads, strm), _gather(f[2], heads, strm)
+    sc = q_t @ k_t.transpose(-1, -2)
+    if bias is not None:
+        sc = sc + key_bias(heads, strm)[..., None, :]
+    p = torch.where(m, torch.exp(sc - _gather(lse, heads, stat)[..., None]),
+                    zero)
+    ds = p * (do_t @ v_t.transpose(-1, -2)
+              - _gather(delta, heads, stat)[..., None])
+    dq = _scatter(ds.to(dt).float() @ k_t, walks["dq"], blk, h, s) * scale
+
+    blk, heads, stat, strm, m = _walk_pairs(walks["dkv"], qs.device)
+    k_t, v_t = _gather(f[1], heads, stat), _gather(f[2], heads, stat)
+    q_t, do_t = _gather(f[0], heads, strm), _gather(f[3], heads, strm)
+    st = k_t @ q_t.transpose(-1, -2)
+    if bias is not None:
+        st = st + key_bias(heads, stat)[..., None]
+    p = torch.where(m, torch.exp(st - _gather(lse, heads, strm)[..., None, :]),
+                    zero)
+    dst = p * (v_t @ do_t.transpose(-1, -2)
+               - _gather(delta, heads, strm)[..., None, :])
+    dv = _scatter(p.to(dt).float() @ do_t, walks["dkv"], blk, h, s)
+    dk = _scatter(dst.to(dt).float() @ q_t, walks["dkv"], blk, h, s)
+    return dq.to(dt), dk.to(dt), dv.to(dt), delta
+
+
 # --------------------------------------------------------------------- #
 # Kernel wrappers
 # --------------------------------------------------------------------- #
@@ -271,14 +538,15 @@ def _check(name: str, bs_layout: BlockSparseLayout, bias, *ts) -> None:
             f"block-sparse attention on the card")
 
 
-def _launch(entry: str, key: str, ref, ints, floats, tensors, bias, lists):
+def _launch(entry: str, key: str, ref, ints, floats, tensors, bias, lists,
+            walk=()):
     bias = None if bias is None else bias.contiguous()
     with torch.cuda.device(ref.device):
         rc = _kernel(entry)(_DTYPE_CODE[ref.dtype],
                             *(t.data_ptr() for t in tensors),
                             None if bias is None else bias.data_ptr(),
                             *ints, *floats,
-                            *(t.data_ptr() for t in lists),
+                            *(t.data_ptr() for t in lists), *walk,
                             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{key}: CUDA kernel launch failed with error "
@@ -301,6 +569,42 @@ def block_sparse_attention_fwd(qs, k, v, bs_layout: BlockSparseLayout,
     return o, lse
 
 
+def _padded_d(d: int) -> int:
+    """D padded as the tensor-core kernels stage it: 16, 32, 64 or 128."""
+    return next(p for p in (16, 32, 64, 128) if d <= p)
+
+
+#: the walk of the last bf16 / fp16 backward launch (its orientation and
+#: :func:`walk_stats`), for :func:`launch_info`
+_LAST_WALK: Dict[str, object] = {}
+
+
+def _walk_args(bs_layout: BlockSparseLayout, ref: torch.Tensor, orient: str,
+               outputs: int) -> Tuple:
+    """The walk arguments of a backward launch: (blocks, stages, n_blocks,
+    partials, counters) for bf16 / fp16, where ``partials`` holds the fp32
+    partial sums of split lists (``outputs`` [64, DP] tiles a partial slot
+    and batch row) and ``counters`` one zeroed int a (split group, batch
+    row), both None when no list is split; Nones for fp32 (the general
+    kernels walk the tile lists)."""
+    if ref.dtype == torch.float32:
+        return (None, None, 0, None, None), None
+    b, d = ref.shape[0], ref.shape[-1]
+    w = bs_layout.bwd_tables(ref.device, b)[orient]
+    ws = counters = None
+    if w["groups"]:
+        ws = torch.empty(w["parts"] * b * outputs * KERNEL_TILE
+                         * _padded_d(d), dtype=torch.float32,
+                         device=ref.device)
+        counters = torch.zeros(w["groups"] * b, dtype=torch.int32,
+                               device=ref.device)
+    _LAST_WALK.clear()
+    _LAST_WALK.update(orient=orient, **w["stats"])
+    return (w["blocks"].data_ptr(), w["stages"].data_ptr(), w["n_blocks"],
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr()), (ws, counters)
+
+
 def block_sparse_attention_bwd_dq(qs, k, v, o, lse, do,
                                   bs_layout: BlockSparseLayout, scale: float,
                                   bias=None):
@@ -312,9 +616,11 @@ def block_sparse_attention_bwd_dq(qs, k, v, o, lse, do,
     b, h, s, d = qs.shape
     dq = torch.empty_like(qs)
     delta = torch.empty_like(lse)
+    walk, keep = _walk_args(bs_layout, qs, "dq", 1)
     _launch("bwd_dq", "block_sparse_attention_bwd_dq", qs, [b, h, s, d],
             [scale], [qs, k, v, o, do, lse, delta, dq], bias,
-            bs_layout.kernel_lists(qs.device)["q"])
+            bs_layout.kernel_lists(qs.device)["q"], walk)
+    del keep        # the stream orders the launch before any reuse
     return dq, delta
 
 
@@ -325,9 +631,11 @@ def block_sparse_attention_bwd_dkv(qs, k, v, do, lse, delta,
     qs, k, v, do = (_ready(t) for t in (qs, k, v, do))
     b, h, s, d = qs.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    walk, keep = _walk_args(bs_layout, qs, "dkv", 2)
     _launch("bwd_dkv", "block_sparse_attention_bwd_dkv", qs, [b, h, s, d],
             [], [qs, k, v, do, lse, delta, dk, dv], bias,
-            bs_layout.kernel_lists(qs.device)["k"])
+            bs_layout.kernel_lists(qs.device)["k"], walk)
+    del keep
     return dk, dv
 
 
@@ -335,12 +643,40 @@ def block_sparse_attention_bwd_dkv(qs, k, v, do, lse, delta,
 def _kernel(entry: str):
     fn = getattr(_build.load("block_sparse_attention"), f"dstt_bsa_{entry}")
     n_ptr = {"fwd": 5, "bwd_dq": 8, "bwd_dkv": 8}[entry]
+    # blocks, stages, n_blocks, partials, counters
+    walk = [] if entry == "fwd" else [ctypes.c_void_p] * 2 + [ctypes.c_int] \
+        + [ctypes.c_void_p] * 2
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * (n_ptr + 1)  # + bias
                    + [ctypes.c_int] * 4
                    + ([ctypes.c_float] if entry == "bwd_dq" else [])
-                   + [ctypes.c_void_p] * 4)       # ptr, idx, mask, stream
+                   + [ctypes.c_void_p] * 3        # ptr, idx, mask
+                   + walk + [ctypes.c_void_p])    # stream
     fn.restype = ctypes.c_int
     return fn
+
+
+#: the keys of :func:`launch_info` that the library reports
+LAUNCH_INFO_KEYS = ("grid", "threads", "smem", "stages", "step_rows",
+                    "registers", "spill_bytes", "encode_ns")
+
+
+def launch_info() -> dict:
+    """The last bf16 / fp16 backward launch (``dstt_bsa_launch_info``):
+    its kernel ("dq" or "dkv"), blocks, threads and shared bytes a block,
+    ring stages, streamed rows a step (64, or 32 for dK/dV at D > 64),
+    registers a thread at launch, spill bytes, the host ns spent encoding
+    its tensor maps, and its walk's packing and split figures
+    (:func:`walk_stats`)."""
+    fn = _build.load("block_sparse_attention").dstt_bsa_launch_info
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(LAUNCH_INFO_KEYS))()
+    rc = fn(out)
+    if rc != 0:
+        raise RuntimeError(f"dstt_bsa_launch_info failed with {rc}")
+    return {"kernel": _LAST_WALK.get("orient"),
+            **dict(zip(LAUNCH_INFO_KEYS, out)),
+            **{k: x for k, x in _LAST_WALK.items() if k != "orient"}}
 
 
 # --------------------------------------------------------------------- #

@@ -2079,6 +2079,70 @@ def test_block_sparse_bars_catch_planted_dropped_tile(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout,b,h,s,d,dtype,mode", [
+    # one 64-long global-column list a head against lists of ~3 stages:
+    # the split rule cuts it into parts whose partials combine
+    ("variable", 2, 2, 4096, 64, torch.bfloat16, None),
+    ("bigbird", 1, 6, 4096, 128, torch.bfloat16, "mul"),
+    ("fixed", 3, 4, 1040, 64, torch.float16, "add"),
+])
+def test_block_sparse_backward_walk_on_the_card(cuda_device, layout, b, h, s,
+                                                d, dtype, mode):
+    """The wgmma dQ and dK/dV kernels against the plain versions within the
+    5e-2 gradient bar, two runs bit-equal, at a split global-column list,
+    at D = 128 (dK/dV 32 query rows a step) and under key biases; each
+    launch reports its walk (``launch_info``)."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbsa
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+
+    bsl = tbsa.BlockSparseLayout(_bsa_layout(layout, h, s, 16, False), 16, s)
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d + b)
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen,
+                               device=cuda_device, dtype=dtype)
+                   for _ in range(4))
+    bias = None
+    if mode is not None:
+        kpm = (torch.arange(s, device=cuda_device)[None]
+               < torch.tensor([[s - 40 * i - 3] for i in range(b)],
+                              device=cuda_device))
+        bias = tsa.key_padding_bias(
+            kpm.float() if mode == "mul" else torch.where(kpm, 0.0, -1e4),
+            mode)
+    scale = d ** -0.5
+    qs = (q.float() * scale).to(dtype)
+    o, lse = tbsa.block_sparse_attention_fwd(qs, k, v, bsl, bias)
+    runs, infos = [], []
+    for _ in range(2):
+        dq, delta = tbsa.block_sparse_attention_bwd_dq(qs, k, v, o, lse, do,
+                                                       bsl, scale, bias)
+        infos.append(tbsa.launch_info())
+        runs.append((dq, delta) + tbsa.block_sparse_attention_bwd_dkv(
+            qs, k, v, do, lse, delta, bsl, bias))
+        infos.append(tbsa.launch_info())
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    keep = bsl.element_mask(cuda_device)
+    rdq, rdelta = tbsa.block_sparse_plain_bwd_dq(qs, k, v, o, lse, do, keep,
+                                                 scale, bias)
+    rdk, rdv = tbsa.block_sparse_plain_bwd_dkv(qs, k, v, do, lse, rdelta,
+                                               keep, bias)
+    norms = [_norm_rel(x, y) for x, y in zip(
+        (runs[0][0], runs[0][2], runs[0][3]), (rdq, rdk, rdv))]
+    print(f"block-sparse walk {layout} D{d}: dq, dk, dv norm "
+          f"{[float(f'{n:.3g}') for n in norms]}; dQ {infos[0]}; "
+          f"dK/dV {infos[1]}")
+    assert all(n <= 5e-2 for n in norms), norms
+    assert (runs[0][1] - rdelta).abs().max() <= 1e-3
+    assert [i["kernel"] for i in infos[:2]] == ["dq", "dkv"]
+    assert infos[1]["step_rows"] == (32 if d > 64 else 64)
+    assert all(i["spill_bytes"] <= 128 for i in infos)
+    if layout == "variable":
+        # the global column's list is cut into parts of a few stages
+        assert infos[1]["split_groups"] == h
+        assert infos[1]["max_stages"] < 64 // 2
+
+
+@pytest.mark.cuda
 def test_sparse_self_attention_routes_on_the_card(cuda_device):
     """"auto" and "pallas" launch the kernels, with a key-padding mask too
     (its key bias); only "xla" takes the counted dense composition."""
