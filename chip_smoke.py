@@ -371,7 +371,9 @@ def time_ms(fn, sets: int, iters: int) -> float:
 #: shapes at M = 512 (the prefill bucket); medium M (16 to 65: a verify
 #: pass is 8 x 5 = 40 rows) at 4096 x 4096 and at M = 40 on the other
 #: shapes; M = 1024; from_hf's 64 groups at K = 11008 (a group boundary
-#: inside a k-tile); a ragged N = 4112
+#: inside a k-tile); a ragged N = 4112; the skinny path at M = 1 (one
+#: request) and M = 2 (phase 5's traced decode step) and at from_hf's 64
+#: groups
 QMM_CASES = ([(8, 4096, 4096, 16), (8, 4096, 11008, 16), (8, 11008, 4096, 16),
               (8, 4096, 32000, 16)]
              + [(512, 4096, 4096, 16), (512, 4096, 11008, 16),
@@ -380,7 +382,14 @@ QMM_CASES = ([(8, 4096, 4096, 16), (8, 4096, 11008, 16), (8, 11008, 4096, 16),
              + [(40, 4096, 11008, 16), (40, 11008, 4096, 16),
                 (40, 4096, 32000, 16)]
              + [(40, 11008, 4096, 64), (512, 11008, 4096, 64),
-                (70, 1024, 4112, 16), (512, 1024, 4112, 16)])
+                (70, 1024, 4112, 16), (512, 1024, 4112, 16)]
+             + [(1, 4096, 4096, 16), (2, 4096, 4096, 16), (2, 4096, 11008, 16),
+                (2, 11008, 4096, 16), (2, 4096, 32000, 16),
+                (8, 11008, 4096, 64)])
+#: phase 3's goals for the skinny path (M <= 8): under torch.matmul on the
+#: bf16 weight in every case, and 4096 x 4096 at M = 8 within twice its
+#: byte bound
+QMM_SKINNY_GOAL_MS = 0.0100
 
 
 def qmm_cases(torch, gen, dev, shapes):
@@ -396,6 +405,7 @@ def qmm_cases(torch, gen, dev, shapes):
                  "scale": torch.rand((groups,), generator=gen, device=dev)
                  / (73.3 * math.sqrt(k))} for _ in range(sets)]
         got = qm.quantized_matmul(x, recs[0])
+        again = qm.quantized_matmul(x, recs[0]) if m <= 8 else got
         want = qm.quantized_matmul_plain(x, recs[0])
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
@@ -414,16 +424,36 @@ def qmm_cases(torch, gen, dev, shapes):
                 lambda i: qm.quantized_matmul_plain(x, recs[i]), sets,
                 sets),
             "bound_ms": b_ms, "bound_by": b_by,
-            "k_splits": qm.k_splits_for(m, k, n, qm._sms(dev)),
-            "tile_rows": (qm.tiled_rows(m, n, qm._sms(dev)) if m > 8
-                          else None),
         }
+        if m <= 8:                # the skinny path: tiles over clusters
+            case["bit_equal"] = bool(torch.equal(got, again))
+            case["launch"] = qm.skinny_plan(
+                k, n, qm.resident_clusters(dev.index))
+        else:                     # the tiled path: rows a block, K splits
+            case["k_splits"] = qm.k_splits_for(m, k, n, qm._sms(dev))
+            case["tile_rows"] = qm.tiled_rows(m, n, qm._sms(dev))
         w_bf16 = [qm.dequant_reference(r, torch.bfloat16) for r in recs]
         case["library_ms"] = time_ms(lambda i: torch.matmul(x, w_bf16[i]),
                                      sets, iters)
         out.append(case)
-        del x, recs, got, want, w_bf16
+        del x, recs, got, again, want, w_bf16
     return out
+
+
+def qmm_skinny_goals(cases) -> dict:
+    """Phase 3's readings of the skinny path's goals (recorded, not
+    gated): each skinny case's time against torch.matmul's on the bf16
+    weight, and 4096 x 4096 at M = 8 against QMM_SKINNY_GOAL_MS."""
+    skinny = [c for c in cases if c["kernel"] == "quantized_matmul"
+              and int(c["name"].split("M=")[1].split(",")[0]) <= 8]
+    over = [c["name"] for c in skinny if not c["ms"] < c["library_ms"]]
+    at_8 = next(c for c in skinny
+                if c["name"] == "quantized_matmul[M=8,K=4096,N=4096]")
+    return {"cases": len(skinny), "under_library": len(skinny) - len(over),
+            "over_library": over,
+            "m8_4096_ms": at_8["ms"], "m8_4096_bound_ms": at_8["bound_ms"],
+            "m8_4096_goal_ms": QMM_SKINNY_GOAL_MS,
+            "m8_4096_goal_met": at_8["ms"] <= QMM_SKINNY_GOAL_MS}
 
 
 def _attention_inputs(torch, gen, dev, slots, q_pos, int8=False, hkv=32,
@@ -714,10 +744,10 @@ def b5_cases(torch, gen, dev):
 
 def mixtral_attention_cases(torch, gen, dev):
     """Phase 3 at Mixtral-8x7B's attention geometry (32 query heads over 8
-    KV heads, D = 128, block 128): the tiled prefill kernel B4 at the
-    served 2 x 256 prefill (tile 128), with pad rows (which must be exact
-    zeros) and with a window of 100, each also timed beside port kernel B5
-    (Llama's prefill path) on the same inputs; decode (B3) at G = 4."""
+    KV heads, D = 128, block 128): the tiled prefill B4 (a route of B5's
+    tiled kernel over the stripes' slots) at the served 2 x 256 prefill
+    (tile 128), with pad rows (which must be exact zeros) and with a
+    window of 100; decode (B3) at G = 4."""
     from deepspeed_tpu_torch.inference.v2.kernels import blocked_flash as bf
 
     out = []
@@ -744,9 +774,6 @@ def mixtral_attention_cases(torch, gen, dev):
         case["pad_rows"] = int(pads.sum())
         case["pad_max_abs"] = (got[pads].abs().max().item() if case["pad_rows"]
                                else 0.0)
-        case["generic_b5_ms"] = time_ms(lambda i: bf.paged_attention(
-            q, pools[i][0], pools[i][1], tables, ts, tp, block_size=128,
-            window=window), len(pools), 16)
         case["path"] = "mixtral"
         out.append(case)
     dpos = torch.randint(257, 331, (8,), generator=gen, device=dev).tolist()
@@ -2574,7 +2601,7 @@ def profile_window(torch, fn, steps, top=6):
     if busy_us == 0:
         return None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    by_kind, gmm = {}, {}
+    by_kind, gmm, qmm = {}, {}, {}
     for kname, us in by_name.items():
         kind = next((kind for kind, keys in KERNEL_KINDS
                      if any(key in kname.lower() for key in keys)), "other")
@@ -2582,13 +2609,18 @@ def profile_window(torch, fn, steps, top=6):
         if kind == "grouped_gemm":
             label = gmm_kernel_label(kname)
             gmm[label] = gmm.get(label, 0.0) + us / steps / 1e3
+        label = re.search(r"qmm_\w+", kname)   # the int8 matmul's kernels
+        if label:
+            qmm[label.group(0)] = (qmm.get(label.group(0), 0.0)
+                                   + us / steps / 1e3)
     return {"wall_ms_per_step": wall_us / steps / 1e3,
             "device_busy_ms_per_step": busy_us / steps / 1e3,
             "device_idle_share": 1.0 - busy_us / wall_us,
             "kind_ms_per_step": by_kind,
             "top_kernels_ms_per_step": {k[:70]: v / steps / 1e3
                                         for k, v in top},
-            "grouped_gemm_ms_per_step": gmm}
+            "grouped_gemm_ms_per_step": gmm,
+            "quantized_matmul_ms_per_step": qmm}
 
 
 def gmm_kernel_label(kname: str) -> str:
@@ -3896,8 +3928,7 @@ def main() -> int:
                                                  "bit_equal",
                                                  "zeros_max_abs",
                                                  "boundary_mac_waste",
-                                                 "tflops",
-                                                 "generic_b5_ms", "library")
+                                                 "tflops", "library")
                         if k in c)
         print(f"[kernel] {c['name']}: err {c['max_abs_err']:.3g} "
               f"norm err {c['norm_rel_err']:.3g} ms {c['ms']:.4f} plain {c['plain_ms']:.4f} "
@@ -3915,7 +3946,10 @@ def main() -> int:
                     f"row of the tiled prefill, a grouped GEMM forward or "
                     f"dlhs row past the groups or an empty group's drhs "
                     f"block is not zero, or two runs of the decode / verify "
-                    f"or a grouped GEMM kernel differ): {bad}")
+                    f"or a grouped GEMM kernel or the skinny int8 matmul "
+                    f"differ): {bad}")
+    skinny_goals = qmm_skinny_goals(cases)
+    print(f"[qmm-goals] {json.dumps(skinny_goals)}", flush=True)
 
     # 4. slice end to end: kernels vs plain paths, 2 layers at 7B width
     rng = np.random.default_rng(SEED)
@@ -4361,8 +4395,9 @@ def main() -> int:
     src = "deepspeed_tpu_torch/csrc/"
     ref = "deepspeed_tpu/"
     bf_py = ref + "inference/v2/kernels/blocked_flash.py:"
+    # B4 (paged_prefill_attention) is a route of B5's tiled kernel in
+    # blocked_flash.cu, the default
     sources = {"quantized_matmul": src + "quantized_matmul.cu",
-               "paged_prefill_attention": src + "paged_prefill.cu",
                **{k: src + "grouped_gemm.cu" for k in MOE_GMM}}
     replaces = {"quantized_matmul": ref + "ops/quantized_matmul.py:47",
                 "paged_prefill_attention": bf_py + "490",
@@ -4486,7 +4521,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "build_s": secs,
-         "cases": cases, "slice": e2e,
+         "cases": cases, "qmm_skinny_goals": skinny_goals, "slice": e2e,
          "served": served, "flash": flash,
          "train_slice": t_slice, "trained": trained, "spec_slice": spec,
          "spec_served": spec_run, "mixtral_slice": mix,

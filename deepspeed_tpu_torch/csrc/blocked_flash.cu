@@ -593,6 +593,7 @@ struct Params {
   const int* token_pos;
   __nv_bfloat16* out;
   int tokens, heads, kv_heads, table_width, block_size, window;
+  int stripe;                    // a row's slot is its stripe's first row's (1: its own)
   float scale_log2;              // log2(e) / sqrt(D)
   int tma;                       // block_size % 64 == 0: a tile is one TMA box a pool
 };
@@ -671,7 +672,8 @@ paged_attention_tiled_kernel(const __grid_constant__ CUtensorMap k_map,
     int pos = -1, slot = -1;
     if (tid < ts && tok < p.tokens) {
       pos = p.token_pos[tok];
-      if (pos >= 0) slot = p.token_slot[tok];
+      // a pad row (pos < 0) reads no slot, so a pad may carry any
+      if (pos >= 0) slot = p.token_slot[tok - tok % p.stripe];
       else pos = -1;
     }
     tok_pos[tid] = pos;
@@ -1040,15 +1042,16 @@ template <bool kInt8>
 int dispatch_tiled(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
                    const void* v_scale, const void* tables, const void* token_slot,
                    const void* token_pos, void* out, int tokens, int heads, int kv_heads,
-                   int head_dim, int table_width, int block_size, int window, int pool_rows,
-                   float scale, void* stream) {
-  if (kv_heads <= 0 || heads % kv_heads || heads / kv_heads > 8 || block_size <= 0)
+                   int head_dim, int table_width, int block_size, int window, int stripe,
+                   int pool_rows, float scale, void* stream) {
+  if (kv_heads <= 0 || heads % kv_heads || heads / kv_heads > 8 || block_size <= 0
+      || stripe < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
                  static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
                  static_cast<const int*>(tables), static_cast<const int*>(token_slot),
                  static_cast<const int*>(token_pos), static_cast<__nv_bfloat16*>(out),
-                 tokens, heads, kv_heads, table_width, block_size, window,
+                 tokens, heads, kv_heads, table_width, block_size, window, stripe,
                  scale * 1.4426950408889634f, block_size % kKeys == 0 ? 1 : 0};
   auto s = static_cast<cudaStream_t>(stream);
   if (head_dim == 128) return launch_tiled<128, kInt8>(p, pool_rows, s);
@@ -1089,18 +1092,19 @@ extern "C" int dstt_paged_verify_attention_int8(DSTT_ARGS) {
   return decode::dispatch<true>(DSTT_PASS);
 }
 
-// The generic kernel: `tokens` rows of q, any token order; `pool_rows`
-// rows in each pool.
+// The generic kernel: `tokens` rows of q, any token order; a row's slot
+// is token_slot of the first row of its `stripe`-row stripe (1: its own;
+// the tiled prefill's tile_q); `pool_rows` rows in each pool.
 #define DSTT_TILED_ARGS                                                        \
   const void *q, const void *k_pool, const void *v_pool, const void *k_scale,  \
       const void *v_scale, const void *tables, const void *token_slot,         \
       const void *token_pos, void *out, int tokens, int heads, int kv_heads,   \
-      int head_dim, int table_width, int block_size, int window,               \
+      int head_dim, int table_width, int block_size, int window, int stripe,   \
       int pool_rows, float scale, void *stream
 #define DSTT_TILED_PASS                                                        \
   q, k_pool, v_pool, k_scale, v_scale, tables, token_slot, token_pos, out,     \
       tokens, heads, kv_heads, head_dim, table_width, block_size, window,      \
-      pool_rows, scale, stream
+      stripe, pool_rows, scale, stream
 
 extern "C" int dstt_paged_attention_bf16(DSTT_TILED_ARGS) {
   return tiled::dispatch_tiled<false>(DSTT_TILED_PASS);

@@ -11,18 +11,33 @@
 //
 // What bounds it on the H100, and what the design does about it:
 //
-// * Decode (M <= 8, one row per live sequence) is a skinny GEMV bound by
+// * Decode (M <= 8, one row per live sequence) is a skinny product bound by
 //   the int8 weight bytes, K*N per call (16.8 MB for a 4096x4096
-//   projection: ~5 us at 3.35 TB/s).  `qmm_skinny_kernel` reads the weight
-//   once, in 16-byte vectors: each thread owns 16 consecutive columns, so a
-//   warp reads 512 contiguous bytes of one weight row; the loads of the
-//   next 4 rows are in flight while the current 4 are dequantized and
-//   multiplied, so the memory latency hides behind the arithmetic.  The 8 warps of a block walk
-//   different rows of the same 512 columns and are reduced in shared
-//   memory; x is staged in shared memory as fp32 and read as a broadcast.
-//   The grid is split over K so that one wave of blocks covers the SMs,
-//   and a second small pass (`qmm_reduce_kernel`) sums the per-split fp32
-//   partials, which are small enough to stay in L2.
+//   projection: ~5 us at 3.35 TB/s), and on this card by the dequant's
+//   instructions as much as by the bytes.  `qmm_skinny_kernel` is one
+//   launch a call.  The weight is cut into column tiles of 128, each cut
+//   along K over a cluster of up to 8 blocks (the wrapper takes the most
+//   for which every cluster is resident at once, from the counts
+//   `dstt_quantized_matmul_skinny_resident` reports: on an H100 3 at 4096
+//   x 4096, 96 blocks, since the card holds fewer than 32 clusters of 4),
+//   and each block walks its units of 128 columns x 256 k rows.  A
+//   producer warp keeps TMA loads of the next units (the
+//   int8 tile and the matching [8 x 256] slice of x) in flight through a
+//   ring of 32 KB stages.  Each of 8 consumer warps takes two 16-row k
+//   steps of a unit: a thread reads four 16-byte rows of its quad's 16
+//   columns a step (k rows t, t+4, t+8, t+12; conflict-free under the
+//   128-byte swizzle) and dequantizes them straight into the A fragments
+//   of 8 m16n8k16 tensor-core products (the weight columns are mma's M, the
+//   <= 8 x rows, zero-padded, its n8), so the multiply costs no CUDA-core
+//   instruction: a weight costs a byte permute, an add, a multiply and
+//   half a bf16x2 pack.  Each row's scale is loaded a unit ahead by the
+//   warp that uses it, so a group boundary inside a unit costs nothing.  A
+//   block sums its warps' products in shared memory; a cluster's blocks
+//   then sum their parts through distributed shared memory in rank order,
+//   so the result has the same bits every run and no second pass, scratch
+//   or counter exists.  The launch may start while the kernel before it on
+//   the stream finishes (programmatic dependent launch): every thread waits
+//   for that kernel before its first global access.
 // * Above M = 8 (prefill at the 512-token bucket, a verify pass of 8 x 5
 //   rows, a SplitFuse tick) the product is bound by operations at large M
 //   (2 M K N: 17 us at 989 TFLOP/s for M = 512 and 4096 x 4096) and by the
@@ -55,15 +70,14 @@
 //   on the H100 and not kept: two fragment sets (ptxas then serialises
 //   every product, C7513; no faster), the weight dequantized into shared
 //   memory for an all-shared-memory product (no faster), clusters of 2
-//   and 4 blocks multicasting x (no faster).  Later work: fewer
-//   instructions a weight (an int8 -> bf16 path that keeps the fp32
-//   rounding point), a persistent grid, and the skinny path on the same
-//   loads.
+//   and 4 blocks multicasting x (no faster).  Later work: a persistent
+//   grid, and the skinny path's dequant (fewer instructions a weight).
 //
 // Shapes the kernel takes (the wrapper checks them): x bf16 [M, K] and
 // out bf16 [M, N] contiguous, q int8 [K, N] contiguous, scale fp32 [G],
-// G | K, K % 32 == 0, N % 16 == 0.  The ragged edge in N (32000 and 11008
-// are not multiples of the 512- or 128-column tiles) and in M is masked.
+// G | K, K % 32 == 0, N % 16 == 0.  The ragged edges in N (32000 and 11008
+// are not multiples of the 128-column tiles), K and M are zero-filled by
+// TMA and masked at the store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,136 +86,395 @@
 #include <algorithm>
 
 #include "hopper.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kSkinnyMaxM = 8;
-constexpr int kSkinnyWarps = 8;
-constexpr int kSkinnyThreads = 32 * kSkinnyWarps;
-constexpr int kSkinnyCols = 16;                     // one 16-byte load
-constexpr int kSkinnyBlockN = 32 * kSkinnyCols;     // 512 columns a block
-constexpr int kRedStride = kSkinnyCols + 1;         // padded: no bank conflicts
-constexpr int kUnroll = 4;                          // rows in flight a thread
-constexpr int kChunkRows = 256;                     // x rows staged at once
+// ----------------------------------------------------------- skinny path
+//
+// Column tiles of kSkBN weight columns, each cut along K over a cluster of
+// c blocks (1 <= c <= 8: the wrapper takes the most for which every
+// cluster of the launch is resident at once); block rank r of a tile's
+// cluster walks its units of kSkBK k rows [r chunks / c, (r + 1) chunks /
+// c).  A unit is one TMA box of 128 columns (a 128-byte swizzled row each),
+// its x slice kSkXBoxes [8 x 64] bf16 boxes.  The cluster's
+// parts meet in distributed shared memory: each block sums its warps'
+// products into its own [8 x kSkBN] part, and after a cluster barrier rank
+// r sums runs r, r + c, ... of every block's part in rank order (the same
+// bits every run) and stores them.
 
-__device__ __forceinline__ int word_of(const int4& v, int i) {
-  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+constexpr int kSkMaxM = 8;                      // x rows: mma.sync's n8, zero-padded
+constexpr int kSkBN = 128;                      // weight columns a tile (one TMA box)
+constexpr int kSkQBytes = 32768;                // int8 bytes a unit (a q stage)
+constexpr int kSkBK = kSkQBytes / kSkBN;        // k rows a unit
+constexpr int kSkSteps = kSkBK / 16;            // 16-row k steps of a unit
+constexpr int kSkStepsPerWarp = 2;              // ... a consumer warp takes
+constexpr int kSkWarps = kSkSteps / kSkStepsPerWarp;    // consumer warps
+constexpr int kSkStages = 2;
+constexpr int kSkMaxCluster = 8;                // the portable cluster size
+constexpr int kSkConsumers = 32 * kSkWarps;
+constexpr int kSkThreads = kSkConsumers + 32;   // and the producer warp
+constexpr int kSkXBoxes = kSkBK / 64;
+constexpr int kSkXBytes = kSkXBoxes * 1024;     // an x stage: [8 x 64] bf16 boxes
+constexpr int kSkRowQuads = kSkBN / 4;         // 4-column runs of a row of a tile
+constexpr int kSkQuads = kSkMaxM * kSkRowQuads; // ... of a tile's [8 x kSkBN] sums
+constexpr int kSkPer = kSkQuads / kSkConsumers; // ... a consumer thread's
+constexpr int kSkRedPitch = 33;                 // a lane's 32 sums, padded: no bank conflicts
+static_assert(kSkBK % 64 == 0 && kSkQuads % kSkConsumers == 0, "whole x boxes and sums");
+
+// shared memory, in bytes from a 1024-aligned base
+struct SkinnySmem {
+  static constexpr int kQ = 0;                                    // [stages] q tiles
+  static constexpr int kX = kQ + kSkStages * kSkQBytes;           // [stages] x slices
+  static constexpr int kRed = kX + kSkStages * kSkXBytes;         // [warps][32][pitch] fp32
+  static constexpr int kPart = kRed + kSkWarps * 32 * kSkRedPitch * 4;  // [8][kSkBN] fp32
+  static constexpr int kBars = kPart + kSkMaxM * kSkBN * 4;
+  static constexpr int kBytes = kBars + 2 * kSkStages * 8 + 1024;  // + alignment slack
+};
+
+// bf16(float(q) * s) of int8 byte j of two biased words (as in
+// biased_byte_to_float: the byte under the exponent of 2^23, `exp23` =
+// 0x4B000000, a kernel parameter so that the byte permute takes it from
+// the parameter bank and its selector as an immediate), as one mma
+// fragment register (lo's in the low half): the fp32 product rounded once
+// to bf16, where dequant_reference rounds.
+__device__ __forceinline__ uint32_t deq_rows(unsigned lo, unsigned hi, unsigned exp23, int j,
+                                             float s_lo, float s_hi) {
+  const float a = (__uint_as_float(__byte_perm(lo, exp23, 0x7540u | j)) - 8388736.0f) * s_lo;
+  const float b = (__uint_as_float(__byte_perm(hi, exp23, 0x7540u | j)) - 8388736.0f) * s_hi;
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The skinny path's dequant runs once per weight byte, and int->float and
-// float->bf16 conversion instructions issue at a fraction of the FMA rate,
-// so it converts with full-rate integer and float ops instead
-// (biased_byte_to_float, csrc/hopper.cuh, and round_to_bf16).
-
-// v rounded to the nearest bf16 (ties to even) and widened back to fp32:
-// what __bfloat162float(__float2bfloat16(v)) gives for every finite v.
-__device__ __forceinline__ float round_to_bf16(float v) {
-  unsigned u = __float_as_uint(v);
-  u += 0x7FFFu + ((u >> 16) & 1u);
-  return __uint_as_float(u & 0xFFFF0000u);
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, const float4& v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(dst) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                              *reinterpret_cast<const uint32_t*>(&hi));
 }
 
-// The 16-byte weight vectors of rows [r0, r0 + kUnroll) of the current
-// x chunk at this thread's columns (zeros past the chunk or past N).
-__device__ __forceinline__ void load_rows(int4 (&dst)[kUnroll], const int8_t* __restrict__ q,
-                                          int col, int N, int kc, int r0, int rows,
-                                          bool active) {
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    dst[u] = make_int4(0, 0, 0, 0);
-    if (active && r0 + u < rows)
-      dst[u] = __ldg(reinterpret_cast<const int4*>(q + static_cast<size_t>(kc + r0 + u) * N + col));
-  }
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
 }
 
-template <int MT>
-__global__ void __launch_bounds__(kSkinnyThreads, 1)
-qmm_skinny_kernel(const __nv_bfloat16* __restrict__ x,
-                  const int8_t* __restrict__ q,
-                  const float* __restrict__ scale,
-                  float* __restrict__ partial,
-                  __nv_bfloat16* __restrict__ out,
-                  int M, int K, int N, int rows_per_group, int k_per_split) {
-  __shared__ float red[kSkinnyWarps][32 * kRedStride];
-  __shared__ float x_s[kChunkRows][MT];
-  const int lane = threadIdx.x & 31;
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// Programmatic dependent launch: a launch may start while the kernel
+// before it on the stream finishes.  Every thread waits for that kernel
+// (and its memory) before its first global access, and lets the next
+// launch start once its own main loop is done.
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void release_next_grid() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// every thread of the cluster: its shared-memory writes before, visible
+// to every block of the cluster after
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float4 at `p` (this block's shared memory) in block `rank`'s
+__device__ __forceinline__ float4 ld_cluster_f4(const void* p, unsigned rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  float4 v;           // ordered after the cluster barrier by its acquire
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote));
+  return v;
+}
+
+__global__ void __launch_bounds__(kSkThreads, 1)
+qmm_skinny_kernel(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap q_map,
+                  const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int M, int K,
+                  int N, int rows_per_group, unsigned exp23) {
+  using L = SkinnySmem;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* qs = smem + L::kQ;
+  unsigned char* xs = smem + L::kX;
+  float* red = reinterpret_cast<float*>(smem + L::kRed);
+  float* part = reinterpret_cast<float*>(smem + L::kPart);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kSkStages;
+
+  const unsigned c = cluster_size(), rank = cluster_rank();
+  const int tile = blockIdx.x / c;
+  const int chunks = (K + kSkBK - 1) / kSkBK;            // units of a tile
+  const int c0 = static_cast<int>(rank * chunks / c);
+  const int c1 = static_cast<int>((rank + 1) * chunks / c);
   const int warp = threadIdx.x >> 5;
-  const int col = blockIdx.x * kSkinnyBlockN + lane * kSkinnyCols;
-  const bool active = col < N;
-  const int k_begin = blockIdx.y * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
+  const int lane = threadIdx.x & 31;
 
-  float acc[MT][kSkinnyCols];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < kSkinnyCols; ++j) acc[m][j] = 0.f;
-
-  for (int kc = k_begin; kc < k_end; kc += kChunkRows) {
-    const int rows = min(kChunkRows, k_end - kc);
-    __syncthreads();                       // the previous chunk is consumed
-    for (int i = threadIdx.x; i < rows * MT; i += kSkinnyThreads) {
-      const int m = i / rows;
-      const int r = i % rows;
-      x_s[r][m] = m < M ? __bfloat162float(x[static_cast<size_t>(m) * K + kc + r]) : 0.f;
+    for (int s = 0; s < kSkStages; ++s) {
+      mbar_init(&full[s], 1);                 // the producer's arrival, and the bytes
+      mbar_init(&empty[s], kSkWarps);         // one arrival a consumer warp
     }
-    __syncthreads();
-    // software pipeline: the next 4 rows' loads are in flight while the
-    // current 4 are dequantized and multiplied
-    constexpr int kStep = kSkinnyWarps * kUnroll;
-    int4 packed[kUnroll];
-    int4 ahead[kUnroll];
-    load_rows(packed, q, col, N, kc, warp * kUnroll, rows, active);
-    for (int r0 = warp * kUnroll; r0 < rows; r0 += kStep) {
-      load_rows(ahead, q, col, N, kc, r0 + kStep, rows, active);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  wait_prior_grid();
+
+  if (warp == kSkWarps) {
+    // producer: stage i % kSkStages takes unit c0 + i once its readers
+    // have released it
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&q_map))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&x_map))
+                   : "memory");
+      for (int kc = c0; kc < c1; ++kc) {
+        const int i = kc - c0, s = i % kSkStages;
+        if (i >= kSkStages) mbar_wait(&empty[s], ((i / kSkStages) - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], kSkQBytes + kSkXBytes);
+        tma_load_2d(qs + s * kSkQBytes, &q_map, &full[s], tile * kSkBN, kc * kSkBK);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (r0 + u < rows) {
-          const float s = __ldg(scale + (kc + r0 + u) / rows_per_group);
-          float w[kSkinnyCols];
+        for (int b = 0; b < kSkXBoxes; ++b)
+          tma_load_2d(xs + s * kSkXBytes + b * 1024, &x_map, &full[s], kc * kSkBK + 64 * b, 0);
+      }
+    }
+    __syncwarp();
+    if (c > 1) {                                   // the cluster's two barriers
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  // consumers: warp w takes kSkStepsPerWarp 16-row k steps of the unit,
+  // from step w kSkStepsPerWarp;
+  // lane (g, t) holds A rows g and g + 8 of 8 products as the box's weight
+  // columns 16 c + 2 j and + 1 of its quad's chunk c, and k rows t, t + 4,
+  // t + 8, t + 12 of a step as the fragment's k 2t, 2t + 1, 2t + 8, 2t + 9
+  // (x is read in the same order, so the product is unchanged)
+  constexpr int kH = kSkStepsPerWarp;
+  const int g = lane >> 2, t = lane & 3;
+  const int step0 = warp * kH;
+  const int chunk = (g >> 1) | ((g & 1) << 2);     // 16-byte chunks 0-3 to even quads, 4-7 odd
+  // this thread's four 16-byte q rows of each step in a stage, and its
+  // four x values (x row g at k 16 step + t + 4 i of the swizzled [8 x 64]
+  // boxes)
+  int q_off[kH][4], x_off[kH][4];
 #pragma unroll
-          for (int j = 0; j < kSkinnyCols; ++j) {
-            const unsigned biased = static_cast<unsigned>(word_of(packed[u], j / 4)) ^ 0x80808080u;
-            w[j] = round_to_bf16(biased_byte_to_float(biased, j % 4) * s);
-          }
+  for (int h = 0; h < kH; ++h)
 #pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            const float xv = x_s[r0 + u][m];
+    for (int r = 0; r < 4; ++r) {
+      const int row = 16 * (step0 + h) + t + 4 * r;
+      q_off[h][r] = row * 128 + ((chunk ^ (row & 7)) << 4);
+      x_off[h][r] = (row >> 6) * 1024 + g * 128 + ((((row & 63) >> 3) ^ g) << 4) + (row & 7) * 2;
+    }
+  // the scales of the warp's 16 kH k rows, lane l row l % (16 kH)'s, loaded
+  // a unit ahead (a group boundary inside a unit costs nothing)
+  auto row_scale = [&](int kc) {
+    const int k = kc * kSkBK + 16 * step0 + (lane & (16 * kH - 1));
+    return k < K ? __ldg(&scale[k / rows_per_group]) : 0.f;
+  };
+  float sc_next = c0 < c1 ? row_scale(c0) : 0.f;
+  float acc[8][4];
 #pragma unroll
-            for (int j = 0; j < kSkinnyCols; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
-          }
-        }
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int kc = c0; kc < c1; ++kc) {
+    const int i = kc - c0, s = i % kSkStages;
+    const float sc = sc_next;
+    if (kc + 1 < c1) sc_next = row_scale(kc + 1);
+    mbar_wait(&full[s], (i / kSkStages) & 1);
+    const unsigned char* qt = qs + s * kSkQBytes;
+    const unsigned char* xt = xs + s * kSkXBytes;
+    uint4 w[kH][4];
+    float sk[kH][4];
+    uint32_t b0[kH], b1[kH];
+#pragma unroll
+    for (int h = 0; h < kH; ++h) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        w[h][r] = *reinterpret_cast<const uint4*>(qt + q_off[h][r]);
+        sk[h][r] = __shfl_sync(0xffffffffu, sc, 16 * h + t + 4 * r);
+      }
+      b0[h] = *reinterpret_cast<const uint16_t*>(xt + x_off[h][0])
+              | (*reinterpret_cast<const uint16_t*>(xt + x_off[h][1]) << 16);
+      b1[h] = *reinterpret_cast<const uint16_t*>(xt + x_off[h][2])
+              | (*reinterpret_cast<const uint16_t*>(xt + x_off[h][3]) << 16);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);         // the steps are in registers
+
+#pragma unroll
+    for (int h = 0; h < kH; ++h) {
+      unsigned v[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        v[r][0] = w[h][r].x ^ 0x80808080u;
+        v[r][1] = w[h][r].y ^ 0x80808080u;
+        v[r][2] = w[h][r].z ^ 0x80808080u;
+        v[r][3] = w[h][r].w ^ 0x80808080u;
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) packed[u] = ahead[u];
+      for (int j = 0; j < 8; ++j) {
+        // columns 2j and 2j + 1 of the chunk: bytes 2 (j & 1) and + 1 of word j / 2
+        const int wd = j >> 1, by = 2 * (j & 1);
+        const uint32_t a[4] = {deq_rows(v[0][wd], v[1][wd], exp23, by, sk[h][0], sk[h][1]),
+                               deq_rows(v[0][wd], v[1][wd], exp23, by + 1, sk[h][0], sk[h][1]),
+                               deq_rows(v[2][wd], v[3][wd], exp23, by, sk[h][2], sk[h][3]),
+                               deq_rows(v[2][wd], v[3][wd], exp23, by + 1, sk[h][2], sk[h][3])};
+        mma16816(acc[j], a, b0[h], b1[h]);
+      }
     }
   }
 
-  // Sum the 8 warps' partial rows in shared memory, one output row at a
-  // time; the loop bound M is uniform across the block.
+  release_next_grid();
+  // this block's part: the k steps' sums in order.  acc[j][e] of lane
+  // (g, t) is column 16 chunk(g) + 2j + (e >> 1) of the tile at x row
+  // 2t + (e & 1); run o of the part is x row o / kSkRowQuads, tile
+  // columns 4 (o % kSkRowQuads) .. + 3
+  float* mine = red + (warp * 32 + lane) * kSkRedPitch;
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m >= M) break;
-    __syncthreads();
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int j = 0; j < kSkinnyCols; ++j) red[warp][lane * kRedStride + j] = acc[m][j];
-    __syncthreads();
-    for (int c = threadIdx.x; c < kSkinnyBlockN; c += kSkinnyThreads) {
-      const int n = blockIdx.x * kSkinnyBlockN + c;
-      const int at = (c / kSkinnyCols) * kRedStride + c % kSkinnyCols;
-      float sum = 0.f;
+    for (int e = 0; e < 4; ++e) mine[4 * j + e] = acc[j][e];
+  named_barrier(1, kSkConsumers);
+  const int ct = threadIdx.x;
 #pragma unroll
-      for (int w = 0; w < kSkinnyWarps; ++w) sum += red[w][at];
-      if (n < N) {
-        if (partial == nullptr)
-          out[static_cast<size_t>(m) * N + n] = __float2bfloat16(sum);
-        else
-          partial[(static_cast<size_t>(blockIdx.y) * M + m) * N + n] = sum;
-      }
+  for (int p = 0; p < kSkPer; ++p) {
+    const int o = ct + p * kSkConsumers, m = o / kSkRowQuads, col0 = o % kSkRowQuads * 4;
+    float v4[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int col = col0 + q, ch = col >> 4;
+      const int at = (4 * (((ch & 3) << 1) | (ch >> 2)) + (m >> 1)) * kSkRedPitch
+                     + 4 * ((col & 15) >> 1) + 2 * (col & 1) + (m & 1);
+      float acc_k = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kSkWarps; ++ks) acc_k += red[ks * 32 * kSkRedPitch + at];
+      v4[q] = acc_k;
+    }
+    const float4 sum = make_float4(v4[0], v4[1], v4[2], v4[3]);
+    const int n = tile * kSkBN + col0;
+    if (c == 1) {                                  // the whole tile in this block
+      if (m < M && n < N) store_bf16x4(out + static_cast<size_t>(m) * N + n, sum);
+    } else {
+      *reinterpret_cast<float4*>(part + 4 * o) = sum;
     }
   }
+  if (c == 1) return;
+  cluster_sync();                                  // every block's part is in
+  for (int o = rank + c * ct; o < kSkQuads; o += c * kSkConsumers) {
+    const int m = o / kSkRowQuads, n = tile * kSkBN + o % kSkRowQuads * 4;
+    if (m >= M || n >= N) continue;
+    float4 p4[kSkMaxCluster];                      // every rank's loads in flight
+#pragma unroll
+    for (unsigned r = 0; r < kSkMaxCluster; ++r)
+      if (r < c) p4[r] = ld_cluster_f4(part + 4 * o, r);
+    float4 tot = p4[0];
+#pragma unroll
+    for (unsigned r = 1; r < kSkMaxCluster; ++r) {  // in rank order
+      if (r < c) {
+        tot.x += p4[r].x;
+        tot.y += p4[r].y;
+        tot.z += p4[r].z;
+        tot.w += p4[r].w;
+      }
+    }
+    store_bf16x4(out + static_cast<size_t>(m) * N + n, tot);
+  }
+  cluster_sync();                                  // no block leaves while its part is read
 }
 
+// the kernel's shared memory allowed on the current device (once a device)
+cudaError_t allow_skinny_smem() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev >= 0 && dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(qmm_skinny_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SkinnySmem::kBytes);
+  if (err == cudaSuccess && dev >= 0 && dev < 64) done[dev] = true;
+  return err;
+}
+
+// The clusters of c blocks (c = 2 .. 8) the current device holds at once:
+// counts[c - 2], 0 where none fits.
+cudaError_t skinny_resident(int* counts) {
+  cudaError_t err = allow_skinny_smem();
+  for (int c = 2; c <= kSkMaxCluster && err == cudaSuccess; ++c) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(c);
+    cfg.blockDim = dim3(kSkThreads);
+    cfg.dynamicSmemBytes = SkinnySmem::kBytes;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = c;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    counts[c - 2] = 0;
+    err = cudaOccupancyMaxActiveClusters(&counts[c - 2], qmm_skinny_kernel, &cfg);
+  }
+  return err;
+}
+
+int launch_skinny(const __nv_bfloat16* x, const int8_t* q, const float* scale,
+                  __nv_bfloat16* out, int M, int K, int N, int rows_per_group, int cluster,
+                  cudaStream_t stream) {
+  if (M < 1 || M > kSkMaxM || cluster < 1 || cluster > kSkMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_skinny_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap x_map, q_map;
+  {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 2};
+    const cuuint32_t box[2] = {64, kSkMaxM};
+    if (encode_tiled(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<__nv_bfloat16*>(x),
+                     dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N)};
+    const cuuint32_t box[2] = {128, kSkBK};
+    if (encode_tiled(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(q), dims,
+                     strides, box, CU_TENSOR_MAP_SWIZZLE_128B) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kSkBN - 1) / kSkBN * cluster);
+  cfg.blockDim = dim3(kSkThreads);
+  cfg.dynamicSmemBytes = SkinnySmem::kBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, qmm_skinny_kernel, x_map, q_map, scale, out, M, K, N,
+                           rows_per_group, 0x4B000000u);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The tiled path's k-split partials: out = bf16(sum over splits), one
+// thread an output.
 __global__ void qmm_reduce_kernel(const float* __restrict__ partial,
                                   __nv_bfloat16* __restrict__ out,
                                   int splits, int mn) {
@@ -412,22 +685,29 @@ int launch_tiled(const __nv_bfloat16* x, const int8_t* q, const float* scale, fl
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MT>
-void launch_skinny(const __nv_bfloat16* x, const int8_t* q, const float* scale,
-                   float* partial, __nv_bfloat16* out, int M, int K, int N,
-                   int rows_per_group, int k_splits, cudaStream_t stream) {
-  const int k_per_split = (K + k_splits - 1) / k_splits;
-  const dim3 grid((N + kSkinnyBlockN - 1) / kSkinnyBlockN, k_splits);
-  qmm_skinny_kernel<MT><<<grid, kSkinnyThreads, 0, stream>>>(
-      x, q, scale, k_splits > 1 ? partial : nullptr, out, M, K, N,
-      rows_per_group, k_per_split);
-}
-
 }  // namespace
 
-// Returns the CUDA error code of the launches (0 on success).  `partial`
-// is fp32 [k_splits, M, N] scratch, used only when k_splits > 1; `rows`
-// (64, 128 or 256) is the tiled path's x rows a block (M > 8).
+// Skinny path (1 <= M <= 8): one launch, column tiles of 128 cut along K
+// over clusters of `cluster` (1 .. 8) blocks.  Returns the CUDA error code
+// of the launch (0 on success).
+extern "C" int dstt_quantized_matmul_skinny_bf16(const void* x, const void* q, const void* scale,
+                                                 void* out, int M, int K, int N, int groups,
+                                                 int cluster, void* stream) {
+  return launch_skinny(static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+                       static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), M, K,
+                       N, K / groups, cluster, static_cast<cudaStream_t>(stream));
+}
+
+// The skinny kernel's clusters of c blocks the current device holds at
+// once, counts[c - 2] for c = 2 .. 8.  Returns the CUDA error code of the
+// occupancy queries (0 on success).
+extern "C" int dstt_quantized_matmul_skinny_resident(int* counts) {
+  return static_cast<int>(skinny_resident(counts));
+}
+
+// Tiled path (M > 8).  Returns the CUDA error code of the launches (0 on
+// success).  `partial` is fp32 [k_splits, M, N] scratch, used only when
+// k_splits > 1; `rows` (64, 128 or 256) is the x rows a block.
 extern "C" int dstt_quantized_matmul_bf16(const void* x, const void* q,
                                           const void* scale, void* partial,
                                           void* out, int M, int K, int N,
@@ -440,27 +720,12 @@ extern "C" int dstt_quantized_matmul_bf16(const void* x, const void* q,
   auto* ob = static_cast<__nv_bfloat16*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   const int rows_per_group = K / groups;
-  if (M <= kSkinnyMaxM) {
-    if (k_splits > 1 && pb == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    if (M <= 1) launch_skinny<1>(xb, qb, sb, pb, ob, M, K, N, rows_per_group, k_splits, s);
-    else if (M <= 2) launch_skinny<2>(xb, qb, sb, pb, ob, M, K, N, rows_per_group, k_splits, s);
-    else if (M <= 4) launch_skinny<4>(xb, qb, sb, pb, ob, M, K, N, rows_per_group, k_splits, s);
-    else launch_skinny<8>(xb, qb, sb, pb, ob, M, K, N, rows_per_group, k_splits, s);
-    if (k_splits > 1) {
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-      const int mn = M * N;
-      const int blocks = std::min((mn + 255) / 256, 4096);
-      qmm_reduce_kernel<<<blocks, 256, 0, s>>>(pb, ob, k_splits, mn);
-    }
-  } else {
-    if (k_splits > 1 && pb == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    if (rows == 64) return launch_tiled<64>(xb, qb, sb, pb, ob, M, K, N, rows_per_group, k_splits, s);
-    if (rows == 128)
-      return launch_tiled<128>(xb, qb, sb, pb, ob, M, K, N, rows_per_group, k_splits, s);
-    if (rows == 256)
-      return launch_tiled<256>(xb, qb, sb, pb, ob, M, K, N, rows_per_group, k_splits, s);
+  if (M <= kSkMaxM || (k_splits > 1 && pb == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (rows == 64) return launch_tiled<64>(xb, qb, sb, pb, ob, M, K, N, rows_per_group, k_splits, s);
+  if (rows == 128)
+    return launch_tiled<128>(xb, qb, sb, pb, ob, M, K, N, rows_per_group, k_splits, s);
+  if (rows == 256)
+    return launch_tiled<256>(xb, qb, sb, pb, ob, M, K, N, rows_per_group, k_splits, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

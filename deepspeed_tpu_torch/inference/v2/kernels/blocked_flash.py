@@ -29,9 +29,11 @@ All three compute the same function; their one plain PyTorch version,
 :func:`paged_attention_plain`, sits below.
 
 :func:`paged_prefill_attention` — the tiled prefill over a tile-aligned
-token buffer, bf16 only (the JAX package's ``_prefill_kernel``), over its
-own kernel in ``deepspeed_tpu_torch/csrc/paged_prefill.cu``; its plain
-version is :func:`paged_prefill_attention_plain`.
+token buffer, bf16 only (the JAX package's ``_prefill_kernel``): on the
+card a route of :func:`paged_attention`'s tiled kernel, which reads each
+row's slot at its stripe's first row, counted under its own name; its
+plain version is
+:func:`paged_prefill_attention_plain`.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  ``LAUNCHES`` counts the kernel
@@ -61,8 +63,8 @@ _MAX_GROUP = 8
 #: query rows (k_tokens x query heads per KV head) of a decode or verify
 #: unit: the kernel pads them to one 16-row mma tile
 MAX_VERIFY_ROWS = 16
-#: rows of the prefill kernel's q tile: the stripes (tile_q) it takes are
-#: a multiple of it
+#: rows of the tiled kernel's q tile: the prefill stripes (tile_q) it
+#: takes are a multiple of it
 _PREFILL_ROWS = 64
 
 
@@ -205,8 +207,11 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, token_slot,
     """Tiled paged attention for TILE-ALIGNED token buffers over a bf16
     pool: q [T, H, D] with every ``tile_q``-row stripe single-slot (the
     slot of its first row), token_pos [T] int32 with -1 on pad rows.
-    Returns [T, H, D], pad rows exact zeros.  The CUDA kernel takes
-    ``tile_q`` a multiple of 64."""
+    Returns [T, H, D], pad rows exact zeros.  On the card it launches
+    :func:`paged_attention`'s tiled kernel told the stripe (it reads a
+    row's slot at ``token_slot[row - row % tile_q]``, and no slot of a pad
+    row, whose output it writes as zeros).  It takes ``tile_q`` a multiple
+    of 64."""
     if not q.is_cuda:
         return paged_prefill_attention_plain(
             q, k_pool, v_pool, block_tables, token_slot, token_pos,
@@ -227,22 +232,9 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, token_slot,
             f"{_PREFILL_ROWS} (got {q.dtype} q {tuple(q.shape)}, "
             f"{k_pool.dtype} pools {tuple(k_pool.shape)}, tile_q {tile_q}); "
             f"int8 pools take paged_attention")
-    out = torch.empty_like(q)
-    if t_count == 0:
-        return out
-    with torch.cuda.device(q.device):      # the launch goes to q's GPU
-        rc = _prefill_kernel()(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_tables.data_ptr(), token_slot.data_ptr(),
-            token_pos.data_ptr(), out.data_ptr(), t_count, h,
-            k_pool.shape[1], d, block_tables.shape[1], block_size, tile_q,
-            int(window) if window is not None else 0, 1.0 / math.sqrt(d),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed with error "
-                           f"{rc}")
-    LAUNCHES[name] += 1
-    return out
+    return _launch("paged_attention", 1, q, k_pool, v_pool, block_tables,
+                   token_slot, token_pos, block_size, window, None, None,
+                   stripe=tile_q, count=name)
 
 
 def _route(name, k_tokens, q, k_pool, v_pool, block_tables, token_slot,
@@ -261,7 +253,11 @@ def _route(name, k_tokens, q, k_pool, v_pool, block_tables, token_slot,
 
 
 def _launch(name, k_tokens, q, k_pool, v_pool, block_tables, token_slot,
-            token_pos, block_size, window, k_scale, v_scale):
+            token_pos, block_size, window, k_scale, v_scale, stripe=1,
+            count=None):
+    """Launch kernel ``name``, counted under ``count`` (by default its own
+    name and mode); ``stripe``: the generic kernel's rows a slot is read
+    for (the first of each stripe)."""
     t_count, h, d = q.shape
     hkv = k_pool.shape[1]
     quantized = k_scale is not None
@@ -291,9 +287,9 @@ def _launch(name, k_tokens, q, k_pool, v_pool, block_tables, token_slot,
     if t_count == 0:
         return out
     mode = "int8" if quantized else "bf16"
-    # the decode and verify kernel takes k_tokens; every kernel takes the
-    # pools' row count (its TMA tensor maps)
-    k_arg = () if name == "paged_attention" else (k_tokens,)
+    # the decode and verify kernel takes k_tokens, the generic one the
+    # stripe; every kernel takes the pools' row count (its TMA tensor maps)
+    k_arg = stripe if name == "paged_attention" else k_tokens
     with torch.cuda.device(q.device):      # the launch goes to q's GPU
         rc = _kernel(name, mode)(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -302,13 +298,13 @@ def _launch(name, k_tokens, q, k_pool, v_pool, block_tables, token_slot,
             block_tables.data_ptr(), token_slot.data_ptr(),
             token_pos.data_ptr(), out.data_ptr(), t_count // k_tokens, h,
             hkv, d, block_tables.shape[1], block_size,
-            int(window) if window is not None else 0, *k_arg,
+            int(window) if window is not None else 0, k_arg,
             k_pool.shape[0], 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} ({mode}): CUDA kernel launch failed "
                            f"with error {rc}")
-    LAUNCHES[name + ("_int8" if quantized else "")] += 1
+    LAUNCHES[count or name + ("_int8" if quantized else "")] += 1
     return out
 
 
@@ -345,18 +341,9 @@ def _check_layout(name, tensors, block_size):
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str, mode: str):
     fn = getattr(_build.load("blocked_flash"), f"dstt_{name}_{mode}")
-    # 9 pointers and 8 ints (generic) or 9 (decode / verify: k_tokens)
-    ints = 8 if name == "paged_attention" else 9
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * ints + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _prefill_kernel():
-    fn = _build.load("paged_prefill").dstt_paged_prefill_attention_bf16
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+    # 9 pointers and 9 ints (the generic kernel's stripe, or decode /
+    # verify's k_tokens)
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

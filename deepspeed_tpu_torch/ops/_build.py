@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "deepspeed_tpu_torch"
 SOURCES = ("quantized_matmul", "blocked_flash", "flash_attention",
-           "paged_prefill", "grouped_gemm", "quantizer", "evoformer_attn",
+           "grouped_gemm", "quantizer", "evoformer_attn",
            "block_sparse_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

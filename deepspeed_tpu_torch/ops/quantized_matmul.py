@@ -10,9 +10,11 @@ over leading-dim (K) rows, ``G | K``.
 ``deepspeed_tpu_torch/csrc/quantized_matmul.cu``: for CUDA tensors it
 launches the kernel at every M (the JAX package sends M < 64 to an XLA
 composition; that rule was a TPU measurement) or raises: a skinny path for
-M <= 8 and a tiled tensor-core path (wgmma, TMA) above it; for CPU tensors
-it takes the plain version, ``x @ dequant_reference(record, x.dtype)``.
-``LAUNCHES`` counts the kernel launches.
+M <= 8 (one launch a call: ``mma.sync`` fed by TMA, column tiles of 128 cut
+along K over clusters of blocks, :func:`skinny_plan`) and a tiled tensor-core
+path (wgmma, TMA) above it; for CPU tensors it takes the plain version,
+``x @ dequant_reference(record, x.dtype)``.  ``LAUNCHES`` counts the
+kernel launches.
 """
 
 from __future__ import annotations
@@ -27,10 +29,13 @@ from deepspeed_tpu_torch.ops import _build
 #: kernel launches (plain CPU calls do not count)
 LAUNCHES = {"quantized_matmul": 0}
 
-#: rows the kernel's skinny (decode) path takes, and the columns one of
-#: its blocks covers
+#: rows the kernel's skinny (decode) path takes, and the weight columns
+#: and k rows of one of its units
 _SKINNY_MAX_M = 8
-_SKINNY_BLOCK_N = 512
+_SKINNY_COLS = 128
+_SKINNY_K = 256
+#: the most blocks a tile's K is cut over (the portable cluster size)
+_SKINNY_MAX_CLUSTER = 8
 _K_ALIGN = 32
 _N_ALIGN = 16
 #: the tiled path's block: 128 weight columns against 64, 128 or 256 x
@@ -97,16 +102,22 @@ def quantized_matmul(x: torch.Tensor, record) -> torch.Tensor:
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
-    sms = _sms(x.device)
-    splits = k_splits_for(m, k, n, sms)
-    rows = tiled_rows(m, n, sms) if m > _SKINNY_MAX_M else 0
-    partial = (torch.empty((splits, m, n), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):      # the launch goes to x's GPU
-        rc = _kernel()(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
-                       partial.data_ptr() if partial is not None else None,
-                       out.data_ptr(), m, k, n, g, splits, rows,
-                       torch.cuda.current_stream(x.device).cuda_stream)
+        if m <= _SKINNY_MAX_M:
+            plan = skinny_plan(k, n, resident_clusters(x.device.index))
+            rc = _skinny_kernel()(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                                  out.data_ptr(), m, k, n, g, plan["cluster"],
+                                  stream)
+        else:
+            sms = _sms(x.device)
+            splits = k_splits_for(m, k, n, sms)
+            partial = (torch.empty((splits, m, n), dtype=torch.float32,
+                                   device=x.device) if splits > 1 else None)
+            rc = _kernel()(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                           partial.data_ptr() if partial is not None
+                           else None, out.data_ptr(), m, k, n, g, splits,
+                           tiled_rows(m, n, sms), stream)
     if rc != 0:
         raise RuntimeError(f"quantized_matmul: CUDA kernel launch failed "
                            f"with error {rc}")
@@ -149,14 +160,47 @@ def tiled_rows(m: int, n: int, sms: int) -> int:
     return large if 3 * waves(large) < 2 * waves(medium) else medium
 
 
+@functools.lru_cache(maxsize=None)
+def skinny_plan(k: int, n: int, resident: tuple) -> dict:
+    """The skinny path's launch: column ``tiles`` of 128 weight columns,
+    each cut along K (``chunks`` units of 256 rows) over a ``cluster`` of
+    c <= 8 blocks whose parts meet in distributed shared memory, c the
+    largest for which every cluster of the launch is resident at once (1
+    where the tiles alone need more); ``blocks`` = tiles x c; ``run``: the
+    fewest and most units a block walks.  ``resident``: (c, clusters of c
+    blocks the device holds at once) pairs for c = 2 .. 8, as
+    :func:`resident_clusters` reads them (on an H100, 66 / 39 / 30 / 22 /
+    17 / 15 / 15: 4096 x 4096's 32 tiles take clusters of 3)."""
+    tiles = -(-n // _SKINNY_COLS)
+    chunks = -(-k // _SKINNY_K)
+    held = dict(resident)
+    cluster = next((c for c in range(min(_SKINNY_MAX_CLUSTER, chunks), 1, -1)
+                    if tiles <= held.get(c, 0)), 1)
+    return {"tiles": tiles, "chunks": chunks, "cluster": cluster,
+            "blocks": tiles * cluster,
+            "run": (chunks // cluster, -(-chunks // cluster))}
+
+
+@functools.lru_cache(maxsize=None)
+def resident_clusters(index: int) -> tuple:
+    """The skinny kernel's clusters of c blocks that CUDA device ``index``
+    holds at once, as (c, count) pairs for c = 2 .. 8 (the runtime's
+    occupancy query, once a device)."""
+    counts = (ctypes.c_int * (_SKINNY_MAX_CLUSTER - 1))()
+    with torch.cuda.device(index):
+        rc = _build.load(
+            "quantized_matmul").dstt_quantized_matmul_skinny_resident(counts)
+    if rc != 0:
+        raise RuntimeError(f"quantized_matmul: cluster occupancy query "
+                           f"failed with error {rc}")
+    return tuple(zip(range(2, _SKINNY_MAX_CLUSTER + 1), counts))
+
+
 def k_splits_for(m: int, k: int, n: int, sms: int) -> int:
-    """Blocks along K for ``sms`` SMs.  Skinny path (M <= 8): one block an
-    SM, at least 64 weight rows a block.  Tiled path: split only while the
-    output tiles fill fewer than ``sms`` SMs, at least 4 k-tiles of 64 rows
-    a block (the kernel sums the fp32 partials in a second pass)."""
-    if m <= _SKINNY_MAX_M:
-        col_blocks = -(-n // _SKINNY_BLOCK_N)
-        return max(1, min(sms // col_blocks, k // 64))
+    """Blocks along K of the tiled path (M > 8) for ``sms`` SMs: split only
+    while the output tiles fill fewer than ``sms`` SMs, at least 4 k-tiles
+    of 64 rows a block (the kernel sums the fp32 partials in a second
+    pass)."""
     tiles = -(-n // _TILED_COLS) * -(-m // tiled_rows(m, n, sms))
     k_tiles = -(-k // _TILED_K)
     return max(1, min(sms // tiles, k_tiles // 4))
@@ -164,8 +208,19 @@ def k_splits_for(m: int, k: int, n: int, sms: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
+    """The tiled path's entry (M > 8)."""
     fn = _build.load("quantized_matmul").dstt_quantized_matmul_bf16
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _skinny_kernel():
+    """The skinny path's entry (M <= 8)."""
+    fn = _build.load("quantized_matmul").dstt_quantized_matmul_skinny_bf16
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -895,16 +895,20 @@ def _prefill_inputs(rng, dev, h, hkv, d, window_case=False, bs=128):
     (64, 4, 2, None, 16, 64), (128, 8, 2, 30, 32, 64)])
 def test_paged_prefill_kernel(cuda_device, head_dim, h, hkv, window, bs,
                               tile):
-    """The tiled prefill kernel against its plain version: Mixtral's G = 4
-    at D = 128, G = 4 at D = 64, MHA with a window, blocks smaller than a
-    64-key tile and 64-row stripes; pad rows exact zeros."""
+    """The tiled prefill (the generic tiled kernel over the stripes'
+    slots) against its plain version: Mixtral's G = 4 at D = 128, G = 4 at
+    D = 64, MHA with a window, blocks smaller than a 64-key tile and 64-row
+    stripes; pad rows exact zeros, those that carry another slot than
+    their stripe's included."""
     rng = np.random.default_rng(head_dim + h + (window or 0) + bs)
     q, kp, vp, tb, ts, tp = _prefill_inputs(rng, cuda_device, h, hkv,
                                             head_dim, window is not None, bs)
-    before = tbf.LAUNCHES["paged_prefill_attention"]
+    before = dict(tbf.LAUNCHES)
     got = tbf.paged_prefill_attention(q, kp, vp, tb, ts, tp, block_size=bs,
                                       tile_q=tile, window=window)
-    assert tbf.LAUNCHES["paged_prefill_attention"] == before + 1
+    # one launch of the generic tiled kernel, counted under the prefill
+    assert {k: v - before[k] for k, v in tbf.LAUNCHES.items()
+            if v != before[k]} == {"paged_prefill_attention": 1}
     want = tbf.paged_prefill_attention_plain(q, kp, vp, tb, ts, tp,
                                              block_size=bs, tile_q=tile,
                                              window=window)
@@ -1066,6 +1070,95 @@ def test_quantized_matmul_tiled_kernel(cuda_device, m, k, n, groups):
     assert _norm_rel(got, want) <= NORM_TOL
 
 
+#: the skinny path's cases (M <= 8): Llama-2-7B's four projection shapes
+#: at M = 1, 2, 5 and 8, from_hf's 64 groups at K = 11008, a ragged N of
+#: 4112 and K shorter than one 128-row unit: m, k, n, groups
+_SKINNY_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+_SKINNY_CASES = ([(m, k, n, 16) for m in (1, 2, 5, 8)
+                  for k, n in _SKINNY_SHAPES]
+                 + [(8, 11008, 4096, 64), (2, 11008, 4096, 64),
+                    (8, 4096, 4112, 16), (3, 1024, 4112, 16),
+                    (8, 64, 4096, 1), (1, 96, 256, 3)])
+
+
+def _qmm_inputs(dev, m, k, n, groups, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=dev, dtype=torch.bfloat16)
+    rec = {"q": torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                              dtype=torch.int8),
+           "scale": torch.rand((groups,), generator=gen, device=dev)
+           / (73.3 * k ** 0.5)}
+    return x, rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,groups", _SKINNY_CASES)
+def test_quantized_matmul_skinny_kernel(cuda_device, m, k, n, groups):
+    """The skinny path (M <= 8, tiles cut over clusters on mma.sync)
+    against its plain version at both bars, one launch a call."""
+    x, rec = _qmm_inputs(cuda_device, m, k, n, groups, m + k + n + groups)
+    before = tqm.LAUNCHES["quantized_matmul"]
+    got = tqm.quantized_matmul(x, rec)
+    torch.cuda.synchronize()
+    assert tqm.LAUNCHES["quantized_matmul"] == before + 1
+    want = tqm.quantized_matmul_plain(x, rec)
+    assert (got.float() - want.float()).abs().max().item() <= TOL
+    assert _norm_rel(got, want) <= NORM_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,groups", [(8, 11008, 4096, 64),
+                                          (2, 4096, 32000, 16),
+                                          (1, 4096, 4096, 16)])
+def test_quantized_matmul_skinny_bit_equal(cuda_device, m, k, n, groups):
+    """Three runs of the skinny path give the same bits: a tile cut over a
+    cluster of blocks is summed in rank order."""
+    x, rec = _qmm_inputs(cuda_device, m, k, n, groups, 7)
+    runs = [tqm.quantized_matmul(x, rec) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+
+
+@pytest.mark.cuda
+def test_skinny_resident_clusters_fit_the_card(cuda_device):
+    """The card's resident clusters, as the wrapper reads them: no more
+    blocks than SMs at any size, fewer clusters as they grow, and a launch
+    plan at each 7B shape whose clusters are all resident."""
+    counts = dict(tqm.resident_clusters(cuda_device.index))
+    sms = tqm._sms(cuda_device)
+    assert sorted(counts) == list(range(2, 9))
+    assert all(0 < c * n <= sms for c, n in counts.items()), counts
+    assert all(counts[c] >= counts[c + 1] for c in range(2, 8)), counts
+    for k, n in _SKINNY_SHAPES:
+        plan = tqm.skinny_plan(k, n, tqm.resident_clusters(cuda_device.index))
+        assert plan["cluster"] == 1 or plan["tiles"] <= counts[
+            plan["cluster"]], plan
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_skinny_is_one_cuda_kernel(cuda_device):
+    """A skinny call runs one CUDA kernel (no second pass summing the
+    split partials), counted by torch.profiler over 4 calls at the 7B
+    shapes whose tiles are cut over clusters of blocks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = [_qmm_inputs(cuda_device, m, k, n, 16, k + n)
+             for m, k, n in ((8, 4096, 4096), (2, 11008, 4096))]
+    for x, rec in calls:                      # the build
+        tqm.quantized_matmul(x, rec)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x, rec in calls + calls:
+            tqm.quantized_matmul(x, rec)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+    assert len(kernels) == 4 and all("qmm_skinny_kernel" in k
+                                     for k in kernels), kernels
+
+
 # A fault planted in a copy of csrc/quantized_matmul.cu: each k-tile's
 # scales taken from the group of its first row, as a per-tile lookup would.
 _QMM_TILE_SCALE = (("return k < K ? __ldg(scale + k / rows_per_group) : 0.f;",
@@ -1105,6 +1198,47 @@ def test_qmm_norm_bar_catches_planted_tile_scale(cuda_device, tmp_path,
     print(f"qmm built {built}; planted tile scale {planted}")
     assert all(a <= TOL and n <= NORM_TOL for a, n in built), built
     assert all(n > NORM_TOL for _, n in planted), planted
+
+
+# Faults planted in copies of the skinny kernel: the first block's part of
+# every tile cut over a cluster left out of the sum, or each unit's scales
+# taken from the group of its first row, as a per-unit lookup would.
+_QMM_SKINNY_FAULTS = {
+    "dropped part": (("    float4 tot = p4[0];",
+                      "    float4 tot = make_float4(0.f, 0.f, 0.f, 0.f);"),),
+    "unit scale": (("k < K ? __ldg(&scale[k / rows_per_group]) : 0.f;",
+                    "k < K ? __ldg(&scale[(k & ~(kSkBK - 1)) / "
+                    "rows_per_group]) : 0.f;"),),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", list(_QMM_SKINNY_FAULTS))
+def test_qmm_norm_bar_catches_planted_skinny_fault(cuda_device, tmp_path,
+                                                   monkeypatch, fault):
+    """At K = 11008 with from_hf's 64 groups (172 rows a group, so every
+    256-row unit of a column straddles a boundary) and M = 8, where every
+    tile is cut over a cluster of blocks: the kernel as built passes both
+    bars, each planted fault misses the norm bar."""
+    x, rec = _qmm_inputs(cuda_device, 8, 11008, 4096, 64, 11)
+    want = tqm.quantized_matmul_plain(x, rec)
+
+    def errors():
+        got = tqm.quantized_matmul(x, rec)
+        return (got.float() - want.float()).abs().max().item(), _norm_rel(
+            got, want)
+
+    built = errors()
+    monkeypatch.setitem(_build._LIBS, "quantized_matmul", _planted(
+        tmp_path, "quantized_matmul", _QMM_SKINNY_FAULTS[fault]))
+    tqm._skinny_kernel.cache_clear()
+    try:
+        planted = errors()
+    finally:
+        tqm._skinny_kernel.cache_clear()
+    print(f"qmm skinny built {built}; planted {fault} {planted}")
+    assert built[0] <= TOL and built[1] <= NORM_TOL, built
+    assert planted[1] > NORM_TOL, planted
 
 
 def _gmm_inputs(gen, dev, m, k, n, sizes):

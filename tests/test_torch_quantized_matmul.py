@@ -33,7 +33,7 @@ def _to_np(a):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("n", [256, 200])
 @pytest.mark.parametrize("groups", [1, 4, 16])
-@pytest.mark.parametrize("m", [1, 8, 64])
+@pytest.mark.parametrize("m", [1, 2, 8, 64])
 def test_plain_matches_jax(m, groups, n, dtype):
     x, q, scale = _inputs(m, n, groups, seed=m * 100 + groups + n)
     jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
@@ -77,9 +77,16 @@ def test_record_predicate_and_qmm_dense():
                                x @ w.float())
 
 
+#: the skinny kernel's clusters of c blocks an H100 holds at once, c = 2
+#: .. 8, as its occupancy query reports them (resident_clusters)
+H100_RESIDENT = ((2, 66), (3, 39), (4, 30), (5, 22), (6, 17), (7, 15), (8, 15))
+
+
 @pytest.mark.parametrize("m,k,n,want", [
-    # skinny path: one block an SM over the 512-column blocks, >= 64 rows
-    (8, 4096, 4096, 16), (1, 4096, 32000, 2), (8, 128, 4096, 2),
+    # skinny path: the cluster of blocks each 128-column tile's K is cut
+    # over (skinny_plan, an H100's resident clusters): 3 at 4096 x 4096,
+    # none for the 250-tile lm_head or a K within one 256-row unit
+    (8, 4096, 4096, 3), (1, 4096, 32000, 1), (8, 128, 4096, 1),
     # tiled path, 64-row tiles at medium M: 32 tiles of 128 columns at
     # N = 4096 fill a quarter of 132 SMs, so K splits in 4
     (16, 4096, 4096, 4), (40, 4096, 4096, 4), (64, 4096, 4096, 4),
@@ -93,10 +100,12 @@ def test_record_predicate_and_qmm_dense():
     (40, 256, 4096, 1), (40, 512, 4096, 2), (70, 1024, 4112, 4)])
 def test_tiled_route_and_k_splits(m, k, n, want):
     """The launch geometry the wrapper hands the kernel (132 SMs, an
-    H100's count): skinny below M = 9, then the tiled path's rows a block
-    and split-K."""
-    assert tqm.k_splits_for(m, k, n, 132) == want
-    if m > 8:
+    H100's count): skinny below M = 9 (the cluster a tile's K is cut
+    over), then the tiled path's rows a block and split-K."""
+    if m <= 8:
+        assert tqm.skinny_plan(k, n, H100_RESIDENT)["cluster"] == want
+    else:
+        assert tqm.k_splits_for(m, k, n, 132) == want
         rows = tqm.tiled_rows(m, n, 132)
         assert rows == (64 if m <= 64 else 256 if (m, n) in (
             (1024, 4096), (512, 32000)) else 128)
@@ -104,6 +113,61 @@ def test_tiled_route_and_k_splits(m, k, n, want):
         k_tiles = -(-k // 64)
         per = -(-k_tiles // splits)
         assert -(-k_tiles // per) <= splits       # partials the kernel fills
+
+
+@pytest.mark.parametrize("k,n,tiles,cluster,run", [
+    # Llama-2-7B's four projection shapes: q/k/v/o, gate/up, down, lm_head
+    (4096, 4096, 32, 3, (5, 6)), (4096, 11008, 86, 1, (16, 16)),
+    (11008, 4096, 32, 3, (14, 15)), (4096, 32000, 250, 1, (16, 16))])
+def test_skinny_plan_fills_the_sms(k, n, tiles, cluster, run):
+    """The skinny path's launch on an H100 (132 SMs, its resident
+    clusters) at the four projection shapes: column tiles of 128, each cut
+    along K over a cluster of c blocks, c the most (up to 8) for which
+    every cluster of the launch is resident at once; the blocks of a
+    cluster walk runs of 256-row units within one unit of each other and
+    together every unit of the tile once."""
+    plan = tqm.skinny_plan(k, n, H100_RESIDENT)
+    assert (plan["tiles"], plan["cluster"], plan["run"]) == (tiles, cluster,
+                                                             run)
+    assert plan["blocks"] == tiles * cluster <= 132 or cluster == 1
+    assert plan["chunks"] == -(-k // 256)
+    # the kernel's runs (csrc/quantized_matmul.cu: rank r of c walks units
+    # [r chunks / c, (r + 1) chunks / c))
+    chunks = plan["chunks"]
+    runs = [(r * chunks // cluster, (r + 1) * chunks // cluster)
+            for r in range(cluster)]
+    assert [u for a, b in runs for u in range(a, b)] == list(range(chunks))
+    assert {b - a for a, b in runs} <= set(range(run[0], run[1] + 1))
+    # one more block a tile would not keep every cluster resident
+    assert (cluster == 8 or tiles > dict(H100_RESIDENT)[cluster + 1]
+            or chunks == cluster)
+
+
+def test_skinny_plan_takes_the_clusters_the_device_holds():
+    """The cluster follows the device's resident counts, not its SMs: with
+    one block an SM (132 // c clusters of c), 4096 x 4096's 32 tiles would
+    take clusters of 4 (128 blocks); an H100 holds 30 clusters of 4 (its
+    SMs are grouped, and a cluster's blocks share a group), so they take
+    clusters of 3 (96 blocks); with no cluster resident, a block a
+    tile."""
+    per_sm = tuple((c, 132 // c) for c in range(2, 9))
+    plan = tqm.skinny_plan(4096, 4096, per_sm)
+    assert (plan["cluster"], plan["blocks"], plan["run"]) == (4, 128, (4, 4))
+    plan = tqm.skinny_plan(4096, 4096, H100_RESIDENT)
+    assert (plan["cluster"], plan["blocks"], plan["run"]) == (3, 96, (5, 6))
+    plan = tqm.skinny_plan(4096, 4096, tuple((c, 0) for c in range(2, 9)))
+    assert (plan["cluster"], plan["blocks"]) == (1, 32)
+
+
+def test_skinny_plan_small_k_and_ragged_n():
+    """K within one 256-row unit gives a block a tile (no cluster, the
+    part stored straight from the block); a ragged N of 4112 takes one
+    more tile."""
+    for k, n in ((128, 4096), (32, 4112), (96, 256)):
+        plan = tqm.skinny_plan(k, n, H100_RESIDENT)
+        assert plan["chunks"] == 1 and plan["cluster"] == 1
+        assert plan["blocks"] == plan["tiles"] == -(-n // 128)
+    assert tqm.skinny_plan(1024, 4112, H100_RESIDENT)["tiles"] == 33
 
 
 @pytest.mark.parametrize("groups", [64, 43])
