@@ -202,19 +202,21 @@ Phases, each fatal on failure:
    mean of v), three and eight biases, an fp32 mask with bf16 Q/K/V and
    pair bias (autocast), fp16, D = 64 and D = 128, with the mask bias
    [B, N, 1, 1, S] and the pair bias [B, 1, H, S, S]; and through the
-   general kernel in fp32 at the triangle shape: the forward within 3e-2
-   max (fp32: 1e-4) and 1e-2 in norm, dQ, dK, dV and d(pair bias) of the
-   autograd Function within 5e-2 in norm of dense autograd; exactly one
-   launch of the routed kernel and none of the other a forward (counts set
-   to 0 just before each call); every bf16 / fp16 case on the tensor-core
-   kernel and fp32 on the general one; two runs of the tensor-core kernel
-   bit-equal; each case's route, bias kinds and launch shape, timed beside
-   its time before the redesign (PERF.md row 22), the plain version, SDPA
-   over the summed biases as one float mask (a yardstick), the bound and
-   the exponentials' floor, with each forward's peak memory; and two faults
-   planted in copies of the kernel's source (the last key step dropped, the
-   bias tiles staged only at the first step), each of which must miss the
-   norm bar at the triangle shape;
+   general kernel (3xTF32 on mma.sync) in fp32 at the triangle and MSA row
+   shapes and in bf16 at D = 12: the forward within 3e-2 max (fp32: 1e-4)
+   and 1e-2 in norm, dQ, dK, dV and d(pair bias) of the autograd Function
+   within 5e-2 in norm of dense autograd; exactly one launch of the routed
+   kernel and none of the other a forward (counts set to 0 just before
+   each call); every bf16 / fp16 case with D a multiple of 8 on the
+   tensor-core kernel and the rest on the general one; two runs of either
+   kernel bit-equal; each case's route, bias kinds and launch shape, timed
+   beside its time before its kernel's redesign (PERF.md row 22), the plain
+   version, SDPA over the summed biases as one float mask (a yardstick),
+   the bound and the exponentials' floor, with each forward's peak memory;
+   and three faults planted in copies of the kernel's source (the last key
+   step dropped, the bias tiles staged only at the first step, in bf16; the
+   split products' cross terms dropped, in fp32), each of which must miss
+   its type's bar at the triangle shape;
 23. block-sparse attention (B11) at BERT width (12 heads of 64, S = 4096,
    batch 4, block 16) through ``SparseSelfAttention`` (implementation
    "auto": the kernels), forward and backward, under Fixed (upstream's
@@ -228,8 +230,10 @@ Phases, each fatal on failure:
    within 5e-2 in norm; exactly one launch of each kernel a call and no
    dense call (counts set to 0 just before each call and read just after);
    tables that drop the last live key tile of every query tile must miss
-   the bars; two runs of dQ and dK/dV on the same inputs bit-equal; each
-   backward launch's shape and walk (``launch_info``: grid, stages,
+   the bars; two runs of the forward, and of dQ and dK/dV, on the same
+   inputs bit-equal, and (bf16 / fp16) the forward with every list split
+   into parts of two stages bit-equal over two runs and within the bars;
+   each wgmma launch's shape and walk (``launch_info``: grid, stages,
    registers, spills, split lists, slot fill); each kernel timed beside
    its plain version, SDPA over the expanded boolean mask (a yardstick:
    forward, forward + backward, the backward alone) and its bound (bytes,
@@ -2650,6 +2654,7 @@ KERNEL_KINDS = (
 # Phases 19-21: int8 weight quantization at load time (B10)
 # --------------------------------------------------------------------- #
 FP32_FLOPS = 67e12           # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS = 495e12          # H100 SXM dense TF32 on the tensor cores
 #: the Llama-2-7B matrices (q/k/v/o, gate/up, down, lm_head) as [K, N]
 QUANT_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
 #: phase 20: the int8 engine's logits against the bf16 engine's, in norm.
@@ -3017,13 +3022,16 @@ def quantized_served_run(torch, np, dev, prompts, gen_tokens=16):
 # Phase 22: Evoformer attention (B12)
 # --------------------------------------------------------------------- #
 #: (name, lead dims, S, heads, d, biases, type, old ms): Q/K/V [*lead, S,
-#: H, d] and the biases of ``evo_operands``.  Every bf16 / fp16 case takes
-#: the tensor-core kernel (mixed bias types, three and eight biases
-#: included); fp32 the general one.  "old ms" is the case's time before the
-#: tensor-core kernel's redesign (PERF.md row 22, on an NVIDIA H100 80GB
-#: HBM3 at 700 W; None for the cases added with it), printed beside this
-#: run's time; ``deepspeed_tpu_torch/tools/evo_variants.py --parent`` times
-#: the parent's kernels in the same run
+#: H, d] and the biases of ``evo_operands``.  Every bf16 / fp16 case with d
+#: a multiple of 8 takes the tensor-core kernel (mixed bias types, three
+#: and eight biases included); fp32 and bf16 at d = 12 the general one.
+#: "old ms" is the case's time before its kernel's redesign (PERF.md row
+#: 22, on an NVIDIA H100 80GB HBM3 at 700 W: the tensor-core kernel's
+#: before it ran on wgmma, the general kernel's before it ran on the tensor
+#: cores, the last two cases' from ``tools/evo_variants.py --parent``; None
+#: for the cases added after a redesign), printed beside this run's time;
+#: ``deepspeed_tpu_torch/tools/evo_variants.py --parent`` times the
+#: parent's kernels in the same run
 EVO_CASES = (
     ("triangle crop 256 (1,256,256,4,32)", (1, 256), 256, 4, 32, "both",
      "bf16", 0.3143),
@@ -3051,21 +3059,30 @@ EVO_CASES = (
      "fp16", None),
     ("D=64 (1,128,256,8,64)", (1, 128), 256, 8, 64, "both", "bf16", None),
     ("D=128 (1,64,256,4,128)", (1, 64), 256, 4, 128, "both", "bf16", None),
+    ("fp32 MSA row (1,128,256,8,32)", (1, 128), 256, 8, 32, "both", "fp32",
+     1.2467),
+    ("bf16 D=12 general (1,128,256,4,12)", (1, 128), 256, 4, 12, "both",
+     "bf16", 0.5182),
 )
 EVO_GRAD_NORM_TOL = 5e-2
 #: the general kernel in fp32 against the dense version in fp32
 EVO_FP32_TOL = 1e-4
 EVO_KEYS = {"mma": "evoformer_attention", "simt": "evoformer_attention_simt"}
 EVO_TYPES = {"bf16": "bfloat16", "fp16": "float16", "fp32": "float32"}
-#: the faults planted in copies of csrc/evoformer_attn.cu (each must miss
-#: the norm bar at the triangle shape): the last key step dropped (its
-#: scores -inf), and the bias tiles staged by TMA only at the first step
-#: (every later step reads a ring stage no load wrote)
+#: the faults planted in copies of csrc/evoformer_attn.cu, each with the
+#: triangle case's type it runs at (each must miss that type's bar: bf16
+#: the norm bar, fp32 EVO_FP32_TOL): the last key step dropped (its scores
+#: -inf), the bias tiles staged by TMA only at the first step (every later
+#: step reads a ring stage no load wrote), and the general kernel's split
+#: products without their hi.lo and lo.hi terms (one TF32 product)
 EVO_PLANTED = {
     "dropped last key tile": ("const int valid = a.sk - c0;",
-                              "const int valid = i == n - 1 ? 0 : a.sk - c0;"),
+                              "const int valid = c0 + BK >= a.sk ? 0 : a.sk - c0;",
+                              "bf16"),
     "bias tile never staged": ("const bool stage_bias = true;",
-                               "const bool stage_bias = i == 0;"),
+                               "const bool stage_bias = i == 0;", "bf16"),
+    "split cross terms dropped": ("  if constexpr (SPLIT) {   // the split's cross terms",
+                                  "  if constexpr (false) {", "fp32"),
 }
 
 
@@ -3144,8 +3161,7 @@ def evoformer_case(torch, gen, dev, name, lead, s, h, d, biases, dtype,
         got = evo.DS4Sci_EvoformerAttention(q, k, v, bs)
     torch.cuda.synchronize()
     case["fwd_launches"] = dict(evo.LAUNCHES)
-    if route == "mma":
-        case["launch"] = evo.launch_info()
+    case["launch"] = evo.launch_info()
     with torch.no_grad():
         again = evo.evoformer_attention_kernel(q, k, v, bs)
     torch.cuda.synchronize()
@@ -3208,6 +3224,11 @@ def evoformer_case(torch, gen, dev, name, lead, s, h, d, biases, dtype,
     case["bound_ms"], case["bound_by"] = bound(
         4 * qkv_bytes + bias_bytes, 4.0 * L * h * s * s * d,
         FP32_FLOPS if dt == torch.float32 else BF16_FLOPS)
+    if dt == torch.float32:
+        # the general kernel's own work: three TF32 products a product
+        case["bound_3xtf32_ms"] = bound(4 * qkv_bytes + bias_bytes,
+                                        12.0 * L * h * s * s * d,
+                                        TF32_FLOPS)[0]
     # one MUFU exponential a score, 16 a clock an SM (132 SMs at the
     # card's largest SM clock): the floor the exponentials set
     case["exp_floor_ms"] = L * h * s * s / (16 * 132 * max_sm_clock_hz()) * 1e3
@@ -3231,7 +3252,7 @@ def start_planted_builds():
     out = ROOT / "build" / "evo_planted"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (fault, (text, planted)) in enumerate(EVO_PLANTED.items()):
+    for i, (fault, (text, planted, _)) in enumerate(EVO_PLANTED.items()):
         assert src.count(text) == 1, text
         cu, lib = out / f"planted{i}.cu", out / f"libplanted{i}.so"
         cu.write_text(src.replace(text, planted))
@@ -3241,19 +3262,30 @@ def start_planted_builds():
     return procs
 
 
+def evo_bar_met(dtype, max_err, norm_err) -> bool:
+    """Whether a phase-22 forward meets its type's bar: fp32 within
+    EVO_FP32_TOL (and the norm bar), bf16 / fp16 within TOL and NORM_TOL."""
+    return max_err <= (EVO_FP32_TOL if dtype == "fp32" else TOL) \
+        and norm_err <= NORM_TOL
+
+
 def evoformer_planted(torch, dev, procs):
-    """The triangle case's forward through each planted library against
-    the dense version: max abs and norm errors by fault."""
+    """The triangle case's forward, in each fault's type, through each
+    planted library against the dense version: max abs and norm errors by
+    fault, and whether they meet the type's bar."""
     import ctypes
 
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops import evoformer_attn as evo
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 14)
-    q, k, v, bs = evo_operands(torch, gen, dev, (1, 256), 256, 4, 32, "both",
-                               "bf16")
-    want = evo.evoformer_attention_dense(q, k, v, bs)
+    inputs = {}
+    for dtype in {dt for *_, dt in EVO_PLANTED.values()}:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 14)
+        q, k, v, bs = evo_operands(torch, gen, dev, (1, 256), 256, 4, 32,
+                                   "both", dtype)
+        inputs[dtype] = (q, k, v, bs, evo.evoformer_attention_dense(q, k, v,
+                                                                    bs))
     built = _build.load("evoformer_attn")
     out = {}
     try:
@@ -3263,12 +3295,16 @@ def evoformer_planted(torch, dev, procs):
                 raise RuntimeError(f"planted {fault}: nvcc failed\n{log[-2000:]}")
             _build._LIBS["evoformer_attn"] = ctypes.CDLL(str(lib))
             evo._kernel.cache_clear()
+            dtype = EVO_PLANTED[fault][2]
+            q, k, v, bs, want = inputs[dtype]
             got = evo.evoformer_attention_kernel(q, k, v, bs)
             torch.cuda.synchronize()
-            out[fault] = {"max_abs_err": (got.float() - want.float()).abs()
-                          .nan_to_num(float("inf")).max().item(),
-                          "norm_rel_err": rel_norm(got.float().nan_to_num(
-                              1e30), want)}
+            err = (got.float() - want.float()).abs().nan_to_num(
+                float("inf")).max().item()
+            norm = rel_norm(got.float().nan_to_num(1e30), want)
+            out[fault] = {"dtype": dtype, "route": evo.kernel_route(
+                q, k, v, bs), "max_abs_err": err, "norm_rel_err": norm,
+                "meets_bar": evo_bar_met(dtype, err, norm)}
     finally:
         _build._LIBS["evoformer_attn"] = built
         evo._kernel.cache_clear()
@@ -3352,6 +3388,34 @@ def bsa_planted_fault(np, bsl, side="q"):
                 cut[hh, i, live[-1]] = 0
     bad._masks, bad._masks_t, bad._lists, bad._elem = m, mt, {}, {}
     return bad
+
+
+def bsa_forced_split(torch, bsa, bsl, operands, bias, want):
+    """The bf16 / fp16 forward with every list longer than two stages split
+    into parts of two (the split rule's constants set so, the tables built
+    afresh on a copy of ``bsl``), twice: whether the two runs give the same
+    bits, their distance to ``want`` (the forward under the rule's split)
+    and the split groups of the walk."""
+    import copy
+
+    forced = copy.copy(bsl)
+    forced._lists, forced._elem = {}, {}
+    rule = (bsa.SPLIT_MIN, bsa.WAVE)
+    bsa.SPLIT_MIN, bsa.WAVE = 2, 1 << 40
+    try:
+        runs = [bsa.block_sparse_attention_fwd(*operands[:3], forced, bias)
+                for _ in range(2)]
+        info = bsa.launch_info()
+    finally:
+        bsa.SPLIT_MIN, bsa.WAVE = rule
+    torch.cuda.synchronize()
+    return {"bit_equal": all(torch.equal(a, c) for a, c in zip(*runs)),
+            "max_abs_err": (runs[0][0].float() - want[0].float()).abs()
+            .max().item(),
+            "norm_rel_err": rel_norm(runs[0][0], want[0]),
+            "lse_max_abs_err": (runs[0][1] - want[1]).abs().max().item(),
+            "split_groups": info["split_groups"],
+            "max_stages": info["max_stages"]}
 
 
 def bsa_padding_mask(torch, dev, b, s, mode):
@@ -3472,6 +3536,20 @@ def block_sparse_case(torch, np, gen, dev, name, layout, b, h, s, d, block,
     ops = [(qs, k, v, do)] + [tuple(torch.randn_like(t) for t in (qs, k, v, do))
                               for _ in range(sets - 1)]
     res = [bsa.block_sparse_attention_fwd(*o[:3], bsl, bias) for o in ops]
+    # two runs of the forward on the same inputs give the same bits (no
+    # atomics on the outputs; split lists merge in part order), also with
+    # every list split into parts of two stages
+    again = bsa.block_sparse_attention_fwd(*ops[0][:3], bsl, bias)
+    case["launch"] = {}
+    if dt != torch.float32:
+        case["launch"]["fwd"] = bsa.launch_info()
+    torch.cuda.synchronize()
+    case["fwd_bit_equal"] = all(torch.equal(a, c)
+                                for a, c in zip(res[0], again))
+    if dt != torch.float32:
+        case["fwd_forced_split"] = bsa_forced_split(torch, bsa, bsl, ops[0],
+                                                    bias, res[0])
+    del again
     case["ms"] = {"fwd": time_ms(
         lambda i: bsa.block_sparse_attention_fwd(*ops[i][:3], bsl, bias),
         sets, 20)}
@@ -3486,7 +3564,7 @@ def block_sparse_case(torch, np, gen, dev, name, layout, b, h, s, d, block,
     if not forward_only:
         # two runs of dQ and dK/dV on the same inputs must give the same
         # bits (no atomics on the outputs; split lists sum in part order)
-        runs, case["launch"] = [], {}
+        runs = []
         for _ in range(2):
             dq_, delta_ = bsa.block_sparse_attention_bwd_dq(
                 *ops[0][:3], *res[0], ops[0][3], bsl, scale, bias)
@@ -3572,6 +3650,14 @@ def bsa_failures(case) -> list:
         bad.append("planted key-major fault passes the gradient bar")
     if not fwd_only and not case["bwd_bit_equal"]:
         bad.append("dQ / dK/dV not bit-equal over two runs")
+    if not case["fwd_bit_equal"]:
+        bad.append("the forward not bit-equal over two runs")
+    forced = case.get("fwd_forced_split")
+    if forced is not None and not (
+            forced["bit_equal"] and forced["split_groups"] > 0
+            and forced["max_abs_err"] <= TOL
+            and forced["norm_rel_err"] <= NORM_TOL):
+        bad.append(f"the forward under a forced split {forced}")
     want = {BSA_KEYS[0]: 1, BSA_KEYS[1]: int(not fwd_only),
             BSA_KEYS[2]: int(not fwd_only), BSA_DENSE: 0}
     if case["launches"] != want:
@@ -4297,7 +4383,10 @@ def main() -> int:
               f" bit-equal {c['bit_equal']} | ms {c['ms']:.4f} old {old} "
               f"(PERF.md row 22) plain {c['plain_ms']:.4f} SDPA "
               f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
-              f"({c['bound_by']}) exp floor {c['exp_floor_ms']:.4f} | peak "
+              f"({c['bound_by']})"
+              + (f" 3xTF32 bound {c['bound_3xtf32_ms']:.4f}"
+                 if "bound_3xtf32_ms" in c else "")
+              + f" exp floor {c['exp_floor_ms']:.4f} | peak "
               f"MB kernel {c['kernel_fwd_peak_extra_mb']:.1f} dense "
               f"{c['dense_fwd_peak_extra_mb']:.1f}"
               + (f" | masked rows vs mean v {c['masked_rows_vs_mean_v']:.3g}"
@@ -4305,9 +4394,8 @@ def main() -> int:
         if "launch" in c:
             print(f"  [launch] {c['launch']}", flush=True)
     bad = [c["name"] for c in evo_cases
-           if not (c["max_abs_err"] <= (EVO_FP32_TOL if c["dtype"] == "fp32"
-                                        else TOL)
-                   and c["norm_rel_err"] <= NORM_TOL
+           if not (evo_bar_met(c["dtype"], c["max_abs_err"],
+                               c["norm_rel_err"])
                    and all(v <= EVO_GRAD_NORM_TOL
                            for v in c["grad_norm_rel_err"].values())
                    and c.get("masked_rows_vs_mean_v", 0.0) <= TOL)]
@@ -4321,21 +4409,23 @@ def main() -> int:
     if bad:
         return fail(f"Evoformer launches: not one launch of the routed "
                     f"kernel a forward call (and none of the other): {bad}")
+    # the tensor-core kernel takes bf16 / fp16 at d a multiple of 8 (up to
+    # 128), the general kernel the rest; each gives the same bits twice
     bad = [c["name"] for c in evo_cases
-           if (c["dtype"] != "fp32") != (c["route"] == "mma")
-           or (c["route"] == "mma" and not c["bit_equal"])]
+           if c["route"] != ("mma" if c["dtype"] != "fp32"
+                             and c["shape"][-1] % 8 == 0 else "simt")
+           or not c["bit_equal"]]
     if bad:
-        return fail(f"Evoformer: a bf16 / fp16 case off the tensor-core "
-                    f"kernel, an fp32 case on it, or two runs of the "
-                    f"tensor-core kernel not bit-equal: {bad}")
+        return fail(f"Evoformer: a case off its kernel, or two runs of a "
+                    f"kernel not bit-equal: {bad}")
     evo_planted = evoformer_planted(torch, dev, planted_builds)
     for fault, errs in evo_planted.items():
-        print(f"[evoformer] planted {fault}: max {errs['max_abs_err']:.3g} "
-              f"norm {errs['norm_rel_err']:.3g}", flush=True)
-    bad = [f for f, e in evo_planted.items()
-           if e["norm_rel_err"] <= NORM_TOL]
+        print(f"[evoformer] planted {fault} ({errs['dtype']}, route "
+              f"{errs['route']}): max {errs['max_abs_err']:.3g} norm "
+              f"{errs['norm_rel_err']:.3g}", flush=True)
+    bad = [f for f, e in evo_planted.items() if e["meets_bar"]]
     if bad:
-        return fail(f"Evoformer: planted faults meet the norm bar: {bad}")
+        return fail(f"Evoformer: planted faults meet their bar: {bad}")
 
     # 23. block-sparse attention (B11) at BERT width, through
     # SparseSelfAttention ("auto": the kernels, key-padding masks included)
@@ -4359,11 +4449,12 @@ def main() -> int:
               f"{ {k: round(x, 3) for k, x in r['library_ms'].items()} } "
               f"bound { {k: round(x['bound_ms'], 4) for k, x in r['bounds'].items()} }",
               flush=True)
-        if "bwd_bit_equal" in r:
-            print(f"[block-sparse]   {r['name']}: bwd bit-equal "
-                  f"{r['bwd_bit_equal']}; TFLOP/s (cells / tiles) "
-                  f"{ {k: (round(x['cells'], 1), round(x['tiles'], 1)) for k, x in r['tflops'].items()} }",
-                  flush=True)
+        print(f"[block-sparse]   {r['name']}: fwd bit-equal "
+              f"{r['fwd_bit_equal']}; bwd bit-equal "
+              f"{r.get('bwd_bit_equal')}; forced split "
+              f"{r.get('fwd_forced_split')}; TFLOP/s (cells / tiles) "
+              f"{ {k: (round(x['cells'], 1), round(x['tiles'], 1)) for k, x in r['tflops'].items()} }",
+              flush=True)
         for kname, info in r.get("launch", {}).items():
             print(f"[launch] {r['name']} {kname}: {json.dumps(info)}",
                   flush=True)

@@ -40,49 +40,48 @@
 // 16-bit mask of the tile's 16 x 16 sub-blocks, bit (qs * 4 + ks) set when
 // the layout keeps sub-block (qs, ks); the layout's block is a multiple of 16,
 // so each sub-block lies in one layout cell, and sub-blocks past S are 0.
-// The forward and the general kernels walk those lists; inside a live tile a
-// warp of 16 rows keeps four bits, one a 16-column slice, and a dead slice
-// skips its products and is masked whole (no per-element test: the TPU
-// kernel's `_cell_mask` matmuls at :57 have no counterpart).
+// The general kernels walk those lists; the tensor-core kernels walk
+// tables built from the same masks (`bsa_tile_walk`, below).  A warp of 16
+// rows keeps four bits, one a 16-column slice, and a dead slice is masked
+// whole (no per-element test: the TPU kernel's `_cell_mask` matmuls at :57
+// have no counterpart).
 //
-// Three kernel families:
+// Two kernel families:
 //
-// * the forward's tensor-core kernel (bf16 / fp16, D a multiple of 8 up to
-//   128, padded with zeros in shared memory to DP = 16, 32, 64 or 128): 4
-//   warps a block, 16 rows a warp, 64-row tiles staged with 16-byte loads,
-//   products by mma.sync.m16n8k16 (csrc/attention_tiles.cuh), the online
-//   softmax in registers;
-// * the backward's tensor-core kernels (bf16 / fp16, the same D), on wgmma
-//   fed by TMA: the flash backward (csrc/flash_attention.cu) on a walk
+// * the tensor-core kernels (bf16 / fp16, D a multiple of 8 up to 128,
+//   padded with zeros to DP = 16, 32, 64 or 128), forward, dQ and dK/dV on
+//   wgmma fed by TMA: the flash kernels (csrc/flash_attention.cu) on a walk
 //   of 16-row slices instead of 64-row tiles.  A block holds up to four
-//   stationary slices of one (batch, head) -- query slices for dQ, key
-//   slices for dK/dV, gathered into one 64-row wgmma tile -- and streams
-//   the live slices of the other side through a TMA ring, four to a stage,
-//   each gathered by a 16-row box, so that only live slices cross the ring
-//   and a stage's 64 columns are mostly live: Fixed's global columns (one
-//   live 16-key slice in each 64 x 64 tile) pack four to a stage for dQ,
-//   and its global-column keys, grouped four to a block, fill dK/dV's rows.
-//   The host groups the slices (`bsa_tile_walk`: "heavy" slices, a global
-//   row's or column's, among themselves, the rest in their 64-row tile),
-//   splits a list that is long against the launch's work into parts whose
-//   fp32 partials the last part to finish sums in part order (no atomics on
-//   the outputs: two runs give the same bits), and orders the blocks
-//   longest list first;
+//   stationary slices of one (batch, head) -- query slices for the forward
+//   and dQ, key slices for dK/dV, gathered into one 64-row wgmma tile --
+//   and streams the live slices of the other side through a TMA ring, four
+//   to a stage, each gathered by a 16-row box, so that only live slices
+//   cross the ring and a stage's 64 columns are mostly live: Fixed's global
+//   columns (one live 16-key slice in each 64 x 64 tile) pack four to a
+//   stage for the forward and dQ, and its global-column keys, grouped four
+//   to a block, fill dK/dV's rows.  The host groups the slices
+//   (`bsa_tile_walk`: "heavy" slices, a global row's or column's, among
+//   themselves, the rest in their 64-row tile), splits a list that is long
+//   against the launch's work into parts whose fp32 partials the last part
+//   to finish merges in part order (no atomics on the outputs: two runs
+//   give the same bits), and orders the blocks longest list first.  The
+//   forward and dQ read one query-major walk, so one table a (device,
+//   batch) serves both;
 // * the general kernels (fp32, any D up to 128; the TPU kernel takes fp32
 //   too, and the JAX package's parity test runs it): the tile lists,
 //   products in fp32 on the CUDA cores, 8 warps a block, 8 rows (or keys) a
-//   warp and one key (or query) a lane, as B12's general kernel
-//   (csrc/evoformer_attn.cu).
+//   warp and one key (or query) a lane.
 //
 // What bounds them on the H100: at BERT width (D = 64, S = 4096, batch 4,
 // block 16) the products of the live layout cells, 4 S_live D flops forward
 // and 14 S_live D backward (S_live = kept score entries), at 989 TFLOP/s
 // bf16 (67 TFLOP/s fp32), from ~15% density up; below that the bytes (q,
-// k, v, o, lse read or written once).  The backward kernels multiply whole
-// 64 x 64 slot pairs whose 16 x 16 sub-blocks are live in part, so their
-// work is the stages' (PERF.md section 6 gives both); the forward runs
-// whole live sub-blocks at mma.sync rates without a load pipeline, and its
-// block walks its list in sequence, so the longest list sets its time.
+// k, v, o, lse read or written once).  The tensor-core kernels multiply
+// whole 64 x 64 slot pairs whose 16 x 16 sub-blocks are live in part, so
+// their work is the stages' (PERF.md section 6 gives both); the forward
+// also runs one exponential a slot pair's score and its online softmax in
+// registers between the two products, which at D = 64 costs about as many
+// issue slots as the products.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -98,8 +97,6 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 64;             // rows of a q tile and of a k/v tile
 constexpr float kNegInf = -1e30f;     // the TPU kernels' NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
@@ -116,66 +113,6 @@ struct Lists {
 };
 
 __device__ __forceinline__ float neg_inf() { return -__int_as_float(0x7f800000); }
-
-// kTile-row tiles of one head (row stride d) from row `row0` into shared
-// memory (row stride DP + 8), 16 bytes a thread at a time; rows past `rows`
-// and columns past d are 0.
-template <typename T, int DP, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int d, int row0, int rows) {
-  constexpr int kVec = DP / 8;
-  for (int i = threadIdx.x; i < ROWS * kVec; i += kThreads) {
-    const int r = i / kVec;
-    const int c = (i % kVec) * 8;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (row0 + r < rows && c < d)
-      val = *reinterpret_cast<const int4*>(src + static_cast<size_t>(row0 + r) * d + c);
-    *reinterpret_cast<int4*>(dst + r * (DP + 8) + c) = val;
-  }
-}
-
-// acc[N/8][4] += A[16 x K] B[N x K]^T over the 16-column slices of B whose bit
-// in `live` is set (the others are left as they are).
-template <typename T, int K, int N, int LD>
-__device__ __forceinline__ void mma_abt_live(float (&acc)[N / 8][4], const T* a, const T* b,
-                                             int lane, int live) {
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t af[4];
-    ldsm_x4(af, a + (lane % 16) * LD + k0 + (lane / 16) * 8);
-#pragma unroll
-    for (int n0 = 0; n0 < N; n0 += 16) {
-      if (!((live >> (n0 / 16)) & 1)) continue;
-      uint32_t bf[4];
-      ldsm_x4(bf, b + (n0 + (lane / 16) * 8 + lane % 8) * LD + k0 + ((lane / 8) % 2) * 8);
-      mma16816<T>(acc[n0 / 8], af, bf[0], bf[1]);
-      mma16816<T>(acc[n0 / 8 + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[D/8][4] += P[16 x N] B[N x D] over the 16-row slices of B whose bit in
-// `live` is set (P is 0 on the others).
-template <typename T, int N, int D, int LD>
-__device__ __forceinline__ void mma_pb_live(float (&acc)[D / 8][4],
-                                            const uint32_t (&pa)[N / 16][4], const T* b,
-                                            int lane, int live) {
-#pragma unroll
-  for (int k0 = 0; k0 < N; k0 += 16) {
-    if (!((live >> (k0 / 16)) & 1)) continue;
-#pragma unroll
-    for (int d0 = 0; d0 < D; d0 += 16) {
-      uint32_t bf[4];
-      ldsm_x4_trans(bf, b + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * LD + d0 + (lane / 16) * 8);
-      mma16816<T>(acc[d0 / 8], pa[k0 / 16], bf[0], bf[1]);
-      mma16816<T>(acc[d0 / 8 + 1], pa[k0 / 16], bf[2], bf[3]);
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack2<T>(a, b);
-}
 
 // sum over 8 elements of a * b, each 16-byte vector of T in fp32
 template <typename T>
@@ -196,132 +133,21 @@ __device__ __forceinline__ int column_bits(int mask, int w) {
 }
 
 // ----------------------------------------------------------------------------
-// Tensor-core kernels
-// ----------------------------------------------------------------------------
-// BIAS: a key bias is given (kbias non-null).  A template flag, so that the
-// kernels without one keep the registers they had (the dK/dV kernel runs
-// near the register limit at DP = 64).
-template <typename T, int DP, bool BIAS>
-__global__ void __launch_bounds__(kThreads)
-bsa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               T* __restrict__ o, float* __restrict__ lse,
-               const float* __restrict__ kbias, int seq, int heads, int d, Lists lists) {
-  constexpr int LD = DP + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* k_s = q_s + kTile * LD;
-  T* v_s = k_s + kTile * LD;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * kTile;
-  const size_t row_base = (static_cast<size_t>(b) * heads + h) * seq;
-  const T* qb = q + row_base * d;
-  const T* kb = k + row_base * d;
-  const T* vb = v + row_base * d;
-
-  load_tile<T, DP, kTile>(q_s, qb, d, q0, seq);
-
-  const int r0 = q0 + warp * 16 + g;                // rows r0 and r0 + 8
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  const int li = h * gridDim.x + qt;
-  for (int it = lists.ptr[li], end = lists.ptr[li + 1]; it < end; ++it) {
-    const int c0 = lists.idx[it] * kTile;
-    const int live = (lists.mask[it] >> (4 * warp)) & 0xF;   // this warp's key slices
-    __syncthreads();                                // the last tile's reads are done
-    load_tile<T, DP, kTile>(k_s, kb, d, c0, seq);
-    load_tile<T, DP, kTile>(v_s, vb, d, c0, seq);
-    __syncthreads();
-    if (!live) continue;
-
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    mma_abt_live<T, DP, kTile, LD>(s, q_s + warp * 16 * LD, k_s, lane, live);
-
-    // this tile's key bias (a live slice lies inside S)
-    const float* kb = BIAS ? kbias + static_cast<size_t>(b) * seq + c0 + 2 * t : nullptr;
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      const bool keep = (live >> (j >> 1)) & 1;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (keep) {
-          if (BIAS) s[j][e] += kb[8 * j + (e & 1)];
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-        } else {
-          s[j][e] = neg_inf();                      // exp(-inf - m) = 0
-        }
-      }
-    }
-    float corr[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      corr[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m[e >> 1]);
-        rs[e >> 1] += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rs[i] += __shfl_xor_sync(kFull, rs[i], 1);
-      rs[i] += __shfl_xor_sync(kFull, rs[i], 2);
-      l[i] = l[i] * corr[i] + rs[i];
-    }
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      acc[j][0] *= corr[0]; acc[j][1] *= corr[0];
-      acc[j][2] *= corr[1]; acc[j][3] *= corr[1];
-    }
-    uint32_t pa[kTile / 16][4];
-    to_a_frags<T, kTile>(pa, s);
-    mma_pb_live<T, kTile, DP, LD>(acc, pa, v_s, lane, live);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 8 * i;
-    if (r >= seq) continue;
-    const float safe_l = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + (row_base + r) * d;
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j)
-      if (8 * j < d) store2<T>(orow + 8 * j + 2 * t, acc[j][2 * i] / safe_l, acc[j][2 * i + 1] / safe_l);
-    if (t == 0) lse[row_base + r] = m[i] + logf(safe_l);
-  }
-}
-
-// ----------------------------------------------------------------------------
-// Backward on wgmma (bf16 / fp16): the 16-row slice walk
+// Forward and backward on wgmma (bf16 / fp16): the 16-row slice walk
 // ----------------------------------------------------------------------------
 // A block is one producer warpgroup and one consumer warpgroup, two blocks
 // an SM.  Its item (a row of the block table, `bsa_tile_walk`) names up to
 // four stationary 16-row slices of one (batch, head) -- query slices for
-// dQ, key slices for dK/dV -- and a range of stages, each kSlots streamed
-// slices of the other side with a mask (bit r * 4 + c: stationary slot r
-// keeps streamed slot c).  Warp w of the consumer warpgroup holds the rows
-// of stationary slot w (the wgmma accumulator rows 16w .. 16w + 15 of the
-// warpgroup's 64), so a warp's four bits of the mask
+// the forward and dQ, key slices for dK/dV -- and a range of stages, each
+// kSlots streamed slices of the other side with a mask (bit r * 4 + c:
+// stationary slot r keeps streamed slot c).  Warp w of the consumer
+// warpgroup holds the rows of stationary slot w (the wgmma accumulator rows
+// 16w .. 16w + 15 of the warpgroup's 64), so a warp's four bits of the mask
 // say which 16-column slices of its scores are live; a dead slice's P and dS
 // are 0 before rounding.  The producer's first thread gathers every slice
 // by a 16-row TMA box into consecutive slots of a tile (columns past D read
 // zeros), through a ring of NS stages; its warp's lanes copy the stage's key
-// bias (dQ) or lse and delta (dK/dV).
+// bias (the forward and dQ) or lse and delta (dK/dV).
 constexpr int kSlots = 4;                     // slices a warpgroup, and a stage
 constexpr int kSlice = 16;
 constexpr int kRows = kSlots * kSlice;        // a wgmma tile: 64 rows
@@ -479,16 +305,20 @@ __device__ __forceinline__ void put_partial(float* slot, const float (&acc)[N], 
     w[j * 128 + ct] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
 }
 
+// acc += w * a partial, w = w0 on this thread's first row (accumulator
+// elements 4j, 4j + 1) and w1 on its second (4j + 2, 4j + 3); at w = 1 the
+// plain sum, bit for bit
 template <int N>
-__device__ __forceinline__ void add_partial(float (&acc)[N], const float* slot, int ct) {
+__device__ __forceinline__ void add_partial(float (&acc)[N], const float* slot, int ct,
+                                            float w0 = 1.f, float w1 = 1.f) {
   const float4* r = reinterpret_cast<const float4*>(slot);
 #pragma unroll
   for (int j = 0; j < N / 4; ++j) {
     const float4 x = __ldcg(r + j * 128 + ct);    // another SM wrote it: not from L1
-    acc[4 * j] += x.x;
-    acc[4 * j + 1] += x.y;
-    acc[4 * j + 2] += x.z;
-    acc[4 * j + 3] += x.w;
+    acc[4 * j] = fmaf(x.x, w0, acc[4 * j]);
+    acc[4 * j + 1] = fmaf(x.y, w0, acc[4 * j + 1]);
+    acc[4 * j + 2] = fmaf(x.z, w1, acc[4 * j + 2]);
+    acc[4 * j + 3] = fmaf(x.w, w1, acc[4 * j + 3]);
   }
 }
 
@@ -543,6 +373,289 @@ __device__ __forceinline__ void store_slices(const unsigned char* tile, const It
       *reinterpret_cast<int4*>(static_cast<unsigned char*>(dst)
                                + (static_cast<size_t>(kSlice * slice + rr % kSlice) * d + col) * 2) =
           *reinterpret_cast<const int4*>(tile + swz<Geo<DP>::kSw>(rr, col, kRows));
+  }
+}
+
+// The producer warp's ring of the forward and dQ: for each of the item's
+// stages, once its slot is free, the stage's streamed K and V slices by TMA
+// into k_s / v_s (a [64 x DP] tile a slot) and, with a key bias, the
+// stage's 64 key-bias values by the lanes' cp.async into bias_s (64 floats
+// a slot); every lane runs it.
+template <int DP, int NS, bool BIAS>
+__device__ __forceinline__ void stream_kv(unsigned char* k_s, unsigned char* v_s, float* bias_s,
+                                          const CUtensorMap* k_map, const CUtensorMap* v_map,
+                                          uint64_t* full, uint64_t* empty,
+                                          const float* kbias, const Walk& walk, const Item& it,
+                                          int b, int bh, int seq, int lane) {
+  constexpr int kTileBytes = Geo<DP>::kTile;
+  const int n = it.end - it.begin;
+  StageSlots table{walk.stages, it.begin, n};
+  for (int i = 0; i < n; ++i) {
+    const int s = i % NS;
+    int slot[kSlots];
+    table.get(i, lane, slot);
+    if (i >= NS) mbar_wait(&empty[s], ((i / NS) & 1) ^ 1);
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&full[s], 2 * kTileBytes);
+      load_slices<DP>(k_s + s * kTileBytes, k_map, &full[s], slot, bh);
+      load_slices<DP>(v_s + s * kTileBytes, v_map, &full[s], slot, bh);
+    }
+    if (BIAS) {                                 // lane l: keys l and l + 32 of the stage
+      float* bt = bias_s + s * kRows;
+      const float* kb = kbias + static_cast<size_t>(b) * seq + lane % kSlice;
+      cp_async4(bt + lane, kb + kSlice * (lane < kSlice ? slot[0] : slot[1]));
+      cp_async4(bt + 32 + lane, kb + kSlice * (lane < kSlice ? slot[2] : slot[3]));
+      cp_async_arrive(&full[s]);
+    }
+  }
+}
+
+template <int DP, int NS>
+struct FwdSmem {
+  static constexpr int kTile = Geo<DP>::kTile;
+  static constexpr int kQ = 0;                        // the gathered Q rows
+  static constexpr int kK = kTile;                    // [NS] K stages
+  static constexpr int kV = kK + NS * kTile;          // [NS] V stages
+  static constexpr int kBias = kV + NS * kTile;       // [NS][64] fp32 key bias
+  static constexpr int kBars = kBias + NS * kRows * 4;    // stat, full[NS], empty[NS]
+  static constexpr int kFlag = kBars + (1 + 2 * NS) * 8;  // int
+  static constexpr int kBytes = kFlag + 16 + 1024;
+};
+
+// Floats of a forward partial slot: the unnormalised O [64 x DP], then each
+// thread's m and l of its two rows (one float4 a consumer thread).
+template <int DP>
+constexpr int kFwdSlot = 128 * (DP / 2 + 4);
+
+// Forward: stationary query slices, streamed key slices (dQ's walk without
+// dO and dS).  S = Q K^T from shared memory; the key bias (copied by the
+// producer's lanes) added, a dead slice -inf; the online softmax in fp32
+// registers with exp2 of one FMA a score, the running max guarded at -inf,
+// the output rescaled only when a row's max moved; P rounded to the input
+// type as the register A operand of O += P V (V MN-major); step i's softmax
+// runs while step i - 1's P V does (the loop of evo_wgmma_kernel,
+// csrc/evoformer_attn.cu).
+template <typename T, int DP, int NS, bool BIAS>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+bsa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map, T* __restrict__ o,
+                     float* __restrict__ lse, const float* __restrict__ kbias, int seq,
+                     int heads, int d, int batch, Walk walk) {
+  using L = FwdSmem<DP, NS>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  unsigned char* q_s = sm + L::kQ;
+  uint64_t* stat_bar = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = stat_bar + 1;
+  uint64_t* empty = full + NS;
+  int* flag = reinterpret_cast<int*>(sm + L::kFlag);
+
+  const int b = blockIdx.x % batch;
+  const Item it = item_of(walk.blocks, blockIdx.x / batch);
+  const int bh = b * heads + it.head;
+  const int n = it.end - it.begin;
+
+  if (threadIdx.x == 0) {
+    mbar_init(stat_bar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], BIAS ? 33 : 1);         // with a bias, + the lanes' copies
+      mbar_init(&empty[s], 4);                    // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 32 && n > 0) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        int stat[kSlots];
+        slices_of(it.stat, stat);
+        mbar_arrive_expect_tx(stat_bar, L::kTile);
+        load_slices<DP>(q_s, &q_map, stat_bar, stat, bh);
+      }
+      stream_kv<DP, NS, BIAS>(sm + L::kK, sm + L::kV, reinterpret_cast<float*>(sm + L::kBias),
+                              &k_map, &v_map, full, empty, kbias, walk, it, b, bh, seq, lane);
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int ct = threadIdx.x % 128;
+    const int warp = ct / 32, lane = ct % 32, g = lane / 4, t = lane % 4;
+    const int mine = pick(it.stat, warp), slice = mine >= 0 ? mine : it.stat[0];
+    const size_t row_base = static_cast<size_t>(bh) * seq;
+    const float kInf = __int_as_float(0x7f800000);
+
+    // this thread's rows 16 warp + g and + 8: running max and its part of
+    // the row sums
+    float m[2] = {-kInf, -kInf}, l[2] = {0.f, 0.f};
+    float acc[DP / 2], s[kRows / 2];
+    uint32_t p[kRows / 16][4];
+    zero(acc);
+    zero(s);
+    auto release = [&](int i) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[i % NS]);
+    };
+    auto qk = [&](int i) {                        // S = Q K_i^T
+      const unsigned char* k_t = sm + L::kK + (i % NS) * L::kTile;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_t<T, kRows>(s, kdesc<DP>(q_s, 0, kk), kdesc<DP>(k_t, 0, kk), kk);
+    };
+    auto pv = [&](int i) {                        // O += round(P) V_i
+      const unsigned char* v_t = sm + L::kV + (i % NS) * L::kTile;
+#pragma unroll
+      for (int ks = 0; ks < kSlots; ++ks) wgmma_rs_t<T, DP>(acc, p[ks], mndesc<DP>(v_t, 16 * ks));
+    };
+    // step i's probabilities in s (fp32), 0 on this warp's dead slots: this
+    // thread's columns are 8 (j / 4) + 2t + j % 2, in slot j / 8.  The max
+    // runs on the scores, the exponent is one FMA into log2 units, and a
+    // stage whose four slots are all live (a warp-uniform test) skips the
+    // mask
+    auto softmax = [&](int i, int live, float (&corr)[2]) {
+      const float* bt = reinterpret_cast<const float*>(sm + L::kBias) + (i % NS) * kRows;
+      if (BIAS) {
+#pragma unroll
+        for (int j = 0; j < kRows / 2; ++j) s[j] += bt[8 * (j >> 2) + 2 * t + (j & 1)];
+      }
+      if (live != 0xF) {
+#pragma unroll
+        for (int j = 0; j < kRows / 2; ++j) s[j] = (live >> (j >> 3)) & 1 ? s[j] : -kInf;
+      }
+      float mx[2] = {-kInf, -kInf};
+#pragma unroll
+      for (int j = 0; j < kRows / 2; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+      float base[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(kFull, mx[hr], 1));
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(kFull, mx[hr], 2));
+        const float m_new = fmaxf(m[hr], mx[hr]);
+        // a row that has seen only -inf subtracts 0: its p and corr are 0
+        // (rounded products, not FMAs: an unmoved max gives corr = 1 exactly)
+        base[hr] = m_new == -kInf ? 0.f : __fmul_rn(m_new, kLog2e);
+        corr[hr] = exp2_ftz(__fmul_rn(m[hr], kLog2e) - base[hr]);
+        m[hr] = m_new;
+        l[hr] *= corr[hr];
+      }
+#pragma unroll
+      for (int j = 0; j < kRows / 2; ++j) {
+        const int hr = (j >> 1) & 1;
+        s[j] = exp2_ftz(fmaf(s[j], kLog2e, -base[hr]));
+        l[hr] += s[j];
+      }
+    };
+    auto live_of = [&](int i) {
+      return (__ldg(walk.stages + static_cast<size_t>(it.begin + i) * kStageInts + kSlots)
+              >> (4 * warp)) & 0xF;
+    };
+    auto operands_ready = [&]() {                 // as flash_attention.cu's
+      fence_all(s);
+      fence_all(acc);
+      fence_all(p);
+      wgmma_fence();
+    };
+
+    if (n > 0) {
+      float corr[2];
+      mbar_wait(stat_bar, 0);
+      mbar_wait(&full[0], 0);
+      operands_ready();
+      qk(0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_all(s);
+      softmax(0, live_of(0), corr);
+      to_a<T, kRows>(p, s);
+      // step i issues its S beside step i - 1's P V, then runs its softmax
+      // while the P V product runs
+      for (int i = 1; i < n; ++i) {
+        const int live = live_of(i);
+        mbar_wait(&full[i % NS], (i / NS) & 1);
+        operands_ready();
+        qk(i);
+        wgmma_commit();
+        pv(i - 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_all(s);
+        softmax(i, live, corr);
+        wgmma_wait<0>();
+        fence_all(acc);
+        fence_all(p);
+        release(i - 1);
+        // rescale only when a row's max moved (x 1 changes no bit)
+        if (__any_sync(kFull, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+          for (int j = 0; j < DP / 2; ++j) acc[j] *= corr[(j >> 1) & 1];
+        }
+        to_a<T, kRows>(p, s);
+      }
+      operands_ready();
+      pv(n - 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_all(acc);
+      fence_all(p);
+      release(n - 1);
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {              // the row's sum over its quad
+      l[hr] += __shfl_xor_sync(kFull, l[hr], 1);
+      l[hr] += __shfl_xor_sync(kFull, l[hr], 2);
+    }
+
+    if (it.parts > 1) {
+      // each part's unnormalised O and its rows' m and l; the last part to
+      // finish merges them in part order: m* = max m_p, O and l summed with
+      // weights exp(m_p - m*)
+      constexpr int kO = 128 * DP / 2;
+      float* mine_slot = partial_slot(it, walk, it.part, b, batch, kFwdSlot<DP>);
+      put_partial(mine_slot, acc, ct);
+      reinterpret_cast<float4*>(mine_slot + kO)[ct] = make_float4(m[0], m[1], l[0], l[1]);
+      if (!last_part(it, walk, b, batch, ct, flag)) return;
+      float4 ml[2];
+      m[0] = m[1] = -kInf;
+      for (int q = 0; q < it.parts; ++q) {
+        ml[0] = __ldcg(reinterpret_cast<const float4*>(
+                           partial_slot(it, walk, q, b, batch, kFwdSlot<DP>) + kO) + ct);
+        m[0] = fmaxf(m[0], ml[0].x);
+        m[1] = fmaxf(m[1], ml[0].y);
+      }
+      const float base0 = m[0] == -kInf ? 0.f : __fmul_rn(m[0], kLog2e);
+      const float base1 = m[1] == -kInf ? 0.f : __fmul_rn(m[1], kLog2e);
+      zero(acc);
+      l[0] = l[1] = 0.f;
+      for (int q = 0; q < it.parts; ++q) {
+        const float* part = partial_slot(it, walk, q, b, batch, kFwdSlot<DP>);
+        ml[1] = __ldcg(reinterpret_cast<const float4*>(part + kO) + ct);
+        const float w0 = exp2_ftz(__fmul_rn(ml[1].x, kLog2e) - base0);
+        const float w1 = exp2_ftz(__fmul_rn(ml[1].y, kLog2e) - base1);
+        add_partial(acc, part, ct, w0, w1);
+        l[0] = fmaf(ml[1].z, w0, l[0]);
+        l[1] = fmaf(ml[1].w, w1, l[1]);
+      }
+    }
+    // normalise (a row that saw no key: zeros, lse -1e30), stage O (rounded
+    // once) in the Q tile, which no product reads any more, write each
+    // slice's rows and the rows' lse
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float safe_l = l[hr] == 0.f ? 1.f : l[hr];
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        acc[4 * j + 2 * hr] /= safe_l;
+        acc[4 * j + 2 * hr + 1] /= safe_l;
+      }
+      if (t == 0 && mine >= 0)
+        lse[row_base + kSlice * slice + g + 8 * hr] =
+            m[hr] == -kInf ? kNegInf : m[hr] + logf(safe_l);
+    }
+    stage_rows<T, DP>(q_s, acc, 1.f, warp, g, t);
+    named_barrier(1, 128);
+    store_slices<DP>(q_s, it, o + row_base * d, d, ct);
   }
 }
 
@@ -609,25 +722,8 @@ bsa_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         load_slices<DP>(q_s, &q_map, stat_bar, stat, bh);
         load_slices<DP>(do_s, &do_map, stat_bar, stat, bh);
       }
-      StageSlots table{walk.stages, it.begin, n};
-      for (int i = 0; i < n; ++i) {
-        const int s = i % NS;
-        int slot[kSlots];
-        table.get(i, lane, slot);
-        if (i >= NS) mbar_wait(&empty[s], ((i / NS) & 1) ^ 1);
-        if (lane == 0) {
-          mbar_arrive_expect_tx(&full[s], 2 * L::kTile);
-          load_slices<DP>(sm + L::kK + s * L::kTile, &k_map, &full[s], slot, bh);
-          load_slices<DP>(sm + L::kV + s * L::kTile, &v_map, &full[s], slot, bh);
-        }
-        if (BIAS) {                               // lane l: keys l and l + 32 of the stage
-          float* bt = reinterpret_cast<float*>(sm + L::kBias) + s * kRows;
-          const float* kb = kbias + static_cast<size_t>(b) * seq + lane % kSlice;
-          cp_async4(bt + lane, kb + kSlice * (lane < kSlice ? slot[0] : slot[1]));
-          cp_async4(bt + 32 + lane, kb + kSlice * (lane < kSlice ? slot[2] : slot[3]));
-          cp_async_arrive(&full[s]);
-        }
-      }
+      stream_kv<DP, NS, BIAS>(sm + L::kK, sm + L::kV, reinterpret_cast<float*>(sm + L::kBias),
+                              &k_map, &v_map, full, empty, kbias, walk, it, b, bh, seq, lane);
     }
   } else {
     setmaxnreg_inc<kConsumerRegs>();
@@ -1334,16 +1430,18 @@ inline dim3 grid_of(const Args& a) {
   return dim3((a.seq + kTile - 1) / kTile, a.heads, a.batch);
 }
 
-// The backward launches' shape by padded head dim: ring stages of dQ and of
-// dK/dV, and dK/dV's query rows a step (measured on the card, PERF.md).
+// The wgmma launches' shape by padded head dim: ring stages of the forward,
+// of dQ and of dK/dV, and dK/dV's query rows a step (measured on the card,
+// PERF.md); every one runs two blocks an SM.
 template <int DP>
-struct BwdTiles {
+struct SliceTiles {
+  static constexpr int kFwdStages = DP == 128 ? 2 : 4;
   static constexpr int kDqStages = DP == 128 ? 2 : 3;
   static constexpr int kDkvStages = DP == 128 ? 2 : 3;
   static constexpr int kDkvRows = DP == 128 ? 32 : 64;
 };
 
-// What the last backward launch was, for `dstt_bsa_launch_info`.
+// What the last wgmma launch was, for `dstt_bsa_launch_info`.
 struct LaunchInfo {
   const void* fn;
   long long grid, threads, smem, stages, step_rows, encode_ns;
@@ -1376,33 +1474,46 @@ bool encode_slices(CUtensorMap* map, const void* base, const Args& a) {
          CUDA_SUCCESS;
 }
 
+// the maps of q, k, v (and dO when `n` is 4)
 template <typename T, int DP>
-bool encode_all(CUtensorMap (&maps)[4], const Args& a) {
-  return encode_slices<T, DP>(&maps[0], a.q, a) && encode_slices<T, DP>(&maps[1], a.k, a) &&
-         encode_slices<T, DP>(&maps[2], a.v, a) && encode_slices<T, DP>(&maps[3], a.dout, a);
+bool encode_all(CUtensorMap (&maps)[4], const Args& a, int n) {
+  const void* base[4] = {a.q, a.k, a.v, a.dout};
+  for (int i = 0; i < n; ++i)
+    if (!encode_slices<T, DP>(&maps[i], base[i], a)) return false;
+  return true;
 }
 
 template <typename T, int DP>
 int fwd(const Args& a, cudaStream_t stream) {
-  const size_t smem = 3 * kTile * (DP + 8) * sizeof(T);
-  auto kernel = a.kbias ? bsa_fwd_kernel<T, DP, true> : bsa_fwd_kernel<T, DP, false>;
-  if (int rc = prepare(kernel, grid_of(a), smem)) return rc;
-  kernel<<<grid_of(a), kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.out0), static_cast<float*>(a.out1), a.kbias, a.seq, a.heads, a.d,
-      a.lists);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int DP>
-int bwd_dq(const Args& a, cudaStream_t stream) {
-  constexpr int NS = BwdTiles<DP>::kDqStages;
+  constexpr int NS = SliceTiles<DP>::kFwdStages;
   const long long blocks = static_cast<long long>(a.n_blocks) * a.batch;
   if (blocks == 0) return 0;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const auto t0 = std::chrono::steady_clock::now();
   CUtensorMap maps[4];
-  if (!encode_all<T, DP>(maps, a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!encode_all<T, DP>(maps, a, 3)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long encode_ns = ns_since(t0);
+  constexpr int smem = FwdSmem<DP, NS>::kBytes;
+  auto kernel = a.kbias ? bsa_fwd_wgmma_kernel<T, DP, NS, true>
+                        : bsa_fwd_wgmma_kernel<T, DP, NS, false>;
+  if (int rc = prepare(kernel, dim3(1), smem)) return rc;
+  kernel<<<static_cast<unsigned>(blocks), kBwdThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<T*>(a.out0), static_cast<float*>(a.out1),
+      a.kbias, a.seq, a.heads, a.d, a.batch, a.walk);
+  g_last = LaunchInfo{reinterpret_cast<const void*>(kernel), blocks, kBwdThreads, smem, NS,
+                      kRows, encode_ns};
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DP>
+int bwd_dq(const Args& a, cudaStream_t stream) {
+  constexpr int NS = SliceTiles<DP>::kDqStages;
+  const long long blocks = static_cast<long long>(a.n_blocks) * a.batch;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const auto t0 = std::chrono::steady_clock::now();
+  CUtensorMap maps[4];
+  if (!encode_all<T, DP>(maps, a, 4)) return static_cast<int>(cudaErrorInvalidValue);
   const long long encode_ns = ns_since(t0);
   constexpr int smem = DqSmem<DP, NS>::kBytes;
   auto kernel = a.kbias ? bsa_dq_wgmma_kernel<T, DP, NS, true>
@@ -1420,13 +1531,13 @@ int bwd_dq(const Args& a, cudaStream_t stream) {
 
 template <typename T, int DP>
 int bwd_dkv(const Args& a, cudaStream_t stream) {
-  constexpr int NS = BwdTiles<DP>::kDkvStages, BQ = BwdTiles<DP>::kDkvRows;
+  constexpr int NS = SliceTiles<DP>::kDkvStages, BQ = SliceTiles<DP>::kDkvRows;
   const long long blocks = static_cast<long long>(a.n_blocks) * a.batch;
   if (blocks == 0) return 0;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const auto t0 = std::chrono::steady_clock::now();
   CUtensorMap maps[4];
-  if (!encode_all<T, DP>(maps, a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!encode_all<T, DP>(maps, a, 4)) return static_cast<int>(cudaErrorInvalidValue);
   const long long encode_ns = ns_since(t0);
   constexpr int smem = DkvSmem<DP, NS>::kBytes;
   auto kernel = a.kbias ? bsa_dkv_wgmma_kernel<T, DP, NS, BQ, true>
@@ -1497,7 +1608,7 @@ int dispatch(int which, const Args& a, cudaStream_t s) {
 #undef DSTT_SIMT
   } else {
     if (d % 8) return static_cast<int>(cudaErrorInvalidValue);
-    if (which != 0 && (a.walk.blocks == nullptr || a.walk.stages == nullptr))
+    if (a.walk.blocks == nullptr || a.walk.stages == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
 #define DSTT_MMA(DP)                                         \
   return which == 0 ? fwd<T, DP>(a, s)                       \
@@ -1529,20 +1640,22 @@ int run(int which, int dtype, const Args& a, void* stream) {
 // fp32 [batch, seq] (added to every row's scores, key by key) or null.  Lists:
 // device int32 arrays (ptr of heads * ceil(seq / 64) + 1 entries, idx, mask)
 // of the query-major orientation for the forward and dQ, of the key-major
-// orientation for dK/dV (the general kernels).  The bf16 / fp16 backward
-// walks `blocks` (n_blocks rows of 12 int32) and `stages` (rows of 8 int32)
-// of `bsa_tile_walk`, the dQ walk or the dK/dV walk; `ws` holds the fp32
-// partials of its split lists (one [64 x DP] tile, two for dK/dV, a (part,
-// batch row)) and `counters` one int32 a (split group, batch row), zeroed
-// by the caller (both may be null when no list is split); the general
-// kernels ignore all five.
+// orientation for dK/dV (the general kernels).  The bf16 / fp16 kernels
+// walk `blocks` (n_blocks rows of 12 int32) and `stages` (rows of 8 int32)
+// of `bsa_tile_walk`, the query-major walk (the forward and dQ) or the
+// key-major one (dK/dV); `ws` holds the fp32 partials of its split lists (a
+// (part, batch row): one [64 x DP] tile for dQ, two for dK/dV, one and 512
+// floats of row maxima and sums for the forward) and `counters` one int32 a
+// (split group, batch row), zeroed by the caller (both may be null when no
+// list is split); the general kernels ignore all five.
 // Return: the CUDA error code (0 ok).
 extern "C" int dstt_bsa_fwd(int dtype, const void* q, const void* k, const void* v,
                             void* o, void* lse, const float* kbias, int batch, int heads,
                             int seq, int d, const int* ptr, const int* idx, const int* mask,
-                            void* stream) {
+                            const int* blocks, const int* stages, int n_blocks, float* ws,
+                            int* counters, void* stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr, o, lse, nullptr, kbias, batch, heads, seq, d, 1.f,
-         Lists{ptr, idx, mask}, Walk{}, 0};
+         Lists{ptr, idx, mask}, Walk{blocks, stages, ws, counters}, n_blocks};
   return run(0, dtype, a, stream);
 }
 
@@ -1571,7 +1684,7 @@ extern "C" int dstt_bsa_bwd_dkv(int dtype, const void* q, const void* k,
   return run(2, dtype, a, stream);
 }
 
-// The last bf16 / fp16 backward launch of this library, for reports:
+// The last bf16 / fp16 launch of this library, for reports:
 // out[0..7] = blocks, threads a block, dynamic shared memory (bytes), ring
 // stages, streamed rows a step, registers a thread at launch, local memory
 // a thread (bytes: spills), and the host ns spent encoding its tensor maps.

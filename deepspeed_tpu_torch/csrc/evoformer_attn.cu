@@ -4,9 +4,11 @@
 // * evo_wgmma_kernel, the tensor-core kernel: Q/K/V bf16 or fp16, D a
 //   multiple of 8 up to 128, up to kMaxBiases biases, each fp32, bf16 or
 //   fp16, of any broadcast pattern;
-// * evo_fwd_simt_kernel, the general kernel: what the tensor-core kernel
+// * evo_split_kernel, the general kernel: what the tensor-core kernel
 //   does not take (fp32 Q/K/V, D not a multiple of 8, D from 136 to 256),
-//   products in fp32 on the CUDA cores.
+//   products on the tensor cores by mma.sync in TF32, each fp32 operand
+//   split in two TF32 parts (3xTF32, fp32 accuracy).  The wrapper's route
+//   name for it, "simt", is the one it had when it ran on the CUDA cores.
 //
 // Between them they take every input of the TPU kernel's domain that fits
 // those limits, so ops/evoformer_attn.py never sends a CUDA tensor to the
@@ -104,17 +106,37 @@
 //   tiles resident, and the two warpgroups taking turns issuing their
 //   products all measured slower.
 //
-// Design of the general kernel: one block of 8 warps per (lead slice, head,
-// 32 query rows), 4 rows a warp, a loop over 32-key tiles staged in shared
-// memory as fp32 (one key a lane: the lane's scores are dot products over D
-// from shared memory, its K row at an odd stride so the 32 lanes hit 32
-// banks, each K value read once for the warp's 4 rows), the warp's max and
-// sum by shuffles, and P V with each lane holding the output columns lane,
-// lane + 32, ..., each V value read once for the 4 rows.  It is the simple
-// kernel, kept for what the tensor-core one does not take.  In fp32 the
-// same work is bound by the operations at 67 TFLOP/s outside the tensor
-// cores (~0.13 ms at the triangle shape), and its shared-memory reads (two
-// a multiply-add) keep it well below that.
+// Design of the general kernel (evo_split_kernel).  What bounds it: fp32
+// Q/K/V at the triangle shape (crop 256, D = 32) carry 8.6 GFLOP, 0.128 ms
+// at 67 TFLOP/s on the CUDA cores, or 3 x 8.6 GFLOP of TF32 products, 0.052
+// ms at 495 TFLOP/s; 134 MB of fp32 operands and output, 0.040 ms.  Its
+// predecessor, one key a lane with dot products over D from shared memory
+// (about 1.25 shared-memory loads an FMA), a runtime bias loop with a global
+// load at every score and synchronous 32-key tiles, ran at 10% of the
+// CUDA-core bound.  So:
+// * products on the tensor cores, mma.sync.m16n8k8 in TF32: an fp32 operand
+//   x is hi = tf32(x) and lo = tf32(x - hi), and each product is hi.hi +
+//   hi.lo + lo.hi in fp32 accumulators (3xTF32, the split of PyTorch's own
+//   fp32 attention on tensor cores; lo.lo lies below fp32's last bit).
+//   bf16 and fp16 values are exact in TF32, so for them one product (lo = 0)
+//   is exact and the kernel issues just that;
+// * a block is 4 warps of two 16-row tiles, 128 rows of one (lead slice,
+//   head), while D pads to at most 64 (one tile, 64 rows, beyond), so each
+//   K and V fragment a warp loads and splits serves two tiles, and K and V
+//   are read twice a head at S = 256; the fragments come from shared
+//   memory at row strides that put a warp's loads on distinct banks, their
+//   k order permuted so that S's accumulators are P V's A fragments with
+//   no shuffle;
+// * K and V tiles of BK keys come in their own type by cp.async (16, 8 or
+//   4 bytes a copy, by alignment; D padded with zeros to DP) through a ring
+//   of two stages, loaded a step ahead by the block's threads;
+// * the biases are staged by bias_plan's kind with the tensor-core kernel's
+//   helpers: the row biases summed once a block, the key rows and tiles
+//   copied by cp.async in their own types (or summed in fp32 where cp.async
+//   cannot copy them), so a score reads each bias from shared memory;
+// * the online softmax is the tensor-core kernel's (step_softmax), in fp32
+//   registers, P rounded to the input type before P V (fp32: not rounded).
+// Every sum runs in a fixed order: two runs give the same bits.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -126,19 +148,13 @@
 
 #include "attention_tiles.cuh"
 #include "hopper.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;     // the TPU kernel's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxBiases = 8;
-constexpr int kSimtWarps = 8;
-constexpr int kSimtThreads = 32 * kSimtWarps;
-constexpr int kSimtRowsPerWarp = 4;
-constexpr int kSimtRows = kSimtWarps * kSimtRowsPerWarp;   // 32 query rows a block
-constexpr int kSimtKeys = 32;                              // one key a lane
-constexpr int kSimtMaxD = 256;
 
 // One additive bias as a broadcast view: element (l, h, r, c) is
 // p[lead_off[l] + h * sh + r * sr + c * sc], of type `dtype` (0 bf16, 1
@@ -148,11 +164,6 @@ struct Bias {
   const long long* lead_off;
   long long sh, sr, sc;
   int dtype;
-};
-
-struct Biases {
-  Bias b[kMaxBiases];
-  int n;
 };
 
 __device__ __forceinline__ float bias_at(const Bias& b, long long i) {
@@ -362,6 +373,139 @@ __device__ __forceinline__ long long plane(const TileBias& tb, long long l, int 
   return tb.b.lead_off[l] + h * tb.b.sh;
 }
 
+// The biases that vary over rows only (scalars and values a row) summed for
+// rows q0 .. q0 + rows - 1, one fp32 a row in log2 units, by 128 threads
+// (pt: this one); `off` holds each bias's plane offset of the item.
+__device__ __forceinline__ void stage_row_sums(float* rowb, const TileBias* sb, const EvoArgs& a,
+                                               const long long* off, int q0, int rows, int pt) {
+  for (int rr = pt; rr < rows; rr += 128) {
+    const int r = q0 + rr;
+    float x = 0.f;
+#pragma unroll 1
+    for (int b = 0; b < a.n && r < a.sq; ++b)
+      if (sb[b].kind == kScalar || sb[b].kind == kRowBias)
+        x += bias_at(sb[b].b, off[b] + r * sb[b].b.sr);
+    rowb[rr] = x * kLog2e;
+  }
+}
+
+// One step's biases (keys c0 .. c0 + BK - 1 of rows q0 .. q0 + rows - 1)
+// staged by 128 threads (pt: this one) into `stage`: the cp.async tiles
+// that are not resident and the cp.async key rows in their own types; the
+// key rows and tiles cp.async cannot copy each summed in fp32, in log2
+// units; zeros past Sq and Sk.
+template <int BK>
+__device__ __forceinline__ void stage_step(unsigned char* stage, const TileBias* sb,
+                                           const EvoArgs& a, const long long* off, int q0,
+                                           int c0, int rows, int pt) {
+#pragma unroll 1
+  for (int b = 0; b < a.n; ++b) {
+    const int kind = sb[b].kind;
+    if ((kind == kTileAsync && !sb[b].resident) || kind == kKeyAsync)
+      copy_async<BK>(stage + sb[b].off, sb[b], off[b], q0, c0, kind == kKeyAsync ? 1 : rows,
+                     a.sq, a.sk, pt);
+  }
+  if (a.key_off >= 0 && pt < BK) {
+    float x = 0.f;
+    if (c0 + pt < a.sk) {
+#pragma unroll 1
+      for (int b = 0; b < a.n; ++b)
+        if (sb[b].kind == kKeySum)
+          x += bias_at(sb[b].b, off[b] + static_cast<long long>(c0 + pt) * sb[b].b.sc);
+    }
+    reinterpret_cast<float*>(stage + a.key_off)[pt] = x * kLog2e;
+  }
+  if (a.sum_off >= 0) {
+    unsigned char* sum = stage + a.sum_off;
+    constexpr int kBatch = 8;                   // loads in flight a thread
+#pragma unroll 1
+    for (int e0 = pt; e0 < rows * BK; e0 += 128 * kBatch) {
+      float x[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) x[u] = 0.f;
+#pragma unroll 1
+      for (int b = 0; b < a.n; ++b) {
+        if (sb[b].kind != kTileSum) continue;
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int e = e0 + 128 * u, r = q0 + e / BK, c = c0 + e % BK;
+          if (e < rows * BK && r < a.sq && c < a.sk)
+            x[u] += bias_at(sb[b].b, off[b] + r * sb[b].b.sr + c * sb[b].b.sc);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int e = e0 + 128 * u;
+        if (e < rows * BK)
+          *reinterpret_cast<float*>(sum + swz_bias(e / BK, e % BK, rows, 4)) = x[u] * kLog2e;
+      }
+    }
+  }
+}
+
+// Step i's scores (keys c0 = i BK on; this thread's rows lr and lr + 8 of
+// the block's `rows`, the accumulator layout of add_tile) to probabilities
+// in s, fp32, log2 units: the scale and the row biases by one FMA, each
+// staged bias (from `stage`, or from the resident tiles at `res`) and the
+// lanes' fp32 sums added, keys past Sk -inf; then the online softmax, the
+// running max m guarded at -inf (a row with nothing seen yet subtracts 0),
+// lsum rescaled and summed, corr the factor of the output's rescale.
+template <int BK>
+__device__ __forceinline__ void step_softmax(float (&s)[BK / 2], float (&m)[2], float (&lsum)[2],
+                                             float (&corr)[2], const float (&rowb)[2],
+                                             const TileBias* sb, const EvoArgs& a,
+                                             const unsigned char* stage,
+                                             const unsigned char* res, int i, int lr, int t,
+                                             int rows) {
+  const float kInf = __int_as_float(0x7f800000);
+  const int c0 = i * BK;
+#pragma unroll
+  for (int j = 0; j < BK / 2; ++j) s[j] = fmaf(s[j], a.scale_log2, rowb[(j >> 1) & 1]);
+#pragma unroll 1
+  for (int b = 0; b < a.n; ++b) {
+    const int kind = sb[b].kind, dt = sb[b].b.dtype;
+    const unsigned char* at = sb[b].resident ? res + sb[b].off + i * rows * BK * (dt == 2 ? 4 : 2)
+                                             : stage + sb[b].off;
+    if (kind == kTileTma || kind == kTileAsync) {
+      if (dt == 2) add_tile<float, BK>(s, at, lr, t, rows, kLog2e);
+      else if (dt == 1) add_tile<__half, BK>(s, at, lr, t, rows, kLog2e);
+      else add_tile<__nv_bfloat16, BK>(s, at, lr, t, rows, kLog2e);
+    } else if (kind == kKeyAsync) {
+      if (dt == 2) add_keys<float, BK>(s, at, t, kLog2e);
+      else if (dt == 1) add_keys<__half, BK>(s, at, t, kLog2e);
+      else add_keys<__nv_bfloat16, BK>(s, at, t, kLog2e);
+    }
+  }
+  if (a.sum_off >= 0) add_tile<float, BK>(s, stage + a.sum_off, lr, t, rows, 1.f);
+  if (a.key_off >= 0) add_keys<float, BK>(s, stage + a.key_off, t, 1.f);
+  const int valid = a.sk - c0;                  // keys of this step inside Sk
+  if (valid < BK) {
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) s[j] = 8 * (j >> 2) + 2 * t + (j & 1) < valid ? s[j] : -kInf;
+  }
+  float mx[2] = {-kInf, -kInf};
+#pragma unroll
+  for (int j = 0; j < BK / 2; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+  float base[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(kFull, mx[hr], 1));
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(kFull, mx[hr], 2));
+    const float m_new = fmaxf(m[hr], mx[hr]);
+    // a row that has seen only -inf subtracts 0: its p and corr are 0
+    base[hr] = m_new == -kInf ? 0.f : m_new;
+    corr[hr] = exp2_ftz(m[hr] - base[hr]);
+    m[hr] = m_new;
+    lsum[hr] *= corr[hr];
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 2; ++j) {
+    const int hr = (j >> 1) & 1;
+    s[j] = exp2_ftz(s[j] - base[hr]);
+    lsum[hr] += s[j];
+  }
+}
+
 template <typename T, int DP, int C, int PER_SM, int BK>
 __global__ void __launch_bounds__(EvoBlock<C, PER_SM>::kThreads, PER_SM)
 evo_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -460,19 +604,8 @@ evo_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                       static_cast<int>(l));
       }
       if (a.lanes) {
-        if (a.rows) {
-          // the biases that vary over rows only, one fp32 a row, log2 units
-          float* rowb = reinterpret_cast<float*>(item_buf + kQBytes);
-          for (int rr = pt; rr < kBlock; rr += 128) {
-            const int r = q0 + rr;
-            float x = 0.f;
-#pragma unroll 1
-            for (int b = 0; b < a.n && r < a.sq; ++b)
-              if (sb[b].kind == kScalar || sb[b].kind == kRowBias)
-                x += bias_at(sb[b].b, off[b] + r * sb[b].b.sr);
-            rowb[rr] = x * kLog2e;
-          }
-        }
+        if (a.rows)
+          stage_row_sums(reinterpret_cast<float*>(item_buf + kQBytes), sb, a, off, q0, kBlock, pt);
         mbar_arrive(&q_full[qb]);
       }
       for (int i = 0; i < n; ++i, ++g) {
@@ -500,51 +633,7 @@ evo_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           }
         }
         if (a.lanes) {
-#pragma unroll 1
-          for (int b = 0; b < a.n; ++b) {
-            const int kind = sb[b].kind;
-            if ((kind == kTileAsync && !sb[b].resident) || kind == kKeyAsync)
-              copy_async<BK>(stage + sb[b].off, sb[b], off[b], q0, c0,
-                             kind == kKeyAsync ? 1 : kBlock, a.sq, a.sk, pt);
-          }
-          // the key rows and tiles cp.async cannot copy, each summed in
-          // fp32, in log2 units; zeros past Sq and Sk
-          if (a.key_off >= 0 && pt < kKeys) {
-            float x = 0.f;
-            if (c0 + pt < a.sk) {
-#pragma unroll 1
-              for (int b = 0; b < a.n; ++b)
-                if (sb[b].kind == kKeySum)
-                  x += bias_at(sb[b].b, off[b] + static_cast<long long>(c0 + pt) * sb[b].b.sc);
-            }
-            reinterpret_cast<float*>(stage + a.key_off)[pt] = x * kLog2e;
-          }
-          if (a.sum_off >= 0) {
-            unsigned char* sum = stage + a.sum_off;
-            constexpr int kBatch = 8;             // loads in flight a thread
-#pragma unroll 1
-            for (int e0 = pt; e0 < kBlock * kKeys; e0 += 128 * kBatch) {
-              float x[kBatch];
-#pragma unroll
-              for (int u = 0; u < kBatch; ++u) x[u] = 0.f;
-#pragma unroll 1
-              for (int b = 0; b < a.n; ++b) {
-                if (sb[b].kind != kTileSum) continue;
-#pragma unroll
-                for (int u = 0; u < kBatch; ++u) {
-                  const int e = e0 + 128 * u, r = q0 + e / kKeys, c = c0 + e % kKeys;
-                  if (r < a.sq && c < a.sk)
-                    x[u] += bias_at(sb[b].b, off[b] + r * sb[b].b.sr + c * sb[b].b.sc);
-                }
-              }
-#pragma unroll
-              for (int u = 0; u < kBatch; ++u) {
-                const int e = e0 + 128 * u;
-                *reinterpret_cast<float*>(sum + swz_bias(e / kKeys, e % kKeys, kBlock, 4)) =
-                    x[u] * kLog2e;
-              }
-            }
-          }
+          stage_step<BK>(stage, sb, a, off, q0, c0, kBlock, pt);
           mbar_arrive(&full[st]);
           cp_async_arrive(&full[st]);
         }
@@ -585,55 +674,7 @@ evo_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     // step i of an item (ring step `step`): scores -> probabilities in s
     // (fp32), the new max, corr
     auto softmax = [&](int i, int step, float (&corr)[2]) {
-      const int c0 = i * kKeys;
-      const unsigned char* stage = stage_of(step);
-#pragma unroll
-      for (int j = 0; j < kKeys / 2; ++j) s[j] = fmaf(s[j], a.scale_log2, rowb[(j >> 1) & 1]);
-#pragma unroll 1
-      for (int b = 0; b < a.n; ++b) {
-        const int kind = sb[b].kind, dt = sb[b].b.dtype;
-        const unsigned char* at =
-            sb[b].resident ? res + sb[b].off + i * kBlock * kKeys * (dt == 2 ? 4 : 2)
-                           : stage + sb[b].off;
-        if (kind == kTileTma || kind == kTileAsync) {
-          if (dt == 2) add_tile<float, BK>(s, at, lr, t, kBlock, kLog2e);
-          else if (dt == 1) add_tile<__half, BK>(s, at, lr, t, kBlock, kLog2e);
-          else add_tile<__nv_bfloat16, BK>(s, at, lr, t, kBlock, kLog2e);
-        } else if (kind == kKeyAsync) {
-          if (dt == 2) add_keys<float, BK>(s, at, t, kLog2e);
-          else if (dt == 1) add_keys<__half, BK>(s, at, t, kLog2e);
-          else add_keys<__nv_bfloat16, BK>(s, at, t, kLog2e);
-        }
-      }
-      if (a.sum_off >= 0) add_tile<float, BK>(s, stage + a.sum_off, lr, t, kBlock, 1.f);
-      if (a.key_off >= 0) add_keys<float, BK>(s, stage + a.key_off, t, 1.f);
-      const int valid = a.sk - c0;                // keys of this step inside Sk
-      if (valid < kKeys) {
-#pragma unroll
-        for (int j = 0; j < kKeys / 2; ++j)
-          s[j] = 8 * (j >> 2) + 2 * t + (j & 1) < valid ? s[j] : -kInf;
-      }
-      float mx[2] = {-kInf, -kInf};
-#pragma unroll
-      for (int j = 0; j < kKeys / 2; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
-      float base[2];
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(kFull, mx[hr], 1));
-        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(kFull, mx[hr], 2));
-        const float m_new = fmaxf(m[hr], mx[hr]);
-        // a row that has seen only -inf subtracts 0: its p and corr are 0
-        base[hr] = m_new == -kInf ? 0.f : m_new;
-        corr[hr] = exp2_ftz(m[hr] - base[hr]);
-        m[hr] = m_new;
-        lsum[hr] *= corr[hr];
-      }
-#pragma unroll
-      for (int j = 0; j < kKeys / 2; ++j) {
-        const int hr = (j >> 1) & 1;
-        s[j] = exp2_ftz(s[j] - base[hr]);
-        lsum[hr] += s[j];
-      }
+      step_softmax<BK>(s, m, lsum, corr, rowb, sb, a, stage_of(step), res, i, lr, t, kBlock);
     };
     auto to_p = [&]() {                           // P rounded to T, the A operand
 #pragma unroll
@@ -743,127 +784,372 @@ evo_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <typename T, int DW>
-__global__ void __launch_bounds__(kSimtThreads, 2)
-evo_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o, int sq, int sk, int heads,
-                    int d, float scale, Biases bs) {
-  extern __shared__ __align__(16) float fsm[];
-  const int ldk = d | 1;                            // odd: lane j's row in bank j
-  float* q_s = fsm;                                 // [kSimtRows][d]
-  float* k_s = q_s + kSimtRows * d;                 // [kSimtKeys][ldk]
-  float* v_s = k_s + kSimtKeys * ldk;               // [kSimtKeys][d]
+// ----------------------------------------------------------------------------
+// The general kernel: split TF32 on mma.sync
+// ----------------------------------------------------------------------------
+constexpr int kGenWarps = 4;
+constexpr int kGenThreads = 32 * kGenWarps;
+constexpr int kGenMaxD = 256;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long l = blockIdx.x;
-  const int h = blockIdx.y, q0 = blockIdx.z * kSimtRows;
-  const long long row = static_cast<long long>(heads) * d;
-  const T* qb = q + l * sq * row + static_cast<long long>(h) * d;
-  const T* kb = k + l * sk * row + static_cast<long long>(h) * d;
-  const T* vb = v + l * sk * row + static_cast<long long>(h) * d;
-  // the biases, each with its offset of this (lead slice, head), in shared
-  // memory: the bias loop below stays a loop, so 8 biases hold no registers
-  __shared__ Bias sb[kMaxBiases];
-  __shared__ long long boff[kMaxBiases];
-#pragma unroll
-  for (int i = 0; i < kMaxBiases; ++i) {
-    if (threadIdx.x == i && i < bs.n) {
-      sb[i] = bs.b[i];
-      boff[i] = bs.b[i].lead_off[l] + h * bs.b[i].sh;
+// Keys a step by operand type and padded head dim (the ring holds two
+// steps), and 16-row tiles a warp: two while D pads to at most 64, so that
+// every K and V fragment a warp loads and splits serves both (beyond, the
+// second tile's accumulators do not fit the registers); measured on the
+// card, PERF.md.
+template <typename T, int DP>
+struct GenTiles {
+  static constexpr int kKeys = sizeof(T) == 4 || DP > 32 ? 32 : 64;
+  static constexpr int kRowTiles = DP <= 64 ? 2 : 1;
+  static constexpr int kRows = 16 * kGenWarps * kRowTiles;   // query rows a block
+};
+
+__host__ __device__ constexpr int align128(int x) { return (x + 127) / 128 * 128; }
+
+// The shared memory of the general kernel: Q [rows x LDQ] and the row
+// biases' sums, then two stages of K [BK x LDK] and V [BK x LDV] (elements
+// of T, D padded with zeros to DP; row strides that put the fragments'
+// loads on distinct banks) and the step's biases (plan_general).
+template <typename T, int DP, int BK>
+struct GenGeo {
+  static constexpr int kRows = GenTiles<T, DP>::kRows;
+  static constexpr int kLdq = DP + 8, kLdk = DP + 8;
+  static constexpr int kLdv = sizeof(T) == 4 ? DP + 4 : DP + 8;
+  static constexpr int kQBytes = align128(kRows * kLdq * static_cast<int>(sizeof(T)));
+  static constexpr int kRing = kQBytes + kRows * 4;
+  static constexpr int kKBytes = align128(BK * kLdk * static_cast<int>(sizeof(T)));
+  static constexpr int kVBytes = align128(BK * kLdv * static_cast<int>(sizeof(T)));
+};
+
+// x rounded to TF32 (10 explicit mantissa bits, to nearest, ties away)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as TF32 parts: with SPLIT, a high part and the remainder x - hi rounded
+// again (together ~21 bits of x's 24); without, x itself (bf16 and fp16
+// values are exact in TF32) and no remainder
+template <bool SPLIT>
+__device__ __forceinline__ void tf32_parts(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (SPLIT) {
+    hi = tf32_rna(x);
+    lo = tf32_rna(x - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  }
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b over one m16n8k8 tile from TF32 parts: with SPLIT the three
+// products hi.hi + hi.lo + lo.hi (3xTF32, fp32 accumulators; lo.lo lies
+// below fp32's last bit), the small ones first; without, hi.hi alone.  (A
+// second accumulator for the small ones, two dependency chains a tile,
+// measured slower: its registers cost a block an SM; PERF.md.)
+template <bool SPLIT>
+__device__ __forceinline__ void mma_parts(float (&c)[4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                          const uint32_t (&bl)[2]) {
+  if constexpr (SPLIT) {   // the split's cross terms
+    mma_tf32(c, al, bh[0], bh[1]);
+    mma_tf32(c, ah, bl[0], bl[1]);
+  }
+  mma_tf32(c, ah, bh[0], bh[1]);
+}
+
+template <typename T>
+__device__ __forceinline__ float2 ld_pair(const T* p) {        // p[0], p[1] in fp32
+  if constexpr (std::is_same<T, float>::value) {
+    return *reinterpret_cast<const float2*>(p);
+  } else if constexpr (std::is_same<T, __half>::value) {
+    return __half22float2(*reinterpret_cast<const __half2*>(p));
+  } else {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+}
+
+// elements 4j .. 4j + 3 of a fragment-ordered accumulator as one m16n8 tile
+template <int N>
+__device__ __forceinline__ float (&quad(float (&x)[N], int j))[4] {
+  return *reinterpret_cast<float(*)[4]>(&x[4 * j]);
+}
+
+// `bytes` (4, 8 or 16) global -> shared, asynchronously; zeros when !in
+template <int BYTES>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src, bool in) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(in ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "n"(BYTES), "r"(in ? BYTES : 0)
+                 : "memory");
+  }
+}
+
+// This thread's copies of an [n x chunks] grid of copies, the block's 128
+// threads taking every 128th: (row, chunk) of each, walked without a
+// division a copy.
+struct Chunks {
+  int r, c, dr, dc, n, chunks;
+  __device__ __forceinline__ Chunks(int n_, int chunks_)
+      : r(threadIdx.x / chunks_), c(threadIdx.x % chunks_), dr(kGenThreads / chunks_),
+        dc(kGenThreads % chunks_), n(n_), chunks(chunks_) {}
+  __device__ __forceinline__ bool more() const { return r < n; }
+  __device__ __forceinline__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= chunks) {
+      c -= chunks;
+      ++r;
     }
   }
+};
 
-  for (int i = threadIdx.x; i < kSimtRows * d; i += kSimtThreads) {
-    const int r = i / d, c = i % d;
-    q_s[i] = q0 + r < sq ? to_f(qb[(q0 + r) * row + c]) : 0.f;
+// Rows r0 .. r0 + n - 1 of one head (row pitch `pitch` elements, d columns)
+// into shared memory at row stride LD, by the block's threads, `vec` bytes
+// a copy (16, 8 or 4 by cp.async; 0: 2-byte elements read and stored one by
+// one); rows past `rows` are zeros.
+template <typename T, int LD>
+__device__ __forceinline__ void copy_rows(T* dst, const T* src, long long pitch, int r0, int n,
+                                          int rows, int d, int vec) {
+  if (vec == 0) {
+    for (Chunks x(n, d); x.more(); x.next())
+      dst[x.r * LD + x.c] = r0 + x.r < rows ? src[(r0 + x.r) * pitch + x.c] : from_f<T>(0.f);
+    return;
   }
-  float m[kSimtRowsPerWarp], lsum[kSimtRowsPerWarp], acc[kSimtRowsPerWarp][DW];
-#pragma unroll
-  for (int rr = 0; rr < kSimtRowsPerWarp; ++rr) {
-    m[rr] = kNegInf;
-    lsum[rr] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DW; ++j) acc[rr][j] = 0.f;
+  const int per = vec / static_cast<int>(sizeof(T));
+  for (Chunks x(n, d / per); x.more(); x.next()) {
+    const bool in = r0 + x.r < rows;
+    const T* from = in ? src + (r0 + x.r) * pitch + x.c * per : src;
+    T* to = dst + x.r * LD + x.c * per;
+    if (vec == 16) cp_async_n<16>(to, from, in);
+    else if (vec == 8) cp_async_n<8>(to, from, in);
+    else cp_async_n<4>(to, from, in);
   }
+}
 
-  const int lr0 = warp * kSimtRowsPerWarp;         // the warp's first row in q_s
-  for (int c0 = 0; c0 < sk; c0 += kSimtKeys) {
-    __syncthreads();                                // the last tile's reads are done
-    for (int i = threadIdx.x; i < kSimtKeys * d; i += kSimtThreads) {
-      const int j = i / d, c = i % d;
-      const bool in = c0 + j < sk;
-      k_s[j * ldk + c] = in ? to_f(kb[(c0 + j) * row + c]) : 0.f;
-      v_s[j * d + c] = in ? to_f(vb[(c0 + j) * row + c]) : 0.f;
+// Rows q0 .. q0 + rows - 1, keys c0 .. c0 + BK - 1 of a tile bias whose
+// rows start on 16 bytes (bias_plan's "tile_tma") into `dst` as swz_bias
+// lays it, 16 bytes a cp.async by the block's threads; zeros past Sq and Sk.
+template <int BK>
+__device__ __forceinline__ void copy_tile16(unsigned char* dst, const TileBias& tb, long long off,
+                                            int q0, int c0, int rows, int sq, int sk) {
+  const int elt = tb.b.dtype == 2 ? 4 : 2, per = 16 / elt;
+  const unsigned char* base = static_cast<const unsigned char*>(tb.b.p);
+  for (Chunks x(rows, BK / per); x.more(); x.next()) {
+    const int cc = x.c * per, c = c0 + cc;
+    const int bytes = q0 + x.r < sq ? max(0, min(16, (sk - c) * elt)) : 0;
+    const unsigned char* src =
+        bytes ? base + (off + static_cast<long long>(q0 + x.r) * tb.b.sr + c) * elt : base;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst + swz_bias(x.r, cc, rows, elt))),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+  }
+}
+
+// Columns d .. DP - 1 of `n` rows at stride LD set to zero (the padding of
+// D that the products read).
+template <typename T, int DP, int LD>
+__device__ __forceinline__ void zero_pad(T* dst, int n, int d) {
+  for (int i = threadIdx.x; i < n * (DP - d); i += kGenThreads)
+    dst[(i / (DP - d)) * LD + d + i % (DP - d)] = from_f<T>(0.f);
+}
+
+// One block: 64 or 128 query rows of one (lead slice, head), 4 warps of one
+// or two 16-row tiles, walking the keys in steps of BK through a ring of two
+// stages that the block's threads fill by cp.async one step ahead (K, V and
+// the step's biases; the row biases summed once).  S = Q K^T and O += P V
+// on mma.sync.m16n8k8 in TF32, each fp32 operand split in two parts and each
+// product the sum of three (mma_parts); the fragments' k order is permuted
+// (column t holds element 2t, column t + 4 element 2t + 1, in A and B
+// alike), so an S accumulator is P V's A fragment with no shuffle.  The
+// softmax is step_softmax, the tensor-core kernel's, a tile at a time; P
+// rounded to T before P V (fp32: not rounded).
+template <typename T, int DP, int BK>
+__global__ void __launch_bounds__(kGenThreads)
+evo_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, const __grid_constant__ EvoArgs a, int vec) {
+  using G = GenGeo<T, DP, BK>;
+  constexpr int TL = GenTiles<T, DP>::kRowTiles, kRows = G::kRows;
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  extern __shared__ __align__(128) unsigned char gsm[];
+  __shared__ TileBias gb[kMaxBiases];
+  __shared__ long long goff[kMaxBiases];
+  T* q_s = reinterpret_cast<T*>(gsm);
+  float* rowb_s = reinterpret_cast<float*>(gsm + G::kQBytes);
+  unsigned char* ring = gsm + G::kRing;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  int lr[TL];                                     // this thread's rows lr[u], lr[u] + 8
+#pragma unroll
+  for (int u = 0; u < TL; ++u) lr[u] = 16 * (TL * warp + u) + g;
+  const int nrb = cdiv(a.sq, kRows);
+  const long long item = blockIdx.x;
+  const int q0 = static_cast<int>(item % nrb) * kRows;
+  const int h = static_cast<int>((item / nrb) % a.heads);
+  const long long l = item / (static_cast<long long>(nrb) * a.heads);
+  const long long pitch = static_cast<long long>(a.heads) * a.d;
+  const T* qb = q + l * a.sq * pitch + static_cast<long long>(h) * a.d;
+  const T* kb = k + l * a.sk * pitch + static_cast<long long>(h) * a.d;
+  const T* vb = v + l * a.sk * pitch + static_cast<long long>(h) * a.d;
+  auto stage_of = [&](int i) { return ring + (i & 1) * a.stage_bytes; };
+
+  if (threadIdx.x < a.n) {
+    gb[threadIdx.x] = a.tb[threadIdx.x];
+    goff[threadIdx.x] = plane(a.tb[threadIdx.x], l, h);
+  }
+  if (a.d < DP) {
+    zero_pad<T, DP, G::kLdq>(q_s, kRows, a.d);
+    for (int st = 0; st < 2; ++st) {
+      zero_pad<T, DP, G::kLdk>(reinterpret_cast<T*>(stage_of(st)), BK, a.d);
+      zero_pad<T, DP, G::kLdv>(reinterpret_cast<T*>(stage_of(st) + G::kKBytes), BK, a.d);
     }
-    __syncthreads();
-    const int c = c0 + lane;                        // this lane's key
-    // the warp's rows' scores for this key: each K value read once for all
-    // of them (the q values are broadcast reads)
-    float x[kSimtRowsPerWarp];
-#pragma unroll
-    for (int rr = 0; rr < kSimtRowsPerWarp; ++rr) x[rr] = 0.f;
-#pragma unroll 8
-    for (int e = 0; e < d; ++e) {
-      const float kv = k_s[lane * ldk + e];
-#pragma unroll
-      for (int rr = 0; rr < kSimtRowsPerWarp; ++rr)
-        x[rr] = fmaf(q_s[(lr0 + rr) * d + e], kv, x[rr]);
-    }
-    float pr[kSimtRowsPerWarp];
-#pragma unroll
-    for (int rr = 0; rr < kSimtRowsPerWarp; ++rr) {
-      const int r = q0 + lr0 + rr;
-      if (c < sk) {
-        x[rr] *= scale;
-        if (r < sq) {                               // rows past Sq: never written
+  }
+  __syncthreads();
+
+  auto load = [&](int i) {                        // step i's K, V and biases
+    unsigned char* st = stage_of(i);
+    copy_rows<T, G::kLdk>(reinterpret_cast<T*>(st), kb, pitch, i * BK, BK, a.sk, a.d, vec);
+    copy_rows<T, G::kLdv>(reinterpret_cast<T*>(st + G::kKBytes), vb, pitch, i * BK, BK, a.sk,
+                          a.d, vec);
+    stage_step<BK>(st, gb, a, goff, q0, i * BK, kRows, threadIdx.x);
 #pragma unroll 1
-          for (int i = 0; i < bs.n; ++i)
-            x[rr] += bias_at(sb[i], boff[i] + r * sb[i].sr + c * sb[i].sc);
-        }
-      } else {
-        x[rr] = -__int_as_float(0x7f800000);        // -inf: keys past Sk
+    for (int b = 0; b < a.n; ++b)
+      if (gb[b].kind == kTileTma) copy_tile16<BK>(st + gb[b].off, gb[b], goff[b], q0, i * BK,
+                                                  kRows, a.sq, a.sk);
+    cp_async_commit();
+  };
+  const int steps = cdiv(a.sk, BK);               // key steps
+  copy_rows<T, G::kLdq>(q_s, qb, pitch, q0, kRows, a.sq, a.d, vec);
+  if (a.rows) stage_row_sums(rowb_s, gb, a, goff, q0, kRows, threadIdx.x);
+  load(0);
+
+  float m[TL][2], lsum[TL][2], rowb[TL][2], acc[TL][DP / 2], s[TL][BK / 2];
+#pragma unroll
+  for (int u = 0; u < TL; ++u) {
+    m[u][0] = m[u][1] = -__int_as_float(0x7f800000);
+    lsum[u][0] = lsum[u][1] = rowb[u][0] = rowb[u][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DP / 2; ++j) acc[u][j] = 0.f;
+  }
+  // Q's A fragment of tile u and k step kk, split (read again each step:
+  // held in registers instead, they cost a block an SM; PERF.md)
+  auto q_frag = [&](int u, int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    const float2 x0 = ld_pair(q_s + lr[u] * G::kLdq + 8 * kk + 2 * t);
+    const float2 x1 = ld_pair(q_s + (lr[u] + 8) * G::kLdq + 8 * kk + 2 * t);
+    tf32_parts<kSplit>(x0.x, ah[0], al[0]);
+    tf32_parts<kSplit>(x1.x, ah[1], al[1]);
+    tf32_parts<kSplit>(x0.y, ah[2], al[2]);
+    tf32_parts<kSplit>(x1.y, ah[3], al[3]);
+  };
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();                              // step i landed; step i - 1 read
+    if (i + 1 < steps) load(i + 1);
+    if (i == 0 && a.rows) {
+#pragma unroll
+      for (int u = 0; u < TL; ++u) {
+        rowb[u][0] = rowb_s[lr[u]];
+        rowb[u][1] = rowb_s[lr[u] + 8];
       }
-      float mx = x[rr];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      const float m_new = fmaxf(m[rr], mx);
-      const float corr = expf(m[rr] - m_new);
-      const float p = expf(x[rr] - m_new);
-      float rs = p;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) rs += __shfl_xor_sync(kFull, rs, off);
-      lsum[rr] = lsum[rr] * corr + rs;
-      m[rr] = m_new;
-      pr[rr] = to_f(from_f<T>(p));                  // P in the input type
-#pragma unroll
-      for (int e = 0; e < DW; ++e) acc[rr][e] *= corr;
     }
-    // P V: each V value read once for all of the warp's rows
-#pragma unroll 8
-    for (int j = 0; j < kSimtKeys; ++j) {
-      float pj[kSimtRowsPerWarp];
+    const unsigned char* st = stage_of(i);
+    const T* k_t = reinterpret_cast<const T*>(st);
+    const T* v_t = reinterpret_cast<const T*>(st + G::kKBytes);
+
+    // S = Q K^T: k step kk takes dims 8 kk .. 8 kk + 7, each K fragment
+    // split once for the warp's tiles
 #pragma unroll
-      for (int rr = 0; rr < kSimtRowsPerWarp; ++rr) pj[rr] = __shfl_sync(kFull, pr[rr], j);
+    for (int u = 0; u < TL; ++u)
 #pragma unroll
-      for (int e = 0; e < DW; ++e) {
-        const int col = lane + 32 * e;
-        const float vv = col < d ? v_s[j * d + col] : 0.f;
+      for (int j = 0; j < BK / 2; ++j) s[u][j] = 0.f;
+    auto s_step = [&](int kk, const uint32_t (&ah)[TL][4], const uint32_t (&al)[TL][4]) {
 #pragma unroll
-        for (int rr = 0; rr < kSimtRowsPerWarp; ++rr) acc[rr][e] = fmaf(pj[rr], vv, acc[rr][e]);
+      for (int nb = 0; nb < BK / 8; ++nb) {
+        const float2 y = ld_pair(k_t + (8 * nb + g) * G::kLdk + 8 * kk + 2 * t);
+        uint32_t bh[2], bl[2];
+        tf32_parts<kSplit>(y.x, bh[0], bl[0]);
+        tf32_parts<kSplit>(y.y, bh[1], bl[1]);
+#pragma unroll
+        for (int u = 0; u < TL; ++u) mma_parts<kSplit>(quad(s[u], nb), ah[u], al[u], bh, bl);
+      }
+    };
+#pragma unroll 2
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      uint32_t ah[TL][4], al[TL][4];
+#pragma unroll
+      for (int u = 0; u < TL; ++u) q_frag(u, kk, ah[u], al[u]);
+      s_step(kk, ah, al);
+    }
+#pragma unroll
+    for (int u = 0; u < TL; ++u) {
+      float corr[2];
+      step_softmax<BK>(s[u], m[u], lsum[u], corr, rowb[u], gb, a, st, nullptr, i, lr[u], t,
+                       kRows);
+      if (__any_sync(kFull, corr[0] != 1.f || corr[1] != 1.f)) {   // x 1 changes no bit
+#pragma unroll
+        for (int j = 0; j < DP / 2; ++j) acc[u][j] *= corr[(j >> 1) & 1];
+      }
+    }
+
+    // O += round(P) V: key block kb takes keys 8 kb .. 8 kb + 7 (P's column
+    // t: key 2t, its S accumulator element 0 / 2; t + 4: key 2t + 1), each
+    // V fragment split once for the warp's tiles
+#pragma unroll
+    for (int kb_ = 0; kb_ < BK / 8; ++kb_) {
+      uint32_t ah[TL][4], al[TL][4];
+#pragma unroll
+      for (int u = 0; u < TL; ++u) {
+        tf32_parts<kSplit>(to_f(from_f<T>(s[u][4 * kb_])), ah[u][0], al[u][0]);
+        tf32_parts<kSplit>(to_f(from_f<T>(s[u][4 * kb_ + 2])), ah[u][1], al[u][1]);
+        tf32_parts<kSplit>(to_f(from_f<T>(s[u][4 * kb_ + 1])), ah[u][2], al[u][2]);
+        tf32_parts<kSplit>(to_f(from_f<T>(s[u][4 * kb_ + 3])), ah[u][3], al[u][3]);
+      }
+      const T* v0 = v_t + (8 * kb_ + 2 * t) * G::kLdv + g;
+#pragma unroll
+      for (int nd = 0; nd < DP / 8; ++nd) {
+        uint32_t bh[2], bl[2];
+        tf32_parts<kSplit>(to_f(v0[8 * nd]), bh[0], bl[0]);
+        tf32_parts<kSplit>(to_f(v0[G::kLdv + 8 * nd]), bh[1], bl[1]);
+#pragma unroll
+        for (int u = 0; u < TL; ++u) mma_parts<kSplit>(quad(acc[u], nd), ah[u], al[u], bh, bl);
       }
     }
   }
+  cp_async_wait<0>();                             // (no step: nothing left in flight)
 
+  // normalise (a row whose sum is 0 gives zeros) and write this thread's
+  // columns 8 nd + 2t, + 1 of its rows
+  const long long ob = (l * a.sq + q0) * pitch + static_cast<long long>(h) * a.d;
 #pragma unroll
-  for (int rr = 0; rr < kSimtRowsPerWarp; ++rr) {
-    const int r = q0 + warp * kSimtRowsPerWarp + rr;
-    if (r >= sq) continue;
-    const float safe_l = lsum[rr] == 0.f ? 1.f : lsum[rr];
-    T* orow = o + (l * sq + r) * row + static_cast<long long>(h) * d;
+  for (int u = 0; u < TL; ++u) {
 #pragma unroll
-    for (int e = 0; e < DW; ++e) {
-      const int col = lane + 32 * e;
-      if (col < d) orow[col] = from_f<T>(acc[rr][e] / safe_l);
+    for (int hr = 0; hr < 2; ++hr) {
+      float sum = lsum[u][hr];
+      sum += __shfl_xor_sync(kFull, sum, 1);
+      sum += __shfl_xor_sync(kFull, sum, 2);
+      const float inv = 1.f / (sum == 0.f ? 1.f : sum);
+      const int r = lr[u] + 8 * hr;
+      if (q0 + r >= a.sq) continue;
+      T* orow = o + ob + r * pitch;
+#pragma unroll
+      for (int nd = 0; nd < DP / 8; ++nd) {
+        const int c = 8 * nd + 2 * t;
+        if (c < a.d) orow[c] = from_f<T>(acc[u][4 * nd + 2 * hr] * inv);
+        if (c + 1 < a.d) orow[c + 1] = from_f<T>(acc[u][4 * nd + 2 * hr + 1] * inv);
+      }
     }
   }
 }
@@ -1130,18 +1416,107 @@ int fwd_wgmma(const void* q, const void* k, const void* v, void* o, int lead, in
   return launch_wgmma<T, DP, C, 1, BK>(q, k, v, o, lead, sq, sk, heads, d, a, smem, in, stream);
 }
 
-template <typename T, int DW>
-int fwd_simt(const void* q, const void* k, const void* v, void* o, int lead, int sq,
-             int sk, int heads, int d, const Biases& bs, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(kSimtRows) * d + kSimtKeys * (d | 1) +
-                       static_cast<size_t>(kSimtKeys) * d) * sizeof(float);
-  auto kernel = evo_fwd_simt_kernel<T, DW>;
-  const dim3 grid(lead, heads, (sq + kSimtRows - 1) / kSimtRows);
-  const int rc = prepare(kernel, grid, smem);
-  if (rc != 0) return rc;
-  kernel<<<grid, kSimtThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, heads, d, 1.0f / sqrtf(static_cast<float>(d)), bs);
+// The general kernel's shared memory: GenGeo's Q and row sums, then two
+// stages of K, V and the step's biases.  A tile that cp.async copies (16
+// bytes a copy where TMA could read it, else 4) is staged in its own type,
+// up to kMaxStaged of them; the others, and those past what lets two
+// stages fit, are summed by the threads in fp32 (the last first).  Key rows as the
+// tensor-core kernel's.  Fills `a` and returns the dynamic shared bytes, or
+// -1 when even the K and V tiles do not fit.
+template <typename T, int DP, int BK>
+int plan_general(EvoArgs& a, const BiasIn* in, int nb) {
+  using G = GenGeo<T, DP, BK>;
+  constexpr int kBudget = 232448 - 1024;
+  int kinds[kMaxBiases];
+  int staged = 0;
+  auto tile = [&](int i) { return kinds[i] == kTileTma || kinds[i] == kTileAsync; };
+  for (int i = 0; i < nb; ++i) {
+    kinds[i] = in[i].kind;
+    if (tile(i) && ++staged > kMaxStaged) kinds[i] = kTileSum;
+  }
+  auto tile_bytes = [&](int i) {
+    return G::kRows * align128(BK * (in[i].b.dtype == 2 ? 4 : 2));
+  };
+  auto stage_bytes = [&]() {
+    int bytes = G::kKBytes + G::kVBytes;
+    bool sum = false, key_sum = false;
+    for (int i = 0; i < nb; ++i) {
+      bytes += tile(i) ? tile_bytes(i) : kinds[i] == kKeyAsync ? BK * 4 : 0;
+      sum |= kinds[i] == kTileSum;
+      key_sum |= kinds[i] == kKeySum;
+    }
+    return bytes + (sum ? G::kRows * BK * 4 : 0) + (key_sum ? BK * 4 : 0);
+  };
+  for (int i = nb - 1; i >= 0 && G::kRing + 2 * stage_bytes() > kBudget; --i)
+    if (tile(i)) kinds[i] = kTileSum;
+  if (G::kRing + 2 * stage_bytes() > kBudget) return -1;
+  a.stages = 2;
+  a.stage_bytes = stage_bytes();
+  int off = G::kKBytes + G::kVBytes;
+  bool sum = false, key_sum = false, rows = false;
+  for (int i = 0; i < nb; ++i) {
+    a.tb[i] = TileBias{in[i].b, kinds[i], -1, 0, 0};
+    if (tile(i)) {
+      a.tb[i].off = off;
+      off += tile_bytes(i);
+    }
+    sum |= kinds[i] == kTileSum;
+    key_sum |= kinds[i] == kKeySum;
+    rows |= kinds[i] == kScalar || kinds[i] == kRowBias;
+  }
+  a.sum_off = sum ? off : -1;
+  off += sum ? G::kRows * BK * 4 : 0;
+  a.key_off = key_sum ? off : -1;
+  off += key_sum ? BK * 4 : 0;
+  for (int i = 0; i < nb; ++i) {
+    if (kinds[i] == kKeyAsync) {
+      a.tb[i].off = off;
+      off += BK * 4;
+    }
+  }
+  a.rows = rows ? 1 : 0;
+  return G::kRing + 2 * a.stage_bytes;
+}
+
+template <typename T, int DP>
+int fwd_general(const void* q, const void* k, const void* v, void* o, int lead, int sq, int sk,
+                int heads, int d, const BiasIn* in, int nb, cudaStream_t stream) {
+  constexpr int BK = GenTiles<T, DP>::kKeys;
+  using G = GenGeo<T, DP, BK>;
+  const long long items = static_cast<long long>(cdiv(sq, G::kRows)) * heads * lead;
+  if (items == 0) return 0;
+  if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  EvoArgs a{};
+  a.n = nb;
+  a.items = items;
+  a.sq = sq;
+  a.sk = sk;
+  a.heads = heads;
+  a.d = d;
+  a.scale_log2 = kLog2e / sqrtf(static_cast<float>(d));
+  const int smem = plan_general<T, DP, BK>(a, in, nb);
+  if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+  // the widest copy every row of Q, K and V starts on
+  const int row = d * static_cast<int>(sizeof(T));
+  const uintptr_t at = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                       reinterpret_cast<uintptr_t>(v);
+  int vec = 0;
+  for (int w = 16; w >= 4 && vec == 0; w /= 2) vec = row % w == 0 && at % w == 0 ? w : 0;
+  auto kernel = evo_split_kernel<T, DP, BK>;
+  const dim3 grid(static_cast<unsigned>(items));
+  if (int rc = prepare(kernel, grid, smem)) return rc;
+  kernel<<<grid, kGenThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                              static_cast<const T*>(v), static_cast<T*>(o), a,
+                                              vec);
+  int per_sm = 0, staged = 0, summed = 0, keys = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGenThreads, smem);
+  for (int i = 0; i < nb; ++i) {
+    staged += a.tb[i].kind == kTileTma || a.tb[i].kind == kTileAsync;
+    summed += a.tb[i].kind == kTileSum;
+    keys += a.tb[i].kind == kKeySum || a.tb[i].kind == kKeyAsync;
+  }
+  g_last = LaunchInfo{reinterpret_cast<const void*>(kernel), items, kGenThreads, smem, G::kRows,
+                      2, staged, summed, keys, 0, per_sm};
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1149,13 +1524,13 @@ template <typename T>
 int dispatch(bool simt, const void* q, const void* k, const void* v, void* o, int lead,
              int sq, int sk, int heads, int d, const BiasIn* in, int nb, cudaStream_t stream) {
   if (simt) {
-    Biases bs{};
-    bs.n = nb;
-    for (int i = 0; i < nb; ++i) bs.b[i] = in[i].b;
-    if (d <= 32) return fwd_simt<T, 1>(q, k, v, o, lead, sq, sk, heads, d, bs, stream);
-    if (d <= 64) return fwd_simt<T, 2>(q, k, v, o, lead, sq, sk, heads, d, bs, stream);
-    if (d <= 128) return fwd_simt<T, 4>(q, k, v, o, lead, sq, sk, heads, d, bs, stream);
-    return fwd_simt<T, 8>(q, k, v, o, lead, sq, sk, heads, d, bs, stream);
+#define DSTT_GENERAL(DP) fwd_general<T, DP>(q, k, v, o, lead, sq, sk, heads, d, in, nb, stream)
+    if (d <= 16) return DSTT_GENERAL(16);
+    if (d <= 32) return DSTT_GENERAL(32);
+    if (d <= 64) return DSTT_GENERAL(64);
+    if (d <= 128) return DSTT_GENERAL(128);
+    return DSTT_GENERAL(256);
+#undef DSTT_GENERAL
   }
   if constexpr (std::is_same<T, float>::value) {
     return static_cast<int>(cudaErrorInvalidValue);  // no fp32 tensor-core path
@@ -1192,7 +1567,7 @@ extern "C" int dstt_evoformer_fwd(int dtype, int simt, const void* q, const void
   if (d <= 0 || lead <= 0 || sq <= 0 || sk < 0 || heads <= 0 || n_biases < 0 ||
       n_biases > kMaxBiases)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (simt ? d > kSimtMaxD : (d % 8 != 0 || d > 128))
+  if (simt ? d > kGenMaxD : (d % 8 != 0 || d > 128))
     return static_cast<int>(cudaErrorInvalidValue);
   BiasIn in[kMaxBiases];
   for (int i = 0; i < n_biases; ++i) {
@@ -1215,11 +1590,12 @@ extern "C" int dstt_evoformer_fwd(int dtype, int simt, const void* q, const void
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The last tensor-core launch, for reports: out[0..11] = blocks (persistent),
-// threads a block, dynamic shared memory (bytes), query rows a block, ring
-// stages, bias tiles staged in their own type (TMA or cp.async), tiles summed
-// by the producer's lanes, key rows staged, resident tiles, blocks an SM,
-// registers a thread at launch, local memory a thread (bytes: spills).
+// The last launch of either kernel, for reports: out[0..11] = blocks
+// (persistent for the tensor-core kernel), threads a block, dynamic shared
+// memory (bytes), query rows a block, ring stages, bias tiles staged in
+// their own type (TMA or cp.async), tiles summed in fp32, key rows staged,
+// resident tiles, blocks an SM, registers a thread at launch, local memory
+// a thread (bytes: spills).
 extern "C" int dstt_evoformer_launch_info(long long* out) {
   cudaFuncAttributes attr{};
   if (g_last.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);

@@ -729,6 +729,12 @@ inline CUresult encode_tiled(CUtensorMap* map, CUtensorMapDataType type, uint32_
       return CUDA_ERROR_NOT_FOUND;
     fn = reinterpret_cast<Fn>(p);
   }
+  // cuTensorMapEncodeTiled needs a current context, which a thread that
+  // has made no runtime call yet (PyTorch's autograd worker, say) may lack:
+  // cudaSetDevice on the runtime's current device binds its primary one
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return CUDA_ERROR_INVALID_CONTEXT;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   // out-of-bounds elements of a box are filled with zeros
   return fn(map, type, rank, base, dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -14,16 +14,17 @@ the forward pre-scales q once, rounds it to the input type and saves
 On CUDA tensors the three steps are the hand-written kernels of
 ``deepspeed_tpu_torch/csrc/block_sparse_attention.cu``: the tensor-core
 kernels for bf16 / fp16 with D a multiple of 8 up to 128, the general
-kernels for fp32 up to D = 128.  The forward and the general kernels walk
-only the live 64 x 64 tiles of the layout (compacted lists per head that
+kernels for fp32 up to D = 128.  The general kernels walk only the live
+64 x 64 tiles of the layout (compacted lists per head that
 :class:`BlockSparseLayout` builds and keeps on the device) and, inside a
-tile, only its live 16 x 16 sub-blocks.  The bf16 / fp16 backward (dQ and
-dK/dV on wgmma fed by TMA) walks 16-row slices instead: a block holds up to
-four slices of one side (query slices for dQ, key slices for dK/dV) and
-streams the live slices of the other side, four to a stage, gathered by
-TMA; :func:`bsa_tile_walk` builds those tables (groups, stages, the split
-of long lists, the longest-first order) and
-:func:`block_sparse_tiled_plain_bwd` evaluates them in fp32 on any
+tile, only its live 16 x 16 sub-blocks.  The bf16 / fp16 kernels (forward,
+dQ and dK/dV on wgmma fed by TMA) walk 16-row slices instead: a block
+holds up to four slices of one side (query slices for the forward and dQ,
+key slices for dK/dV) and streams the live slices of the other side, four
+to a stage, gathered by TMA; :func:`bsa_tile_walk` builds those tables
+(groups, stages, the split of long lists, the longest-first order), and
+:func:`block_sparse_tiled_plain_fwd` and
+:func:`block_sparse_tiled_plain_bwd` evaluate them in fp32 on any
 device.  Other inputs on the card (another type, D > 128, a layout
 block that is not a multiple of 16) raise ``NotImplementedError`` naming
 ROADMAP C: a CUDA tensor never reaches the plain version.  On CPU tensors
@@ -60,7 +61,8 @@ __all__ = ["BlockSparseLayout", "block_sparse_attention",
            "block_sparse_plain_bwd_dq", "block_sparse_plain_bwd_dkv",
            "block_sparse_attention_fwd", "block_sparse_attention_bwd_dq",
            "block_sparse_attention_bwd_dkv", "bsa_tile_walk",
-           "block_sparse_tiled_plain_bwd", "launch_info"]
+           "block_sparse_tiled_plain_fwd", "block_sparse_tiled_plain_bwd",
+           "launch_info"]
 
 #: kernel launches (plain CPU calls do not count)
 LAUNCHES = {"block_sparse_attention_fwd": 0,
@@ -74,7 +76,7 @@ KERNEL_TILE = 64
 SUB_BLOCK = 16
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _MAX_D = 128
-#: the bf16 / fp16 backward's walk (csrc/block_sparse_attention.cu): a
+#: the bf16 / fp16 kernels' walk (csrc/block_sparse_attention.cu): a
 #: block holds SLOTS 16-row slices of one side, a stage SLOTS slices of the
 #: other; a block-table row is ITEM_INTS ints, a stage-table row STAGE_INTS
 SLOTS = 4
@@ -86,9 +88,10 @@ STAGE_INTS = 8
 #: their 64-row tile
 HEAVY_FACTOR = 4
 HEAVY_MIN = 16
-#: the blocks the card runs at once (132 SMs x 2 blocks of the backward
-#: kernels): a list longer than twice the launch's stages over WAVE (and
-#: than SPLIT_MIN) is split into parts of at most that many stages
+#: the blocks the card runs at once (132 SMs x 2 blocks of the wgmma
+#: kernels, forward and backward alike): a list longer than twice the
+#: launch's stages over WAVE (and than SPLIT_MIN) is split into parts of at
+#: most that many stages
 WAVE = 264
 SPLIT_MIN = 8
 
@@ -182,17 +185,18 @@ def _stages(sets: np.ndarray, grp: np.ndarray) -> np.ndarray:
 
 def bsa_tile_walk(masks: np.ndarray, seq_len: int, key_major: bool,
                   batch: int) -> Dict[str, object]:
-    """The bf16 / fp16 backward kernels' walk, as they read it.
+    """The bf16 / fp16 kernels' walk, as they read it.
 
     ``masks``: the ``[h, n, n]`` 16-bit tile masks, query-major
-    (:func:`kernel_tile_masks`; the dQ walk, query slices stationary) or
-    key-major (their transpose; the dK/dV walk, key slices stationary).
+    (:func:`kernel_tile_masks`; the forward's and dQ's walk, query slices
+    stationary) or key-major (their transpose; the dK/dV walk, key slices
+    stationary).
     Every stationary 16-row slice lies in exactly one group of at most
     :data:`SLOTS` (:func:`_groups`); a group's list is the union of its
     slices' live streamed slices, packed :data:`SLOTS` to a stage.  A list
     longer than twice the launch's stages over :data:`WAVE` (and than
     :data:`SPLIT_MIN`) is cut into parts of equal length, whose fp32
-    partials the last part to finish sums in part order.  Blocks are
+    partials the last part to finish merges in part order.  Blocks are
     ordered longest list first.
 
     Returns ``blocks`` (int32 ``[n, ITEM_INTS]``: head, the group's
@@ -311,15 +315,16 @@ class BlockSparseLayout:
             self._lists[device] = got
         return got
 
-    def bwd_tables(self, device, batch: int) -> Dict[str, Dict]:
-        """The bf16 / fp16 backward kernels' walks on ``device`` for a
-        batch of ``batch``: ``"dq"`` from the query-major masks and
-        ``"dkv"`` from the key-major ones (:func:`bsa_tile_walk`), each as
-        device tensors ``blocks`` and ``stages`` beside ``n_blocks``,
-        ``groups``, ``parts`` and ``stats`` (:func:`walk_stats`); kept
-        with :meth:`kernel_lists`' lists, per device and batch."""
+    def walk_tables(self, device, batch: int) -> Dict[str, Dict]:
+        """The bf16 / fp16 kernels' walks on ``device`` for a batch of
+        ``batch``: ``"dq"`` from the query-major masks (the forward and dQ
+        read it) and ``"dkv"`` from the key-major ones
+        (:func:`bsa_tile_walk`), each as device tensors ``blocks`` and
+        ``stages`` beside ``n_blocks``, ``groups``, ``parts`` and ``stats``
+        (:func:`walk_stats`); kept with :meth:`kernel_lists`' lists, per
+        device and batch."""
         lists = self.kernel_lists(device)
-        key = ("bwd", int(batch))
+        key = ("walk", int(batch))
         got = lists.get(key)
         if got is None:
             got = {}
@@ -435,18 +440,75 @@ def _gather(x, heads, slices):
 def _scatter(part, walk, blk, n_heads, seq):
     """Sum each pair's ``[B, pairs, 64, D]`` into its block, then each
     block's valid slots into their rows -> [B, H, S, D] fp32."""
-    blocks = torch.as_tensor(np.asarray(walk["blocks"], np.int64),
-                             device=part.device)
-    acc = part.new_zeros((part.shape[0], len(blocks)) + part.shape[2:])
+    acc = part.new_zeros((part.shape[0], len(walk["blocks"]))
+                         + part.shape[2:])
     acc.index_add_(1, blk, part)
+    rows, valid = _slot_rows(walk, seq, part.device)
+    out = part.new_zeros((part.shape[0], n_heads * seq, part.shape[-1]))
+    out.index_add_(1, rows[valid], acc[:, valid])
+    return out.reshape(part.shape[0], n_heads, seq, part.shape[-1])
+
+
+def _key_bias(bias, shape, heads, slices):
+    """The key bias [B, S] of each pair's 16-row slices -> [B, pairs, 64]
+    (0.0 without a bias)."""
+    b, h, s, _ = shape
+    return 0.0 if bias is None else _gather(
+        bias.float()[:, None, :, None].expand(b, h, s, 1), heads,
+        slices)[..., 0]
+
+
+def _slot_rows(walk, seq, dev):
+    """Each block's 64 stationary rows as flat (head, row) indices, and
+    which of them are a slice's ([n, 64] each)."""
+    blocks = torch.as_tensor(np.asarray(walk["blocks"], np.int64), device=dev)
     slices = blocks[:, 1:1 + SLOTS]
     rows = (blocks[:, :1] * seq + slices.clamp(min=0) * SUB_BLOCK)[..., None] \
-        + torch.arange(SUB_BLOCK, device=part.device)        # [n, 4, 16]
-    valid = (slices >= 0)[..., None].expand_as(rows).reshape(-1)
-    out = part.new_zeros((part.shape[0], n_heads * seq, part.shape[-1]))
-    out.index_add_(1, rows.reshape(-1)[valid],
-                   acc.reshape(acc.shape[0], -1, acc.shape[-1])[:, valid])
-    return out.reshape(part.shape[0], n_heads, seq, part.shape[-1])
+        + torch.arange(SUB_BLOCK, device=dev)                # [n, 4, 16]
+    valid = (slices >= 0)[..., None].expand_as(rows)
+    return rows.reshape(len(blocks), -1), valid.reshape(len(blocks), -1)
+
+
+def block_sparse_tiled_plain_fwd(qs, k, v, walk, bias=None):
+    """The bf16 / fp16 forward kernel's walk evaluated in fp32 on any
+    device: ``walk`` is :func:`bsa_tile_walk`'s query-major table; each
+    block (a list, or a part of a split list) takes its rows' largest kept
+    score m_p, l_p = sum exp(s - m_p) and the unnormalised
+    O_p = round(exp(s - m_p)) V over its stages' 64 x 64 slot pairs (dead
+    pairs masked, P rounded to the input type), and a row's parts merge as
+    the kernel merges them: m* = max m_p, O and l summed with weights
+    exp(m_p - m*).  Returns ``(o, lse fp32 [B, H, S])``; a row that sees no
+    key gives zeros and lse = -1e30."""
+    dt, (b, h, s, d) = qs.dtype, qs.shape
+    dev, inf = qs.device, float("inf")
+    blk, heads, stat, strm, m = _walk_pairs(walk, dev)
+    n = len(walk["blocks"])
+    sc = _gather(qs.float(), heads, stat) @ _gather(
+        k.float(), heads, strm).transpose(-1, -2)
+    if bias is not None:
+        sc = sc + _key_bias(bias, qs.shape, heads, strm)[..., None, :]
+    sc = sc.masked_fill(~m, -inf)                       # [B, pairs, 64, 64]
+    idx = blk[None, :, None].expand(b, -1, KERNEL_TILE)
+    m_blk = sc.new_full((b, n, KERNEL_TILE), -inf).scatter_reduce(
+        1, idx, sc.amax(-1), "amax")
+    base = torch.where(m_blk == -inf, 0.0, m_blk)
+    p = torch.exp(sc - base[:, blk, :, None])
+    l_blk = sc.new_zeros((b, n, KERNEL_TILE)).index_add_(1, blk, p.sum(-1))
+    o_blk = sc.new_zeros((b, n, KERNEL_TILE, d)).index_add_(
+        1, blk, p.to(dt).float() @ _gather(v.float(), heads, strm))
+    rows, valid = _slot_rows(walk, s, dev)
+    at = rows[valid]
+    m_row = sc.new_full((b, h * s), -inf).scatter_reduce(
+        1, at[None].expand(b, -1), m_blk[:, valid], "amax")
+    w = torch.exp(m_blk[:, valid] - torch.where(
+        m_row == -inf, 0.0, m_row)[:, at])
+    o = sc.new_zeros((b, h * s, d)).index_add_(
+        1, at, w[..., None] * o_blk[:, valid])
+    l = sc.new_zeros((b, h * s)).index_add_(1, at, w * l_blk[:, valid])
+    safe_l = torch.where(l == 0, 1.0, l)
+    lse = m_row.clamp_min(NEG_INF) + safe_l.log()
+    return ((o / safe_l[..., None]).reshape(b, h, s, d).to(dt),
+            lse.reshape(b, h, s))
 
 
 def block_sparse_tiled_plain_bwd(qs, k, v, o, lse, do, walks, scale: float,
@@ -461,18 +523,13 @@ def block_sparse_tiled_plain_bwd(qs, k, v, o, lse, do, walks, scale: float,
     f = [t.float() for t in (qs, k, v, do)]
     delta = (do.float() * o.float()).sum(-1)
 
-    def key_bias(heads, slices):
-        return 0.0 if bias is None else _gather(
-            bias.float()[:, None, :, None].expand(b, h, s, 1), heads,
-            slices)[..., 0]
-
     zero = torch.zeros((), device=qs.device)
     blk, heads, stat, strm, m = _walk_pairs(walks["dq"], qs.device)
     q_t, do_t = _gather(f[0], heads, stat), _gather(f[3], heads, stat)
     k_t, v_t = _gather(f[1], heads, strm), _gather(f[2], heads, strm)
     sc = q_t @ k_t.transpose(-1, -2)
     if bias is not None:
-        sc = sc + key_bias(heads, strm)[..., None, :]
+        sc = sc + _key_bias(bias, qs.shape, heads, strm)[..., None, :]
     p = torch.where(m, torch.exp(sc - _gather(lse, heads, stat)[..., None]),
                     zero)
     ds = p * (do_t @ v_t.transpose(-1, -2)
@@ -484,7 +541,7 @@ def block_sparse_tiled_plain_bwd(qs, k, v, o, lse, do, walks, scale: float,
     q_t, do_t = _gather(f[0], heads, strm), _gather(f[3], heads, strm)
     st = k_t @ q_t.transpose(-1, -2)
     if bias is not None:
-        st = st + key_bias(heads, stat)[..., None]
+        st = st + _key_bias(bias, qs.shape, heads, stat)[..., None]
     p = torch.where(m, torch.exp(st - _gather(lse, heads, strm)[..., None, :]),
                     zero)
     dst = p * (v_t @ do_t.transpose(-1, -2)
@@ -539,7 +596,7 @@ def _check(name: str, bs_layout: BlockSparseLayout, bias, *ts) -> None:
 
 
 def _launch(entry: str, key: str, ref, ints, floats, tensors, bias, lists,
-            walk=()):
+            walk):
     bias = None if bias is None else bias.contiguous()
     with torch.cuda.device(ref.device):
         rc = _kernel(entry)(_DTYPE_CODE[ref.dtype],
@@ -554,55 +611,63 @@ def _launch(entry: str, key: str, ref, ints, floats, tensors, bias, lists,
     LAUNCHES[key] += 1
 
 
+def _padded_d(d: int) -> int:
+    """D padded as the tensor-core kernels stage it: 16, 32, 64 or 128."""
+    return next(p for p in (16, 32, 64, 128) if d <= p)
+
+
+#: the last bf16 / fp16 launch's kernel ("fwd", "dq" or "dkv") and its
+#: walk's :func:`walk_stats`, for :func:`launch_info`
+_LAST_WALK: Dict[str, object] = {}
+#: a partial slot's fp32 values, by kernel, at padded head dim DP: one
+#: [64, DP] tile (dQ), two (dK/dV), one and 128 threads' row maxima and
+#: sums, 4 each (the forward)
+_SLOT_FLOATS = {"fwd": lambda dp: KERNEL_TILE * dp + 512,
+                "dq": lambda dp: KERNEL_TILE * dp,
+                "dkv": lambda dp: 2 * KERNEL_TILE * dp}
+
+
+def _walk_args(bs_layout: BlockSparseLayout, ref: torch.Tensor,
+               kernel: str) -> Tuple:
+    """The walk arguments of a launch of ``kernel`` ("fwd", "dq" or
+    "dkv"): (blocks, stages, n_blocks, partials, counters) for bf16 / fp16,
+    where ``partials`` holds the fp32 partials of split lists (a slot a
+    part and batch row, ``_SLOT_FLOATS`` long) and ``counters`` one zeroed
+    int a (split group, batch row), both None when no list is split; Nones
+    for fp32 (the general kernels walk the tile lists)."""
+    if ref.dtype == torch.float32:
+        return (None, None, 0, None, None), None
+    b, d = ref.shape[0], ref.shape[-1]
+    w = bs_layout.walk_tables(ref.device, b)[
+        "dkv" if kernel == "dkv" else "dq"]
+    ws = counters = None
+    if w["groups"]:
+        ws = torch.empty(w["parts"] * b * _SLOT_FLOATS[kernel](_padded_d(d)),
+                         dtype=torch.float32, device=ref.device)
+        counters = torch.zeros(w["groups"] * b, dtype=torch.int32,
+                               device=ref.device)
+    _LAST_WALK.clear()
+    _LAST_WALK.update(kernel=kernel, **w["stats"])
+    return (w["blocks"].data_ptr(), w["stages"].data_ptr(), w["n_blocks"],
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr()), (ws, counters)
+
+
 def block_sparse_attention_fwd(qs, k, v, bs_layout: BlockSparseLayout,
                                bias=None):
     """Forward kernel: ``qs`` pre-scaled q, k, v ``[B, H, S, D]`` and the
     optional key bias fp32 ``[B, S]`` -> ``(o, lse fp32 [B, H, S])``."""
     _check("block_sparse_attention", bs_layout, bias, qs, k, v)
     qs, k, v = _ready(qs), _ready(k), _ready(v)
-    lists = bs_layout.kernel_lists(qs.device)["q"]
     b, h, s, d = qs.shape
     o = torch.empty_like(qs)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=qs.device)
+    walk, keep = _walk_args(bs_layout, qs, "fwd")
     _launch("fwd", "block_sparse_attention_fwd", qs, [b, h, s, d], [],
-            [qs, k, v, o, lse], bias, lists)
+            [qs, k, v, o, lse], bias, bs_layout.kernel_lists(qs.device)["q"],
+            walk)
+    del keep        # the stream orders the launch before any reuse
     return o, lse
-
-
-def _padded_d(d: int) -> int:
-    """D padded as the tensor-core kernels stage it: 16, 32, 64 or 128."""
-    return next(p for p in (16, 32, 64, 128) if d <= p)
-
-
-#: the walk of the last bf16 / fp16 backward launch (its orientation and
-#: :func:`walk_stats`), for :func:`launch_info`
-_LAST_WALK: Dict[str, object] = {}
-
-
-def _walk_args(bs_layout: BlockSparseLayout, ref: torch.Tensor, orient: str,
-               outputs: int) -> Tuple:
-    """The walk arguments of a backward launch: (blocks, stages, n_blocks,
-    partials, counters) for bf16 / fp16, where ``partials`` holds the fp32
-    partial sums of split lists (``outputs`` [64, DP] tiles a partial slot
-    and batch row) and ``counters`` one zeroed int a (split group, batch
-    row), both None when no list is split; Nones for fp32 (the general
-    kernels walk the tile lists)."""
-    if ref.dtype == torch.float32:
-        return (None, None, 0, None, None), None
-    b, d = ref.shape[0], ref.shape[-1]
-    w = bs_layout.bwd_tables(ref.device, b)[orient]
-    ws = counters = None
-    if w["groups"]:
-        ws = torch.empty(w["parts"] * b * outputs * KERNEL_TILE
-                         * _padded_d(d), dtype=torch.float32,
-                         device=ref.device)
-        counters = torch.zeros(w["groups"] * b, dtype=torch.int32,
-                               device=ref.device)
-    _LAST_WALK.clear()
-    _LAST_WALK.update(orient=orient, **w["stats"])
-    return (w["blocks"].data_ptr(), w["stages"].data_ptr(), w["n_blocks"],
-            None if ws is None else ws.data_ptr(),
-            None if counters is None else counters.data_ptr()), (ws, counters)
 
 
 def block_sparse_attention_bwd_dq(qs, k, v, o, lse, do,
@@ -616,7 +681,7 @@ def block_sparse_attention_bwd_dq(qs, k, v, o, lse, do,
     b, h, s, d = qs.shape
     dq = torch.empty_like(qs)
     delta = torch.empty_like(lse)
-    walk, keep = _walk_args(bs_layout, qs, "dq", 1)
+    walk, keep = _walk_args(bs_layout, qs, "dq")
     _launch("bwd_dq", "block_sparse_attention_bwd_dq", qs, [b, h, s, d],
             [scale], [qs, k, v, o, do, lse, delta, dq], bias,
             bs_layout.kernel_lists(qs.device)["q"], walk)
@@ -631,7 +696,7 @@ def block_sparse_attention_bwd_dkv(qs, k, v, do, lse, delta,
     qs, k, v, do = (_ready(t) for t in (qs, k, v, do))
     b, h, s, d = qs.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    walk, keep = _walk_args(bs_layout, qs, "dkv", 2)
+    walk, keep = _walk_args(bs_layout, qs, "dkv")
     _launch("bwd_dkv", "block_sparse_attention_bwd_dkv", qs, [b, h, s, d],
             [], [qs, k, v, do, lse, delta, dk, dv], bias,
             bs_layout.kernel_lists(qs.device)["k"], walk)
@@ -643,14 +708,13 @@ def block_sparse_attention_bwd_dkv(qs, k, v, do, lse, delta,
 def _kernel(entry: str):
     fn = getattr(_build.load("block_sparse_attention"), f"dstt_bsa_{entry}")
     n_ptr = {"fwd": 5, "bwd_dq": 8, "bwd_dkv": 8}[entry]
-    # blocks, stages, n_blocks, partials, counters
-    walk = [] if entry == "fwd" else [ctypes.c_void_p] * 2 + [ctypes.c_int] \
-        + [ctypes.c_void_p] * 2
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * (n_ptr + 1)  # + bias
                    + [ctypes.c_int] * 4
                    + ([ctypes.c_float] if entry == "bwd_dq" else [])
                    + [ctypes.c_void_p] * 3        # ptr, idx, mask
-                   + walk + [ctypes.c_void_p])    # stream
+                   # blocks, stages, n_blocks, partials, counters
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_void_p])  # stream
     fn.restype = ctypes.c_int
     return fn
 
@@ -661,8 +725,8 @@ LAUNCH_INFO_KEYS = ("grid", "threads", "smem", "stages", "step_rows",
 
 
 def launch_info() -> dict:
-    """The last bf16 / fp16 backward launch (``dstt_bsa_launch_info``):
-    its kernel ("dq" or "dkv"), blocks, threads and shared bytes a block,
+    """The last bf16 / fp16 launch (``dstt_bsa_launch_info``): its kernel
+    ("fwd", "dq" or "dkv"), blocks, threads and shared bytes a block,
     ring stages, streamed rows a step (64, or 32 for dK/dV at D > 64),
     registers a thread at launch, spill bytes, the host ns spent encoding
     its tensor maps, and its walk's packing and split figures
@@ -674,9 +738,7 @@ def launch_info() -> dict:
     rc = fn(out)
     if rc != 0:
         raise RuntimeError(f"dstt_bsa_launch_info failed with {rc}")
-    return {"kernel": _LAST_WALK.get("orient"),
-            **dict(zip(LAUNCH_INFO_KEYS, out)),
-            **{k: x for k, x in _LAST_WALK.items() if k != "orient"}}
+    return {**dict(zip(LAUNCH_INFO_KEYS, out)), **_LAST_WALK}
 
 
 # --------------------------------------------------------------------- #

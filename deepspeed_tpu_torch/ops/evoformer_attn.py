@@ -16,8 +16,9 @@ Every call goes through one autograd Function:
   :func:`kernel_route`: the tensor-core kernel (``LAUNCHES
   ["evoformer_attention"]``, wgmma fed by a TMA ring) for bf16 / fp16
   Q/K/V with D a multiple of 8 up to 128; the general kernel
-  (``LAUNCHES["evoformer_attention_simt"]``) for fp32 Q/K/V, D not a
-  multiple of 8 and D from 136 to 256.  Both take up to eight biases, each
+  (``LAUNCHES["evoformer_attention_simt"]``; mma.sync in TF32, each fp32
+  operand split in two TF32 parts, three products a product: 3xTF32) for
+  fp32 Q/K/V, D not a multiple of 8 and D from 136 to 256.  Both take up to eight biases, each
   fp32, bf16 or fp16, of any broadcast pattern.  What neither takes raises
   ``NotImplementedError`` naming ROADMAP C: a CUDA tensor never reaches the
   dense version;
@@ -36,10 +37,12 @@ The tensor-core kernel stages each bias by what it varies over within one
 (lead slice, head) (:func:`bias_plan`): a tile (the pair bias) by TMA when
 its rows are 16-byte aligned, else copied by the producer warpgroup's lanes
 (4-byte cp.async, or read and summed in fp32); a key row (the mask) summed
-by the lanes; a value a row or a scalar read once.
-:func:`evoformer_attention_tiled_plain` is its walk in plain PyTorch (row
+by the lanes; a value a row or a scalar read once.  The general kernel
+stages them the same way, cp.async taking the TMA tiles too.
+:func:`evoformer_attention_tiled_plain` is their walk in plain PyTorch (row
 blocks, key steps, exp2 with log2(e), biases added by pattern, the running
-max guarded at -inf), tested on the CPU against the JAX kernel.
+max guarded at -inf; with ``split`` the general kernel's 3xTF32 products,
+:func:`tf32_split`), tested on the CPU against the JAX kernel.
 
 Deliberate differences from the JAX package: a backward chunk holds as many
 lead slices as fit ``BWD_CHUNK_BYTES`` of fp32 score buffers (JAX: one
@@ -63,7 +66,7 @@ from deepspeed_tpu_torch.ops import _build
 __all__ = ["DS4Sci_EvoformerAttention", "EvoformerAttnBuilder",
            "bias_plan", "evoformer_attention_dense",
            "evoformer_attention_kernel", "evoformer_attention_tiled_plain",
-           "kernel_route"]
+           "general_walk", "kernel_route", "tf32_split"]
 
 #: launches of the tensor-core kernel and of the general kernel
 LAUNCHES = {"evoformer_attention": 0, "evoformer_attention_simt": 0}
@@ -247,19 +250,55 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def general_walk(d: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """The general kernel's (query rows a block, keys a step) at head dim
+    ``d`` and operand type ``dtype`` (``GenTiles`` in
+    ``csrc/evoformer_attn.cu``): 128 rows while D pads to at most 64 (4
+    warps of two 16-row tiles), else 64; 32 keys in fp32 and wherever D
+    pads past 32, else 64."""
+    padded = next(p for p in (16, 32, 64, 128, 256) if d <= p)
+    return (128 if padded <= 64 else 64,
+            32 if dtype == torch.float32 or padded > 32 else 64)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: 10 explicit
+    mantissa bits, to nearest, ties away from zero (the magnitude's bits
+    rounded, the sign's kept)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The general kernel's split of an fp32 operand: ``hi`` = x rounded to
+    TF32 and ``lo`` = (x - hi) rounded to TF32, ~21 of x's 24 bits
+    together.  A bf16 or fp16 value is exact in TF32: its ``lo`` is 0."""
+    hi = _tf32(x)
+    return hi, _tf32(x.float() - hi)
+
+
+def _split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the general kernel forms it: hi.hi + hi.lo + lo.hi of the
+    TF32 parts, in fp32 (the remainders' product dropped)."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
 def evoformer_attention_tiled_plain(Q, K, V, biases: Sequence = (),
                                     block_rows: int = KERNEL_ROWS,
-                                    block_keys: int = KERNEL_KEYS
-                                    ) -> torch.Tensor:
-    """The tensor-core kernel's walk in plain PyTorch: blocks of
-    ``block_rows`` query rows of one (lead slice, head), steps of
-    ``block_keys`` keys; scores in log2 units (the scale times log2(e),
-    the biases by :func:`bias_plan`: values a row and scalars summed once,
-    staged tiles and key rows (TMA, cp.async) added one by one in their
-    order, the other tiles and key rows each summed first); exp2 with the
-    running max guarded at -inf;
-    P rounded to the input type before P V; a row whose sum is 0 comes out
-    as zeros."""
+                                    block_keys: int = KERNEL_KEYS,
+                                    split: bool = False) -> torch.Tensor:
+    """The kernels' walk in plain PyTorch: blocks of ``block_rows`` query
+    rows of one (lead slice, head), steps of ``block_keys`` keys; scores in
+    log2 units (the scale times log2(e), the biases by :func:`bias_plan`:
+    values a row and scalars summed once, staged tiles and key rows (TMA,
+    cp.async) added one by one in their order, the other tiles and key rows
+    each summed first); exp2 with the running max guarded at -inf; P
+    rounded to the input type before P V; a row whose sum is 0 comes out
+    as zeros.  The tensor-core kernel's walk by default; the general
+    kernel's with ``split`` (its products 3xTF32, :func:`tf32_split`) and
+    :func:`general_walk`'s rows and keys."""
+    mm = _split_matmul if split else torch.matmul
     *lead, sq, h, d = Q.shape
     lead = tuple(lead)
     L = int(np.prod(lead)) if lead else 1
@@ -289,7 +328,7 @@ def evoformer_attention_tiled_plain(Q, K, V, biases: Sequence = (),
         acc = torch.zeros_like(q[:, :, rs])
         for c0 in range(0, sk, block_keys):
             cs = slice(c0, min(sk, c0 + block_keys))
-            x = q[:, :, rs] @ k[:, :, cs].transpose(-1, -2) * scale \
+            x = mm(q[:, :, rs], k[:, :, cs].transpose(-1, -2)) * scale \
                 + row[:, :, rs, cs]
             for _, b in staged:
                 x = x + b[:, :, rs, cs] * _LOG2E
@@ -299,7 +338,7 @@ def evoformer_attention_tiled_plain(Q, K, V, biases: Sequence = (),
             corr = torch.exp2(m - base)
             p = torch.exp2(x - base)
             lsum = lsum * corr + p.sum(-1, keepdim=True)
-            acc = acc * corr + p.to(Q.dtype).float() @ v[:, :, cs]
+            acc = acc * corr + mm(p.to(Q.dtype).float(), v[:, :, cs])
             m = m_new
         out[:, :, rs] = acc / torch.where(lsum == 0, 1.0, lsum)
     return out.transpose(1, 2).reshape(Q.shape).to(Q.dtype)
@@ -452,12 +491,13 @@ LAUNCH_INFO_KEYS = ("grid", "threads", "smem", "block_rows", "stages",
 
 
 def launch_info() -> dict:
-    """The last tensor-core launch's shape (``dstt_evoformer_launch_info``):
-    blocks (persistent), threads and shared bytes a block, query rows a
+    """The last launch's shape, of either kernel
+    (``dstt_evoformer_launch_info``): blocks (persistent for the
+    tensor-core kernel), threads and shared bytes a block, query rows a
     block, ring stages, bias tiles staged in their own type (TMA or
-    cp.async) and summed by the producer's lanes, key rows staged, tiles
-    resident for all of a block's items, blocks an SM, registers a thread at
-    launch and spill bytes."""
+    cp.async) and summed in fp32, key rows staged, tiles resident for all
+    of a block's items, blocks an SM, registers a thread at launch and
+    spill bytes."""
     fn = _build.load("evoformer_attn").dstt_evoformer_launch_info
     fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int

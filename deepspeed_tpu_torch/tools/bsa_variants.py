@@ -1,31 +1,34 @@
-"""Variants of the block-sparse attention backward kernels (dQ and dK/dV on
-wgmma, ``csrc/block_sparse_attention.cu``) against each other on one card,
-and against a parent commit's kernels.
+"""Variants of the block-sparse attention wgmma kernels (the forward, dQ
+and dK/dV, ``csrc/block_sparse_attention.cu``) against each other on one
+card, and against a parent commit's kernels.
 
 Builds ``csrc/block_sparse_attention.cu`` as it stands and copies of it
-with the edits of each named library variant (``BwdTiles``: other ring
+with the edits of each named library variant (``SliceTiles``: other ring
 stages), checks every library against the plain versions on small cases
-(5e-2 in norm, two runs bit-equal), then times phase 23's bf16 / fp16
-backward cases (``chip_smoke.BSA_CASES``: BERT width, S = 4096 and 1040,
-six layouts, padded batches) with ``chip_smoke.time_ms`` in ``--rounds``
-turns: the libraries in order, then in reverse, and so on.  Walk variants
-run on the tree's library with other host tables (``bsa_tile_walk``'s
-split rule, set through the module's ``WAVE`` and ``SPLIT_MIN``):
-``nosplit`` never splits a list, ``split_half`` and ``split_double``
-halve or double the rule's part length.  SDPA's backward alone over the
-expanded mask is timed once a case as the yardstick.
+(the forward 3e-2 max and 1e-2 in norm, the gradients 5e-2 in norm, two
+runs bit-equal), then times phase 23's bf16 / fp16 cases
+(``chip_smoke.BSA_CASES``: BERT width, S = 4096 and 1040, six layouts,
+padded batches), forward, dQ and dK/dV, with ``chip_smoke.time_ms`` in
+``--rounds`` turns: the libraries in order, then in reverse, and so on.
+Walk variants run on the tree's library with other host tables
+(``bsa_tile_walk``'s split rule, set through the module's ``WAVE`` and
+``SPLIT_MIN``): ``nosplit`` never splits a list, ``split_half`` and
+``split_double`` halve or double the rule's part length.  SDPA over the
+expanded mask, its forward and its backward alone, is timed once a case
+as the yardstick.
 
     python3 deepspeed_tpu_torch/tools/bsa_variants.py \\
-        [--variants s2,s4,nosplit,split_half] [--parent DIR] [--rounds 2]
-        [--cases 0,5,6] [--iters 10]
+        [--variants f3,s2,s4,nosplit,split_half] [--parent DIR]
+        [--rounds 2] [--cases 0,5,6] [--iters 10]
 
 ``--parent DIR`` also builds ``DIR/block_sparse_attention.cu`` (a parent
 commit's source, from ``git archive <commit> deepspeed_tpu_torch/csrc``;
 headers from DIR first, then ``csrc/``) as the library "parent", called
-through the parent's C interface (the 64 x 64 tile lists, no walk tables),
-and times it in the same turns.  A summary JSON object is the last line of
-stdout; every timing is also written to ``chiprun_out/bsa_variants.json``.
-Needs a CUDA device and ``nvcc``.
+through the parent's C interface: its forward on the 64 x 64 tile lists,
+its dQ and dK/dV on the walk tables (a parent whose backward took no walk
+tables is not taken).  A summary JSON object is the last line of stdout;
+every timing is also written to ``chiprun_out/bsa_variants.json``.  Needs
+a CUDA device and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -42,9 +45,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
-#: library variants: ``BwdTiles`` edits (old text, new text); "s2" / "s4"
-#: other ring stages at DP <= 64
+#: library variants: ``SliceTiles`` edits (old text, new text); "f2" /
+#: "f3" the forward's ring at DP <= 64, "s2" / "s4" the backward's
 LIB_VARIANTS = {
+    "f2": [("kFwdStages = DP == 128 ? 2 : 4", "kFwdStages = DP == 128 ? 2 : 2")],
+    "f3": [("kFwdStages = DP == 128 ? 2 : 4", "kFwdStages = DP == 128 ? 2 : 3")],
     "s2": [("kDqStages = DP == 128 ? 2 : 3", "kDqStages = DP == 128 ? 2 : 2"),
            ("kDkvStages = DP == 128 ? 2 : 3",
             "kDkvStages = DP == 128 ? 2 : 2")],
@@ -71,7 +76,7 @@ CHECK_CASES = [
 
 def variant_source(text: str, name: str) -> str:
     """The kernel source with one library variant's edits."""
-    start = text.index("struct BwdTiles {")
+    start = text.index("struct SliceTiles {")
     end = text.index("};", start)
     block = text[start:end]
     for old, new in LIB_VARIANTS[name]:
@@ -123,53 +128,34 @@ def build_all(build_dir: Path, names, parent):
     return libs, logs
 
 
-class Parent:
-    """The parent's dQ and dK/dV through its C interface: the tile lists
-    (query-major for dQ, key-major for dK/dV), no walk tables."""
+class ParentForward:
+    """The parent's forward through its C interface: the 64 x 64 tile lists
+    of the query-major orientation, no walk tables (the parent's dQ and
+    dK/dV take the tree's C interface and run through its wrappers)."""
 
     def __init__(self, lib):
-        self.dq, self.dkv = lib.dstt_bsa_bwd_dq, lib.dstt_bsa_bwd_dkv
-        for fn, floats in ((self.dq, 1), (self.dkv, 0)):
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                           + [ctypes.c_int] * 4 + [ctypes.c_float] * floats
-                           + [ctypes.c_void_p] * 4)
-            fn.restype = ctypes.c_int
+        self.fn = lib.dstt_bsa_fwd
+        self.fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                            + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4)
+        self.fn.restype = ctypes.c_int
 
-    @staticmethod
-    def _call(fn, *args):
-        import torch
-
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"parent kernel failed with {rc}")
-
-    def bwd_dq(self, qs, k, v, o, lse, do, bsl, scale, bias):
+    def __call__(self, qs, k, v, bsl, bias):
         import torch
 
         from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
 
         b, h, s, d = qs.shape
-        dq, delta = torch.empty_like(qs), torch.empty_like(lse)
+        o = torch.empty_like(qs)
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=qs.device)
         lists = bsl.kernel_lists(qs.device)["q"]
-        self._call(self.dq, bsa._DTYPE_CODE[qs.dtype],
-                   *(t.data_ptr() for t in (qs, k, v, o, do, lse, delta, dq)),
-                   None if bias is None else bias.data_ptr(), b, h, s, d,
-                   scale, *(t.data_ptr() for t in lists))
-        return dq, delta
-
-    def bwd_dkv(self, qs, k, v, do, lse, delta, bsl, bias):
-        import torch
-
-        from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
-
-        b, h, s, d = qs.shape
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        lists = bsl.kernel_lists(qs.device)["k"]
-        self._call(self.dkv, bsa._DTYPE_CODE[qs.dtype],
-                   *(t.data_ptr() for t in (qs, k, v, do, lse, delta, dk, dv)),
-                   None if bias is None else bias.data_ptr(), b, h, s, d,
-                   *(t.data_ptr() for t in lists))
-        return dk, dv
+        rc = self.fn(bsa._DTYPE_CODE[qs.dtype],
+                     *(t.data_ptr() for t in (qs, k, v, o, lse)),
+                     None if bias is None else bias.data_ptr(), b, h, s, d,
+                     *(t.data_ptr() for t in lists),
+                     torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent forward failed with {rc}")
+        return o, lse
 
 
 def main() -> int:
@@ -209,8 +195,8 @@ def main() -> int:
                            args.parent)
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda", 0)
-    parent = Parent(libs["parent"]) if args.parent else None
-    names = lib_names + walk_names + (["parent"] if parent else [])
+    parent_fwd = ParentForward(libs["parent"]) if args.parent else None
+    names = lib_names + walk_names + (["parent"] if args.parent else [])
 
     rule = {"WAVE": bsa.WAVE, "SPLIT_MIN": bsa.SPLIT_MIN}
 
@@ -225,12 +211,15 @@ def main() -> int:
                 setattr(bsa, key, value)
             bsl._lists.clear()
 
+    def forward(name, qs, k, v, bsl, bias):
+        """o, lse through library / walk variant ``name``."""
+        if name == "parent":
+            return parent_fwd(qs, k, v, bsl, bias)
+        use(name, bsl)
+        return bsa.block_sparse_attention_fwd(qs, k, v, bsl, bias)
+
     def backward(name, qs, k, v, o, lse, do, bsl, scale, bias):
         """dq, delta, dk, dv through library / walk variant ``name``."""
-        if name == "parent":
-            dq, delta = parent.bwd_dq(qs, k, v, o, lse, do, bsl, scale, bias)
-            return (dq, delta) + parent.bwd_dkv(qs, k, v, do, lse, delta,
-                                                bsl, bias)
         use(name, bsl)
         dq, delta = bsa.block_sparse_attention_bwd_dq(
             qs, k, v, o, lse, do, bsl, scale, bias)
@@ -261,17 +250,24 @@ def main() -> int:
                                                     keep, scale, bias)
         rdk, rdv = bsa.block_sparse_plain_bwd_dkv(qs, k, v, do, lse, rdelta,
                                                   keep, bias)
+        ro = bsa.block_sparse_plain_fwd(qs, k, v, keep, bias)[0]
         for name in names:
             got = backward(name, qs, k, v, o, lse, do, bsl, scale, bias)
             again = backward(name, qs, k, v, o, lse, do, bsl, scale, bias)
+            fo = [forward(name, qs, k, v, bsl, bias) for _ in range(2)]
             torch.cuda.synchronize()
             errs = [cs.rel_norm(g, w) for g, w in
                     zip((got[0], got[2], got[3]), (rdq, rdk, rdv))]
-            bit = all(torch.equal(a, b_) for a, b_ in zip(got, again))
-            if not bit or max(errs) > cs.BSA_GRAD_NORM_TOL:
-                failed.append(f"{name} {c}: norms {errs} bit-equal {bit}")
+            fwd_err = ((fo[0][0].float() - ro.float()).abs().max().item(),
+                       cs.rel_norm(fo[0][0], ro))
+            bit = all(torch.equal(a, b_) for a, b_ in zip(got, again)) \
+                and all(torch.equal(a, b_) for a, b_ in zip(*fo))
+            if not bit or max(errs) > cs.BSA_GRAD_NORM_TOL \
+                    or fwd_err[0] > cs.TOL or fwd_err[1] > cs.NORM_TOL:
+                failed.append(f"{name} {c}: norms {errs} forward "
+                              f"{fwd_err} bit-equal {bit}")
     print(f"[check] {len(CHECK_CASES)} cases x {len(names)}: "
-          f"{failed or 'all within 5e-2 and bit-equal'}", flush=True)
+          f"{failed or 'all within the bars and bit-equal'}", flush=True)
 
     picked = [i for i, c in enumerate(cs.BSA_CASES) if c[7] != "fp32"] \
         if args.cases is None else [int(i) for i in args.cases.split(",")]
@@ -283,48 +279,50 @@ def main() -> int:
             layout, b, h, s, d, block, dtype, padding, seed=ci, extra=extra)
         delta = bsa.block_sparse_attention_bwd_dq(qs, k, v, o, lse, do, bsl,
                                                   scale, bias)[1]
-        times = {n: {"dq": [], "dkv": [], "sum": []} for n in names}
+        times = {n: {"fwd": [], "dq": [], "dkv": [], "sum": []}
+                 for n in names}
         info = {}
         for r in range(args.rounds):
             for name in (names if r % 2 == 0 else names[::-1]):
-                if name == "parent":
-                    f_dq = lambda i: parent.bwd_dq(qs, k, v, o, lse, do, bsl,
-                                                   scale, bias)
-                    f_dkv = lambda i: parent.bwd_dkv(qs, k, v, do, lse, delta,
-                                                     bsl, bias)
-                else:
-                    use(name, bsl)
-                    f_dq = lambda i: bsa.block_sparse_attention_bwd_dq(
-                        qs, k, v, o, lse, do, bsl, scale, bias)
-                    f_dkv = lambda i: bsa.block_sparse_attention_bwd_dkv(
-                        qs, k, v, do, lse, delta, bsl, bias)
-                ms_dq = cs.time_ms(f_dq, 1, args.iters)
-                if name != "parent" and r == 0:
-                    info[name] = {"dq": bsa.launch_info()}
-                ms_dkv = cs.time_ms(f_dkv, 1, args.iters)
-                if name != "parent" and r == 0:
-                    info[name]["dkv"] = bsa.launch_info()
-                for key, ms in (("dq", ms_dq), ("dkv", ms_dkv),
-                                ("sum", ms_dq + ms_dkv)):
-                    times[name][key].append(ms)
+                use(name, bsl)
+                f_fwd = ((lambda i: parent_fwd(qs, k, v, bsl, bias))
+                         if name == "parent" else
+                         (lambda i: bsa.block_sparse_attention_fwd(
+                             qs, k, v, bsl, bias)))
+                f_dq = lambda i: bsa.block_sparse_attention_bwd_dq(
+                    qs, k, v, o, lse, do, bsl, scale, bias)
+                f_dkv = lambda i: bsa.block_sparse_attention_bwd_dkv(
+                    qs, k, v, do, lse, delta, bsl, bias)
+                ms = {}
+                for kname, fn in (("fwd", f_fwd), ("dq", f_dq),
+                                  ("dkv", f_dkv)):
+                    ms[kname] = cs.time_ms(fn, 1, args.iters)
+                    if r == 0 and not (name == "parent" and kname == "fwd"):
+                        info.setdefault(name, {})[kname] = bsa.launch_info()
+                ms["sum"] = ms["dq"] + ms["dkv"]
+                for key, x in ms.items():
+                    times[name][key].append(x)
         mask = bsl.element_mask(dev)[None]
         if bias is not None:
             mask = mask & (bias > -1e3)[:, None, None, :]
+        sdpa_fwd = cs.time_ms(lambda i: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), 1, 3)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
         sdpa = cs.time_ms(lambda i: torch.autograd.grad(
             out, leaves, do, retain_graph=True), 1, 3)
         del out, leaves, mask
-        row = {"case": name_c, "index": ci, "sdpa_bwd_ms": sdpa,
+        row = {"case": name_c, "index": ci, "sdpa_fwd_ms": sdpa_fwd,
+               "sdpa_bwd_ms": sdpa,
                "best": {n: {k_: min(x) for k_, x in t.items()}
                         for n, t in times.items()},
                "turns": times, "launch": info}
         results.append(row)
         best = row["best"]
         print(f"[time] {name_c}: " + "; ".join(
-            f"{n} {best[n]['dq']:.4f} + {best[n]['dkv']:.4f} = "
-            f"{best[n]['sum']:.4f}" for n in names)
-            + f"; SDPA bwd {sdpa:.4f}", flush=True)
+            f"{n} fwd {best[n]['fwd']:.4f}, bwd {best[n]['dq']:.4f} + "
+            f"{best[n]['dkv']:.4f} = {best[n]['sum']:.4f}" for n in names)
+            + f"; SDPA fwd {sdpa_fwd:.4f} bwd {sdpa:.4f}", flush=True)
         bsl._elem.clear()
         del q, k, v, do, qs, o, lse, delta
         torch.cuda.empty_cache()
@@ -340,11 +338,15 @@ def main() -> int:
     (out_dir / "bsa_variants.json").write_text(json.dumps(record, indent=1))
     print(smi)
     print(json.dumps({"device": smi, "check_failed": len(failed),
+                      "fwd_ms": {r["case"]: {n: round(x["fwd"], 4)
+                                             for n, x in r["best"].items()}
+                                 for r in results},
                       "sum_ms": {r["case"]: {n: round(x["sum"], 4)
                                              for n, x in r["best"].items()}
                                  for r in results},
-                      "sdpa_bwd_ms": {r["case"]: round(r["sdpa_bwd_ms"], 4)
-                                      for r in results}}))
+                      "sdpa_ms": {r["case"]: [round(r["sdpa_fwd_ms"], 4),
+                                              round(r["sdpa_bwd_ms"], 4)]
+                                  for r in results}}))
     return 1 if failed else 0
 
 

@@ -1,25 +1,26 @@
-"""Launch-shape variants of the Evoformer tensor-core kernel against each
-other on one card, and against a parent commit's kernels.
+"""Launch-shape variants of the Evoformer kernels against each other on
+one card, and against a parent commit's kernels.
 
 Builds ``csrc/evoformer_attn.cu`` as it stands and copies of it with the
-edits of each named variant (other ``EvoTiles`` choices: consumer
-warpgroups a block and blocks an SM), checks each library against the
-dense version on small cases (3e-2 max, 1e-2 in norm, two runs bit-equal),
-then times every library on the cases of ``chip_smoke.py`` phase 22 with
-its ``time_ms`` (operand sets that miss L2, a device-side sleep first), in
-turns: the libraries in order, then in reverse, each case's best of the
-two.
+edits of each named variant (other ``EvoTiles`` choices for the
+tensor-core kernel: consumer warpgroups a block and blocks an SM; other
+``GenTiles`` keys a step for the general kernel), checks each library
+against the dense version on small cases (3e-2 max, 1e-2 in norm, fp32
+1e-4 max, two runs bit-equal), then times every library on the cases of
+``chip_smoke.py`` phase 22 with its ``time_ms`` (operand sets that miss
+L2, a device-side sleep first), in turns: the libraries in order, then in
+reverse, each case's best of the two.
 
     python3 deepspeed_tpu_torch/tools/evo_variants.py \\
-        [--variants c4,c2x1] [--parent DIR] [--iters 20] [--cases 0,4]
+        [--variants c4,c2x1,g32] [--parent DIR] [--iters 20] [--cases 0,4]
 
 ``--parent DIR`` also builds ``DIR/evoformer_attn.cu`` (a parent commit's
-source, from ``git show <commit>:deepspeed_tpu_torch/csrc/evoformer_attn.cu``;
-headers from DIR first, then ``csrc/``) as the library "parent", called
-through the parent's C interface and route (its tensor-core kernel for at
-most two biases of Q's type, else its general kernel).  A summary JSON
-object is the last line of stdout; every timing is also written to
-``chiprun_out/evo_variants.json``.  Needs a CUDA device and ``nvcc``.
+source, from ``git archive <commit> deepspeed_tpu_torch/csrc``; headers
+from DIR first, then ``csrc/``) as the library "parent", called through
+the same C interface and route as the tree's (a parent with another C
+interface is not taken).  A summary JSON object is the last line
+of stdout; every timing is also written to ``chiprun_out/evo_variants.json``.
+Needs a CUDA device and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -46,6 +47,11 @@ VARIANTS = {
     "c2x1k128": {dp: {"kC": 2, "kPerSm": 1, "kKeys": 128} for dp in (16, 32, 64)},
     "d64x2": {64: {"kPerSm": 2}},
     "d64c1x2k128": {64: {"kC": 1, "kPerSm": 2, "kKeys": 128}},
+    # the general kernel's keys a step: 32 or 64 at every head dim
+    "g32": [("static constexpr int kKeys = sizeof(T) == 4 || DP > 32 ? 32 : 64;",
+             "static constexpr int kKeys = 32;")],
+    "g64": [("static constexpr int kKeys = sizeof(T) == 4 || DP > 32 ? 32 : 64;",
+             "static constexpr int kKeys = 64;")],
     "stages2": [("constexpr int kMaxStages = 4;", "constexpr int kMaxStages = 2;")],
     "stages8": [("constexpr int kMaxStages = 4;", "constexpr int kMaxStages = 8;")],
     # cp.async tiles streamed a step instead of resident a block
@@ -55,17 +61,39 @@ VARIANTS = {
     # softmax cost, and where a block's time goes
     "t_noexp": [("s[j] = exp2_ftz(s[j] - base[hr]);", "s[j] = s[j] - base[hr];")],
     "t_prof": "prof",
+    # the general kernel, timing only: no products (nor their fragment
+    # loads and splits), one TF32 product instead of three, no K / V loads
+    # after the first step's, no softmax
+    # the general kernel's block: 8 warps; one 16-row tile a warp
+    "w8": [("constexpr int kGenWarps = 4;", "constexpr int kGenWarps = 8;")],
+    "tiles1": [("static constexpr int kRowTiles = DP <= 64 ? 2 : 1;",
+                "static constexpr int kRowTiles = 1;")],
+    "t_gprof": "gprof",
+    "t_gnoproducts": [("        for (int u = 0; u < TL; ++u) mma_parts<kSplit>(quad(s[u], nb), ah[u], al[u], bh, bl);\n", "        {}\n"),
+                      ("        for (int u = 0; u < TL; ++u) mma_parts<kSplit>(quad(acc[u], nd), ah[u], al[u], bh, bl);\n", "        {}\n")],
+    "t_gone": [("  if constexpr (SPLIT) {   // the split's cross terms",
+                "  if constexpr (false) {")],
+    "t_gnoload": [("    copy_rows<T, G::kLdk>(reinterpret_cast<T*>(st), kb, pitch, i * BK, BK, a.sk, a.d, vec);\n",
+                   "    if (i == 0)\n    copy_rows<T, G::kLdk>(reinterpret_cast<T*>(st), kb, pitch, i * BK, BK, a.sk, a.d, vec);\n"),
+                  ("    copy_rows<T, G::kLdv>(reinterpret_cast<T*>(st + G::kKBytes), vb, pitch, i * BK, BK, a.sk,\n",
+                   "    if (i == 0)\n    copy_rows<T, G::kLdv>(reinterpret_cast<T*>(st + G::kKBytes), vb, pitch, i * BK, BK, a.sk,\n")],
+    "t_gnosoftmax": [("      step_softmax<BK>(s[u], m[u], lsum[u], corr, rowb[u], gb, a, st, nullptr, i, lr[u], t,\n                       kRows);",
+                      "      corr[0] = corr[1] = 1.f;")],
     "t_nosoftmax": [("auto softmax = [&](int i, int step, float (&corr)[2]) {\n",
                      "auto softmax = [&](int i, int step, float (&corr)[2]) {\n"
                      "      corr[0] = corr[1] = 1.f;\n      return;\n")],
 }
 
 #: small cases for the correctness check: lead, S, heads, d, biases, type
+#: (the last three on the general kernel)
 CHECK_CASES = [
     ((1, 16), 256, 4, 32, "both", "bf16"),
     ((1, 8), 250, 4, 32, "three", "bf16"),
     ((1, 8), 256, 8, 8, "eight", "fp16"),
     ((2, 3), 70, 2, 64, "masked", "bf16"),
+    ((1, 16), 256, 4, 32, "both", "fp32"),
+    ((1, 8), 250, 4, 32, "eight", "fp32"),
+    ((1, 8), 100, 2, 12, "three", "bf16"),
 ]
 
 
@@ -125,6 +153,40 @@ PROF_EDITS = [
      "__device__ unsigned long long g_prof[16];\n\n"
      "template <typename T, int DP, int C, int PER_SM, int BK>\n__global__"),
 ]
+#: the general kernel's profiling counters (clock64 cycles of its thread
+#: 0, summed over blocks): the wait for a step's tiles (cp.async and the
+#: barrier), issuing the next step's copies, S, the softmax, P V, the
+#: epilogue, the prologue (to the first wait) and the whole block
+GPROF_SLOTS = ("g_wait", "g_load", "g_s", "g_softmax", "g_pv", "g_epilogue",
+               "g_prologue", "g_total")
+
+GPROF_EDITS = [
+    ("  __shared__ long long goff[kMaxBiases];",
+     "  __shared__ long long goff[kMaxBiases];\n  unsigned long long pf[8] = {0};\n"
+     "  const unsigned long long pf_t0 = clock64();"),
+    ("    cp_async_wait<0>();\n    __syncthreads();                              // step i landed; step i - 1 read\n"
+     "    if (i + 1 < steps) load(i + 1);",
+     "    if (i == 0) pf[6] += clock64() - pf_t0;\n"
+     "    { const auto tc = clock64(); cp_async_wait<0>();\n    __syncthreads(); pf[0] += clock64() - tc; }\n"
+     "    { const auto tc = clock64(); if (i + 1 < steps) load(i + 1); pf[1] += clock64() - tc; }"),
+    ("    // S = Q K^T: k step kk takes dims 8 kk .. 8 kk + 7, each K fragment",
+     "    const auto pf_s = clock64();\n    // S = Q K^T: k step kk takes dims 8 kk .. 8 kk + 7, each K fragment"),
+    ("#pragma unroll\n    for (int u = 0; u < TL; ++u) {\n      float corr[2];",
+     "    pf[2] += clock64() - pf_s;\n    const auto pf_m = clock64();\n"
+     "#pragma unroll\n    for (int u = 0; u < TL; ++u) {\n      float corr[2];"),
+    ("    // O += round(P) V: key block kb",
+     "    pf[3] += clock64() - pf_m;\n    const auto pf_p = clock64();\n    // O += round(P) V: key block kb"),
+    ("      }\n    }\n  }\n  cp_async_wait<0>();                             // (no step: nothing left in flight)",
+     "      }\n    }\n    pf[4] += clock64() - pf_p;\n  }\n  const auto pf_e = clock64();\n"
+     "  cp_async_wait<0>();                             // (no step: nothing left in flight)"),
+    ("        if (c + 1 < a.d) orow[c + 1] = from_f<T>(acc[u][4 * nd + 2 * hr + 1] * inv);\n      }\n    }\n  }\n}\n",
+     "        if (c + 1 < a.d) orow[c + 1] = from_f<T>(acc[u][4 * nd + 2 * hr + 1] * inv);\n      }\n    }\n  }\n"
+     "  pf[5] += clock64() - pf_e;\n  pf[7] = clock64() - pf_t0;\n"
+     "  if (threadIdx.x == 0)\n    for (int x = 0; x < 8; ++x) atomicAdd(&g_prof[x], pf[x]);\n}\n"),
+    ("template <typename T, int DP, int BK>\n__global__ void __launch_bounds__(kGenThreads)",
+     "__device__ unsigned long long g_prof[16];\n\n"
+     "template <typename T, int DP, int BK>\n__global__ void __launch_bounds__(kGenThreads)"),
+]
 PROF_TAIL = """
 extern "C" int dstt_evo_prof(unsigned long long* out) {
   cudaDeviceSynchronize();
@@ -142,8 +204,9 @@ def variant_source(text: str, spec) -> str:
         for part in spec.split("+"):
             text = variant_source(text, VARIANTS[part])
         return text
-    if spec == "prof":
-        return variant_source(text, PROF_EDITS) + PROF_TAIL
+    if spec in ("prof", "gprof"):
+        edits = PROF_EDITS if spec == "prof" else GPROF_EDITS
+        return variant_source(text, edits) + PROF_TAIL
     if isinstance(spec, list):
         for old, new in spec:
             assert text.count(old) == 1, old
@@ -191,49 +254,6 @@ def build_all(build_dir: Path, names, parent):
     return libs
 
 
-def parent_call(lib, q, k, v, bs):
-    """One forward through the parent's C interface and route."""
-    import numpy as np
-    import torch
-
-    from deepspeed_tpu_torch.ops import evoformer_attn as evo
-
-    fn = lib.dstt_evoformer_fwd
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 6
-                   + [ctypes.POINTER(ctypes.c_void_p)] * 2
-                   + [ctypes.POINTER(ctypes.c_int),
-                      ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    *lead, sq, h, d = q.shape
-    lead = tuple(lead)
-    sk = k.shape[-3]
-    n = len(lead)
-    simt = not (q.dtype != torch.float32 and d % 8 == 0 and d <= 128
-                and len(bs) <= 2 and all(b.dtype == q.dtype for b in bs))
-    out = torch.empty_like(q)
-    ptrs, tables, codes, strides = [], [], [], []
-    for b in bs:
-        c = evo._canon_bias(b, lead, h, sq, sk)
-        st = c.expand(lead + (h, sq, sk)).stride()
-        tables.append(evo._lead_table(lead, tuple(c.shape[:n]), st[:n],
-                                      q.device).data_ptr())
-        ptrs.append(c.data_ptr())
-        codes.append(evo._DTYPE_CODE[c.dtype])
-        strides.extend(st[n:])
-    nb = len(bs)
-    rc = fn(evo._DTYPE_CODE[q.dtype], int(simt), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), int(np.prod(lead)), sq, sk, h, d,
-            nb, (ctypes.c_void_p * max(nb, 1))(*ptrs),
-            (ctypes.c_void_p * max(nb, 1))(*tables),
-            (ctypes.c_int * max(nb, 1))(*codes),
-            (ctypes.c_longlong * max(3 * nb, 1))(*strides),
-            torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"parent kernel failed with {rc}")
-    return out
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", default=",".join(VARIANTS))
@@ -264,16 +284,13 @@ def main() -> int:
         evo._kernel.cache_clear()
 
     def run(name, q, k, v, bs):
-        if name == "parent":
-            return parent_call(libs["parent"], q, k, v, bs)
         return evo.evoformer_attention_kernel(q, k, v, bs)
 
     failed = []
     for name in names + (["parent"] if args.parent else []):
         if name.startswith("t_"):
             continue                     # timing-only variants
-        if name != "parent":
-            use(name)
+        use(name)
         for c in CHECK_CASES:
             gen = torch.Generator(device=dev).manual_seed(len(failed) + 7)
             q, k, v, bs = cs.evo_operands(torch, gen, dev, *c)
@@ -281,9 +298,9 @@ def main() -> int:
             want = evo.evoformer_attention_dense(q, k, v, bs)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
-            if not (err <= cs.TOL and cs.rel_norm(got, want) <= cs.NORM_TOL
+            if not (cs.evo_bar_met(c[-1], err, cs.rel_norm(got, want))
                     and torch.equal(got, again)):
-                failed.append((name, c))
+                failed.append((name, c, err))
     print(f"[check] {len(names)} libraries x {len(CHECK_CASES)} cases: "
           f"{'ok' if not failed else failed}", flush=True)
 
@@ -300,11 +317,10 @@ def main() -> int:
                for _ in range(sets)]
         best, info, prof = {}, {}, {}
         for name in names + names[::-1]:
-            if name != "parent":
-                use(name)
+            use(name)
             t = cs.time_ms(lambda i: run(name, *ops[i][:3], ops[i][3]), sets,
                            args.iters)
-            if name.startswith("t_prof") and name not in prof:
+            if name in ("t_prof", "t_gprof") and name not in prof:
                 raw = (ctypes.c_ulonglong * 16)()
                 prof_fn = libs[name].dstt_evo_prof
                 prof_fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
@@ -313,12 +329,11 @@ def main() -> int:
                 run(name, *ops[0][:3], ops[0][3])
                 prof_fn(raw)
                 grid = evo.launch_info()["grid"]
-                prof[name] = {k: raw[i] / grid for i, k in enumerate(PROF_SLOTS)}
+                slots = PROF_SLOTS if name == "t_prof" else GPROF_SLOTS
+                prof[name] = {k: raw[i] / grid for i, k in enumerate(slots)}
                 print(f"[prof] {name} {label}: " + " ".join(
                     f"{k} {v:.0f}" for k, v in prof[name].items()), flush=True)
-            if name != "parent" and evo.kernel_route(*ops[0][:3],
-                                                     ops[0][3]) == "mma":
-                info[name] = evo.launch_info()
+            info[name] = evo.launch_info()
             best[name] = min(t, best.get(name, t))
         del ops
         torch.cuda.empty_cache()

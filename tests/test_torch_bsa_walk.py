@@ -1,6 +1,7 @@
-"""The bf16 / fp16 block-sparse backward's walk (``bsa_tile_walk``) on the
-CPU: what the dQ and dK/dV kernels of
-``deepspeed_tpu_torch/csrc/block_sparse_attention.cu`` read.
+"""The bf16 / fp16 block-sparse kernels' walk (``bsa_tile_walk``) on the
+CPU: what the forward, dQ and dK/dV kernels of
+``deepspeed_tpu_torch/csrc/block_sparse_attention.cu`` read (the forward
+and dQ one query-major walk, dK/dV a key-major one).
 
 * over the six layouts of ``chip_smoke.py`` phase 23 at h 2, block 16 / 32,
   S 256 and 1040, with the split rule's parts and with every list split
@@ -9,14 +10,20 @@ CPU: what the dQ and dK/dV kernels of
   walk and no dead one is counted as work, every 16-row slice lies in one
   group, a split list's parts cover its stages in part order with their
   own partial slots, the blocks run longest list first, and
-  ``BlockSparseLayout``'s device tables are these tables;
+  ``BlockSparseLayout.walk_tables`` are these tables;
+* ``block_sparse_tiled_plain_fwd`` (the forward's walk evaluated in fp32,
+  split parts merged in part order) against the JAX package's ``_fwd``
+  (its Pallas forward kernel in interpret mode, jitted once a shape)
+  within 1e-4 on o and lse, at the same two shapes and splits as the
+  backward below;
 * ``block_sparse_tiled_plain_bwd`` (the walk evaluated in fp32, split
   parts summed) against the JAX package's ``_bwd`` (its Pallas dQ and
   dK/dV kernels in interpret mode, jitted once a shape) within 1e-4, at
   S 256 (block 32, the split rule) and 1040 (block 16, every list split
   into parts of two stages), d 32;
-* the planted key-major fault of ``chip_smoke.py`` (edited masks, cleared
-  lists) reaches the dK/dV walk.
+* the planted faults of ``chip_smoke.py`` (edited masks, cleared lists)
+  reach their walks: the query-major one the forward's and dQ's, the
+  key-major one dK/dV's.
 """
 
 import functools
@@ -148,7 +155,7 @@ def test_walk_visits_each_kept_sub_block_once(name, s, block, split_stages,
         assert walks[orient]["blocks"].shape[1] == tbsa.ITEM_INTS
         if split_stages == 1:                         # the split path runs
             assert walks[orient]["groups"] > 0, orient
-    got = bsl.bwd_tables("cpu", B)
+    got = bsl.walk_tables("cpu", B)
     for orient in ("dq", "dkv"):
         w = walks[orient]
         assert (got[orient]["blocks"].numpy().reshape(-1, tbsa.ITEM_INTS)
@@ -173,6 +180,37 @@ def _jax_bwd(block, block_q, block_k, scale):
     return jax.jit(functools.partial(jbsa._bwd, block=block, block_q=block_q,
                                      block_k=block_k, scale=scale,
                                      interpret=True))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fwd(block, block_q, block_k):
+    """The JAX package's ``_fwd`` in interpret mode, jitted: one compile a
+    shape serves every layout."""
+    return jax.jit(functools.partial(jbsa._fwd, block=block, block_q=block_q,
+                                     block_k=block_k, interpret=True))
+
+
+@pytest.mark.parametrize("s,block,split_stages", [(256, 32, None),
+                                                  (1040, 16, 2)],
+                         ids=["s256b32", "s1040b16"])
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_tiled_plain_fwd_matches_jax(name, s, block, split_stages,
+                                     monkeypatch):
+    bsl = _layout(name, s, block)
+    q, k, v, _ = _qkv(s, s + block + 1)
+    qs = q / np.sqrt(D)
+    _force_split(monkeypatch, split_stages)
+    walk = _walks(bsl, B)["dq"]
+    if split_stages is not None:
+        assert walk["groups"] > 0
+    o, lse = tbsa.block_sparse_tiled_plain_fwd(
+        *(torch.from_numpy(x) for x in (qs, k, v)), walk)
+    jl = jbsa.BlockSparseLayout(bsl.layout.astype(np.int32), block, s)
+    jo, jlse = _jax_fwd(block, jl.tile_q, jl.tile_k)(
+        jnp.asarray(qs), jnp.asarray(k), jnp.asarray(v), jl.cells,
+        jl.tile_any)
+    assert np.abs(o.numpy() - np.asarray(jo)).max() <= TOL
+    assert np.abs(lse.numpy() - np.asarray(jlse)[..., 0]).max() <= TOL
 
 
 @pytest.mark.parametrize("s,block,split_stages", [(256, 32, None),
@@ -201,30 +239,59 @@ def test_tiled_plain_bwd_matches_jax(name, s, block, split_stages,
         assert np.abs(g.numpy() - np.asarray(w)).max() <= TOL
 
 
-def test_planted_key_major_fault_reaches_the_dkv_walk():
-    """chip_smoke.py's ``bsa_planted_fault(side="k")`` edits ``_masks_t``
-    and clears ``_lists``: the dK/dV walk loses a visit, the dQ walk
-    keeps every one."""
+def _planted(bsl, side):
+    """``chip_smoke.py``'s ``bsa_planted_fault``: side "q" drops the last
+    live key tile of query tile 1 of head 0 from ``_masks``, side "k" the
+    last live query tile of key tile 1 from ``_masks_t``; the lists are
+    cleared."""
     import copy
 
-    bsl = _layout("bigbird", 256, 16)
-    good = bsl.bwd_tables("cpu", B)
     bad = copy.copy(bsl)
-    mt = np.ascontiguousarray(bsl.kernel_masks.transpose(0, 2, 1))
-    live = np.nonzero(mt[0, 1])[0]
-    mt[0, 1, live[-1]] = 0
-    bad._masks, bad._masks_t, bad._lists, bad._elem = \
-        bsl.kernel_masks.copy(), mt, {}, {}
-    got = bad.bwd_tables("cpu", B)
-    n = 256 // 16
+    m = bsl.kernel_masks.copy()
+    mt = np.ascontiguousarray(m.transpose(0, 2, 1))
+    cut = m if side == "q" else mt
+    live = np.nonzero(cut[0, 1])[0]
+    cut[0, 1, live[-1]] = 0
+    bad._masks, bad._masks_t, bad._lists, bad._elem = m, mt, {}, {}
+    return bad
 
-    def visits(tables, orient):
-        w = {key: tables[orient][key].numpy().reshape(-1, width)
-             for key, width in (("blocks", tbsa.ITEM_INTS),
-                                ("stages", tbsa.STAGE_INTS))}
-        w.update(groups=tables[orient]["groups"],
-                 parts=tables[orient]["parts"])
-        return _visits(w, H, n)[0].sum()
 
-    assert visits(got, "dq") == visits(good, "dq")
-    assert visits(got, "dkv") < visits(good, "dkv")
+def _visit_count(tables, orient):
+    w = {key: tables[orient][key].numpy().reshape(-1, width)
+         for key, width in (("blocks", tbsa.ITEM_INTS),
+                            ("stages", tbsa.STAGE_INTS))}
+    w.update(groups=tables[orient]["groups"], parts=tables[orient]["parts"])
+    return _visits(w, H, 256 // 16)[0].sum()
+
+
+def test_planted_key_major_fault_reaches_the_dkv_walk():
+    """chip_smoke.py's ``bsa_planted_fault(side="k")`` edits ``_masks_t``
+    and clears ``_lists``: the dK/dV walk loses a visit, the query-major
+    walk (the forward's and dQ's) keeps every one."""
+    bsl = _layout("bigbird", 256, 16)
+    good = bsl.walk_tables("cpu", B)
+    got = _planted(bsl, "k").walk_tables("cpu", B)
+    assert _visit_count(got, "dq") == _visit_count(good, "dq")
+    assert _visit_count(got, "dkv") < _visit_count(good, "dkv")
+
+
+def test_planted_query_major_fault_reaches_the_forward_walk():
+    """``bsa_planted_fault(side="q")`` edits ``_masks``: the query-major
+    walk, which the forward reads, loses a visit (and the forward's plain
+    evaluation of it moves off the layout's answer), the dK/dV walk keeps
+    every one."""
+    bsl = _layout("bigbird", 256, 16)
+    bad = _planted(bsl, "q")
+    good_t, bad_t = bsl.walk_tables("cpu", B), bad.walk_tables("cpu", B)
+    assert _visit_count(bad_t, "dq") < _visit_count(good_t, "dq")
+    assert _visit_count(bad_t, "dkv") == _visit_count(good_t, "dkv")
+    q, k, v, _ = (torch.from_numpy(x) for x in _qkv(256, 5))
+    walks = [{key: t["dq"][key].numpy().reshape(-1, width)
+              for key, width in (("blocks", tbsa.ITEM_INTS),
+                                 ("stages", tbsa.STAGE_INTS))}
+             for t in (good_t, bad_t)]
+    want = tbsa.block_sparse_plain_fwd(q, k, v, bsl.element_mask("cpu"))[0]
+    good, bad_o = (tbsa.block_sparse_tiled_plain_fwd(q, k, v, w)[0]
+                   for w in walks)
+    assert (good - want).abs().max() <= TOL
+    assert (bad_o - want).abs().max() > 1e-2

@@ -1997,17 +1997,17 @@ def test_evoformer_no_keys_gives_zeros(cuda_device):
 @pytest.mark.parametrize("route,shape,loop", [
     ("mma", ((1, 256), 256, 4, 32, "both", torch.bfloat16),
      ("const int valid = a.sk - c0;",
-      "const int valid = i == n - 1 ? 0 : a.sk - c0;")),
+      "const int valid = c0 + BK >= a.sk ? 0 : a.sk - c0;")),
     ("simt", ((1, 64), 256, 4, 32, "both", torch.float32),
-     ("for (int c0 = 0; c0 < sk; c0 += kSimtKeys) {",
-      "for (int c0 = 0; c0 + kSimtKeys < sk; c0 += kSimtKeys) {")),
+     ("const int steps = cdiv(a.sk, BK);",
+      "const int steps = cdiv(a.sk, BK) - 1;")),
 ])
 def test_evoformer_norm_bar_catches_planted_dropped_tile(
         cuda_device, tmp_path, monkeypatch, route, shape, loop):
-    """A copy of csrc/evoformer_attn.cu whose blocks of one kernel drop the
-    last k tile (the tensor-core kernel: its scores set to -inf; the general
-    kernel: the loop stops short) misses the norm bar at the triangle shape;
-    as built it meets it."""
+    """A copy of csrc/evoformer_attn.cu whose blocks drop the last k tile
+    (the softmax step both kernels share: its scores set to -inf; the
+    general kernel: its step loop stops short) misses the norm bar at the
+    triangle shape; as built it meets it."""
     built = _evo_errors(cuda_device, *shape)
     monkeypatch.setitem(_build._LIBS, "evoformer_attn", _planted(
         tmp_path, "evoformer_attn", (loop,)))
@@ -2022,6 +2022,49 @@ def test_evoformer_norm_bar_catches_planted_dropped_tile(
     assert built["fwd_launches"][_EVO_KEY[route]] == 1
     assert built["norm"] <= NORM_TOL
     assert planted["norm"] > NORM_TOL
+
+
+#: the general kernel (3xTF32 on mma.sync): chip_smoke.py phase 22's fp32
+#: triangle and MSA row, bf16 at D = 12 and D = 160, fp32 with 0, 1, 3 and
+#: 8 biases and with the views cp.async cannot copy
+_EVO_GENERAL = [
+    ((1, 256), 256, 4, 32, "both", torch.float32),
+    ((1, 128), 256, 8, 32, "both", torch.float32),
+    ((1, 16), 100, 2, 12, "both", torch.bfloat16),
+    ((1, 8), 70, 2, 160, "both", torch.bfloat16),
+    ((2, 3), 70, 2, 40, "none", torch.float32),
+    ((2, 3), 70, 2, 24, "pair", torch.float32),
+    ((2, 3), 70, 2, 24, "three", torch.float32),
+    ((1, 8), 96, 4, 32, "eight", torch.float32),
+    ((1, 8), 96, 2, 32, "views", torch.float32),
+    ((1, 4), 66, 2, 256, "three", torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,s,h,d,biases,dtype", _EVO_GENERAL)
+def test_evoformer_general_kernel(cuda_device, lead, s, h, d, biases, dtype):
+    """The general kernel against the dense version (fp32 within
+    EVO_FP32_TOL, bf16 within 3e-2 max and 1e-2 in norm), one launch of
+    it and none of the tensor-core kernel, two runs bit-equal (every sum
+    in a fixed order), and its launch shape."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d)
+    q, k, v, bs = _evo_inputs(gen, cuda_device, lead, s, h, d, biases, dtype)
+    assert tevo.kernel_route(q, k, v, bs) == "simt"
+    before = dict(tevo.LAUNCHES)
+    runs = [tevo.evoformer_attention_kernel(q, k, v, bs) for _ in range(2)]
+    info = tevo.launch_info()
+    assert {n: c - before[n] for n, c in tevo.LAUNCHES.items()} == {
+        "evoformer_attention": 0, "evoformer_attention_simt": 2}
+    want = tevo.evoformer_attention_dense(q, k, v, bs)
+    err = (runs[0].float() - want.float()).abs().max().item()
+    print(f"evoformer general {lead} {s} {h} {d} {biases} {dtype}: max "
+          f"{err:.3g} norm {_norm_rel(runs[0], want):.3g}; {info}")
+    assert torch.equal(runs[0], runs[1])
+    assert err <= (EVO_FP32_TOL if dtype == torch.float32 else TOL)
+    assert _norm_rel(runs[0], want) <= NORM_TOL
+    assert info["block_rows"] == tevo.general_walk(d, dtype)[0]
+    assert info["spill_bytes"] == 0
 
 
 # --------------------------------------------------------------------- #
@@ -2274,6 +2317,88 @@ def test_block_sparse_backward_walk_on_the_card(cuda_device, layout, b, h, s,
         # the global column's list is cut into parts of a few stages
         assert infos[1]["split_groups"] == h
         assert infos[1]["max_stages"] < 64 // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,b,h,s,d,dtype,mode", [
+    ("fixed", 2, 4, 4096, 64, torch.bfloat16, None),
+    ("bigbird", 1, 6, 1024, 128, torch.bfloat16, "mul"),
+    ("variable", 3, 2, 1040, 32, torch.float16, "add"),
+    ("dense", 1, 2, 512, 16, torch.bfloat16, None),
+])
+def test_block_sparse_forward_walk_on_the_card(cuda_device, monkeypatch,
+                                               layout, b, h, s, d, dtype,
+                                               mode):
+    """The wgmma forward against the plain version within the forward's
+    bars, two runs bit-equal, under the split rule and with every list
+    split into parts of two stages (``SPLIT_MIN`` / ``WAVE`` set so, the
+    tables built afresh): the parts' partials merge to the same bars and
+    the same bits twice; lse within 1e-3 of the plain version's."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbsa
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+
+    lay = _bsa_layout(layout, h, s, 16, False)
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d + b)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=cuda_device,
+                           dtype=dtype) for _ in range(3))
+    bias = None
+    if mode is not None:
+        kpm = (torch.arange(s, device=cuda_device)[None]
+               < torch.tensor([[s - 37 * i - 5] for i in range(b)],
+                              device=cuda_device))
+        bias = tsa.key_padding_bias(
+            kpm.float() if mode == "mul" else torch.where(kpm, 0.0, -1e4),
+            mode)
+    qs = (q.float() * d ** -0.5).to(dtype)
+    ro, rlse = tbsa.block_sparse_plain_fwd(
+        qs, k, v, tbsa.BlockSparseLayout(lay, 16, s).element_mask(
+            cuda_device), bias)
+    for split in (False, True):
+        if split:
+            monkeypatch.setattr(tbsa, "SPLIT_MIN", 2)
+            monkeypatch.setattr(tbsa, "WAVE", 1 << 40)
+        bsl = tbsa.BlockSparseLayout(lay, 16, s)
+        before = tbsa.LAUNCHES["block_sparse_attention_fwd"]
+        runs = [tbsa.block_sparse_attention_fwd(qs, k, v, bsl, bias)
+                for _ in range(2)]
+        info = tbsa.launch_info()
+        torch.cuda.synchronize()
+        assert tbsa.LAUNCHES["block_sparse_attention_fwd"] == before + 2
+        err = (runs[0][0].float() - ro.float()).abs().max().item()
+        print(f"block-sparse fwd {layout} D{d} split {split}: max {err:.3g} "
+              f"norm {_norm_rel(runs[0][0], ro):.3g}; {info}")
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
+        assert err <= TOL and _norm_rel(runs[0][0], ro) <= NORM_TOL
+        assert (runs[0][1] - rlse).abs().max() <= 1e-3
+        assert info["kernel"] == "fwd" and info["spill_bytes"] <= 128
+        if split:
+            assert info["split_groups"] > 0
+
+
+@pytest.mark.cuda
+def test_block_sparse_backward_first_on_the_autograd_thread(cuda_device):
+    """In a fresh process whose first CUDA work on PyTorch's autograd thread
+    is the block-sparse backward, dQ encodes its tensor maps on that thread
+    before any runtime call there: the encode binds the context itself, so
+    the backward runs (it once failed there with error 1)."""
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import numpy as np, torch\n"
+        "from deepspeed_tpu_torch.ops import block_sparse_attention as b\n"
+        "bsl = b.BlockSparseLayout(np.ones((2, 16, 16), bool), 16, 256)\n"
+        "q, k, v = (torch.randn((2, 2, 256, 32), device='cuda', "
+        "dtype=torch.bfloat16, requires_grad=True) for _ in range(3))\n"
+        "out = b.block_sparse_attention(q, k, v, bsl)\n"
+        "out.backward(torch.randn_like(out))\n"
+        "torch.cuda.synchronize()\n"
+        "assert q.grad.isfinite().all()\n"
+        "print('ok')\n")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert run.returncode == 0 and "ok" in run.stdout, run.stderr[-3000:]
 
 
 @pytest.mark.cuda

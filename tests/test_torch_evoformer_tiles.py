@@ -7,8 +7,10 @@ whether TMA can read its rows off the element addresses of the planes.
 ``evoformer_attention_tiled_plain`` (the kernel's walk: row blocks, key
 steps, exp2 with log2(e), biases added by pattern, the running max guarded
 at -inf) is held to the JAX package's Pallas kernel ``_evo_kernel`` run in
-interpret mode, in f32, 2e-5 max abs; inputs are made with numpy from a
-seed.
+interpret mode, in f32, 2e-5 max abs; the general kernel's walk with its
+3xTF32 products (``split``, ``tf32_split``) to the JAX package's
+``evoformer_attention_dense`` in f32, 1e-5 max abs.  Inputs are made with
+numpy from a seed.
 """
 
 import itertools
@@ -213,3 +215,50 @@ def test_tiled_plain_walk_sizes_agree(block_rows, block_keys):
                                                block_keys)
     torch.testing.assert_close(got, tevo.evoformer_attention_dense(*t, tb),
                                atol=FWD_TOL, rtol=0)
+
+
+SPLIT_TOL = 1e-5
+
+
+def test_tf32_split_rounds_to_ten_mantissa_bits():
+    """hi keeps 10 explicit mantissa bits (the low 13 bits 0), rounded to
+    nearest with ties away from zero as cvt.rna does; hi + lo is within
+    2^-21 of x; a bf16 or fp16 value is exact in TF32, so its lo is 0."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal(4096).astype(np.float32)
+                         * np.float32(1e3))
+    hi, lo = tevo.tf32_split(x)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    assert ((x - hi).abs() <= hi.abs() * 2.0 ** -11).all()
+    assert ((x - hi - lo).abs() <= x.abs() * 2.0 ** -21).all()
+    tie = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11])
+    assert tevo.tf32_split(tie)[0].tolist() == [1 + 2 ** -10,
+                                                -(1 + 2 ** -10),
+                                                1 + 2 ** -9]
+    for dt in (torch.bfloat16, torch.float16):
+        y = x.to(dt).float()
+        hi, lo = tevo.tf32_split(y)
+        assert torch.equal(hi, y) and not lo.any()
+
+
+@pytest.mark.parametrize("d", [32, 12])
+def test_split_walk_matches_jax_dense_in_f32(d):
+    """At a small triangle shape (lead (1, S), the mask and the pair bias),
+    the general kernel's walk with its 3xTF32 products holds the JAX
+    package's dense f32 composition within 1e-5; one TF32 product alone
+    (the split's cross terms dropped) does not."""
+    lead, s, h = (1, 48), 48, 2
+    (q, k, v), bs, _ = _inputs(lead, s, h, d, seed=d, biases="three")
+    bs = bs[:2]
+    want = np.asarray(jevo.evoformer_attention_dense(
+        *(jnp.asarray(a) for a in (q, k, v)), [jnp.asarray(b) for b in bs]))
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    tb = [torch.from_numpy(b) for b in bs]
+    rows, keys = tevo.general_walk(d, torch.float32)
+    got = tevo.evoformer_attention_tiled_plain(*t, tb, rows, keys,
+                                               split=True)
+    np.testing.assert_allclose(got.numpy(), want, atol=SPLIT_TOL, rtol=0)
+    one = tevo.evoformer_attention_tiled_plain(
+        *(tevo.tf32_split(a)[0] for a in t), tb, rows, keys)
+    assert np.abs(one.numpy() - want).max() > SPLIT_TOL
