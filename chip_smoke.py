@@ -170,8 +170,9 @@ Phases, each fatal on failure:
    against its plain version at the Llama-2-7B matrices in bf16 ([4096,
    4096], [4096, 11008], [11008, 4096], lm_head [4096, 32000]) at 64 and 16
    groups, at 128 values a group, with an all-zero group (scale 1, q 0) and
-   with exact .5 ties (fp32): q and scales bit for bit, each timed beside
-   the plain version and the bound (no one PyTorch call computes it);
+   with exact .5 ties (fp32): q and scales bit for bit, one kernel launch
+   and no memset a call (``torch.profiler``), each timed beside the plain
+   version and the bound (no one PyTorch call computes it);
 20. ``InferenceEngineV2.from_hf`` of a 2-layer Llama-2-7B checkpoint this
    script writes (``config.json`` and a 1.3 GB bf16 ``model.safetensors``
    from SEED) with ``quantize_bits=8`` and without: the 15 int8 records bit
@@ -185,13 +186,13 @@ Phases, each fatal on failure:
 21. Llama-2-7B's 32 layers drawn in bf16 on the card from SEED and
    quantized by ``WeightQuantization.model_quantize`` (64 groups, the
    embedding excluded): 225 matrices, exactly 225 quantize launches, device
-   time beside the bound; then phase 5's workload with 16 decode tokens and
-   16 more: TTFT and ms/step beside phase 5's, the int8 matmul 225 launches
-   a forward; then a traced quantization of a second draw, 16 more decode
-   tokens after it, a traced decode window, and phase 5's own tree served
-   by the same code in the same process, with a probe of the host's cost
-   of one launch before each (what tells a slower tree from a slower
-   process);
+   and wall time beside the bound; then phase 5's workload with 16 decode
+   tokens and 16 more: TTFT and ms/step beside phase 5's, the int8 matmul
+   225 launches a forward; then a traced quantization of a second draw, 16
+   more decode tokens after it, a traced decode window, and phase 5's own
+   tree served by the same code in the same process, with a probe of the
+   host's cost of one launch before each (what tells a slower tree from a
+   slower process);
 22. Evoformer attention (``DS4Sci_EvoformerAttention``) against the plain
    version, in bf16 / fp16 through the tensor-core kernel (wgmma fed by a
    TMA ring, every bias it is given) at upstream DeepSpeed's test shapes
@@ -222,7 +223,8 @@ Phases, each fatal on failure:
    "auto": the kernels), forward and backward, under Fixed (upstream's
    defaults, bidirectional and unidirectional), BigBird, BSLongformer,
    Variable and Dense layouts in bf16; and fixed in fp16, BSLongformer in
-   fp32 (the general kernels), BigBird at D = 128 (6 heads), BSLongformer at
+   fp32 (the split-TF32 forward, the general dQ and dK/dV; also at S =
+   1040, D = 20), BigBird at D = 128 (6 heads), BSLongformer at
    block 32, Variable at block 64, BigBird with a layout per head, Fixed at
    S = 1040 (a tail tile), and BigBird at S = 16384, batch 1, forward only
    (a timing case): the forward within 3e-2 max and 1e-2 in norm of
@@ -231,9 +233,11 @@ Phases, each fatal on failure:
    dense call (counts set to 0 just before each call and read just after);
    tables that drop the last live key tile of every query tile must miss
    the bars; two runs of the forward, and of dQ and dK/dV, on the same
-   inputs bit-equal, and (bf16 / fp16) the forward with every list split
-   into parts of two stages bit-equal over two runs and within the bars;
-   each wgmma launch's shape and walk (``launch_info``: grid, stages,
+   inputs bit-equal, and the forward with every list split into parts of
+   two stages bit-equal over two runs and within the bars; a fault planted
+   in a copy of the kernels' source (the fp32 forward's split products
+   without their cross terms) must miss the fp32 bar at BSLongformer;
+   each slice-walk launch's shape and walk (``launch_info``: grid, stages,
    registers, spills, split lists, slot fill); each kernel timed beside
    its plain version, SDPA over the expanded boolean mask (a yardstick:
    forward, forward + backward, the backward alone) and its bound (bytes,
@@ -2675,16 +2679,80 @@ def quantizer_bound(n: int, groups: int, elt: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def launches_a_call(torch, fn):
+    """Kernel launches and memsets on the device in one call of ``fn``
+    (after a warm call), from ``torch.profiler``'s device activity; None
+    where the tracer records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        return None
+    memsets = sum("memset" in n.lower() for n in names)
+    copies = sum("memcpy" in n.lower() for n in names)
+    return {"kernels": len(names) - memsets - copies, "memsets": memsets,
+            "names": sorted({n[:60] for n in names})}
+
+
+#: phase 19's (shape, groups, type) as traced for kernels and memsets a
+#: call (the zero-group case shares the first shape's launch)
+QUANT_TRACED = tuple(((k, n), g, "bfloat16") for k, n in QUANT_SHAPES
+                     for g in (64, 16)) + (
+    ((4096, 4096), 4096 * 4096 // 128, "bfloat16"),
+    ((4096, 4096), 64, "float32"))
+
+
+def trace_quantizer() -> int:
+    """``chip_smoke.py --trace-quantizer``: phase 19's kernels and memsets
+    a call (``launches_a_call``) for each of QUANT_TRACED, as one JSON line
+    keyed "shape groups type".  Phase 19 runs it in a fresh process: in
+    the long one, after the earlier phases' traces, the tracer recorded no
+    device activity for these calls."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from deepspeed_tpu_torch.ops import quantizer as tq
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for shape, groups, dtype in QUANT_TRACED:
+        x = torch.randn(shape, device=dev).to(getattr(torch, dtype))
+        out[f"{shape} {groups} {dtype}"] = launches_a_call(
+            torch, lambda: tq.quantize_kernel(x, groups))
+        del x
+    print(json.dumps(out))
+    return 0
+
+
+def quantizer_calls_traced() -> dict:
+    """``trace_quantizer``'s result, from a fresh process."""
+    run = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--trace-quantizer"], capture_output=True,
+                         text=True, timeout=600)
+    if run.returncode != 0:
+        raise RuntimeError(f"--trace-quantizer failed:\n{run.stderr[-2000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
 def quantizer_case(torch, name, xs, groups):
     """One phase-19 case: the kernel and its plain version on ``xs[0]``
-    (q and scales compared bit for bit), each timed over the operand sets
-    ``xs``."""
+    (q and scales compared bit for bit, and over two runs), its launch
+    plan, each timed over the operand sets ``xs``."""
     from deepspeed_tpu_torch.ops import quantizer as tq
 
     x = xs[0]
     got_q, got_s = tq.quantize_kernel(x, groups)
+    again_q, again_s = tq.quantize_kernel(x, groups)
     want_q, want_s = tq.quantize_plain(x, groups)
     torch.cuda.synchronize()
+    plan = tq.launch_plan(x, groups)
     err = max((got_q.int() - want_q.int()).abs().max().item(),
               (got_s - want_s).abs().max().item())
     b_ms, b_by = quantizer_bound(x.numel(), groups, x.element_size())
@@ -2694,7 +2762,11 @@ def quantizer_case(torch, name, xs, groups):
         "group_size": x.numel() // groups,
         "bit_equal": bool(torch.equal(got_q, want_q)
                           and torch.equal(got_s, want_s)),
+        "two_runs_bit_equal": bool(torch.equal(got_q, again_q)
+                                   and torch.equal(got_s, again_s)),
         "max_abs_err": err,
+        "plan": {k: plan[k] for k in ("route", "piece", "gpp", "parts",
+                                      "nbuf", "smem", "grid")},
         "ms": time_ms(lambda i: tq.quantize_kernel(xs[i], groups), len(xs),
                       8 if big else 24),
         "plain_ms": time_ms(lambda i: tq.quantize_plain(xs[i], groups),
@@ -3243,16 +3315,18 @@ def evoformer_case(torch, gen, dev, name, lead, s, h, d, biases, dtype,
     return case
 
 
-def start_planted_builds():
-    """Start one ``nvcc`` for each of ``EVO_PLANTED``'s faults, on a copy of
-    csrc/evoformer_attn.cu under build/ (phase 22 loads them)."""
+def start_planted_builds(source="evoformer_attn", faults=None):
+    """Start one ``nvcc`` for each fault of ``faults`` (``EVO_PLANTED`` by
+    default), on a copy of csrc/<source>.cu under build/ (phases 22 and 23
+    load them)."""
     from deepspeed_tpu_torch.ops import _build
 
-    src = (_build.CSRC / "evoformer_attn.cu").read_text()
-    out = ROOT / "build" / "evo_planted"
+    src = (_build.CSRC / f"{source}.cu").read_text()
+    out = ROOT / "build" / f"{source}_planted"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (fault, (text, planted, _)) in enumerate(EVO_PLANTED.items()):
+    for i, (fault, (text, planted, _)) in enumerate(
+            (faults or EVO_PLANTED).items()):
         assert src.count(text) == 1, text
         cu, lib = out / f"planted{i}.cu", out / f"libplanted{i}.so"
         cu.write_text(src.replace(text, planted))
@@ -3360,6 +3434,8 @@ BSA_CASES = tuple((n, n, 4, 12, 4096, 64, 16, "bf16", {}, None)
      {}, "add"),
     ("fixed S1040 padded mul fp32", "fixed", 4, 12, 1040, 64, 16, "fp32", {},
      "mul"),
+    ("bslongformer S1040 D20 fp32", "bslongformer", 4, 12, 1040, 20, 16,
+     "fp32", {}, None),
 )
 #: the timing case: forward only, held against the plain forward
 BSA_LONG = ("bigbird S16384", "bigbird", 1, 12, 16384, 64, 16, "bf16", {},
@@ -3367,6 +3443,58 @@ BSA_LONG = ("bigbird S16384", "bigbird", 1, 12, 16384, 64, 16, "bf16", {},
 BSA_GRAD_NORM_TOL = 5e-2
 BSA_FP32_TOL = 1e-4
 BSA_DTYPES = {"bf16": "bfloat16", "fp16": "float16", "fp32": "float32"}
+#: the fault planted in a copy of csrc/block_sparse_attention.cu, with the
+#: case it runs at: the fp32 forward's split products without their hi.lo
+#: and lo.hi terms (one TF32 product), which must miss BSA_FP32_TOL
+BSA_PLANTED = {
+    "split cross terms dropped": (
+        "  {  // the split's cross terms", "  if (false) {",
+        "bslongformer fp32"),
+}
+
+
+def bsa_planted(torch, np, gen, dev, procs):
+    """The fp32 forward of each fault's case (``BSA_CASES``) through each
+    planted library against the plain fp32 forward: max abs error of o and
+    lse, and whether o meets BSA_FP32_TOL."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    built = _build.load("block_sparse_attention")
+    out = {}
+    try:
+        for fault, (proc, lib) in procs.items():
+            log = proc.communicate()[0].decode()
+            if proc.returncode:
+                raise RuntimeError(f"planted {fault}: nvcc failed\n"
+                                   f"{log[-2000:]}")
+            name = BSA_PLANTED[fault][2]
+            _, layout, b, h, s, d, block, _, extra, _ = next(
+                c for c in BSA_CASES if c[0] == name)
+            cls, kw = BSA_LAYOUTS[layout]
+            bsl = bsa.BlockSparseLayout(np.asarray(getattr(sa, cls)(
+                h, block, **kw, **extra).make_layout(s)), block, s)
+            q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                       for _ in range(3))
+            qs = q / math.sqrt(d)
+            want = bsa.block_sparse_plain_fwd(qs, k, v,
+                                              bsl.element_mask(dev))
+            _build._LIBS["block_sparse_attention"] = ctypes.CDLL(str(lib))
+            bsa._kernel.cache_clear()
+            o, lse = bsa.block_sparse_attention_fwd(qs, k, v, bsl)
+            torch.cuda.synchronize()
+            err = (o - want[0]).abs().nan_to_num(float("inf")).max().item()
+            out[fault] = {"case": name, "max_abs_err": err,
+                          "lse_max_abs_err": (lse - want[1]).abs().max()
+                          .item(), "meets_bar": err <= BSA_FP32_TOL}
+            bsl._elem.clear()
+    finally:
+        _build._LIBS["block_sparse_attention"] = built
+        bsa._kernel.cache_clear()
+    return out
 
 
 def bsa_planted_fault(np, bsl, side="q"):
@@ -3391,7 +3519,7 @@ def bsa_planted_fault(np, bsl, side="q"):
 
 
 def bsa_forced_split(torch, bsa, bsl, operands, bias, want):
-    """The bf16 / fp16 forward with every list longer than two stages split
+    """The forward with every list longer than two stages split
     into parts of two (the split rule's constants set so, the tables built
     afresh on a copy of ``bsl``), twice: whether the two runs give the same
     bits, their distance to ``want`` (the forward under the rule's split)
@@ -3540,15 +3668,12 @@ def block_sparse_case(torch, np, gen, dev, name, layout, b, h, s, d, block,
     # atomics on the outputs; split lists merge in part order), also with
     # every list split into parts of two stages
     again = bsa.block_sparse_attention_fwd(*ops[0][:3], bsl, bias)
-    case["launch"] = {}
-    if dt != torch.float32:
-        case["launch"]["fwd"] = bsa.launch_info()
+    case["launch"] = {"fwd": bsa.launch_info()}
     torch.cuda.synchronize()
     case["fwd_bit_equal"] = all(torch.equal(a, c)
                                 for a, c in zip(res[0], again))
-    if dt != torch.float32:
-        case["fwd_forced_split"] = bsa_forced_split(torch, bsa, bsl, ops[0],
-                                                    bias, res[0])
+    case["fwd_forced_split"] = bsa_forced_split(torch, bsa, bsl, ops[0],
+                                                bias, res[0])
     del again
     case["ms"] = {"fwd": time_ms(
         lambda i: bsa.block_sparse_attention_fwd(*ops[i][:3], bsl, bias),
@@ -3655,8 +3780,7 @@ def bsa_failures(case) -> list:
     forced = case.get("fwd_forced_split")
     if forced is not None and not (
             forced["bit_equal"] and forced["split_groups"] > 0
-            and forced["max_abs_err"] <= TOL
-            and forced["norm_rel_err"] <= NORM_TOL):
+            and fwd_ok(forced["max_abs_err"], forced["norm_rel_err"])):
         bad.append(f"the forward under a forced split {forced}")
     want = {BSA_KEYS[0]: 1, BSA_KEYS[1]: int(not fwd_only),
             BSA_KEYS[2]: int(not fwd_only), BSA_DENSE: 0}
@@ -3978,6 +4102,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     planted_builds = start_planted_builds()
+    bsa_planted_builds = start_planted_builds("block_sparse_attention",
+                                              BSA_PLANTED)
     secs = _build.build()
     print(f"[build] {time.perf_counter() - t0:.1f} s wall; per source "
           f"{ {k: round(v, 1) for k, v in secs.items()} }", flush=True)
@@ -4308,18 +4434,31 @@ def main() -> int:
 
     # 19. the int8 quantizer kernel against its plain version, bit for bit
     qcases = quantizer_cases(torch, gen, dev)
+    traced = quantizer_calls_traced()
     for c in qcases:
+        x_shape = tuple(int(v) for v in c["name"].split("[")[1].split("]")[0]
+                        .split(","))
+        dtype = "float32" if "fp32" in c["name"] else "bfloat16"
+        c["a_call"] = traced.get(f"{x_shape} {c['groups']} {dtype}")
         print(f"[quantizer] {c['name']}: bit-equal {c['bit_equal']} "
-              f"max abs err {c['max_abs_err']} ms {c['ms']:.4f} plain "
+              f"(two runs {c['two_runs_bit_equal']}) max abs err "
+              f"{c['max_abs_err']} ms {c['ms']:.4f} plain "
               f"{c['plain_ms']:.4f} bound {c['bound_ms']:.4f} "
-              f"({c['bound_by']})"
+              f"({c['bound_by']}, {c['ms'] / c['bound_ms']:.2f}x) a call "
+              f"{c['a_call']} plan {c['plan']}"
               + (f" zero group {c['zero_group']}" if "zero_group" in c
                  else ""), flush=True)
     bad = [c["name"] for c in qcases
-           if not c["bit_equal"] or c.get("zero_group") is False]
+           if not (c["bit_equal"] and c["two_runs_bit_equal"])
+           or c.get("zero_group") is False]
     if bad:
         return fail(f"the quantizer kernel's q or scales differ from its "
                     f"plain version: {bad}")
+    bad = [(c["name"], c["a_call"]) for c in qcases if c["a_call"] is None
+           or (c["a_call"]["kernels"], c["a_call"]["memsets"]) != (1, 0)]
+    if bad:
+        return fail(f"the quantizer is not one launch and no memset a "
+                    f"call: {bad}")
 
     # 20. from_hf of a 2-layer Llama-2-7B checkpoint, int8 and bf16
     hf = from_hf_run(torch, np, dev, prompts)
@@ -4461,8 +4600,21 @@ def main() -> int:
         bad = bsa_failures(r)
         if bad:
             return fail(f"phase 23 {r['name']}: {bad}")
+    # the main path's launches by kernel: the fp32 cases' forward is the
+    # split-TF32 kernel, the others' the wgmma one
     bsa_main = {k: sum(c["launches"][k] for c in bsa_cases)
                 for k in BSA_KEYS}
+    bsa_main["fwd_split"] = sum(c["launches"][BSA_KEYS[0]] for c in bsa_cases
+                                if c["dtype"] == "fp32")
+    bsa_main[BSA_KEYS[0]] -= bsa_main["fwd_split"]
+    bsa_faults = bsa_planted(torch, np, gen, dev, bsa_planted_builds)
+    for fault, errs in bsa_faults.items():
+        print(f"[block-sparse] planted {fault} ({errs['case']}): max "
+              f"{errs['max_abs_err']:.3g} lse {errs['lse_max_abs_err']:.3g}",
+              flush=True)
+    bad = [f for f, e in bsa_faults.items() if e["meets_bar"]]
+    if bad:
+        return fail(f"phase 23: planted faults meet the fp32 bar: {bad}")
     for c in bsa_cases:
         if c["layout"] in ("fixed", "bslongformer", "dense") \
                 and c["padding"] is None \
@@ -4590,12 +4742,16 @@ def main() -> int:
         for kname in c["ms"]:
             err = (c["max_abs_err"] if kname == "fwd" else
                    max(c["grad_max_abs_err"][o] for o in bsa_outs[kname]))
+            # the fp32 forward: bsa_fwd_split_kernel
+            split = kname == "fwd" and c["dtype"] == "fp32"
             kernels.append({
-                "name": f"block_sparse_attention_{kname}[{c['name']}]",
+                "name": f"block_sparse_attention_{kname}"
+                        f"{'_split' if split else ''}[{c['name']}]",
                 "route": "cuda", "source": src + "block_sparse_attention.cu",
                 "replaces": ref + "ops/block_sparse_attention.py:"
                 + bsa_lines[kname],
-                "launches": bsa_main[f"block_sparse_attention_{kname}"],
+                "launches": bsa_main["fwd_split" if split else
+                                     f"block_sparse_attention_{kname}"],
                 "max_abs_err": err, "ms": c["ms"][kname],
                 "plain_ms": c["plain_ms"][kname],
                 "bound_ms": c["bounds"][kname]["bound_ms"],
@@ -4621,7 +4777,7 @@ def main() -> int:
          "strided": strided, "gpt2_slice": g_slice, "layout_trained": runs,
          "quantizer": qcases, "from_hf": hf, "quantized_served": qserved,
          "evoformer": evo_cases, "evoformer_planted": evo_planted,
-         "block_sparse": bsa_cases,
+         "block_sparse": bsa_cases, "block_sparse_planted": bsa_faults,
          "scheduler": sched_run},
         indent=1))
     print(json.dumps(record))
@@ -4633,4 +4789,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(trace_quantizer() if sys.argv[1:] == ["--trace-quantizer"]
+             else main())

@@ -67,10 +67,13 @@
 //   give the same bits), and orders the blocks longest list first.  The
 //   forward and dQ read one query-major walk, so one table a (device,
 //   batch) serves both;
-// * the general kernels (fp32, any D up to 128; the TPU kernel takes fp32
-//   too, and the JAX package's parity test runs it): the tile lists,
-//   products in fp32 on the CUDA cores, 8 warps a block, 8 rows (or keys) a
-//   warp and one key (or query) a lane.
+// * the fp32 forward (any D up to 128; the TPU kernel takes fp32 too, and
+//   the JAX package's parity test runs it) on the same query-major walk:
+//   `bsa_fwd_split_kernel`, mma.sync in split TF32 (3xTF32), each warp
+//   skipping its dead 16-key slots (below);
+// * the general fp32 dQ and dK/dV: the tile lists, products in fp32 on the
+//   CUDA cores, 8 warps a block, 8 rows (or keys) a warp and one key (or
+//   query) a lane.
 //
 // What bounds them on the H100: at BERT width (D = 64, S = 4096, batch 4,
 // block 16) the products of the live layout cells, 4 S_live D flops forward
@@ -112,7 +115,6 @@ struct Lists {
   const int* mask;
 };
 
-__device__ __forceinline__ float neg_inf() { return -__int_as_float(0x7f800000); }
 
 // sum over 8 elements of a * b, each 16-byte vector of T in fp32
 template <typename T>
@@ -307,14 +309,16 @@ __device__ __forceinline__ void put_partial(float* slot, const float (&acc)[N], 
 
 // acc += w * a partial, w = w0 on this thread's first row (accumulator
 // elements 4j, 4j + 1) and w1 on its second (4j + 2, 4j + 3); at w = 1 the
-// plain sum, bit for bit
-template <int N>
+// plain sum, bit for bit (SHARED: a slot in this block's shared memory)
+template <int N, bool SHARED = false>
 __device__ __forceinline__ void add_partial(float (&acc)[N], const float* slot, int ct,
                                             float w0 = 1.f, float w1 = 1.f) {
   const float4* r = reinterpret_cast<const float4*>(slot);
 #pragma unroll
   for (int j = 0; j < N / 4; ++j) {
-    const float4 x = __ldcg(r + j * 128 + ct);    // another SM wrote it: not from L1
+    float4 x;
+    if constexpr (SHARED) x = r[j * 128 + ct];
+    else x = __ldcg(r + j * 128 + ct);            // another SM wrote it: not from L1
     acc[4 * j] = fmaf(x.x, w0, acc[4 * j]);
     acc[4 * j + 1] = fmaf(x.y, w0, acc[4 * j + 1]);
     acc[4 * j + 2] = fmaf(x.z, w1, acc[4 * j + 2]);
@@ -1060,6 +1064,418 @@ bsa_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ----------------------------------------------------------------------------
+// Forward in fp32 on the slice walk: split TF32 on mma.sync
+// ----------------------------------------------------------------------------
+// What bounds it: at BSLongformer (B 4, H 12, S 4096, D 64) the stages'
+// live slot pairs carry ~4 GFLOP of fp32 products (0.06 ms at 67 TFLOP/s on
+// the CUDA cores) and the operands 0.06 ms of bytes.  The general kernel
+// before it, one key a lane with dot products over D from shared memory and
+// synchronous 64 x 64 tiles, ran at ~25x that.  So, on the bf16 forward's
+// walk (query slices stationary, the live key slices streamed four to a
+// stage):
+// * the products run on the tensor cores, mma.sync.m16n8k8 in TF32 with
+//   each fp32 operand split as hi = tf32(x) and lo = x - hi (which the
+//   tensor cores truncate to TF32) and each product hi.hi + hi.lo + lo.hi
+//   in fp32 accumulators (3xTF32; the split of evo_split_kernel,
+//   csrc/evoformer_attn.cu, whose helpers are repeated here so that each
+//   source's planted fault edits its own text); Q is split once a block;
+// * a block is 8 warps: warp w holds the 16 rows of stationary slot w % 4
+//   and the keys of stage slots 2 (w / 4) and 2 (w / 4) + 1, so a warp
+//   skips a dead 16-key slot's products (the stage's mask bits are its
+//   own, and a slot whose 16 keys the key bias drops, -inf: a padded
+//   batch row's tail, is dead too: skipping it adds the same zeros) and
+//   the whole stage when both are dead; the two warps of a row
+//   slot keep their own running max, sums and O, merged in a fixed order at
+//   the end (two 16-row tiles a warp against one slot, each K and V
+//   fragment split once for both, ran 6-20% slower: 128 registers a thread
+//   at two blocks an SM spill, PERF.md);
+// * K and V slices come by cp.async (16, 8 or 4 bytes a copy, by D's
+//   alignment; D padded with zeros to DP) through a ring of NS stages,
+//   loaded NS - 1 stages ahead by the block's threads, with the stage's key
+//   bias; row strides put every fragment's loads on distinct banks, and the
+//   fragments' k order is permuted (column t holds element 2t, column t + 4
+//   element 2t + 1, in A and B alike) so that S's accumulators are P V's A
+//   fragments with no shuffle;
+// * the online softmax runs in fp32 registers with exp2 of one FMA a score,
+//   as the bf16 forward's; P is not rounded (fp32);
+// * a split list's parts write O, m and l and the last part merges them in
+//   part order (the bf16 forward's partial slots and counters).
+// Every sum runs in a fixed order: two runs give the same bits.
+constexpr int kSplitWarps = 8;
+constexpr int kSplitThreads = 32 * kSplitWarps;
+
+// x rounded to TF32 (10 explicit mantissa bits, to nearest, ties away)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as TF32 parts: hi = tf32(x) and the remainder x - hi, not rounded
+// again (the tensor cores read its top 10 mantissa bits: one instruction
+// less a value than rounding it, 6% faster on the card, PERF.md)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b over one m16n8k8 tile from TF32 parts: hi.lo + lo.hi (the
+// split's cross terms), then hi.hi
+__device__ __forceinline__ void mma_split(float* c, const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                          const uint32_t (&bl)[2]) {
+  {  // the split's cross terms
+    mma_tf32(c, al, bh[0], bh[1]);
+    mma_tf32(c, ah, bl[0], bl[1]);
+  }
+  mma_tf32(c, ah, bh[0], bh[1]);
+}
+
+// `BYTES` (4, 8 or 16) global -> shared, asynchronously
+template <int BYTES>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "n"(BYTES)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The split kernel's shared memory (floats): Q [64 x kLdq], then NS stages
+// of K [64 x kLdk], V [64 x kLdv] and the key bias [64]; row strides that put
+// a warp's fragment loads on distinct banks.
+template <int DP, int NS>
+struct SplitSmem {
+  static constexpr int kLdq = DP + 8, kLdk = DP + 8, kLdv = DP + 4;
+  static constexpr int kQ = 0;                       // Q's TF32 parts: hi,
+  static constexpr int kQLo = kRows * kLdq;          // and the remainders
+  static constexpr int kRing = 2 * kRows * kLdq;
+  static constexpr int kK = 0, kV = kRows * kLdk, kBias = kV + kRows * kLdv;
+  static constexpr int kStage = kBias + kRows;
+  static constexpr int kFlag = kRing + NS * kStage;
+  static constexpr int kBytes = (kFlag + 4) * 4;
+};
+
+// The 64 rows of four 16-row slices of one head (`src`: its [S, d] rows)
+// into `dst` at row stride ld, `vec` bytes a copy by the block's threads.
+__device__ __forceinline__ void copy_slices_f32(float* dst, int ld, const float* src,
+                                                const int (&sl)[kSlots], int d, int vec) {
+  const int per = vec / 4, chunks = d / per;
+  for (int i = threadIdx.x; i < kRows * chunks; i += kSplitThreads) {
+    const int rr = i / chunks, c = (i - rr * chunks) * per;
+    const float* from = src + static_cast<size_t>(kSlice * pick(sl, rr / kSlice) + rr % kSlice) * d + c;
+    float* to = dst + rr * ld + c;
+    if (vec == 16) cp_async_n<16>(to, from);
+    else if (vec == 8) cp_async_n<8>(to, from);
+    else cp_async_n<4>(to, from);
+  }
+}
+
+template <int DP>
+struct SplitTiles {
+  static constexpr int kStages = DP <= 16 ? 3 : 2;
+  static constexpr int kMinBlocks = DP <= 32 ? 3 : DP <= 64 ? 2 : 1;
+};
+
+
+template <int DP, int NS, bool BIAS>
+__global__ void __launch_bounds__(kSplitThreads, SplitTiles<DP>::kMinBlocks)
+bsa_fwd_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, const float* __restrict__ kbias, int seq,
+                     int heads, int d, int batch, int vec, Walk walk) {
+  using L = SplitSmem<DP, NS>;
+  extern __shared__ __align__(16) float ssm[];
+  float* q_s = ssm + L::kQ;
+  float* qlo_s = ssm + L::kQLo;
+  int* flag = reinterpret_cast<int*>(ssm + L::kFlag);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int rs = warp % kSlots, half = warp / kSlots;    // row slot, key half
+  const int b = blockIdx.x % batch;
+  const Item it = item_of(walk.blocks, blockIdx.x / batch);
+  const int bh = b * heads + it.head;
+  const int n = it.end - it.begin;
+  const size_t row_base = static_cast<size_t>(bh) * seq;
+  const float* kb = k + row_base * d;
+  const float* vb = v + row_base * d;
+  auto stage_of = [&](int i) { return ssm + L::kRing + (i % NS) * L::kStage; };
+  const float kInf = __int_as_float(0x7f800000);
+
+  if (d < DP) {                                   // the padding the products read
+    for (int i = threadIdx.x; i < kRows * (DP - d); i += kSplitThreads) {
+      const int r = i / (DP - d), c = d + i % (DP - d);
+      q_s[r * L::kLdq + c] = 0.f;
+      for (int s = 0; s < NS; ++s) {
+        stage_of(s)[L::kK + r * L::kLdk + c] = 0.f;
+        stage_of(s)[L::kV + r * L::kLdv + c] = 0.f;
+      }
+    }
+  }
+  auto slots_of = [&](int i, int (&sl)[kSlots]) {
+    const int4 st = __ldg(reinterpret_cast<const int4*>(
+        walk.stages + static_cast<size_t>(it.begin + i) * kStageInts));
+    sl[0] = st.x;
+    sl[1] = st.y >= 0 ? st.y : st.x;
+    sl[2] = st.z >= 0 ? st.z : st.x;
+    sl[3] = st.w >= 0 ? st.w : st.x;
+  };
+  auto load = [&](int i) {                        // stage i's K, V and key bias
+    if (i < n) {
+      int sl[kSlots];
+      slots_of(i, sl);
+      float* st = stage_of(i);
+      copy_slices_f32(st + L::kK, L::kLdk, kb, sl, d, vec);
+      copy_slices_f32(st + L::kV, L::kLdv, vb, sl, d, vec);
+      if (BIAS && threadIdx.x < kRows)
+        cp_async_n<4>(st + L::kBias + threadIdx.x,
+                      kbias + static_cast<size_t>(b) * seq + kSlice * pick(sl, threadIdx.x / kSlice)
+                          + threadIdx.x % kSlice);
+    }
+    cp_commit();
+  };
+  {
+    int stat[kSlots];
+    slices_of(it.stat, stat);
+    copy_slices_f32(q_s, L::kLdq, q + row_base * d, stat, d, vec);
+  }
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) load(i);
+
+  // this thread's rows 16 rs + g and + 8: running max, its part of the row
+  // sums, and O (fragment order: element 4 nd + 2 hr + e is row g + 8 hr,
+  // column 8 nd + 2t + e)
+  float m[2] = {-kInf, -kInf}, l[2] = {0.f, 0.f};
+  float acc[DP / 2];
+  zero(acc);
+  const float* q_row0 = q_s + (16 * rs + g) * L::kLdq + 2 * t;
+  const float* qlo_row0 = qlo_s + (16 * rs + g) * L::kLdq + 2 * t;
+  for (int i = 0; i < n; ++i) {
+    cp_wait<NS - 2>();
+    __syncthreads();                              // stage i landed; stage i - 1 read
+    if (i == 0) {                                 // Q landed with stage 0: split it once
+      for (int e = threadIdx.x; e < kRows * DP; e += kSplitThreads) {
+        float* x = q_s + (e / DP) * L::kLdq + e % DP;
+        uint32_t hi, lo;
+        split_tf32(*x, hi, lo);
+        *x = __uint_as_float(hi);
+        qlo_s[(e / DP) * L::kLdq + e % DP] = __uint_as_float(lo);
+      }
+      __syncthreads();
+    }
+    load(i + NS - 1);
+    int live = (__ldg(walk.stages + static_cast<size_t>(it.begin + i) * kStageInts + kSlots)
+                >> (4 * rs + 2 * half)) & 3;
+    const float* st = stage_of(i);
+    if (BIAS) {                                   // a slot whose 16 keys the key bias drops
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (__all_sync(kFull, st[L::kBias + 32 * half + 16 * j + (lane & 15)] == -kInf))
+          live &= ~(1 << j);
+    }
+    if (live == 0) continue;                      // (warp-uniform)
+    const float* k_t = st + L::kK + 32 * half * L::kLdk;
+    const float* v_t = st + L::kV + 32 * half * L::kLdv;
+
+    // S = Q K^T over this warp's 32 keys: slot j's 8-key tile nb in
+    // s[8 j + 4 nb ..]; k step kk takes dims 8 kk .. 8 kk + 7
+    float s[16];
+    zero(s);
+#pragma unroll 2
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      const float2 x0 = *reinterpret_cast<const float2*>(q_row0 + 8 * kk);
+      const float2 x1 = *reinterpret_cast<const float2*>(q_row0 + 8 * L::kLdq + 8 * kk);
+      const float2 y0 = *reinterpret_cast<const float2*>(qlo_row0 + 8 * kk);
+      const float2 y1 = *reinterpret_cast<const float2*>(qlo_row0 + 8 * L::kLdq + 8 * kk);
+      ah[0] = __float_as_uint(x0.x);
+      ah[1] = __float_as_uint(x1.x);
+      ah[2] = __float_as_uint(x0.y);
+      ah[3] = __float_as_uint(x1.y);
+      al[0] = __float_as_uint(y0.x);
+      al[1] = __float_as_uint(y1.x);
+      al[2] = __float_as_uint(y0.y);
+      al[3] = __float_as_uint(y1.y);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (!((live >> j) & 1)) continue;
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          const float2 y = *reinterpret_cast<const float2*>(
+              k_t + (16 * j + 8 * nb + g) * L::kLdk + 8 * kk + 2 * t);
+          uint32_t bh2[2], bl2[2];
+          split_tf32(y.x, bh2[0], bl2[0]);
+          split_tf32(y.y, bh2[1], bl2[1]);
+          mma_split(s + 8 * j + 4 * nb, ah, al, bh2, bl2);
+        }
+      }
+    }
+
+    // the online softmax of this warp's keys: the key bias added, a dead
+    // slot -inf, the max on the scores, exp2 of one FMA a score
+    const float* bt = st + L::kBias + 32 * half;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int j = e / 8;
+      const float bias = BIAS ? bt[8 * (e / 4) + 2 * t + (e & 1)] : 0.f;
+      s[e] = (live >> j) & 1 ? s[e] + bias : -kInf;
+    }
+    float corr[2], base[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -kInf;
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        if (((e >> 1) & 1) == hr) mx = fmaxf(mx, s[e]);
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      // a row that has seen only -inf subtracts 0: its p and corr are 0
+      base[hr] = m_new == -kInf ? 0.f : __fmul_rn(m_new, kLog2e);
+      corr[hr] = exp2_ftz(__fmul_rn(m[hr], kLog2e) - base[hr]);
+      m[hr] = m_new;
+      l[hr] *= corr[hr];
+    }
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int hr = (e >> 1) & 1;
+      s[e] = exp2_ftz(fmaf(s[e], kLog2e, -base[hr]));
+      l[hr] += s[e];
+    }
+    if (__any_sync(kFull, corr[0] != 1.f || corr[1] != 1.f)) {   // x 1 changes no bit
+#pragma unroll
+      for (int j = 0; j < DP / 2; ++j) acc[j] *= corr[(j >> 1) & 1];
+    }
+
+    // O += P V: slot j's key block kb (keys 16 j + 8 kb ..; P's column t is
+    // key 2t, its S accumulator element 0 / 2, column t + 4 key 2t + 1)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (!((live >> j) & 1)) continue;
+#pragma unroll
+      for (int kb2 = 0; kb2 < 2; ++kb2) {
+        const float* p = s + 8 * j + 4 * kb2;
+        uint32_t ah[4], al[4];
+        split_tf32(p[0], ah[0], al[0]);
+        split_tf32(p[2], ah[1], al[1]);
+        split_tf32(p[1], ah[2], al[2]);
+        split_tf32(p[3], ah[3], al[3]);
+        const float* v0 = v_t + (16 * j + 8 * kb2 + 2 * t) * L::kLdv + g;
+#pragma unroll
+        for (int nd = 0; nd < DP / 8; ++nd) {
+          uint32_t bh2[2], bl2[2];
+          split_tf32(v0[8 * nd], bh2[0], bl2[0]);
+          split_tf32(v0[L::kLdv + 8 * nd], bh2[1], bl2[1]);
+          mma_split(acc + 4 * nd, ah, al, bh2, bl2);
+        }
+      }
+    }
+  }
+  cp_wait<0>();                                   // (only empty groups left)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {                // the row's sum over its quad
+    l[hr] += __shfl_xor_sync(kFull, l[hr], 1);
+    l[hr] += __shfl_xor_sync(kFull, l[hr], 2);
+  }
+
+  // the two key halves of a row slot: half 1 puts its m, l and O in the
+  // ring (no stage is read any more), half 0 merges them, its own first
+  const int ct = threadIdx.x % 128;
+  float* mine_half = ssm + L::kRing;
+  __syncthreads();
+  if (half == 1) {
+    put_partial(mine_half, acc, ct);
+    reinterpret_cast<float4*>(mine_half + 64 * DP)[ct] = make_float4(m[0], m[1], l[0], l[1]);
+  }
+  __syncthreads();
+  if (half == 1) return;
+  {
+    const float4 ml = reinterpret_cast<const float4*>(mine_half + 64 * DP)[ct];
+    const float other_m[2] = {ml.x, ml.y}, other_l[2] = {ml.z, ml.w};
+    float w_own[2], w_other[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float m_new = fmaxf(m[hr], other_m[hr]);
+      const float base = m_new == -kInf ? 0.f : __fmul_rn(m_new, kLog2e);
+      w_own[hr] = exp2_ftz(__fmul_rn(m[hr], kLog2e) - base);
+      w_other[hr] = exp2_ftz(__fmul_rn(other_m[hr], kLog2e) - base);
+      l[hr] = fmaf(other_l[hr], w_other[hr], l[hr] * w_own[hr]);
+      m[hr] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < DP / 2; ++j) acc[j] *= w_own[(j >> 1) & 1];
+    add_partial<DP / 2, true>(acc, mine_half, ct, w_other[0], w_other[1]);
+  }
+
+  if (it.parts > 1) {
+    // each part's unnormalised O and its rows' m and l; the last part to
+    // finish merges them in part order: m* = max m_p, O and l summed with
+    // weights exp(m_p - m*)
+    constexpr int kO = 128 * DP / 2;
+    float* mine_slot = partial_slot(it, walk, it.part, b, batch, kFwdSlot<DP>);
+    put_partial(mine_slot, acc, ct);
+    reinterpret_cast<float4*>(mine_slot + kO)[ct] = make_float4(m[0], m[1], l[0], l[1]);
+    if (!last_part(it, walk, b, batch, ct, flag)) return;
+    float4 ml;
+    m[0] = m[1] = -kInf;
+    for (int p = 0; p < it.parts; ++p) {
+      ml = __ldcg(reinterpret_cast<const float4*>(
+                      partial_slot(it, walk, p, b, batch, kFwdSlot<DP>) + kO) + ct);
+      m[0] = fmaxf(m[0], ml.x);
+      m[1] = fmaxf(m[1], ml.y);
+    }
+    const float base0 = m[0] == -kInf ? 0.f : __fmul_rn(m[0], kLog2e);
+    const float base1 = m[1] == -kInf ? 0.f : __fmul_rn(m[1], kLog2e);
+    zero(acc);
+    l[0] = l[1] = 0.f;
+    for (int p = 0; p < it.parts; ++p) {
+      const float* part = partial_slot(it, walk, p, b, batch, kFwdSlot<DP>);
+      ml = __ldcg(reinterpret_cast<const float4*>(part + kO) + ct);
+      const float w0 = exp2_ftz(__fmul_rn(ml.x, kLog2e) - base0);
+      const float w1 = exp2_ftz(__fmul_rn(ml.y, kLog2e) - base1);
+      add_partial(acc, part, ct, w0, w1);
+      l[0] = fmaf(ml.z, w0, l[0]);
+      l[1] = fmaf(ml.w, w1, l[1]);
+    }
+  }
+  // normalise (a row that saw no key: zeros, lse -1e30) and write this
+  // thread's columns 8 nd + 2t, + 1 of its rows of its slot's slice
+  const int mine = pick(it.stat, rs);
+  if (mine < 0) return;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const float safe_l = l[hr] == 0.f ? 1.f : l[hr];
+    const size_t row = row_base + kSlice * mine + g + 8 * hr;
+    float* orow = o + row * d;
+#pragma unroll
+    for (int nd = 0; nd < DP / 8; ++nd) {
+      const int c = 8 * nd + 2 * t;
+      if (c < d) orow[c] = acc[4 * nd + 2 * hr] / safe_l;
+      if (c + 1 < d) orow[c + 1] = acc[4 * nd + 2 * hr + 1] / safe_l;
+    }
+    if (t == 0) lse[row] = m[hr] == -kInf ? kNegInf : m[hr] + logf(safe_l);
+  }
+}
+
+// ----------------------------------------------------------------------------
 // General kernels (CUDA cores, fp32 products)
 // ----------------------------------------------------------------------------
 // kTile rows of one head into fp32 shared memory at row stride ld; rows past
@@ -1079,109 +1495,6 @@ __device__ __forceinline__ float round_to(float x) {
 }
 
 // DW = ceil(d / 32) output columns a lane: lane + 32 e.
-template <typename T, int DW>
-__global__ void __launch_bounds__(kSimtThreads)
-bsa_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    T* __restrict__ o, float* __restrict__ lse,
-                    const float* __restrict__ kbias, int seq, int heads, int d, Lists lists) {
-  extern __shared__ __align__(16) float fsm[];
-  const int ldk = d | 1;                            // odd: lane j's row in bank j
-  float* q_s = fsm;                                 // [kTile][d]
-  float* k_s = q_s + kTile * d;                     // [kTile][ldk]
-  float* v_s = k_s + kTile * ldk;                   // [kTile][d]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * kTile;
-  const size_t row_base = (static_cast<size_t>(b) * heads + h) * seq;
-  const T* kb = k + row_base * d;
-  const T* vb = v + row_base * d;
-  load_rows_f32<T>(q_s, d, q + row_base * d, d, q0, seq);
-
-  const int lr0 = warp * kSimtPer;                  // the warp's first row in q_s
-  const int shift = 4 * (lr0 / 16);                 // its query sub-block's bits
-  float m[kSimtPer], lsum[kSimtPer], acc[kSimtPer][DW];
-#pragma unroll
-  for (int rr = 0; rr < kSimtPer; ++rr) {
-    m[rr] = kNegInf;
-    lsum[rr] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DW; ++j) acc[rr][j] = 0.f;
-  }
-
-  const int li = h * gridDim.x + qt;
-  for (int it = lists.ptr[li], end = lists.ptr[li + 1]; it < end; ++it) {
-    const int c0 = lists.idx[it] * kTile;
-    const int live = (lists.mask[it] >> shift) & 0xF;
-    __syncthreads();                                // the last tile's reads are done
-    load_rows_f32<T>(k_s, ldk, kb, d, c0, seq);
-    load_rows_f32<T>(v_s, d, vb, d, c0, seq);
-    __syncthreads();
-#pragma unroll 1
-    for (int half = 0; half < 2; ++half) {
-      if (!((live >> (2 * half)) & 3)) continue;    // both 16-key slices dead
-      const int kl = 32 * half + lane;              // this lane's key in the tile
-      const bool keep = (live >> (kl / 16)) & 1;
-      float x[kSimtPer];
-#pragma unroll
-      for (int rr = 0; rr < kSimtPer; ++rr) x[rr] = 0.f;
-      for (int e = 0; e < d; ++e) {
-        const float kv = k_s[kl * ldk + e];
-#pragma unroll
-        for (int rr = 0; rr < kSimtPer; ++rr) x[rr] = fmaf(q_s[(lr0 + rr) * d + e], kv, x[rr]);
-      }
-      const float kbv = keep && kbias ? kbias[static_cast<size_t>(b) * seq + c0 + kl] : 0.f;
-      float pr[kSimtPer];
-#pragma unroll
-      for (int rr = 0; rr < kSimtPer; ++rr) {
-        const float xv = keep ? x[rr] + kbv : neg_inf();
-        float mx = xv;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-        const float m_new = fmaxf(m[rr], mx);
-        const float corr = expf(m[rr] - m_new);
-        const float p = expf(xv - m_new);
-        float rs = p;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) rs += __shfl_xor_sync(kFull, rs, off);
-        lsum[rr] = lsum[rr] * corr + rs;
-        m[rr] = m_new;
-        pr[rr] = round_to<T>(p);                    // P in the input type
-#pragma unroll
-        for (int e = 0; e < DW; ++e) acc[rr][e] *= corr;
-      }
-      // P V: each V value read once for all of the warp's rows
-      for (int j = 0; j < 32; ++j) {
-        float pj[kSimtPer];
-#pragma unroll
-        for (int rr = 0; rr < kSimtPer; ++rr) pj[rr] = __shfl_sync(kFull, pr[rr], j);
-        const float* vrow = v_s + (32 * half + j) * d;
-#pragma unroll
-        for (int e = 0; e < DW; ++e) {
-          const int c = lane + 32 * e;
-          const float vv = c < d ? vrow[c] : 0.f;
-#pragma unroll
-          for (int rr = 0; rr < kSimtPer; ++rr) acc[rr][e] = fmaf(pj[rr], vv, acc[rr][e]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < kSimtPer; ++rr) {
-    const int r = q0 + lr0 + rr;
-    if (r >= seq) continue;
-    const float safe_l = lsum[rr] == 0.f ? 1.f : lsum[rr];
-    T* orow = o + (row_base + r) * d;
-#pragma unroll
-    for (int e = 0; e < DW; ++e) {
-      const int c = lane + 32 * e;
-      if (c < d) orow[c] = from_f<T>(acc[rr][e] / safe_l);
-    }
-    if (lane == 0) lse[row_base + r] = m[rr] + logf(safe_l);
-  }
-}
-
 template <typename T, int DW>
 __global__ void __launch_bounds__(kSimtThreads)
 bsa_bwd_dq_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -1552,15 +1865,23 @@ int bwd_dkv(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DW>
-int fwd_simt(const Args& a, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kTile) * (2 * a.d + (a.d | 1)) * sizeof(float);
-  auto kernel = bsa_fwd_simt_kernel<T, DW>;
-  if (int rc = prepare(kernel, grid_of(a), smem)) return rc;
-  kernel<<<grid_of(a), kSimtThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.out0), static_cast<float*>(a.out1), a.kbias, a.seq, a.heads, a.d,
-      a.lists);
+template <int DP>
+int fwd_split(const Args& a, cudaStream_t stream) {
+  constexpr int NS = SplitTiles<DP>::kStages;
+  const long long blocks = static_cast<long long>(a.n_blocks) * a.batch;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte copies when every row starts on 16 bytes (the base does), else 8 or 4
+  const int vec = a.d % 4 == 0 ? 16 : a.d % 2 == 0 ? 8 : 4;
+  constexpr int smem = SplitSmem<DP, NS>::kBytes;
+  auto kernel = a.kbias ? bsa_fwd_split_kernel<DP, NS, true> : bsa_fwd_split_kernel<DP, NS, false>;
+  if (int rc = prepare(kernel, dim3(1), smem)) return rc;
+  kernel<<<static_cast<unsigned>(blocks), kSplitThreads, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out0), static_cast<float*>(a.out1),
+      a.kbias, a.seq, a.heads, a.d, a.batch, vec, a.walk);
+  g_last = LaunchInfo{reinterpret_cast<const void*>(kernel), blocks, kSplitThreads, smem, NS,
+                      kRows, 0};
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1592,15 +1913,22 @@ int bwd_dkv_simt(const Args& a, cudaStream_t stream) {
 }
 
 // which: 0 forward, 1 dQ, 2 dK/dV.  bf16 / fp16 (d % 8 == 0) take the
-// tensor-core kernels, fp32 the general ones.
+// tensor-core kernels; fp32 the split-TF32 forward on the same walk and the
+// general dQ and dK/dV.
 template <typename T>
 int dispatch(int which, const Args& a, cudaStream_t s) {
   const int d = a.d;
   if constexpr (std::is_same<T, float>::value) {
+    if (which == 0) {
+      if (a.walk.blocks == nullptr || a.walk.stages == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+      if (d <= 16) return fwd_split<16>(a, s);
+      if (d <= 32) return fwd_split<32>(a, s);
+      if (d <= 64) return fwd_split<64>(a, s);
+      return fwd_split<128>(a, s);
+    }
 #define DSTT_SIMT(DW)                                        \
-  return which == 0 ? fwd_simt<T, DW>(a, s)                  \
-         : which == 1 ? bwd_dq_simt<T, DW>(a, s)             \
-                      : bwd_dkv_simt<T, DW>(a, s)
+  return which == 1 ? bwd_dq_simt<T, DW>(a, s) : bwd_dkv_simt<T, DW>(a, s)
     if (d <= 32) DSTT_SIMT(1);
     if (d <= 64) DSTT_SIMT(2);
     if (d <= 96) DSTT_SIMT(3);
@@ -1635,19 +1963,20 @@ int run(int which, int dtype, const Args& a, void* stream) {
 }  // namespace
 
 // dtype: 0 = bf16, 1 = fp16 (the tensor-core kernels; d a multiple of 8),
-// 2 = fp32 (the general kernels).  d <= 128.  Tensors BHSD [batch,
+// 2 = fp32 (the split-TF32 forward, the general dQ and dK/dV).  d <= 128.  Tensors BHSD [batch,
 // heads, seq, d] contiguous, lse / delta fp32 [batch, heads, seq], kbias
 // fp32 [batch, seq] (added to every row's scores, key by key) or null.  Lists:
 // device int32 arrays (ptr of heads * ceil(seq / 64) + 1 entries, idx, mask)
 // of the query-major orientation for the forward and dQ, of the key-major
 // orientation for dK/dV (the general kernels).  The bf16 / fp16 kernels
-// walk `blocks` (n_blocks rows of 12 int32) and `stages` (rows of 8 int32)
-// of `bsa_tile_walk`, the query-major walk (the forward and dQ) or the
-// key-major one (dK/dV); `ws` holds the fp32 partials of its split lists (a
-// (part, batch row): one [64 x DP] tile for dQ, two for dK/dV, one and 512
-// floats of row maxima and sums for the forward) and `counters` one int32 a
-// (split group, batch row), zeroed by the caller (both may be null when no
-// list is split); the general kernels ignore all five.
+// and the fp32 forward walk `blocks` (n_blocks rows of 12 int32) and
+// `stages` (rows of 8 int32) of `bsa_tile_walk`, the query-major walk (the
+// forward and dQ) or the key-major one (dK/dV); `ws` holds the fp32
+// partials of its split lists (a (part, batch row): one [64 x DP] tile for
+// dQ, two for dK/dV, one and 512 floats of row maxima and sums for the
+// forward) and `counters` one int32 a (split group, batch row), zeroed by
+// the caller (both may be null when no list is split); the general kernels
+// ignore all five.
 // Return: the CUDA error code (0 ok).
 extern "C" int dstt_bsa_fwd(int dtype, const void* q, const void* k, const void* v,
                             void* o, void* lse, const float* kbias, int batch, int heads,

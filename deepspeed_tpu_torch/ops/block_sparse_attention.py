@@ -13,19 +13,20 @@ the forward pre-scales q once, rounds it to the input type and saves
 
 On CUDA tensors the three steps are the hand-written kernels of
 ``deepspeed_tpu_torch/csrc/block_sparse_attention.cu``: the tensor-core
-kernels for bf16 / fp16 with D a multiple of 8 up to 128, the general
-kernels for fp32 up to D = 128.  The general kernels walk only the live
-64 x 64 tiles of the layout (compacted lists per head that
-:class:`BlockSparseLayout` builds and keeps on the device) and, inside a
-tile, only its live 16 x 16 sub-blocks.  The bf16 / fp16 kernels (forward,
-dQ and dK/dV on wgmma fed by TMA) walk 16-row slices instead: a block
-holds up to four slices of one side (query slices for the forward and dQ,
-key slices for dK/dV) and streams the live slices of the other side, four
-to a stage, gathered by TMA; :func:`bsa_tile_walk` builds those tables
-(groups, stages, the split of long lists, the longest-first order), and
-:func:`block_sparse_tiled_plain_fwd` and
-:func:`block_sparse_tiled_plain_bwd` evaluate them in fp32 on any
-device.  Other inputs on the card (another type, D > 128, a layout
+kernels for bf16 / fp16 with D a multiple of 8 up to 128; for fp32 up to
+D = 128 the split-TF32 forward and the general dQ and dK/dV.  The general
+kernels walk only the live 64 x 64 tiles of the layout (compacted lists
+per head that :class:`BlockSparseLayout` builds and keeps on the device)
+and, inside a tile, only its live 16 x 16 sub-blocks.  The bf16 / fp16
+kernels (forward, dQ and dK/dV on wgmma fed by TMA) and the fp32 forward
+(mma.sync in split TF32) walk 16-row slices instead: a block holds up to
+four slices of one side (query slices for the forward and dQ, key slices
+for dK/dV) and streams the live slices of the other side, four to a
+stage; :func:`bsa_tile_walk` builds those tables (groups, stages, the
+split of long lists, the longest-first order), and
+:func:`block_sparse_tiled_plain_fwd` (with ``split``, the fp32 forward's
+3xTF32 products) and :func:`block_sparse_tiled_plain_bwd` evaluate them in
+fp32 on any device.  Other inputs on the card (another type, D > 128, a layout
 block that is not a multiple of 16) raise ``NotImplementedError`` naming
 ROADMAP C: a CUDA tensor never reaches the plain version.  On CPU tensors
 the steps are the plain versions, :func:`block_sparse_plain_fwd`,
@@ -55,6 +56,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops import _build
+from deepspeed_tpu_torch.ops.evoformer_attn import tf32_split
 
 __all__ = ["BlockSparseLayout", "block_sparse_attention",
            "block_sparse_attention_reference", "block_sparse_plain_fwd",
@@ -94,6 +96,10 @@ HEAVY_MIN = 16
 #: most that many stages
 WAVE = 264
 SPLIT_MIN = 8
+#: the fp32 forward's walk splits lists FP32_SPLIT times finer (its wave is
+#: FP32_SPLIT x WAVE): its stages take several times a bf16 stage's time,
+#: so a global row's list would otherwise outlast the rest of the launch
+FP32_SPLIT = 4
 
 
 def kernel_tile_masks(layout: np.ndarray, block: int) -> np.ndarray:
@@ -184,7 +190,8 @@ def _stages(sets: np.ndarray, grp: np.ndarray) -> np.ndarray:
 
 
 def bsa_tile_walk(masks: np.ndarray, seq_len: int, key_major: bool,
-                  batch: int) -> Dict[str, object]:
+                  batch: int, wave: Optional[int] = None
+                  ) -> Dict[str, object]:
     """The bf16 / fp16 kernels' walk, as they read it.
 
     ``masks``: the ``[h, n, n]`` 16-bit tile masks, query-major
@@ -194,10 +201,10 @@ def bsa_tile_walk(masks: np.ndarray, seq_len: int, key_major: bool,
     Every stationary 16-row slice lies in exactly one group of at most
     :data:`SLOTS` (:func:`_groups`); a group's list is the union of its
     slices' live streamed slices, packed :data:`SLOTS` to a stage.  A list
-    longer than twice the launch's stages over :data:`WAVE` (and than
-    :data:`SPLIT_MIN`) is cut into parts of equal length, whose fp32
-    partials the last part to finish merges in part order.  Blocks are
-    ordered longest list first.
+    longer than twice the launch's stages over ``wave`` (:data:`WAVE` by
+    default; and than :data:`SPLIT_MIN`) is cut into parts of equal
+    length, whose fp32 partials the last part to finish merges in part
+    order.  Blocks are ordered longest list first.
 
     Returns ``blocks`` (int32 ``[n, ITEM_INTS]``: head, the group's
     stationary slices (-1: none), stage range [begin, end), part, parts,
@@ -214,7 +221,7 @@ def bsa_tile_walk(masks: np.ndarray, seq_len: int, key_major: bool,
             stages.append(rows)
             items.append((hh, grp, begin, begin + rows.shape[0]))
             begin += rows.shape[0]
-    split_stages = max(SPLIT_MIN, -(-2 * begin * batch // WAVE))
+    split_stages = max(SPLIT_MIN, -(-2 * begin * batch // (wave or WAVE)))
     blocks, groups, parts_all = [], 0, 0
     for hh, grp, b0, b1 in items:
         n = b1 - b0
@@ -257,6 +264,18 @@ def walk_stats(walk: Dict[str, object]) -> Dict[str, float]:
             "split_groups": int(walk["groups"]),
             "partial_slots": int(walk["parts"]),
             "slot_fill": bits / pairs if pairs else 0.0}
+
+
+def _on_device(walk: Dict[str, object], dev) -> Dict[str, object]:
+    """A walk's tables as device tensors ``blocks`` and ``stages`` (one
+    upload) beside ``n_blocks``, ``groups``, ``parts`` and ``stats``
+    (:func:`walk_stats`)."""
+    nb = walk["blocks"].size
+    flat = torch.from_numpy(np.concatenate(
+        [walk["blocks"].ravel(), walk["stages"].ravel()])).to(dev)
+    return {"blocks": flat[:nb], "stages": flat[nb:],
+            "n_blocks": len(walk["blocks"]), "groups": walk["groups"],
+            "parts": walk["parts"], "stats": walk_stats(walk)}
 
 
 class BlockSparseLayout:
@@ -327,18 +346,26 @@ class BlockSparseLayout:
         key = ("walk", int(batch))
         got = lists.get(key)
         if got is None:
-            got = {}
-            for name, masks, key_major in (("dq", self._masks, False),
-                                           ("dkv", self._masks_t, True)):
-                w = bsa_tile_walk(masks, self.seq_len, key_major, batch)
-                nb = w["blocks"].size
-                flat = torch.from_numpy(np.concatenate(
-                    [w["blocks"].ravel(), w["stages"].ravel()])).to(
-                        lists["q"][0].device)
-                got[name] = {"blocks": flat[:nb], "stages": flat[nb:],
-                             "n_blocks": len(w["blocks"]),
-                             "groups": w["groups"], "parts": w["parts"],
-                             "stats": walk_stats(w)}
+            dev = lists["q"][0].device
+            got = {name: _on_device(bsa_tile_walk(masks, self.seq_len,
+                                                  key_major, batch), dev)
+                   for name, masks, key_major in (
+                       ("dq", self._masks, False),
+                       ("dkv", self._masks_t, True))}
+            lists[key] = got
+        return got
+
+    def fp32_walk(self, device, batch: int) -> Dict[str, object]:
+        """The fp32 forward's walk on ``device`` for a batch of ``batch``:
+        the query-major walk with lists split by ``FP32_SPLIT x WAVE``, in
+        :meth:`walk_tables`' form; kept beside them."""
+        lists = self.kernel_lists(device)
+        key = ("walk_fp32", int(batch))
+        got = lists.get(key)
+        if got is None:
+            got = _on_device(bsa_tile_walk(self.kernel_masks, self.seq_len,
+                                           False, batch, FP32_SPLIT * WAVE),
+                             lists["q"][0].device)
             lists[key] = got
         return got
 
@@ -469,22 +496,43 @@ def _slot_rows(walk, seq, dev):
     return rows.reshape(len(blocks), -1), valid.reshape(len(blocks), -1)
 
 
-def block_sparse_tiled_plain_fwd(qs, k, v, walk, bias=None):
-    """The bf16 / fp16 forward kernel's walk evaluated in fp32 on any
-    device: ``walk`` is :func:`bsa_tile_walk`'s query-major table; each
-    block (a list, or a part of a split list) takes its rows' largest kept
-    score m_p, l_p = sum exp(s - m_p) and the unnormalised
-    O_p = round(exp(s - m_p)) V over its stages' 64 x 64 slot pairs (dead
-    pairs masked, P rounded to the input type), and a row's parts merge as
-    the kernel merges them: m* = max m_p, O and l summed with weights
-    exp(m_p - m*).  Returns ``(o, lse fp32 [B, H, S])``; a row that sees no
-    key gives zeros and lse = -1e30."""
+def _tf32_parts(x):
+    """The fp32 forward kernel's split of x: hi = x rounded to TF32
+    (:func:`~deepspeed_tpu_torch.ops.evoformer_attn.tf32_split`'s), lo =
+    x - hi as the tensor cores read it (truncated to TF32)."""
+    hi = tf32_split(x)[0]
+    lo = (x.float() - hi).contiguous().view(torch.int32)
+    return hi, (lo & ~0x1FFF).view(torch.float32)
+
+
+def _split_mm(a, b, cross: bool = True):
+    """a @ b as the fp32 forward kernel forms it: hi.hi + hi.lo + lo.hi of
+    the TF32 parts (:func:`_tf32_parts`) in fp32, the remainders' product
+    dropped; without ``cross``, hi.hi alone (the planted fault that drops
+    the split's cross terms)."""
+    (ah, al), (bh, bl) = _tf32_parts(a), _tf32_parts(b)
+    return ah @ bh + (ah @ bl + al @ bh) if cross else ah @ bh
+
+
+def block_sparse_tiled_plain_fwd(qs, k, v, walk, bias=None,
+                                 split: bool = False, cross: bool = True):
+    """The forward kernels' walk evaluated in fp32 on any device: ``walk``
+    is :func:`bsa_tile_walk`'s query-major table; each block (a list, or a
+    part of a split list) takes its rows' largest kept score m_p, l_p =
+    sum exp(s - m_p) and the unnormalised O_p = round(exp(s - m_p)) V over
+    its stages' 64 x 64 slot pairs (dead pairs masked, P rounded to the
+    input type), and a row's parts merge as the kernel merges them: m* =
+    max m_p, O and l summed with weights exp(m_p - m*).  With ``split``
+    both products are the fp32 kernel's 3xTF32 (:func:`_split_mm`;
+    ``cross=False`` drops its cross terms).  Returns ``(o, lse fp32 [B, H,
+    S])``; a row that sees no key gives zeros and lse = -1e30."""
     dt, (b, h, s, d) = qs.dtype, qs.shape
     dev, inf = qs.device, float("inf")
+    mm = functools.partial(_split_mm, cross=cross) if split else torch.matmul
     blk, heads, stat, strm, m = _walk_pairs(walk, dev)
     n = len(walk["blocks"])
-    sc = _gather(qs.float(), heads, stat) @ _gather(
-        k.float(), heads, strm).transpose(-1, -2)
+    sc = mm(_gather(qs.float(), heads, stat), _gather(
+        k.float(), heads, strm).transpose(-1, -2))
     if bias is not None:
         sc = sc + _key_bias(bias, qs.shape, heads, strm)[..., None, :]
     sc = sc.masked_fill(~m, -inf)                       # [B, pairs, 64, 64]
@@ -495,7 +543,7 @@ def block_sparse_tiled_plain_fwd(qs, k, v, walk, bias=None):
     p = torch.exp(sc - base[:, blk, :, None])
     l_blk = sc.new_zeros((b, n, KERNEL_TILE)).index_add_(1, blk, p.sum(-1))
     o_blk = sc.new_zeros((b, n, KERNEL_TILE, d)).index_add_(
-        1, blk, p.to(dt).float() @ _gather(v.float(), heads, strm))
+        1, blk, mm(p.to(dt).float(), _gather(v.float(), heads, strm)))
     rows, valid = _slot_rows(walk, s, dev)
     at = rows[valid]
     m_row = sc.new_full((b, h * s), -inf).scatter_reduce(
@@ -612,11 +660,11 @@ def _launch(entry: str, key: str, ref, ints, floats, tensors, bias, lists,
 
 
 def _padded_d(d: int) -> int:
-    """D padded as the tensor-core kernels stage it: 16, 32, 64 or 128."""
+    """D padded as the slice-walk kernels stage it: 16, 32, 64 or 128."""
     return next(p for p in (16, 32, 64, 128) if d <= p)
 
 
-#: the last bf16 / fp16 launch's kernel ("fwd", "dq" or "dkv") and its
+#: the last slice-walk launch's kernel ("fwd", "dq" or "dkv") and its
 #: walk's :func:`walk_stats`, for :func:`launch_info`
 _LAST_WALK: Dict[str, object] = {}
 #: a partial slot's fp32 values, by kernel, at padded head dim DP: one
@@ -630,16 +678,20 @@ _SLOT_FLOATS = {"fwd": lambda dp: KERNEL_TILE * dp + 512,
 def _walk_args(bs_layout: BlockSparseLayout, ref: torch.Tensor,
                kernel: str) -> Tuple:
     """The walk arguments of a launch of ``kernel`` ("fwd", "dq" or
-    "dkv"): (blocks, stages, n_blocks, partials, counters) for bf16 / fp16,
-    where ``partials`` holds the fp32 partials of split lists (a slot a
-    part and batch row, ``_SLOT_FLOATS`` long) and ``counters`` one zeroed
-    int a (split group, batch row), both None when no list is split; Nones
-    for fp32 (the general kernels walk the tile lists)."""
-    if ref.dtype == torch.float32:
-        return (None, None, 0, None, None), None
+    "dkv"): (blocks, stages, n_blocks, partials, counters) for bf16 / fp16
+    and the fp32 forward (:meth:`BlockSparseLayout.fp32_walk`), where
+    ``partials`` holds the fp32 partials of split lists (a slot a part and
+    batch row, ``_SLOT_FLOATS`` long) and ``counters`` one zeroed int a
+    (split group, batch row), both None when no list is split; Nones for
+    fp32 dQ and dK/dV (the general kernels walk the tile lists)."""
     b, d = ref.shape[0], ref.shape[-1]
-    w = bs_layout.walk_tables(ref.device, b)[
-        "dkv" if kernel == "dkv" else "dq"]
+    if ref.dtype != torch.float32:
+        w = bs_layout.walk_tables(ref.device, b)[
+            "dkv" if kernel == "dkv" else "dq"]
+    elif kernel == "fwd":
+        w = bs_layout.fp32_walk(ref.device, b)
+    else:
+        return (None, None, 0, None, None), None
     ws = counters = None
     if w["groups"]:
         ws = torch.empty(w["parts"] * b * _SLOT_FLOATS[kernel](_padded_d(d)),
@@ -725,8 +777,9 @@ LAUNCH_INFO_KEYS = ("grid", "threads", "smem", "stages", "step_rows",
 
 
 def launch_info() -> dict:
-    """The last bf16 / fp16 launch (``dstt_bsa_launch_info``): its kernel
-    ("fwd", "dq" or "dkv"), blocks, threads and shared bytes a block,
+    """The last slice-walk launch (``dstt_bsa_launch_info``; bf16 / fp16,
+    and the fp32 forward): its kernel ("fwd", "dq" or "dkv"), blocks,
+    threads and shared bytes a block,
     ring stages, streamed rows a step (64, or 32 for dK/dV at D > 64),
     registers a thread at launch, spill bytes, the host ns spent encoding
     its tensor maps, and its walk's packing and split figures

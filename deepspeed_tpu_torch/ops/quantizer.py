@@ -23,8 +23,11 @@ kernel computes.  Every other mode (asymmetric, int4, stochastic, the
 reduce) is torch math on every device, as the JAX package has no kernel for
 them either.  On the CPU :func:`quantize_kernel` takes its plain version,
 :func:`quantize_plain`.  ``LAUNCHES["quantize"]`` counts the wrapper's calls
-on the card; each one launches two kernels (the group absmax, then the
-scale and ``q``) after zeroing the absmax scratch.
+on the card; each one is one kernel launch, which reads x once and holds
+each value on chip between its group's maximum and its quantization, along
+the plan of :func:`quantize_plan` (whole groups a piece, or a group's
+pieces over co-resident blocks); :func:`quantize_planned_plain` evaluates that
+plan on any device.
 """
 
 from __future__ import annotations
@@ -40,13 +43,114 @@ from deepspeed_tpu_torch.ops import _build
 __all__ = [
     "quantize", "dequantize", "fake_quantize", "stochastic_quantize",
     "quantized_reduce", "swizzle_quant", "unswizzle", "pack_int4",
-    "unpack_int4", "quantize_kernel", "quantize_plain", "QuantizerBuilder",
+    "unpack_int4", "quantize_kernel", "quantize_plain", "quantize_plan",
+    "launch_plan", "quantize_planned_plain", "QuantizerBuilder",
 ]
 
 #: wrapper calls that launched the kernel (plain CPU calls do not count)
 LAUNCHES = {"quantize": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+#: csrc/quantizer.cu's threads that read and quantize x (``kThreads``; a
+#: block has one warp more, for the group words)
+QUANT_THREADS = 256
+#: the bytes of x a piece holds at most: of whole groups, of a group
+QUANT_PIECE_BLOCK = 16 * 1024
+QUANT_PIECE = 32 * 1024
+#: pieces a block holds at once (at most 6): where a piece's group is its
+#: own, QUANT_NBUF (the others load while one is quantized); a group of
+#: several pieces QUANT_NBUF_GROUP (one quantized, one reduced while its
+#: group's other parts arrive, the others loading)
+QUANT_NBUF = 2
+QUANT_NBUF_GROUP = 3
+#: a block's dynamic shared memory at most (the card's 227 KB)
+QUANT_SMEM_MAX = 227 * 1024
+#: an H100's SMs, and its blocks an SM by the kernel's shared memory (the
+#: runtime's occupancy query on the card: 2048 threads, ~1 KB kept by the
+#: runtime a block); the wrapper asks the card itself
+H100_SMS = 132
+
+
+def h100_resident(smem: int) -> int:
+    """Blocks of the quantizer with ``smem`` bytes of dynamic shared memory
+    that one H100 SM holds at once."""
+    if smem > QUANT_SMEM_MAX:
+        return 0
+    return min(2048 // (QUANT_THREADS + 32), (228 * 1024) // (smem + 1024))
+
+
+def quantize_plan(numel: int, groups: int, elt: int, sms: int = H100_SMS,
+                  resident=h100_resident) -> dict:
+    """The kernel's launch for ``numel`` values of ``elt`` bytes in
+    ``groups`` groups, on a card of ``sms`` SMs holding ``resident(smem)``
+    blocks an SM; sizes in vectors (``vec`` values: 16 // elt when a group
+    is a whole number of 16-byte vectors, else 1):
+
+    * route ``"block"`` (a group of at most half of QUANT_PIECE_BLOCK):
+      ``gpp`` whole groups a piece, ``parts`` 1;
+    * route ``"group"``: ``parts`` pieces a group, consecutive, of
+      ``piece`` vectors (the last may be shorter; QUANT_PIECE bytes at
+      most), whose maxima meet in the group's words; at most one grid of
+      parts, every block resident.
+
+    ``nbuf`` pieces a block holds in shared memory: QUANT_NBUF (the next
+    ones load while one is quantized), QUANT_NBUF_GROUP for a group of
+    several parts (each quantized an iteration after it arrives), 0 (x
+    read twice from global memory, the second time from L2: the scalar
+    path, and a group of more parts than a grid of staging blocks holds;
+    cut into one grid of larger pieces when it has more than any grid
+    holds); ``smem`` its bytes, ``n_pieces``, and ``grid`` =
+    min(n_pieces, sms x resident(smem)) blocks walking them."""
+    n = numel // groups
+    vec = 16 // elt if (n * elt) % 16 == 0 else 1
+    gl = n // vec
+    plan = {"vec": vec, "group_vecs": gl}
+
+    def done(route, piece, gpp, parts, nbuf):
+        smem = nbuf * piece * 16 + 12 * gpp
+        n_pieces = -(-groups // gpp) if gpp else groups * parts
+        return {**plan, "route": route, "piece": piece, "gpp": gpp,
+                "parts": parts, "nbuf": nbuf, "smem": smem,
+                "n_pieces": n_pieces,
+                "grid": min(n_pieces, sms * resident(smem))}
+
+    staged = QUANT_NBUF if vec > 1 else 0
+    per = max(1, QUANT_PIECE_BLOCK // (vec * elt))
+    if 2 * gl <= per:
+        gpp = min(per // gl, groups)
+        return done("block", gpp * gl, gpp, 1, staged)
+    parts = -(-gl // max(1, QUANT_PIECE // (vec * elt)))
+    piece = -(-gl // parts)
+    if parts == 1:
+        return done("group", piece, 0, 1, staged)
+    for nbuf in ((QUANT_NBUF_GROUP,) if vec > 1 else ()) + (0,):
+        if parts <= sms * resident(nbuf * piece * 16):
+            return done("group", piece, 0, parts, nbuf)
+    parts = sms * resident(0)
+    return done("group", -(-gl // parts), 0, parts, 0)
+
+
+def quantize_planned_plain(x: torch.Tensor, num_groups: int, **plan_kw
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize_plain` evaluated along :func:`quantize_plan` (its
+    keywords ``sms`` and ``resident`` pass through), as the kernel
+    reduces: route "block", each group in its piece; route "group", each
+    piece of a group reduced on its own, then the pieces' maxima combined;
+    scale and q from the group's maximum."""
+    g = _group(x, num_groups).float()
+    plan = quantize_plan(x.numel(), num_groups, x.element_size(), **plan_kw)
+    a = g.abs()
+    if plan["route"] == "block":
+        absmax = a.amax(dim=1)
+    else:
+        step = plan["piece"] * plan["vec"]
+        absmax = torch.stack([a[:, c:c + step].amax(dim=1)
+                              for c in range(0, g.shape[1], step)],
+                             dim=1).amax(dim=1)
+    scale = _sym_scale(absmax[:, None], 127.0)
+    q = torch.clamp(torch.round(g / scale), -127.0, 127.0).to(torch.int8)
+    return q, scale[:, 0]
 
 
 def _q_range(num_bits: int, symmetric: bool) -> Tuple[float, float]:
@@ -106,16 +210,32 @@ def quantize_kernel(x: torch.Tensor, num_groups: int
     scale = torch.empty((num_groups,), dtype=torch.float32, device=x.device)
     if n == 0:
         return q, scale
-    absmax = torch.empty((num_groups,), dtype=torch.float32, device=x.device)
+    p = launch_plan(x, num_groups)
+    words = _words(x.device, num_groups) if p["parts"] > 1 else None
+    tag = _TAGS[x.device] = _TAGS.get(x.device, 0) % (2 ** 31 - 1) + 1
     with torch.cuda.device(x.device):
         rc = _kernel()(_DTYPE_CODE[x.dtype], x.data_ptr(), q.data_ptr(),
-                       scale.data_ptr(), absmax.data_ptr(), num_groups, gs,
+                       scale.data_ptr(),
+                       None if words is None else words.data_ptr(),
+                       num_groups, gs, p["vec"], p["piece"], p["n_pieces"],
+                       p["gpp"], p["parts"], p["nbuf"], p["grid"], tag,
                        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"quantize_kernel: CUDA kernel launch failed with "
                            f"error {rc}")
     LAUNCHES["quantize"] += 1
     return q, scale
+
+
+def launch_plan(x: torch.Tensor, num_groups: int) -> dict:
+    """:func:`quantize_plan` for CUDA tensor ``x`` on its card (its SMs
+    and the kernel's occupancy there): the launch :func:`quantize_kernel`
+    makes."""
+    dev = x.device.index if x.device.index is not None else \
+        torch.cuda.current_device()
+    return quantize_plan(x.numel(), num_groups, x.element_size(), _sms(dev),
+                         functools.partial(_resident, dev,
+                                           _DTYPE_CODE[x.dtype]))
 
 
 def quantize(x: torch.Tensor, num_groups: int, num_bits: int = 8,
@@ -261,9 +381,56 @@ def unpack_int4(p: torch.Tensor, signed: bool = True) -> torch.Tensor:
 def _kernel():
     fn = _build.load("quantizer").dstt_quantize_int8
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev: int) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(dev: int, code: int, smem: int) -> int:
+    """Blocks of the kernel for type ``code`` (the fewer of its 16-byte and
+    scalar forms) with ``smem`` bytes of dynamic shared memory that one SM
+    of CUDA device ``dev`` holds at once (the runtime's occupancy query,
+    once a size)."""
+    if smem > QUANT_SMEM_MAX:
+        return 0
+    fn = _build.load("quantizer").dstt_quantize_resident
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    held = []
+    for vec in (16, 1):
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = fn(code, vec, smem, ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"dstt_quantize_resident failed with {rc}")
+        held.append(out.value)
+    return min(held)
+
+
+#: the route "group" words of each device: 4 int32 a group (the maximum
+#: and the arrivals, zero and left zero by every launch; the published
+#: maximum beside the launch's tag), and each device's last launch tag
+_WORDS: dict = {}
+_TAGS: dict = {}
+
+
+def _words(device: torch.device, groups: int) -> torch.Tensor:
+    """The device's group words, grown (zeroed) to ``groups`` groups; one
+    allocation a device unless a launch has more groups than any before."""
+    have = _WORDS.get(device)
+    if have is None or have.numel() < 4 * groups:
+        have = torch.zeros(4 * max(groups, 1024), dtype=torch.int32,
+                           device=device)
+        _WORDS[device] = have
+    return have
 
 
 class QuantizerBuilder:

@@ -1,21 +1,23 @@
-"""Variants of the block-sparse attention wgmma kernels (the forward, dQ
-and dK/dV, ``csrc/block_sparse_attention.cu``) against each other on one
-card, and against a parent commit's kernels.
+"""Variants of the block-sparse attention kernels (the bf16 / fp16
+forward, dQ and dK/dV on wgmma, the fp32 split-TF32 forward,
+``csrc/block_sparse_attention.cu``) against each other on one card, and
+against a parent commit's kernels.
 
 Builds ``csrc/block_sparse_attention.cu`` as it stands and copies of it
-with the edits of each named library variant (``SliceTiles``: other ring
-stages), checks every library against the plain versions on small cases
-(the forward 3e-2 max and 1e-2 in norm, the gradients 5e-2 in norm, two
-runs bit-equal), then times phase 23's bf16 / fp16 cases
-(``chip_smoke.BSA_CASES``: BERT width, S = 4096 and 1040, six layouts,
-padded batches), forward, dQ and dK/dV, with ``chip_smoke.time_ms`` in
-``--rounds`` turns: the libraries in order, then in reverse, and so on.
-Walk variants run on the tree's library with other host tables
-(``bsa_tile_walk``'s split rule, set through the module's ``WAVE`` and
-``SPLIT_MIN``): ``nosplit`` never splits a list, ``split_half`` and
-``split_double`` halve or double the rule's part length.  SDPA over the
-expanded mask, its forward and its backward alone, is timed once a case
-as the yardstick.
+with the edits of each named library variant (``SliceTiles`` /
+``SplitTiles``: other ring stages), checks every library against the plain
+versions on small cases (the forward 3e-2 max and 1e-2 in norm, fp32
+1e-4, the gradients 5e-2 in norm, two runs bit-equal), then times phase
+23's cases (``chip_smoke.BSA_CASES``: BERT width, S = 4096 and 1040, six
+layouts, padded batches, fp32), forward, dQ and dK/dV, with
+``chip_smoke.time_ms`` in ``--rounds`` turns: the libraries in order, then
+in reverse, and so on.  Walk variants run on the tree's library with other
+host tables (``bsa_tile_walk``'s split rule, set through the module's
+``WAVE``, ``SPLIT_MIN`` and ``FP32_SPLIT``): ``nosplit`` never splits a
+list, ``split_half`` and ``split_double`` halve or double the rule's part
+length, ``fp32split1`` / ``fp32split16`` split the fp32 forward's lists as
+the bf16 ones / 16 times finer.  SDPA over the expanded mask, its forward
+and its backward alone, is timed once a case as the yardstick.
 
     python3 deepspeed_tpu_torch/tools/bsa_variants.py \\
         [--variants f3,s2,s4,nosplit,split_half] [--parent DIR]
@@ -24,9 +26,9 @@ as the yardstick.
 ``--parent DIR`` also builds ``DIR/block_sparse_attention.cu`` (a parent
 commit's source, from ``git archive <commit> deepspeed_tpu_torch/csrc``;
 headers from DIR first, then ``csrc/``) as the library "parent", called
-through the parent's C interface: its forward on the 64 x 64 tile lists,
-its dQ and dK/dV on the walk tables (a parent whose backward took no walk
-tables is not taken).  A summary JSON object is the last line of stdout;
+through the tree's wrappers (a parent whose C interface differs from the
+tree's, one whose forward took no walk tables, is not taken); a parent's
+fp32 forward may be the general kernel on the tile lists.  A summary JSON object is the last line of stdout;
 every timing is also written to ``chiprun_out/bsa_variants.json``.  Needs
 a CUDA device and ``nvcc``.
 """
@@ -45,9 +47,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
-#: library variants: ``SliceTiles`` edits (old text, new text); "f2" /
-#: "f3" the forward's ring at DP <= 64, "s2" / "s4" the backward's
+#: library variants: edits (old text, new text); the fp32 forward's "x3"
+#: (a 3-stage ring up to DP = 64); the wgmma kernels' "f2" / "f3" (the forward's ring
+#: at DP <= 64), "s2" / "s4" (the backward's)
 LIB_VARIANTS = {
+    "x3": [("kStages = DP <= 16 ? 3 : 2", "kStages = DP <= 64 ? 3 : 2")],
     "f2": [("kFwdStages = DP == 128 ? 2 : 4", "kFwdStages = DP == 128 ? 2 : 2")],
     "f3": [("kFwdStages = DP == 128 ? 2 : 4", "kFwdStages = DP == 128 ? 2 : 3")],
     "s2": [("kDqStages = DP == 128 ? 2 : 3", "kDqStages = DP == 128 ? 2 : 2"),
@@ -62,7 +66,9 @@ LIB_VARIANTS = {
 #: max(SPLIT_MIN, ceil(2 stages / WAVE)) stages)
 WALK_VARIANTS = {"nosplit": {"SPLIT_MIN": 1 << 30},
                  "split_half": {"WAVE": 528, "SPLIT_MIN": 4},
-                 "split_double": {"WAVE": 132, "SPLIT_MIN": 16}}
+                 "split_double": {"WAVE": 132, "SPLIT_MIN": 16},
+                 "fp32split1": {"FP32_SPLIT": 1},
+                 "fp32split16": {"FP32_SPLIT": 16}}
 
 #: small cases for the correctness check: layout, B, H, S, D, block, type,
 #: key-padding mode
@@ -71,18 +77,17 @@ CHECK_CASES = [
     ("fixed_uni", 2, 2, 1040, 64, 16, "fp16", "mul"),
     ("variable", 2, 2, 512, 128, 32, "bf16", "add"),
     ("dense", 1, 4, 512, 40, 64, "bf16", None),
+    ("bslongformer", 2, 2, 1040, 20, 16, "fp32", "mul"),
+    ("fixed", 1, 2, 512, 64, 16, "fp32", None),
 ]
 
 
 def variant_source(text: str, name: str) -> str:
     """The kernel source with one library variant's edits."""
-    start = text.index("struct SliceTiles {")
-    end = text.index("};", start)
-    block = text[start:end]
     for old, new in LIB_VARIANTS[name]:
-        assert block.count(old) == 1, (name, old)
-        block = block.replace(old, new)
-    return text[:start] + block + text[end:]
+        assert text.count(old) == 1, (name, old)
+        text = text.replace(old, new)
+    return text
 
 
 def build_all(build_dir: Path, names, parent):
@@ -112,8 +117,9 @@ def build_all(build_dir: Path, names, parent):
         for line in log.splitlines():      # each entry function, then its usage
             entry = re.search(r"entry function '(\S+)'", line)
             fn = entry.group(1) if entry else fn
-            if "registers" in line and "wgmma" in fn:
-                kernel = re.search(r"(bsa_\w+?_wgmma_kernel)I(\w+?)EEEv", fn)
+            if "registers" in line and ("wgmma" in fn or "split" in fn):
+                kernel = re.search(r"(bsa_\w+?_(?:wgmma|split)_kernel)I(\w+?)EEEv",
+                                   fn)
                 regs.append(f"{kernel.group(1)}<{kernel.group(2)}>: "
                             f"{line.split(':')[-1].strip()}" if kernel
                             else line)
@@ -122,40 +128,11 @@ def build_all(build_dir: Path, names, parent):
                        or ("spill" in line and " 0 bytes spill stores"
                            not in line)})
         logs[name] = {"registers": regs, "warnings": warn}
-        print(f"[build] {name}: ok; {len(regs)} wgmma kernels; "
+        print(f"[build] {name}: ok; {len(regs)} slice-walk kernels, the "
+              f"fp32 forward's {[r for r in regs if 'split' in r]}; "
               f"warnings / spills: {warn or 'none'}", flush=True)
         libs[name] = ctypes.CDLL(str(jobs[name][1]))
     return libs, logs
-
-
-class ParentForward:
-    """The parent's forward through its C interface: the 64 x 64 tile lists
-    of the query-major orientation, no walk tables (the parent's dQ and
-    dK/dV take the tree's C interface and run through its wrappers)."""
-
-    def __init__(self, lib):
-        self.fn = lib.dstt_bsa_fwd
-        self.fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                            + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4)
-        self.fn.restype = ctypes.c_int
-
-    def __call__(self, qs, k, v, bsl, bias):
-        import torch
-
-        from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
-
-        b, h, s, d = qs.shape
-        o = torch.empty_like(qs)
-        lse = torch.empty((b, h, s), dtype=torch.float32, device=qs.device)
-        lists = bsl.kernel_lists(qs.device)["q"]
-        rc = self.fn(bsa._DTYPE_CODE[qs.dtype],
-                     *(t.data_ptr() for t in (qs, k, v, o, lse)),
-                     None if bias is None else bias.data_ptr(), b, h, s, d,
-                     *(t.data_ptr() for t in lists),
-                     torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"parent forward failed with {rc}")
-        return o, lse
 
 
 def main() -> int:
@@ -166,7 +143,7 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--cases", default=None,
                     help="indices into chip_smoke.BSA_CASES (default: every "
-                         "bf16 / fp16 case)")
+                         "case)")
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))        # chip_smoke.py and the package
@@ -195,10 +172,10 @@ def main() -> int:
                            args.parent)
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda", 0)
-    parent_fwd = ParentForward(libs["parent"]) if args.parent else None
     names = lib_names + walk_names + (["parent"] if args.parent else [])
 
-    rule = {"WAVE": bsa.WAVE, "SPLIT_MIN": bsa.SPLIT_MIN}
+    rule = {"WAVE": bsa.WAVE, "SPLIT_MIN": bsa.SPLIT_MIN,
+            "FP32_SPLIT": bsa.FP32_SPLIT}
 
     def use(name, bsl=None):
         """Library variant ``name`` (or the tree's); with ``bsl``, also its
@@ -213,8 +190,6 @@ def main() -> int:
 
     def forward(name, qs, k, v, bsl, bias):
         """o, lse through library / walk variant ``name``."""
-        if name == "parent":
-            return parent_fwd(qs, k, v, bsl, bias)
         use(name, bsl)
         return bsa.block_sparse_attention_fwd(qs, k, v, bsl, bias)
 
@@ -262,15 +237,16 @@ def main() -> int:
                        cs.rel_norm(fo[0][0], ro))
             bit = all(torch.equal(a, b_) for a, b_ in zip(got, again)) \
                 and all(torch.equal(a, b_) for a, b_ in zip(*fo))
-            if not bit or max(errs) > cs.BSA_GRAD_NORM_TOL \
-                    or fwd_err[0] > cs.TOL or fwd_err[1] > cs.NORM_TOL:
+            fwd_bad = fwd_err[0] > cs.BSA_FP32_TOL if c[6] == "fp32" else \
+                fwd_err[0] > cs.TOL or fwd_err[1] > cs.NORM_TOL
+            if not bit or max(errs) > cs.BSA_GRAD_NORM_TOL or fwd_bad:
                 failed.append(f"{name} {c}: norms {errs} forward "
                               f"{fwd_err} bit-equal {bit}")
     print(f"[check] {len(CHECK_CASES)} cases x {len(names)}: "
           f"{failed or 'all within the bars and bit-equal'}", flush=True)
 
-    picked = [i for i, c in enumerate(cs.BSA_CASES) if c[7] != "fp32"] \
-        if args.cases is None else [int(i) for i in args.cases.split(",")]
+    picked = list(range(len(cs.BSA_CASES))) if args.cases is None else \
+        [int(i) for i in args.cases.split(",")]
     results = []
     for ci in picked:
         c = cs.BSA_CASES[ci]
@@ -285,10 +261,8 @@ def main() -> int:
         for r in range(args.rounds):
             for name in (names if r % 2 == 0 else names[::-1]):
                 use(name, bsl)
-                f_fwd = ((lambda i: parent_fwd(qs, k, v, bsl, bias))
-                         if name == "parent" else
-                         (lambda i: bsa.block_sparse_attention_fwd(
-                             qs, k, v, bsl, bias)))
+                f_fwd = lambda i: bsa.block_sparse_attention_fwd(
+                    qs, k, v, bsl, bias)
                 f_dq = lambda i: bsa.block_sparse_attention_bwd_dq(
                     qs, k, v, o, lse, do, bsl, scale, bias)
                 f_dkv = lambda i: bsa.block_sparse_attention_bwd_dkv(
@@ -297,7 +271,8 @@ def main() -> int:
                 for kname, fn in (("fwd", f_fwd), ("dq", f_dq),
                                   ("dkv", f_dkv)):
                     ms[kname] = cs.time_ms(fn, 1, args.iters)
-                    if r == 0 and not (name == "parent" and kname == "fwd"):
+                    if r == 0 and (dtype != "fp32" or kname == "fwd") \
+                            and not (name == "parent" and dtype == "fp32"):
                         info.setdefault(name, {})[kname] = bsa.launch_info()
                 ms["sum"] = ms["dq"] + ms["dkv"]
                 for key, x in ms.items():

@@ -21,6 +21,12 @@ and dQ one query-major walk, dK/dV a key-major one).
   dK/dV kernels in interpret mode, jitted once a shape) within 1e-4, at
   S 256 (block 32, the split rule) and 1040 (block 16, every list split
   into parts of two stages), d 32;
+* the fp32 forward kernel's products, 3xTF32 (``split``: the port's
+  ``tf32_split`` for the high part, the remainder truncated as the tensor
+  cores read it), on its walk (``FP32_SPLIT`` times finer splits) against
+  the same JAX ``_fwd`` within 1e-4 at D 64 and 20, with the split rule
+  and every list split into parts of one stage; with the split's cross
+  terms dropped the same evaluation misses 1e-4;
 * the planted faults of ``chip_smoke.py`` (edited masks, cleared lists)
   reach their walks: the query-major one the forward's and dQ's, the
   key-major one dK/dV's.
@@ -237,6 +243,60 @@ def test_tiled_plain_bwd_matches_jax(name, s, block, split_stages,
         jnp.asarray(do))
     for g, w in zip(got[:3], want):
         assert np.abs(g.numpy() - np.asarray(w)).max() <= TOL
+
+
+#: (layout, D) of the split-TF32 forward's cases at S 256, block 16
+_SPLIT_CASES = [("bslongformer", 64), ("bigbird", 64), ("fixed", 20),
+                ("bslongformer", 20)]
+
+
+def _split_inputs(name, d, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, H, 256, d)).astype(np.float32)
+               for _ in range(3))
+    qs = q / np.sqrt(d)
+    bsl = _layout(name, 256, 16)
+    jl = jbsa.BlockSparseLayout(bsl.layout.astype(np.int32), 16, 256)
+    jo, jlse = _jax_fwd(16, jl.tile_q, jl.tile_k)(
+        jnp.asarray(qs), jnp.asarray(k), jnp.asarray(v), jl.cells,
+        jl.tile_any)
+    return bsl, (qs, k, v), np.asarray(jo), np.asarray(jlse)[..., 0]
+
+
+@pytest.mark.parametrize("split_stages", [None, 1], ids=["rule", "split1"])
+@pytest.mark.parametrize("name,d", _SPLIT_CASES,
+                         ids=[f"{n}-d{d}" for n, d in _SPLIT_CASES])
+def test_split_tf32_fwd_matches_jax(name, d, split_stages, monkeypatch):
+    """The fp32 forward's walk (``BlockSparseLayout.fp32_walk``) evaluated
+    with its 3xTF32 products against the JAX package's ``_fwd`` (interpret
+    mode) in fp32: o and lse within 1e-4."""
+    bsl, ops, jo, jlse = _split_inputs(name, d, d + 7)
+    _force_split(monkeypatch, split_stages)
+    got = bsl.fp32_walk("cpu", B)
+    walk = {key: got[key].numpy().reshape(-1, width)
+            for key, width in (("blocks", tbsa.ITEM_INTS),
+                               ("stages", tbsa.STAGE_INTS))}
+    if split_stages is not None:
+        assert got["groups"] > 0
+    o, lse = tbsa.block_sparse_tiled_plain_fwd(
+        *(torch.from_numpy(x) for x in ops), walk, split=True)
+    assert np.abs(o.numpy() - jo).max() <= TOL
+    assert np.abs(lse.numpy() - jlse).max() <= TOL
+
+
+def test_split_without_cross_terms_misses_the_bar():
+    """At BSLongformer, D 64 (the first case above), TF32 products alone
+    (the split's hi.lo and lo.hi dropped: chip_smoke.py's planted fault)
+    put o more than 1e-4 off JAX's fp32 forward; with them it is within."""
+    bsl, ops, jo, _ = _split_inputs("bslongformer", 64, 71)
+    walk = tbsa.bsa_tile_walk(bsl.kernel_masks, 256, False, B,
+                              tbsa.FP32_SPLIT * tbsa.WAVE)
+    ts = [torch.from_numpy(x) for x in ops]
+    full = tbsa.block_sparse_tiled_plain_fwd(*ts, walk, split=True)[0]
+    hi = tbsa.block_sparse_tiled_plain_fwd(*ts, walk, split=True,
+                                           cross=False)[0]
+    assert np.abs(full.numpy() - jo).max() <= TOL
+    assert np.abs(hi.numpy() - jo).max() > TOL
 
 
 def _planted(bsl, side):

@@ -1771,6 +1771,54 @@ def test_quantizer_kernel_rounds_ties_to_even(cuda_device, dtype):
     assert torch.equal(q, tqz.quantize_plain(x, 64)[0])
 
 
+#: (shape, groups, type, route, staged pieces): each of the kernel's paths
+#: by quantize_plan -- whole groups a piece (16-byte vectors, staged
+#: twice: groups within a warp and larger ones; one value a vector, read
+#: twice), a group of one piece (staged twice), a group in parts whose
+#: maxima meet in the group's words (staged three times, each piece
+#: quantized an iteration after it arrives; read twice: lm_head's 16 MB
+#: groups, groups larger than the card's shared memory, the scalar path)
+_QUANT_ROUTES = [
+    ((4096, 4096), 4096 * 4096 // 128, torch.bfloat16, "block", 2),
+    ((1000, 3), 3, torch.bfloat16, "block", 2),
+    ((20, 35), 4, torch.float32, "block", 0),
+    ((64, 12000), 64, torch.float16, "group", 2),
+    ((512, 1000), 16, torch.float16, "group", 3),
+    ((40, 2000), 4, torch.float32, "group", 3),
+    ((4096, 4096), 64, torch.bfloat16, "group", 3),
+    ((4096, 32000), 16, torch.bfloat16, "group", 0),
+    ((70, 1 << 20), 1, torch.bfloat16, "group", 0),
+    ((1, 100003), 1, torch.bfloat16, "group", 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,dtype,route,nbuf", _QUANT_ROUTES)
+def test_quantizer_kernel_routes(cuda_device, shape, groups, dtype, route,
+                                 nbuf):
+    """Each route of quantize_plan on the card: q and the scales bit for
+    bit the plain version's and the same over two runs (the group words'
+    maxima and counters are left zero for the next launch), an all-zero
+    group's scale 1 and q 0, one launch a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape) + groups)
+    x = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    p = tqz.launch_plan(x, groups)
+    assert (p["route"], p["nbuf"]) == (route, nbuf)
+    x.view(groups, -1)[0] = 0
+    if groups > 1:
+        x.view(groups, -1)[1, 7] = 30.0            # one large value a group
+    before = tqz.LAUNCHES["quantize"]
+    runs = [tqz.quantize_kernel(x, groups) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tqz.LAUNCHES["quantize"] == before + 2
+    want_q, want_s = tqz.quantize_plain(x, groups)
+    for q, s in runs:
+        assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    assert runs[0][1][0].item() == 1.0 and not runs[0][0][0].any().item()
+    words = tqz._WORDS.get(x.device)
+    assert words is None or not words.view(-1, 4)[:, :2].any().item()
+
+
 @pytest.mark.cuda
 def test_quantize_routes_and_refusals(cuda_device):
     """8-bit symmetric quantize launches the kernel on a CUDA tensor; the
@@ -2370,6 +2418,62 @@ def test_block_sparse_forward_walk_on_the_card(cuda_device, monkeypatch,
         assert all(torch.equal(x, y) for x, y in zip(*runs))
         assert err <= TOL and _norm_rel(runs[0][0], ro) <= NORM_TOL
         assert (runs[0][1] - rlse).abs().max() <= 1e-3
+        assert info["kernel"] == "fwd" and info["spill_bytes"] <= 128
+        if split:
+            assert info["split_groups"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,b,h,s,d,mode", [
+    ("bslongformer", 4, 12, 4096, 64, None),
+    ("fixed", 4, 12, 1040, 64, "mul"),
+    ("bslongformer", 2, 12, 1040, 20, None),
+    ("bigbird", 1, 6, 1024, 128, "add"),
+    ("fixed_uni", 2, 4, 512, 37, None),
+    ("dense", 1, 2, 512, 16, "mul"),
+])
+def test_block_sparse_fp32_forward_on_the_card(cuda_device, monkeypatch,
+                                               layout, b, h, s, d, mode):
+    """The fp32 forward (split TF32 on the slice walk) against the plain
+    fp32 forward within 1e-4 (o and lse), two runs bit-equal, under the
+    split rule and with every list split into parts of two stages; one
+    launch a call, at most 128 bytes of spill."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbsa
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+
+    lay = _bsa_layout(layout, h, s, 16, False)
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d + b + 1)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=cuda_device)
+               for _ in range(3))
+    bias = None
+    if mode is not None:
+        kpm = (torch.arange(s, device=cuda_device)[None]
+               < torch.tensor([[s - 37 * i - 5] for i in range(b)],
+                              device=cuda_device))
+        bias = tsa.key_padding_bias(
+            kpm.float() if mode == "mul" else torch.where(kpm, 0.0, -1e4),
+            mode)
+    qs = q * d ** -0.5
+    ro, rlse = tbsa.block_sparse_plain_fwd(
+        qs, k, v, tbsa.BlockSparseLayout(lay, 16, s).element_mask(
+            cuda_device), bias)
+    for split in (False, True):
+        if split:
+            monkeypatch.setattr(tbsa, "SPLIT_MIN", 2)
+            monkeypatch.setattr(tbsa, "WAVE", 1 << 40)
+        bsl = tbsa.BlockSparseLayout(lay, 16, s)
+        before = tbsa.LAUNCHES["block_sparse_attention_fwd"]
+        runs = [tbsa.block_sparse_attention_fwd(qs, k, v, bsl, bias)
+                for _ in range(2)]
+        info = tbsa.launch_info()
+        torch.cuda.synchronize()
+        assert tbsa.LAUNCHES["block_sparse_attention_fwd"] == before + 2
+        err = (runs[0][0] - ro).abs().max().item()
+        lse_err = (runs[0][1] - rlse).abs().max().item()
+        print(f"block-sparse fp32 fwd {layout} D{d} split {split}: max "
+              f"{err:.3g}, lse {lse_err:.3g}; {info}")
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
+        assert err <= 1e-4 and lse_err <= 1e-4
         assert info["kernel"] == "fwd" and info["spill_bytes"] <= 128
         if split:
             assert info["split_groups"] > 0

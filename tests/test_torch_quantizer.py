@@ -231,3 +231,144 @@ def test_quantize_leaf_alignment_matches_jax(rows, groups, align):
     assert t["q"].shape == w.shape
     _eq(t["q"], j["q"])
     _eq(t["scale"], j["scale"])
+
+
+# ----------------------------------------------------------------------------
+# The CUDA kernel's launch plan (csrc/quantizer.cu), on the CPU
+# ----------------------------------------------------------------------------
+#: (numel, groups, element bytes): chip_smoke.py phase 19's Llama-2-7B
+#: matrices at 64 and 16 groups and 128-value groups, fp32 and fp16, a
+#: group of 2000 bytes, groups that are no multiple of 16 bytes (the scalar
+#: path, also of many pieces), one group, odd sizes, one group larger than
+#: a grid of pieces and one larger than the card's shared memory
+_PLAN_CASES = [
+    (4096 * 4096, 64, 2), (4096 * 11008, 64, 2), (11008 * 4096, 64, 2),
+    (4096 * 32000, 64, 2), (4096 * 4096, 16, 2), (4096 * 11008, 16, 2),
+    (4096 * 32000, 16, 2), (4096 * 4096, 4096 * 4096 // 128, 2),
+    (4096 * 4096, 64, 4), (512 * 1024, 8, 2), (512 * 1024, 8, 4),
+    (3000, 3, 2), (700, 7, 4), (129 * 37, 3, 2), (4097 * 11, 11, 2),
+    (100003, 1, 2), (1 << 20, 1, 4), (6, 6, 2), (70 << 20, 1, 2),
+    (1 << 30, 4, 2),
+]
+
+
+def _plan_parts(numel, groups, elt, **kw):
+    """The value ranges [start, end) of the plan's pieces, with the groups
+    each piece touches, and the plan."""
+    p = TQ.quantize_plan(numel, groups, elt, **kw)
+    vec, gl = p["vec"], p["group_vecs"]
+    parts = []
+    for pc in range(p["n_pieces"]):
+        if p["route"] == "block":
+            g0 = pc * p["gpp"]
+            g1 = min(groups, g0 + p["gpp"])
+            parts.append((g0 * gl * vec, g1 * gl * vec, g0))
+        else:
+            g, w = divmod(pc, p["parts"])
+            s0 = min(w * p["piece"], gl)
+            s1 = min(s0 + p["piece"], gl)
+            parts.append(((g * gl + s0) * vec, (g * gl + s1) * vec, g))
+    return parts, p
+
+
+@pytest.mark.parametrize("numel,groups,elt", _PLAN_CASES)
+def test_quantize_plan_covers_every_value_once(numel, groups, elt):
+    """Every value lies in exactly one piece; a piece is a whole number of
+    groups (route "block", of at most QUANT_PIECE_BLOCK bytes) or a part of
+    one group (of at most QUANT_PIECE bytes unless a group needs more than
+    a grid of them); a group's parts are consecutive pieces, at most one
+    grid of them (they wait on each other, so all must be resident at
+    once); the staged pieces fit a block's shared memory; 16-byte vectors
+    exactly when a group is a whole number of them."""
+    parts, p = _plan_parts(numel, groups, elt)
+    n = numel // groups
+    assert p["vec"] == (16 // elt if n * elt % 16 == 0 else 1)
+    assert p["vec"] * p["group_vecs"] == n
+    spans = sorted((a, b) for a, b, _ in parts)
+    assert spans[0][0] == 0 and spans[-1][1] == numel
+    assert all(b0 == a1 for (_, b0), (a1, _) in zip(spans, spans[1:]))
+    assert all(b > a for a, b in spans)                  # none empty
+    per = TQ.QUANT_PIECE // (p["vec"] * elt)
+    held = TQ.H100_SMS * TQ.h100_resident(p["smem"])
+    assert p["grid"] == min(p["n_pieces"], held) >= 1
+    assert p["smem"] <= TQ.QUANT_SMEM_MAX
+    assert p["nbuf"] in ((0,) if p["vec"] == 1 else
+                         (0, TQ.QUANT_NBUF, TQ.QUANT_NBUF_GROUP))
+    if p["route"] == "block":
+        assert p["parts"] == 1 and p["gpp"] >= 1
+        assert p["piece"] == p["gpp"] * p["group_vecs"] <= \
+            TQ.QUANT_PIECE_BLOCK // (p["vec"] * elt)
+        assert p["n_pieces"] == -(-groups // p["gpp"])
+        return
+    assert p["gpp"] == 0 and p["n_pieces"] == groups * p["parts"]
+    assert p["piece"] * p["parts"] >= p["group_vecs"]
+    assert (p["parts"] - 1) * p["piece"] < p["group_vecs"]
+    assert p["parts"] <= p["grid"]
+    assert p["piece"] <= per or p["parts"] == p["grid"]
+    if p["vec"] > 1 and p["parts"] > 1 and p["nbuf"] != TQ.QUANT_NBUF_GROUP:
+        # a group of more pieces than a grid of staging blocks holds, read
+        # twice from global memory
+        assert p["nbuf"] == 0
+        assert -(-p["group_vecs"] // per) > TQ.H100_SMS * TQ.h100_resident(
+            TQ.QUANT_NBUF_GROUP * per * 16)
+
+
+def _plan_inputs(dtype, shape, groups, seed):
+    """Normal values as fp32 numpy with an all-zero group and a group of
+    exact .5 ties on its grid (absmax 127 / 8: scale 1/8), and the same
+    values in ``dtype`` (exact in bf16 and fp16: the ties are multiples of
+    1/16 below 16)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32).reshape(groups, -1)
+    x[0] = 0.0
+    if groups > 1:
+        n = x.shape[1]
+        ties = (rng.integers(-126, 126, size=n) + 0.5) / 8
+        ties[n // 2] = 127 / 8
+        x[1] = ties
+    x = x.reshape(shape)
+    return x, torch.from_numpy(x).to(dtype)
+
+
+#: (shape, groups): 128-value groups, a group size that is no multiple of
+#: 8 (the scalar path), groups of many pieces, and groups of more pieces
+#: than the cut card's grid holds
+_PLANNED = [((64, 256), 128), ((20, 35), 4), ((16, 1024), 4), ((4, 4096), 2),
+            ((2, 40000), 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("shape,groups", _PLANNED,
+                         ids=[f"{s[0]}x{s[1]}g{g}" for s, g in _PLANNED])
+def test_planned_quantize_matches_jax_bit_for_bit(shape, groups, dtype,
+                                                  monkeypatch):
+    """The plan's reduction (each group in its piece, or each piece of a
+    group reduced on its own and the pieces' maxima combined) gives the
+    bits of JAX's ``quantize`` and of ``quantize_plain``, an all-zero
+    group's scale 1 and exact .5 ties included.  The plan's sizes are cut
+    (pieces of 256 bytes, a card of 4 SMs) so that these inputs take the
+    "group" route with many parts, and a grid too small for them (larger
+    pieces), as the Llama-2-7B matrices do on the card."""
+    monkeypatch.setattr(TQ, "QUANT_PIECE", 256)
+    monkeypatch.setattr(TQ, "QUANT_PIECE_BLOCK", 256)
+    kw = {"sms": 4}
+    x, tx = _plan_inputs(dtype, shape, groups, sum(shape) + groups)
+    parts, plan = _plan_parts(tx.numel(), groups, tx.element_size(), **kw)
+    if shape in ((16, 1024), (4, 4096)):
+        assert plan["route"] == "group" and plan["parts"] > 1
+    q, s = TQ.quantize_planned_plain(tx, groups, **kw)
+    pq, ps = TQ.quantize_plain(tx, groups)
+    jx = jnp.asarray(x, {torch.float32: jnp.float32,
+                         torch.bfloat16: jnp.bfloat16,
+                         torch.float16: jnp.float16}[dtype])
+    jq, js, _ = JQ.quantize(jx, groups)
+    _eq(q, jq)
+    _eq(s, js)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    assert s[0].item() == 1.0 and not q[0].any()
+    if groups > 1:
+        assert s[1].item() == 0.125
+        want = np.round(x.reshape(groups, -1)[1] * 8)   # numpy: half even
+        np.testing.assert_array_equal(q[1].numpy(), want.astype(np.int8))
