@@ -3442,10 +3442,17 @@ BSA_LONG = ("bigbird S16384", "bigbird", 1, 12, 16384, 64, 16, "bf16", {},
             None)
 BSA_GRAD_NORM_TOL = 5e-2
 BSA_FP32_TOL = 1e-4
+#: the fp32 cases' gradient bar: max |got - plain| / max(1, max |plain|)
+#: for each of dq, dk and dv (beside the norm bar); the split-TF32
+#: products keep ~1e-6 there (tests/test_torch_bsa_walk.py), TF32 products
+#: alone ~1e-3
+BSA_FP32_GRAD_TOL = 1e-4
 BSA_DTYPES = {"bf16": "bfloat16", "fp16": "float16", "fp32": "float32"}
 #: the fault planted in a copy of csrc/block_sparse_attention.cu, with the
-#: case it runs at: the fp32 forward's split products without their hi.lo
-#: and lo.hi terms (one TF32 product), which must miss BSA_FP32_TOL
+#: case it runs at: the fp32 kernels' split products (forward, dQ and
+#: dK/dV share `mma_split`) without their hi.lo and lo.hi terms (one TF32
+#: product), which must miss BSA_FP32_TOL forward and BSA_FP32_GRAD_TOL on
+#: the gradients
 BSA_PLANTED = {
     "split cross terms dropped": (
         "  {  // the split's cross terms", "  if (false) {",
@@ -3453,10 +3460,20 @@ BSA_PLANTED = {
 }
 
 
+def fp32_grad_errs(got, want) -> dict:
+    """max |got - want| / max(1, max |want|) of each of dq, dk and dv (the
+    fp32 gradient bar's reading)."""
+    return {g: ((a.float() - c.float()).abs().nan_to_num(float("inf")).max()
+                / c.float().abs().max().clamp_min(1.0)).item()
+            for g, a, c in zip(("dq", "dk", "dv"), got, want)}
+
+
 def bsa_planted(torch, np, gen, dev, procs):
-    """The fp32 forward of each fault's case (``BSA_CASES``) through each
-    planted library against the plain fp32 forward: max abs error of o and
-    lse, and whether o meets BSA_FP32_TOL."""
+    """The fp32 forward, dQ and dK/dV of each fault's case (``BSA_CASES``)
+    through each planted library against the plain fp32 versions: max abs
+    error of o and lse, whether o meets BSA_FP32_TOL, the gradients'
+    errors under the fp32 gradient bar (``fp32_grad_errs``) and whether they
+    meet it."""
     import ctypes
 
     from deepspeed_tpu_torch.ops import _build
@@ -3477,19 +3494,36 @@ def bsa_planted(torch, np, gen, dev, procs):
             cls, kw = BSA_LAYOUTS[layout]
             bsl = bsa.BlockSparseLayout(np.asarray(getattr(sa, cls)(
                 h, block, **kw, **extra).make_layout(s)), block, s)
-            q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
-                       for _ in range(3))
-            qs = q / math.sqrt(d)
-            want = bsa.block_sparse_plain_fwd(qs, k, v,
-                                              bsl.element_mask(dev))
+            q, k, v, do = (torch.randn((b, h, s, d), generator=gen,
+                                       device=dev) for _ in range(4))
+            scale = 1.0 / math.sqrt(d)
+            qs = q * scale
+            keep = bsl.element_mask(dev)
+            want = bsa.block_sparse_plain_fwd(qs, k, v, keep)
+            rdq, rdelta = bsa.block_sparse_plain_bwd_dq(
+                qs, k, v, *want, do, keep, scale)
+            rgrads = (rdq,) + bsa.block_sparse_plain_bwd_dkv(
+                qs, k, v, do, want[1], rdelta, keep)
+            del rdelta
             _build._LIBS["block_sparse_attention"] = ctypes.CDLL(str(lib))
             bsa._kernel.cache_clear()
             o, lse = bsa.block_sparse_attention_fwd(qs, k, v, bsl)
+            # the gradients from the plain forward's o and lse, so that
+            # they read the planted backward alone
+            dq, delta = bsa.block_sparse_attention_bwd_dq(
+                qs, k, v, *want, do, bsl, scale)
+            grads = (dq,) + bsa.block_sparse_attention_bwd_dkv(
+                qs, k, v, do, want[1], delta, bsl)
             torch.cuda.synchronize()
             err = (o - want[0]).abs().nan_to_num(float("inf")).max().item()
+            gerr = fp32_grad_errs(grads, rgrads)
             out[fault] = {"case": name, "max_abs_err": err,
                           "lse_max_abs_err": (lse - want[1]).abs().max()
-                          .item(), "meets_bar": err <= BSA_FP32_TOL}
+                          .item(), "meets_bar": err <= BSA_FP32_TOL,
+                          "grad_errs": gerr,
+                          "grad_meets_bar": max(gerr.values())
+                          <= BSA_FP32_GRAD_TOL}
+            del grads, rgrads, want
             bsl._elem.clear()
     finally:
         _build._LIBS["block_sparse_attention"] = built
@@ -3544,6 +3578,36 @@ def bsa_forced_split(torch, bsa, bsl, operands, bias, want):
             "lse_max_abs_err": (runs[0][1] - want[1]).abs().max().item(),
             "split_groups": info["split_groups"],
             "max_stages": info["max_stages"]}
+
+
+def bsa_forced_split_bwd(torch, bsa, bsl, operands, res, scale, bias,
+                         want):
+    """dQ and dK/dV with every list longer than two stages split into
+    parts of two (as ``bsa_forced_split``), twice: whether the two runs
+    give the same bits, their distance to ``want`` (dq, dk, dv under the
+    rule's split; ``fp32_grad_errs``) and the split groups of both walks."""
+    import copy
+
+    forced = copy.copy(bsl)
+    forced._lists, forced._elem = {}, {}
+    rule = (bsa.SPLIT_MIN, bsa.WAVE)
+    bsa.SPLIT_MIN, bsa.WAVE = 2, 1 << 40
+    runs, groups = [], {}
+    try:
+        for _ in range(2):
+            dq, delta = bsa.block_sparse_attention_bwd_dq(
+                *operands[:3], *res, operands[3], forced, scale, bias)
+            groups["dq"] = bsa.launch_info()["split_groups"]
+            runs.append((dq, delta) + bsa.block_sparse_attention_bwd_dkv(
+                *operands[:3], operands[3], res[1], delta, forced, bias))
+            groups["dkv"] = bsa.launch_info()["split_groups"]
+    finally:
+        bsa.SPLIT_MIN, bsa.WAVE = rule
+    torch.cuda.synchronize()
+    return {"bit_equal": all(torch.equal(a, c) for a, c in zip(*runs)),
+            "grad_errs": fp32_grad_errs(
+                (runs[0][0], runs[0][2], runs[0][3]), want),
+            "split_groups": groups}
 
 
 def bsa_padding_mask(torch, dev, b, s, mode):
@@ -3642,6 +3706,7 @@ def block_sparse_case(torch, np, gen, dev, name, layout, b, h, s, d, block,
         case["grad_max_abs_err"] = dict(zip(("dq", "dk", "dv"), (
             (a.float() - c.float()).abs().max().item()
             for a, c in zip(grads, rgrads))))
+        case["grad_fp32_err"] = fp32_grad_errs(grads, rgrads)
         _, kgrads = run(bsa.block_sparse_attention,
                         bsa_planted_fault(np, bsl, "k"), key_bias=bias)
         case["fault_k_grad_norm_rel_err"] = grad_errs(kgrads, rgrads)
@@ -3693,15 +3758,20 @@ def block_sparse_case(torch, np, gen, dev, name, layout, b, h, s, d, block,
         for _ in range(2):
             dq_, delta_ = bsa.block_sparse_attention_bwd_dq(
                 *ops[0][:3], *res[0], ops[0][3], bsl, scale, bias)
-            if dt != torch.float32:
-                case["launch"]["bwd_dq"] = bsa.launch_info()
+            case["launch"]["bwd_dq"] = bsa.launch_info()
             runs.append((dq_, delta_) + bsa.block_sparse_attention_bwd_dkv(
                 *ops[0][:3], ops[0][3], res[0][1], delta_, bsl, bias))
-            if dt != torch.float32:
-                case["launch"]["bwd_dkv"] = bsa.launch_info()
+            case["launch"]["bwd_dkv"] = bsa.launch_info()
         torch.cuda.synchronize()
         case["bwd_bit_equal"] = all(torch.equal(a, c)
                                     for a, c in zip(*runs))
+        if dt == torch.float32:
+            # the same, every list split into parts of two stages: the
+            # parts sum in part order to the rule's gradients within the
+            # fp32 bar, with the same bits twice
+            case["bwd_forced_split"] = bsa_forced_split_bwd(
+                torch, bsa, bsl, ops[0], res[0], scale, bias,
+                (runs[0][0], runs[0][2], runs[0][3]))
         del runs, dq_, delta_
         deltas = [bsa.block_sparse_attention_bwd_dq(
             *o[:3], r[0], r[1], o[3], bsl, scale, bias)[1]
@@ -3766,6 +3836,9 @@ def bsa_failures(case) -> list:
     if not fwd_only and not all(
             x <= BSA_GRAD_NORM_TOL for x in case["grad_norm_rel_err"].values()):
         bad.append("gradients")
+    if not fwd_only and case["dtype"] == "fp32" and not all(
+            x <= BSA_FP32_GRAD_TOL for x in case["grad_fp32_err"].values()):
+        bad.append(f"fp32 gradients {case['grad_fp32_err']}")
     if case["fault_max_abs_err"] <= TOL and \
             case["fault_norm_rel_err"] <= NORM_TOL:
         bad.append("planted fault passes the bars")
@@ -3782,6 +3855,11 @@ def bsa_failures(case) -> list:
             forced["bit_equal"] and forced["split_groups"] > 0
             and fwd_ok(forced["max_abs_err"], forced["norm_rel_err"])):
         bad.append(f"the forward under a forced split {forced}")
+    forced = case.get("bwd_forced_split")
+    if forced is not None and not (
+            forced["bit_equal"] and min(forced["split_groups"].values()) > 0
+            and max(forced["grad_errs"].values()) <= BSA_FP32_GRAD_TOL):
+        bad.append(f"dQ / dK/dV under a forced split {forced}")
     want = {BSA_KEYS[0]: 1, BSA_KEYS[1]: int(not fwd_only),
             BSA_KEYS[2]: int(not fwd_only), BSA_DENSE: 0}
     if case["launches"] != want:
@@ -4591,7 +4669,10 @@ def main() -> int:
         print(f"[block-sparse]   {r['name']}: fwd bit-equal "
               f"{r['fwd_bit_equal']}; bwd bit-equal "
               f"{r.get('bwd_bit_equal')}; forced split "
-              f"{r.get('fwd_forced_split')}; TFLOP/s (cells / tiles) "
+              f"{r.get('fwd_forced_split')}"
+              + (f"; fp32 grads {r['grad_fp32_err']}; backward forced split "
+                 f"{r['bwd_forced_split']}" if "bwd_forced_split" in r else "")
+              + f"; TFLOP/s (cells / tiles) "
               f"{ {k: (round(x['cells'], 1), round(x['tiles'], 1)) for k, x in r['tflops'].items()} }",
               flush=True)
         for kname, info in r.get("launch", {}).items():
@@ -4600,21 +4681,24 @@ def main() -> int:
         bad = bsa_failures(r)
         if bad:
             return fail(f"phase 23 {r['name']}: {bad}")
-    # the main path's launches by kernel: the fp32 cases' forward is the
-    # split-TF32 kernel, the others' the wgmma one
-    bsa_main = {k: sum(c["launches"][k] for c in bsa_cases)
-                for k in BSA_KEYS}
-    bsa_main["fwd_split"] = sum(c["launches"][BSA_KEYS[0]] for c in bsa_cases
-                                if c["dtype"] == "fp32")
-    bsa_main[BSA_KEYS[0]] -= bsa_main["fwd_split"]
+    # the main path's launches by kernel: the fp32 cases' are the
+    # split-TF32 kernels (bsa_*_split_kernel), the others' the wgmma ones
+    bsa_main = {}
+    for key in BSA_KEYS:
+        split = sum(c["launches"][key] for c in bsa_cases
+                    if c["dtype"] == "fp32")
+        bsa_main[key] = sum(c["launches"][key] for c in bsa_cases) - split
+        bsa_main[key + "_split"] = split
     bsa_faults = bsa_planted(torch, np, gen, dev, bsa_planted_builds)
     for fault, errs in bsa_faults.items():
         print(f"[block-sparse] planted {fault} ({errs['case']}): max "
-              f"{errs['max_abs_err']:.3g} lse {errs['lse_max_abs_err']:.3g}",
+              f"{errs['max_abs_err']:.3g} lse {errs['lse_max_abs_err']:.3g}"
+              f" grads { {g: float(f'{x:.3g}') for g, x in errs['grad_errs'].items()} }",
               flush=True)
-    bad = [f for f, e in bsa_faults.items() if e["meets_bar"]]
+    bad = [f for f, e in bsa_faults.items()
+           if e["meets_bar"] or e["grad_meets_bar"]]
     if bad:
-        return fail(f"phase 23: planted faults meet the fp32 bar: {bad}")
+        return fail(f"phase 23: planted faults meet an fp32 bar: {bad}")
     for c in bsa_cases:
         if c["layout"] in ("fixed", "bslongformer", "dense") \
                 and c["padding"] is None \
@@ -4742,16 +4826,16 @@ def main() -> int:
         for kname in c["ms"]:
             err = (c["max_abs_err"] if kname == "fwd" else
                    max(c["grad_max_abs_err"][o] for o in bsa_outs[kname]))
-            # the fp32 forward: bsa_fwd_split_kernel
-            split = kname == "fwd" and c["dtype"] == "fp32"
+            # fp32: bsa_fwd_split_kernel, bsa_dq_split_kernel and
+            # bsa_dkv_split_kernel
+            key = f"block_sparse_attention_{kname}" \
+                + ("_split" if c["dtype"] == "fp32" else "")
             kernels.append({
-                "name": f"block_sparse_attention_{kname}"
-                        f"{'_split' if split else ''}[{c['name']}]",
+                "name": f"{key}[{c['name']}]",
                 "route": "cuda", "source": src + "block_sparse_attention.cu",
                 "replaces": ref + "ops/block_sparse_attention.py:"
                 + bsa_lines[kname],
-                "launches": bsa_main["fwd_split" if split else
-                                     f"block_sparse_attention_{kname}"],
+                "launches": bsa_main[key],
                 "max_abs_err": err, "ms": c["ms"][kname],
                 "plain_ms": c["plain_ms"][kname],
                 "bound_ms": c["bounds"][kname]["bound_ms"],

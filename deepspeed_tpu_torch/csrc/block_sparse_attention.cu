@@ -28,23 +28,19 @@
 //
 // Layout: q, k, v, o, do, dq, dk and dv are BHSD [B, H, S, D], contiguous;
 // lse, delta fp32 [B, H, S]; kbias fp32 [B, S] or null.  S is a multiple
-// of the layout's block, not of the kernel's tile: the tail tile is loaded
-// with zeros and masked.
+// of the layout's block, so of the 16-row slice.
 //
 // The point is skipped work, so the TPU's predicated grid (every (q tile,
 // k tile) step visited, `pl.when(tile_any...)` at :95) is not carried over.
-// The host (ops/block_sparse_attention.py, `BlockSparseLayout`) builds
-// compacted lists per head, in 64 x 64 tiles: for each query tile the live
-// key tiles, for each key tile the live query tiles (CSR: `ptr[h * n + i]`
-// .. `ptr[h * n + i + 1]` index `idx` and `mask`).  Each entry carries a
-// 16-bit mask of the tile's 16 x 16 sub-blocks, bit (qs * 4 + ks) set when
-// the layout keeps sub-block (qs, ks); the layout's block is a multiple of 16,
-// so each sub-block lies in one layout cell, and sub-blocks past S are 0.
-// The general kernels walk those lists; the tensor-core kernels walk
-// tables built from the same masks (`bsa_tile_walk`, below).  A warp of 16
-// rows keeps four bits, one a 16-column slice, and a dead slice is masked
-// whole (no per-element test: the TPU kernel's `_cell_mask` matmuls at :57
-// have no counterpart).
+// The host (ops/block_sparse_attention.py, `BlockSparseLayout`) masks the
+// layout in 64 x 64 tiles, each with a 16-bit mask of its 16 x 16
+// sub-blocks, bit (qs * 4 + ks) set when the layout keeps sub-block (qs,
+// ks); the layout's block is a multiple of 16, so each sub-block lies in
+// one layout cell.  Every kernel walks tables built from those masks
+// (`bsa_tile_walk`, below).  A warp of 16 rows keeps four bits, one a
+// 16-column slice, and a dead slice is masked or skipped whole (no
+// per-element test: the TPU kernel's `_cell_mask` matmuls at :57 have no
+// counterpart).
 //
 // Two kernel families:
 //
@@ -67,13 +63,11 @@
 //   give the same bits), and orders the blocks longest list first.  The
 //   forward and dQ read one query-major walk, so one table a (device,
 //   batch) serves both;
-// * the fp32 forward (any D up to 128; the TPU kernel takes fp32 too, and
-//   the JAX package's parity test runs it) on the same query-major walk:
-//   `bsa_fwd_split_kernel`, mma.sync in split TF32 (3xTF32), each warp
-//   skipping its dead 16-key slots (below);
-// * the general fp32 dQ and dK/dV: the tile lists, products in fp32 on the
-//   CUDA cores, 8 warps a block, 8 rows (or keys) a warp and one key (or
-//   query) a lane.
+// * the fp32 kernels (any D up to 128; the TPU kernels take fp32 too, and
+//   the JAX package's parity tests run them) on the same walks with lists
+//   split finer (`BlockSparseLayout.fp32_walk`): `bsa_fwd_split_kernel`,
+//   `bsa_dq_split_kernel` and `bsa_dkv_split_kernel`, mma.sync in split
+//   TF32 (3xTF32), each warp skipping its dead 16-row slots (below).
 //
 // What bounds them on the H100: at BERT width (D = 64, S = 4096, batch 4,
 // block 16) the products of the live layout cells, 4 S_live D flops forward
@@ -100,21 +94,9 @@
 
 namespace {
 
-constexpr int kTile = 64;             // rows of a q tile and of a k/v tile
 constexpr float kNegInf = -1e30f;     // the TPU kernels' NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSimtWarps = 8;
-constexpr int kSimtThreads = 32 * kSimtWarps;
-constexpr int kSimtPer = kTile / kSimtWarps;   // rows (or keys) a warp: 8
 constexpr int kMaxD = 128;
-
-// The compacted tile lists of one orientation (see the header).
-struct Lists {
-  const int* ptr;
-  const int* idx;
-  const int* mask;
-};
-
 
 // sum over 8 elements of a * b, each 16-byte vector of T in fp32
 template <typename T>
@@ -125,13 +107,6 @@ __device__ __forceinline__ float dot8(int4 a, int4 b) {
 #pragma unroll
   for (int e = 0; e < 8; ++e) acc = fmaf(to_f(pa[e]), to_f(pb[e]), acc);
   return acc;
-}
-
-// bits (qs * 4 + w) of `mask` for qs = 0..3: the query sub-blocks that key
-// sub-block w keeps
-__device__ __forceinline__ int column_bits(int mask, int w) {
-  return ((mask >> w) & 1) | (((mask >> (4 + w)) & 1) << 1) |
-         (((mask >> (8 + w)) & 1) << 2) | (((mask >> (12 + w)) & 1) << 3);
 }
 
 // ----------------------------------------------------------------------------
@@ -1190,6 +1165,33 @@ __device__ __forceinline__ void copy_slices_f32(float* dst, int ld, const float*
   }
 }
 
+// Columns [d, DP) of a [64 x DP] tile at row stride ld set to 0 (the
+// padding the products read; the copies write columns < d only).
+__device__ __forceinline__ void zero_pad(float* dst, int ld, int d, int dp) {
+  for (int i = threadIdx.x; i < kRows * (dp - d); i += kSplitThreads)
+    dst[(i / (dp - d)) * ld + d + i % (dp - d)] = 0.f;
+}
+
+// The four streamed slices of stage i of a walk, an empty slot (-1)
+// replaced by slot 0's (its mask bits are 0).
+__device__ __forceinline__ void stage_slices(const Walk& walk, const Item& it, int i,
+                                             int (&sl)[kSlots]) {
+  const int4 st = __ldg(reinterpret_cast<const int4*>(
+      walk.stages + static_cast<size_t>(it.begin + i) * kStageInts));
+  sl[0] = st.x;
+  sl[1] = st.y >= 0 ? st.y : st.x;
+  sl[2] = st.z >= 0 ? st.z : st.x;
+  sl[3] = st.w >= 0 ? st.w : st.x;
+}
+
+// This warp's two live bits of stage i: stationary slot rs against streamed
+// slots 2 half and 2 half + 1.
+__device__ __forceinline__ int live_pair(const Walk& walk, const Item& it, int i, int rs,
+                                         int half) {
+  return (__ldg(walk.stages + static_cast<size_t>(it.begin + i) * kStageInts + kSlots)
+          >> (4 * rs + 2 * half)) & 3;
+}
+
 template <int DP>
 struct SplitTiles {
   static constexpr int kStages = DP <= 16 ? 3 : 2;
@@ -1220,28 +1222,17 @@ bsa_fwd_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
   auto stage_of = [&](int i) { return ssm + L::kRing + (i % NS) * L::kStage; };
   const float kInf = __int_as_float(0x7f800000);
 
-  if (d < DP) {                                   // the padding the products read
-    for (int i = threadIdx.x; i < kRows * (DP - d); i += kSplitThreads) {
-      const int r = i / (DP - d), c = d + i % (DP - d);
-      q_s[r * L::kLdq + c] = 0.f;
-      for (int s = 0; s < NS; ++s) {
-        stage_of(s)[L::kK + r * L::kLdk + c] = 0.f;
-        stage_of(s)[L::kV + r * L::kLdv + c] = 0.f;
-      }
+  if (d < DP) {
+    zero_pad(q_s, L::kLdq, d, DP);
+    for (int s = 0; s < NS; ++s) {
+      zero_pad(stage_of(s) + L::kK, L::kLdk, d, DP);
+      zero_pad(stage_of(s) + L::kV, L::kLdv, d, DP);
     }
   }
-  auto slots_of = [&](int i, int (&sl)[kSlots]) {
-    const int4 st = __ldg(reinterpret_cast<const int4*>(
-        walk.stages + static_cast<size_t>(it.begin + i) * kStageInts));
-    sl[0] = st.x;
-    sl[1] = st.y >= 0 ? st.y : st.x;
-    sl[2] = st.z >= 0 ? st.z : st.x;
-    sl[3] = st.w >= 0 ? st.w : st.x;
-  };
   auto load = [&](int i) {                        // stage i's K, V and key bias
     if (i < n) {
       int sl[kSlots];
-      slots_of(i, sl);
+      stage_slices(walk, it, i, sl);
       float* st = stage_of(i);
       copy_slices_f32(st + L::kK, L::kLdk, kb, sl, d, vec);
       copy_slices_f32(st + L::kV, L::kLdv, vb, sl, d, vec);
@@ -1282,8 +1273,7 @@ bsa_fwd_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
     }
     load(i + NS - 1);
-    int live = (__ldg(walk.stages + static_cast<size_t>(it.begin + i) * kStageInts + kSlots)
-                >> (4 * rs + 2 * half)) & 3;
+    int live = live_pair(walk, it, i, rs, half);
     const float* st = stage_of(i);
     if (BIAS) {                                   // a slot whose 16 keys the key bias drops
 #pragma unroll
@@ -1476,238 +1466,490 @@ bsa_fwd_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ----------------------------------------------------------------------------
-// General kernels (CUDA cores, fp32 products)
+// Backward in fp32 on the slice walks: split TF32 on mma.sync
 // ----------------------------------------------------------------------------
-// kTile rows of one head into fp32 shared memory at row stride ld; rows past
-// `rows` are 0.
-template <typename T>
-__device__ __forceinline__ void load_rows_f32(float* dst, int ld, const T* src, int d, int row0,
-                                              int rows) {
-  for (int i = threadIdx.x; i < kTile * d; i += kSimtThreads) {
-    const int r = i / d, c = i % d;
-    dst[r * ld + c] = row0 + r < rows ? to_f(src[static_cast<size_t>(row0 + r) * d + c]) : 0.f;
+// What bounds them: at BSLongformer (B 4, H 12, S 4096, D 64) the live slot
+// pairs carry ~6 GFLOP (dQ) and ~8 GFLOP (dK/dV) of fp32 products, 0.09 and
+// 0.12 ms at 67 TFLOP/s on the CUDA cores, about the operands' bytes.  The
+// general kernels before them, one key (or query) a lane with dot products
+// over D from shared memory, a scalar broadcast of dS or P a lane, and
+// synchronous 64 x 64 tiles, ran at ~20x that.  So both run the fp32
+// forward's design (`bsa_fwd_split_kernel`, above) on the slice walks:
+// * dQ, `bsa_dq_split_kernel`, on the forward's query-major walk; dK/dV,
+//   `bsa_dkv_split_kernel`, on a key-major walk built from the same split
+//   rule (`BlockSparseLayout.fp32_walk`: global-column keys grouped four to
+//   a block, as in the bf16 dK/dV);
+// * a block is 8 warps: warp w holds the 16 rows of stationary slot w % 4
+//   (query rows for dQ, keys for dK/dV) and two of the stage's four
+//   streamed slots, 2 (w / 4) and 2 (w / 4) + 1, so it skips a dead slot's
+//   products (and, with a key bias, a slot of dQ whose 16 keys the bias
+//   drops, or the whole list of a dK/dV warp whose own 16 keys it drops);
+//   the two warps of a stationary slot sum their outputs in a fixed order;
+// * every product is mma.sync m16n8k8 in split TF32 (3xTF32, `mma_split`):
+//   dQ's S = Q K^T, dP = dO V^T and dQ += dS K; dK/dV's S^T = K Q^T,
+//   dP^T = V dO^T, dV += P^T dO and dK += dS^T Q.  The stationary rows stay
+//   in shared memory unsplit and each fragment is split as it is loaded
+//   (a split copy of Q and dO, 2 x 69.6 KB at D 128, would not leave room
+//   for the ring); the accumulators of dS (and P^T) are the A fragments of
+//   the last products through the permuted k order of the forward's P V;
+// * the streamed slices come by cp.async through a 2-stage ring with the
+//   stage's key bias (dQ) or its rows' lse and delta (dK/dV); a tile read
+//   both by rows and by columns (K in dQ; Q and dO in dK/dV) has a row
+//   stride of 4 mod 32 words and is read a float at a time in the standard
+//   k order, a tile read only by rows a stride of 8 mod 32 and float2 reads
+//   in the permuted order: no fragment load meets a bank conflict;
+// * P = exp2 of one FMA a score, S log2e - lse log2e, fp32 throughout;
+//   dQ forms delta = rowsum(dO O) for its rows in a fixed order and part 0
+//   of a list writes it for dK/dV, which runs after it on the same stream;
+// * dK/dV takes one live query slot at a time, so that its S^T and dP^T
+//   (16 registers) fit beside its two sums at two blocks an SM up to D 64
+//   with no spill (both slots at once took 173 registers and one block an
+//   SM, 1.5x slower at BSLongformer; two blocks with both slots spilled,
+//   PERF.md);
+// * a split list's parts sum in part order through the bf16 kernels'
+//   partial slots and counters (one [64 x DP] tile a part for dQ, two for
+//   dK/dV).
+// Every sum runs in a fixed order: two runs give the same bits.
+
+// Ring stages, blocks an SM (a warp holds one [16 x DP] sum of dQ, two of
+// dK/dV), and the k steps a pass of dK/dV's S^T and dP^T loop takes (one
+// at DP = 128, where two passes' fragments beside both sums spill).
+template <int DP>
+struct SplitBwdTiles {
+  static constexpr int kStages = 2;
+  static constexpr int kDqBlocks = DP <= 64 ? 2 : 1;
+  static constexpr int kDkvBlocks = DP <= 64 ? 2 : 1;
+  static constexpr int kDkvUnroll = DP == 128 ? 1 : 2;
+};
+
+// dQ's shared memory (floats): Q [64 x kLdq] and dO [64 x kLdo], then NS
+// stages of K [64 x kLdk], V [64 x kLdv] and the key bias [64].
+template <int DP, int NS>
+struct DqSplitSmem {
+  static constexpr int kLdq = DP + 4, kLdo = DP + 8, kLdk = DP + 4, kLdv = DP + 8;
+  static constexpr int kQ = 0, kDo = kRows * kLdq;
+  static constexpr int kRing = kDo + kRows * kLdo;
+  static constexpr int kK = 0, kV = kRows * kLdk, kBias = kV + kRows * kLdv;
+  static constexpr int kStage = kBias + kRows;
+  static constexpr int kFlag = kRing + NS * kStage;
+  static constexpr int kBytes = (kFlag + 4) * 4;
+};
+
+// dK/dV's shared memory (floats): K and V [64 x kLd] and their keys' bias
+// [64], then NS stages of Q and dO [64 x kLd] and their rows' lse [64] and
+// delta [64].
+template <int DP, int NS>
+struct DkvSplitSmem {
+  static constexpr int kLd = DP + 4;
+  static constexpr int kK = 0, kV = kRows * kLd, kBias = 2 * kRows * kLd;
+  static constexpr int kRing = kBias + kRows;
+  static constexpr int kQ = 0, kDo = kRows * kLd, kLse = 2 * kRows * kLd, kDelta = kLse + kRows;
+  static constexpr int kStage = kDelta + kRows;
+  static constexpr int kFlag = kRing + NS * kStage;
+  static constexpr int kBytes = (kFlag + 4) * 4;
+};
+
+// A float at a time into TF32 parts: the A fragment of rows r and r + 8 of
+// a row-major tile at columns c and c + 4 (the standard k order)
+__device__ __forceinline__ void a_frag(const float* row, int ld, uint32_t (&h)[4],
+                                       uint32_t (&l)[4]) {
+  split_tf32(row[0], h[0], l[0]);
+  split_tf32(row[8 * ld], h[1], l[1]);
+  split_tf32(row[4], h[2], l[2]);
+  split_tf32(row[8 * ld + 4], h[3], l[3]);
+}
+
+// the A fragment in the permuted k order (column t holds element 2t,
+// column t + 4 element 2t + 1), two float2 reads
+__device__ __forceinline__ void a_frag2(const float* row, int ld, uint32_t (&h)[4],
+                                        uint32_t (&l)[4]) {
+  const float2 x0 = *reinterpret_cast<const float2*>(row);
+  const float2 x1 = *reinterpret_cast<const float2*>(row + 8 * ld);
+  split_tf32(x0.x, h[0], l[0]);
+  split_tf32(x1.x, h[1], l[1]);
+  split_tf32(x0.y, h[2], l[2]);
+  split_tf32(x1.y, h[3], l[3]);
+}
+
+// an m16n8 accumulator tile as the A fragment of the next product (its
+// columns 2t, 2t + 1 are the permuted k order's t, t + 4)
+__device__ __forceinline__ void acc_frag(const float* c, uint32_t (&h)[4], uint32_t (&l)[4]) {
+  split_tf32(c[0], h[0], l[0]);
+  split_tf32(c[2], h[1], l[1]);
+  split_tf32(c[1], h[2], l[2]);
+  split_tf32(c[3], h[3], l[3]);
+}
+
+// acc[DP / 2] += a (16 x 8, permuted k order) times rows k0 and k0 + 1
+// of a tile at stride ld, columns 8 nd + g: the B fragments of the product
+// whose k runs over the tile's rows
+template <int DP>
+__device__ __forceinline__ void mma_rows(float (&acc)[DP / 2], const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4], const float* k0, int ld) {
+#pragma unroll
+  for (int nd = 0; nd < DP / 8; ++nd) {
+    uint32_t bh2[2], bl2[2];
+    split_tf32(k0[8 * nd], bh2[0], bl2[0]);
+    split_tf32(k0[ld + 8 * nd], bh2[1], bl2[1]);
+    mma_split(acc + 4 * nd, ah, al, bh2, bl2);
   }
 }
 
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// DW = ceil(d / 32) output columns a lane: lane + 32 e.
-template <typename T, int DW>
-__global__ void __launch_bounds__(kSimtThreads)
-bsa_bwd_dq_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ o,
-                       const T* __restrict__ dout, const float* __restrict__ lse,
-                       float* __restrict__ delta, T* __restrict__ dq,
-                       const float* __restrict__ kbias, int seq, int heads, int d, float scale,
-                       Lists lists) {
-  extern __shared__ __align__(16) float fsm[];
-  const int ldk = d | 1;
-  float* q_s = fsm;                                 // [kTile][d]
-  float* do_s = q_s + kTile * d;                    // [kTile][d]
-  float* k_s = do_s + kTile * d;                    // [kTile][ldk]
-  float* v_s = k_s + kTile * ldk;                   // [kTile][ldk]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * kTile;
-  const size_t row_base = (static_cast<size_t>(b) * heads + h) * seq;
-  const T* kb = k + row_base * d;
-  const T* vb = v + row_base * d;
-  load_rows_f32<T>(q_s, d, q + row_base * d, d, q0, seq);
-  load_rows_f32<T>(do_s, d, dout + row_base * d, d, q0, seq);
+// A half-1 warp's sums to the half-0 warp of its stationary slot, through
+// shared memory that no stage uses any more (`buf`, 64 x DP floats); true
+// in half 0, which then holds its own sums plus the other's.
+template <int N>
+__device__ __forceinline__ bool merge_halves(float* buf, float (&a)[N], int half, int ct) {
   __syncthreads();
+  if (half == 1) put_partial(buf, a, ct);
+  __syncthreads();
+  if (half == 0) add_partial<N, true>(a, buf, ct);
+  return half == 0;
+}
 
-  const int lr0 = warp * kSimtPer;
-  const int shift = 4 * (lr0 / 16);
-  float row_lse[kSimtPer], row_delta[kSimtPer], acc[kSimtPer][DW];
+template <int DP, int NS, bool BIAS>
+__global__ void __launch_bounds__(kSplitThreads, SplitBwdTiles<DP>::kDqBlocks)
+bsa_dq_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ dout, const float* __restrict__ lse,
+                    float* __restrict__ delta, float* __restrict__ dq,
+                    const float* __restrict__ kbias, int seq, int heads, int d, int batch,
+                    float scale, int vec, Walk walk) {
+  using L = DqSplitSmem<DP, NS>;
+  extern __shared__ __align__(16) float ssm[];
+  float* q_s = ssm + L::kQ;
+  float* do_s = ssm + L::kDo;
+  int* flag = reinterpret_cast<int*>(ssm + L::kFlag);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int rs = warp % kSlots, half = warp / kSlots;    // row slot, key half
+  const int b = blockIdx.x % batch;
+  const Item it = item_of(walk.blocks, blockIdx.x / batch);
+  const int bh = b * heads + it.head;
+  const int n = it.end - it.begin;
+  const size_t row_base = static_cast<size_t>(bh) * seq;
+  auto stage_of = [&](int i) { return ssm + L::kRing + (i % NS) * L::kStage; };
+  const float kInf = __int_as_float(0x7f800000);
+
+  if (d < DP) {
+    zero_pad(q_s, L::kLdq, d, DP);
+    zero_pad(do_s, L::kLdo, d, DP);
+    for (int s = 0; s < NS; ++s) {
+      zero_pad(stage_of(s) + L::kK, L::kLdk, d, DP);
+      zero_pad(stage_of(s) + L::kV, L::kLdv, d, DP);
+    }
+  }
+  auto load = [&](int i) {                        // stage i's K, V and key bias
+    if (i < n) {
+      int sl[kSlots];
+      stage_slices(walk, it, i, sl);
+      float* st = stage_of(i);
+      copy_slices_f32(st + L::kK, L::kLdk, k + row_base * d, sl, d, vec);
+      copy_slices_f32(st + L::kV, L::kLdv, v + row_base * d, sl, d, vec);
+      if (BIAS && threadIdx.x < kRows)
+        cp_async_n<4>(st + L::kBias + threadIdx.x,
+                      kbias + static_cast<size_t>(b) * seq + kSlice * pick(sl, threadIdx.x / kSlice)
+                          + threadIdx.x % kSlice);
+    }
+    cp_commit();
+  };
+  {
+    int stat[kSlots];
+    slices_of(it.stat, stat);
+    copy_slices_f32(q_s, L::kLdq, q + row_base * d, stat, d, vec);
+    copy_slices_f32(do_s, L::kLdo, dout + row_base * d, stat, d, vec);
+  }
 #pragma unroll
-  for (int rr = 0; rr < kSimtPer; ++rr) {
-    const int r = q0 + lr0 + rr;
+  for (int i = 0; i < NS - 1; ++i) load(i);
+
+  // this thread's rows 16 rs + g and + 8: lse in log2 units and delta =
+  // rowsum(dO O), each lane of the row's quad taking every fourth column;
+  // part 0 of the list writes delta
+  const int mine = pick(it.stat, rs), slice = mine >= 0 ? mine : it.stat[0];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const size_t r = row_base + kSlice * slice + g + 8 * hr;
     float part = 0.f;
-    if (r < seq)
-      for (int c = lane; c < d; c += 32)
-        part = fmaf(do_s[(lr0 + rr) * d + c], to_f(o[(row_base + r) * d + c]), part);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(kFull, part, off);
-    row_delta[rr] = part;
-    row_lse[rr] = r < seq ? lse[row_base + r] : 0.f;
-    if (lane == 0 && r < seq) delta[row_base + r] = part;
-#pragma unroll
-    for (int e = 0; e < DW; ++e) acc[rr][e] = 0.f;
+    for (int c = t; c < d; c += 4) part = fmaf(dout[r * d + c], o[r * d + c], part);
+    part += __shfl_xor_sync(kFull, part, 1);
+    part += __shfl_xor_sync(kFull, part, 2);
+    dlt[hr] = part;
+    lse2[hr] = lse[r] * kLog2e;
+    if (half == 0 && t == 0 && it.part == 0 && mine >= 0) delta[r] = part;
   }
 
-  const int li = h * gridDim.x + qt;
-  for (int it = lists.ptr[li], end = lists.ptr[li + 1]; it < end; ++it) {
-    const int c0 = lists.idx[it] * kTile;
-    const int live = (lists.mask[it] >> shift) & 0xF;
-    __syncthreads();
-    load_rows_f32<T>(k_s, ldk, kb, d, c0, seq);
-    load_rows_f32<T>(v_s, ldk, vb, d, c0, seq);
-    __syncthreads();
-#pragma unroll 1
-    for (int half = 0; half < 2; ++half) {
-      if (!((live >> (2 * half)) & 3)) continue;
-      const int kl = 32 * half + lane;
-      const bool keep = (live >> (kl / 16)) & 1;
-      float x[kSimtPer], y[kSimtPer];
+  // dQ (fragment order: element 4 nd + 2 hr + e is row g + 8 hr, column
+  // 8 nd + 2t + e)
+  float acc[DP / 2];
+  zero(acc);
+  const float* q_row0 = q_s + (16 * rs + g) * L::kLdq + t;
+  const float* do_row0 = do_s + (16 * rs + g) * L::kLdo + 2 * t;
+  for (int i = 0; i < n; ++i) {
+    cp_wait<NS - 2>();
+    __syncthreads();                              // stage i landed; stage i - 1 read
+    load(i + NS - 1);
+    int live = live_pair(walk, it, i, rs, half);
+    const float* st = stage_of(i);
+    if (BIAS) {                                   // a slot whose 16 keys the key bias drops
 #pragma unroll
-      for (int rr = 0; rr < kSimtPer; ++rr) x[rr] = y[rr] = 0.f;
-      for (int e = 0; e < d; ++e) {
-        const float kv = k_s[kl * ldk + e], vv = v_s[kl * ldk + e];
+      for (int j = 0; j < 2; ++j)
+        if (__all_sync(kFull, st[L::kBias + 32 * half + 16 * j + (lane & 15)] == -kInf))
+          live &= ~(1 << j);
+    }
+    if (live == 0) continue;                      // (warp-uniform)
+    const float* k_t = st + L::kK + 32 * half * L::kLdk;
+    const float* v_t = st + L::kV + 32 * half * L::kLdv;
+
+    // S = Q K^T and dP = dO V^T over this warp's 32 keys: slot j's 8-key
+    // tile nb in s[8 j + 4 nb ..]; k step kk takes dims 8 kk .. 8 kk + 7
+    float s[16], dp[16];
+    zero(s);
+    zero(dp);
+#pragma unroll 2
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      uint32_t qh[4], ql[4], oh[4], ol[4];
+      a_frag(q_row0 + 8 * kk, L::kLdq, qh, ql);
+      a_frag2(do_row0 + 8 * kk, L::kLdo, oh, ol);
 #pragma unroll
-        for (int rr = 0; rr < kSimtPer; ++rr) {
-          x[rr] = fmaf(q_s[(lr0 + rr) * d + e], kv, x[rr]);
-          y[rr] = fmaf(do_s[(lr0 + rr) * d + e], vv, y[rr]);
-        }
-      }
-      const float kbv = keep && kbias ? kbias[static_cast<size_t>(b) * seq + c0 + kl] : 0.f;
-      float ds[kSimtPer];
+      for (int j = 0; j < 2; ++j) {
+        if (!((live >> j) & 1)) continue;
 #pragma unroll
-      for (int rr = 0; rr < kSimtPer; ++rr) {
-        const float p = keep ? expf(x[rr] + kbv - row_lse[rr]) : 0.f;
-        ds[rr] = round_to<T>(p * (y[rr] - row_delta[rr]));
-      }
-      for (int j = 0; j < 32; ++j) {
-        float dj[kSimtPer];
-#pragma unroll
-        for (int rr = 0; rr < kSimtPer; ++rr) dj[rr] = __shfl_sync(kFull, ds[rr], j);
-        const float* krow = k_s + (32 * half + j) * ldk;
-#pragma unroll
-        for (int e = 0; e < DW; ++e) {
-          const int c = lane + 32 * e;
-          const float kv = c < d ? krow[c] : 0.f;
-#pragma unroll
-          for (int rr = 0; rr < kSimtPer; ++rr) acc[rr][e] = fmaf(dj[rr], kv, acc[rr][e]);
+        for (int nb = 0; nb < 2; ++nb) {
+          const int key = 16 * j + 8 * nb + g;
+          const float* kr = k_t + key * L::kLdk + 8 * kk + t;
+          uint32_t bh2[2], bl2[2];
+          split_tf32(kr[0], bh2[0], bl2[0]);
+          split_tf32(kr[4], bh2[1], bl2[1]);
+          mma_split(s + 8 * j + 4 * nb, qh, ql, bh2, bl2);
+          const float2 y = *reinterpret_cast<const float2*>(v_t + key * L::kLdv + 8 * kk + 2 * t);
+          split_tf32(y.x, bh2[0], bl2[0]);
+          split_tf32(y.y, bh2[1], bl2[1]);
+          mma_split(dp + 8 * j + 4 * nb, oh, ol, bh2, bl2);
         }
       }
     }
-  }
 
+    // dS = P (dP - delta), P = exp2(S log2e - lse log2e) with the key bias
+    // added (this thread's keys 8 (e / 4) + 2t + e % 2 of the warp's 32)
+    const float* bt = st + L::kBias + 32 * half;
 #pragma unroll
-  for (int rr = 0; rr < kSimtPer; ++rr) {
-    const int r = q0 + lr0 + rr;
-    if (r >= seq) continue;
-    T* row = dq + (row_base + r) * d;
+    for (int e = 0; e < 16; ++e) {
+      const int hr = (e >> 1) & 1;
+      const float x = BIAS ? s[e] + bt[8 * (e / 4) + 2 * t + (e & 1)] : s[e];
+      s[e] = exp2_ftz(fmaf(x, kLog2e, -lse2[hr])) * (dp[e] - dlt[hr]);
+    }
+
+    // dQ += dS K: slot j's key block kb (keys 16 j + 8 kb ..)
 #pragma unroll
-    for (int e = 0; e < DW; ++e) {
-      const int c = lane + 32 * e;
-      if (c < d) row[c] = from_f<T>(acc[rr][e] * scale);
+    for (int j = 0; j < 2; ++j) {
+      if (!((live >> j) & 1)) continue;
+#pragma unroll
+      for (int kb2 = 0; kb2 < 2; ++kb2) {
+        uint32_t ah[4], al[4];
+        acc_frag(s + 8 * j + 4 * kb2, ah, al);
+        mma_rows<DP>(acc, ah, al, k_t + (16 * j + 8 * kb2 + 2 * t) * L::kLdk + g, L::kLdk);
+      }
+    }
+  }
+  cp_wait<0>();                                   // (only empty groups left)
+
+  const int ct = threadIdx.x % 128;
+  if (!merge_halves(ssm + L::kRing, acc, half, ct)) return;
+  if (it.parts > 1) {
+    constexpr int kSlot = 128 * DP / 2;
+    put_partial(partial_slot(it, walk, it.part, b, batch, kSlot), acc, ct);
+    if (!last_part(it, walk, b, batch, ct, flag)) return;
+    zero(acc);
+    for (int p = 0; p < it.parts; ++p)
+      add_partial(acc, partial_slot(it, walk, p, b, batch, kSlot), ct);
+  }
+  if (mine < 0) return;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float* row = dq + (row_base + kSlice * mine + g + 8 * hr) * d;
+#pragma unroll
+    for (int nd = 0; nd < DP / 8; ++nd) {
+      const int c = 8 * nd + 2 * t;
+      if (c < d) row[c] = acc[4 * nd + 2 * hr] * scale;
+      if (c + 1 < d) row[c + 1] = acc[4 * nd + 2 * hr + 1] * scale;
     }
   }
 }
 
-template <typename T, int DW>
-__global__ void __launch_bounds__(kSimtThreads)
-bsa_bwd_dkv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        T* __restrict__ dk, T* __restrict__ dv,
-                        const float* __restrict__ kbias, int seq, int heads, int d,
-                        Lists lists) {
-  extern __shared__ __align__(16) float fsm[];
-  const int ldq = d | 1;
-  float* k_s = fsm;                                 // [kTile][d]
-  float* v_s = k_s + kTile * d;                     // [kTile][d]
-  float* q_s = v_s + kTile * d;                     // [kTile][ldq]
-  float* do_s = q_s + kTile * ldq;                  // [kTile][ldq]
-  float* lse_s = do_s + kTile * ldq;                // [kTile]
-  float* delta_s = lse_s + kTile;                   // [kTile]
+template <int DP, int NS, bool BIAS>
+__global__ void __launch_bounds__(kSplitThreads, SplitBwdTiles<DP>::kDkvBlocks)
+bsa_dkv_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv,
+                     const float* __restrict__ kbias, int seq, int heads, int d, int batch,
+                     int vec, Walk walk) {
+  using L = DkvSplitSmem<DP, NS>;
+  extern __shared__ __align__(16) float ssm[];
+  float* k_s = ssm + L::kK;
+  float* v_s = ssm + L::kV;
+  int* flag = reinterpret_cast<int*>(ssm + L::kFlag);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int ks = warp % kSlots, half = warp / kSlots;    // key slot, query half
+  const int b = blockIdx.x % batch;
+  const Item it = item_of(walk.blocks, blockIdx.x / batch);
+  const int bh = b * heads + it.head;
+  const int n = it.end - it.begin;
+  const size_t row_base = static_cast<size_t>(bh) * seq;
+  auto stage_of = [&](int i) { return ssm + L::kRing + (i % NS) * L::kStage; };
+  const float kInf = __int_as_float(0x7f800000);
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * kTile;
-  const size_t row_base = (static_cast<size_t>(b) * heads + h) * seq;
-  const T* qb = q + row_base * d;
-  const T* dob = dout + row_base * d;
-  load_rows_f32<T>(k_s, d, k + row_base * d, d, k0, seq);
-  load_rows_f32<T>(v_s, d, v + row_base * d, d, k0, seq);
-
-  const int kl0 = warp * kSimtPer;                  // the warp's first key in the tile
-  const int ksb = kl0 / 16;                         // its key sub-block
-  float dk_acc[kSimtPer][DW], dv_acc[kSimtPer][DW], key_b[kSimtPer];
-#pragma unroll
-  for (int kk = 0; kk < kSimtPer; ++kk) {
-    const int c = k0 + kl0 + kk;
-    key_b[kk] = kbias && c < seq ? kbias[static_cast<size_t>(b) * seq + c] : 0.f;
-#pragma unroll
-    for (int e = 0; e < DW; ++e) dk_acc[kk][e] = dv_acc[kk][e] = 0.f;
-  }
-
-  const int li = h * gridDim.x + kt;
-  for (int it = lists.ptr[li], end = lists.ptr[li + 1]; it < end; ++it) {
-    const int r0 = lists.idx[it] * kTile;
-    const int col = column_bits(lists.mask[it], ksb);   // live query sub-blocks
-    __syncthreads();
-    load_rows_f32<T>(q_s, ldq, qb, d, r0, seq);
-    load_rows_f32<T>(do_s, ldq, dob, d, r0, seq);
-    for (int i = threadIdx.x; i < kTile; i += kSimtThreads) {
-      const int r = r0 + i;
-      lse_s[i] = r < seq ? lse[row_base + r] : 0.f;
-      delta_s[i] = r < seq ? delta[row_base + r] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int half = 0; half < 2; ++half) {
-      if (!((col >> (2 * half)) & 3)) continue;     // both 16-query slices dead
-      const int ql = 32 * half + lane;              // this lane's query in the tile
-      const bool keep = (col >> (ql / 16)) & 1;
-      float x[kSimtPer], y[kSimtPer];
-#pragma unroll
-      for (int kk = 0; kk < kSimtPer; ++kk) x[kk] = y[kk] = 0.f;
-      for (int e = 0; e < d; ++e) {
-        const float qv = q_s[ql * ldq + e], dov = do_s[ql * ldq + e];
-#pragma unroll
-        for (int kk = 0; kk < kSimtPer; ++kk) {
-          x[kk] = fmaf(qv, k_s[(kl0 + kk) * d + e], x[kk]);
-          y[kk] = fmaf(dov, v_s[(kl0 + kk) * d + e], y[kk]);
-        }
-      }
-      float pr[kSimtPer], ds[kSimtPer];
-#pragma unroll
-      for (int kk = 0; kk < kSimtPer; ++kk) {
-        const float p = keep ? expf(x[kk] + key_b[kk] - lse_s[ql]) : 0.f;
-        pr[kk] = round_to<T>(p);
-        ds[kk] = round_to<T>(p * (y[kk] - delta_s[ql]));
-      }
-      for (int j = 0; j < 32; ++j) {
-        const float* qrow = q_s + (32 * half + j) * ldq;
-        const float* dorow = do_s + (32 * half + j) * ldq;
-        float pj[kSimtPer], dj[kSimtPer];
-#pragma unroll
-        for (int kk = 0; kk < kSimtPer; ++kk) {
-          pj[kk] = __shfl_sync(kFull, pr[kk], j);
-          dj[kk] = __shfl_sync(kFull, ds[kk], j);
-        }
-#pragma unroll
-        for (int e = 0; e < DW; ++e) {
-          const int c = lane + 32 * e;
-          const float qv = c < d ? qrow[c] : 0.f;
-          const float dov = c < d ? dorow[c] : 0.f;
-#pragma unroll
-          for (int kk = 0; kk < kSimtPer; ++kk) {
-            dv_acc[kk][e] = fmaf(pj[kk], dov, dv_acc[kk][e]);
-            dk_acc[kk][e] = fmaf(dj[kk], qv, dk_acc[kk][e]);
-          }
-        }
-      }
+  if (d < DP) {
+    zero_pad(k_s, L::kLd, d, DP);
+    zero_pad(v_s, L::kLd, d, DP);
+    for (int s = 0; s < NS; ++s) {
+      zero_pad(stage_of(s) + L::kQ, L::kLd, d, DP);
+      zero_pad(stage_of(s) + L::kDo, L::kLd, d, DP);
     }
   }
+  auto load = [&](int i) {                        // stage i's Q, dO, lse and delta
+    if (i < n) {
+      int sl[kSlots];
+      stage_slices(walk, it, i, sl);
+      float* st = stage_of(i);
+      copy_slices_f32(st + L::kQ, L::kLd, q + row_base * d, sl, d, vec);
+      copy_slices_f32(st + L::kDo, L::kLd, dout + row_base * d, sl, d, vec);
+      if (threadIdx.x < 2 * kRows) {
+        const int r = threadIdx.x % kRows;
+        cp_async_n<4>(st + L::kLse + threadIdx.x,
+                      (threadIdx.x < kRows ? lse : delta) + row_base
+                          + kSlice * pick(sl, r / kSlice) + r % kSlice);
+      }
+    }
+    cp_commit();
+  };
+  {
+    int stat[kSlots];
+    slices_of(it.stat, stat);
+    copy_slices_f32(k_s, L::kLd, k + row_base * d, stat, d, vec);
+    copy_slices_f32(v_s, L::kLd, v + row_base * d, stat, d, vec);
+    // the keys' bias, read from shared memory where it is used (held in
+    // registers beside both sums it spilled)
+    if (BIAS && threadIdx.x < kRows)
+      cp_async_n<4>(ssm + L::kBias + threadIdx.x,
+                    kbias + static_cast<size_t>(b) * seq
+                        + kSlice * pick(stat, threadIdx.x / kSlice) + threadIdx.x % kSlice);
+  }
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) load(i);
 
+  const int mine = pick(it.stat, ks);
+  const float* kb = ssm + L::kBias + 16 * ks;
+
+  // dK and dV (fragment order as dQ's: rows are keys g + 8 hr)
+  float dk_acc[DP / 2], dv_acc[DP / 2];
+  zero(dk_acc);
+  zero(dv_acc);
+  const float* k_row0 = k_s + (16 * ks + g) * L::kLd + t;
+  const float* v_row0 = v_s + (16 * ks + g) * L::kLd + t;
+  for (int i = 0; i < n; ++i) {
+    cp_wait<NS - 2>();
+    __syncthreads();                              // stage i landed; stage i - 1 read
+    load(i + NS - 1);
+    int live = live_pair(walk, it, i, ks, half);
+    // a warp whose 16 keys the key bias drops has no gradient (tested at
+    // each stage: a flag held across the loop spilled)
+    if (BIAS && __all_sync(kFull, kb[lane & 15] == -kInf)) live = 0;
+    if (live == 0) continue;                      // (warp-uniform)
+    const float* st = stage_of(i);
+    const float* q_t = st + L::kQ + 32 * half * L::kLd;
+    const float* do_t = st + L::kDo + 32 * half * L::kLd;
+    const float* lse_t = st + L::kLse + 32 * half;
+    const float* delta_t = st + L::kDelta + 32 * half;
+
+    // one live query slot j (16 queries) at a time, so that S^T and dP^T
+    // take 16 registers beside the two sums: the stationary fragments are
+    // split again for a stage's second live slot
 #pragma unroll
-  for (int kk = 0; kk < kSimtPer; ++kk) {
-    const int c = k0 + kl0 + kk;
-    if (c >= seq) continue;
-    T* dk_row = dk + (row_base + c) * d;
-    T* dv_row = dv + (row_base + c) * d;
+    for (int j = 0; j < 2; ++j) {
+      if (!((live >> j) & 1)) continue;
+      const float* q_j = q_t + 16 * j * L::kLd;
+      const float* do_j = do_t + 16 * j * L::kLd;
+
+      // S^T = K Q^T and dP^T = V dO^T: the slot's 8-query tile nb in
+      // sc[4 nb ..]; k step kk takes dims 8 kk .. 8 kk + 7
+      float sc[8], dpt[8];
+      zero(sc);
+      zero(dpt);
+#pragma unroll (SplitBwdTiles<DP>::kDkvUnroll)
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        uint32_t kh[4], kl[4], vh[4], vl[4];
+        a_frag(k_row0 + 8 * kk, L::kLd, kh, kl);
+        a_frag(v_row0 + 8 * kk, L::kLd, vh, vl);
 #pragma unroll
-    for (int e = 0; e < DW; ++e) {
-      const int col = lane + 32 * e;
-      if (col < d) {
-        dk_row[col] = from_f<T>(dk_acc[kk][e]);
-        dv_row[col] = from_f<T>(dv_acc[kk][e]);
+        for (int nb = 0; nb < 2; ++nb) {
+          const int row = (8 * nb + g) * L::kLd + 8 * kk + t;
+          uint32_t bh2[2], bl2[2];
+          split_tf32(q_j[row], bh2[0], bl2[0]);
+          split_tf32(q_j[row + 4], bh2[1], bl2[1]);
+          mma_split(sc + 4 * nb, kh, kl, bh2, bl2);
+          split_tf32(do_j[row], bh2[0], bl2[0]);
+          split_tf32(do_j[row + 4], bh2[1], bl2[1]);
+          mma_split(dpt + 4 * nb, vh, vl, bh2, bl2);
+        }
+      }
+
+      // P^T = exp2((S^T + kbias) log2e - lse log2e) and dS^T = P^T (dP^T
+      // - delta) (this thread's queries 8 (e / 4) + 2t + e % 2 of the slot)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int x = 16 * j + 8 * (e / 4) + 2 * t + (e & 1);
+        const float y = BIAS ? sc[e] + kb[g + 8 * ((e >> 1) & 1)] : sc[e];
+        sc[e] = exp2_ftz(fmaf(y, kLog2e, -(lse_t[x] * kLog2e)));
+        dpt[e] = sc[e] * (dpt[e] - delta_t[x]);
+      }
+
+      // dV += P^T dO and dK += dS^T Q over the slot's query block qb
+      // (queries 8 qb ..)
+#pragma unroll
+      for (int qb = 0; qb < 2; ++qb) {
+        const int row = (8 * qb + 2 * t) * L::kLd + g;
+        uint32_t ah[4], al[4];
+        acc_frag(sc + 4 * qb, ah, al);
+        mma_rows<DP>(dv_acc, ah, al, do_j + row, L::kLd);
+        acc_frag(dpt + 4 * qb, ah, al);
+        mma_rows<DP>(dk_acc, ah, al, q_j + row, L::kLd);
+      }
+    }
+  }
+  cp_wait<0>();                                   // (only empty groups left)
+
+  const int ct = threadIdx.x % 128;
+  merge_halves(ssm + L::kRing, dk_acc, half, ct);
+  if (!merge_halves(ssm + L::kRing, dv_acc, half, ct)) return;
+  if (it.parts > 1) {                             // dK's sums, then dV's, a slot
+    constexpr int kHalf = 128 * DP / 2;
+    float* part = partial_slot(it, walk, it.part, b, batch, 2 * kHalf);
+    put_partial(part, dk_acc, ct);
+    put_partial(part + kHalf, dv_acc, ct);
+    if (!last_part(it, walk, b, batch, ct, flag)) return;
+    zero(dk_acc);
+    zero(dv_acc);
+    for (int p = 0; p < it.parts; ++p) {
+      const float* sums = partial_slot(it, walk, p, b, batch, 2 * kHalf);
+      add_partial(dk_acc, sums, ct);
+      add_partial(dv_acc, sums + kHalf, ct);
+    }
+  }
+  if (mine < 0) return;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const size_t row = (row_base + kSlice * mine + g + 8 * hr) * d;
+#pragma unroll
+    for (int nd = 0; nd < DP / 8; ++nd) {
+      const int c = 8 * nd + 2 * t;
+      if (c < d) {
+        dk[row + c] = dk_acc[4 * nd + 2 * hr];
+        dv[row + c] = dv_acc[4 * nd + 2 * hr];
+      }
+      if (c + 1 < d) {
+        dk[row + c + 1] = dk_acc[4 * nd + 2 * hr + 1];
+        dv[row + c + 1] = dv_acc[4 * nd + 2 * hr + 1];
       }
     }
   }
@@ -1734,14 +1976,9 @@ struct Args {
   const float* kbias;
   int batch, heads, seq, d;
   float scale;
-  Lists lists;
   Walk walk;
   int n_blocks;
 };
-
-inline dim3 grid_of(const Args& a) {
-  return dim3((a.seq + kTile - 1) / kTile, a.heads, a.batch);
-}
 
 // The wgmma launches' shape by padded head dim: ring stages of the forward,
 // of dQ and of dK/dV, and dK/dV's query rows a step (measured on the card,
@@ -1885,59 +2122,68 @@ int fwd_split(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DW>
-int bwd_dq_simt(const Args& a, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kTile) * (2 * a.d + 2 * (a.d | 1)) * sizeof(float);
-  auto kernel = bsa_bwd_dq_simt_kernel<T, DW>;
-  if (int rc = prepare(kernel, grid_of(a), smem)) return rc;
-  kernel<<<grid_of(a), kSimtThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<float*>(a.delta),
-      static_cast<T*>(a.out0), a.kbias, a.seq, a.heads, a.d, a.scale, a.lists);
+template <int DP>
+int bwd_dq_split(const Args& a, cudaStream_t stream) {
+  constexpr int NS = SplitBwdTiles<DP>::kStages;
+  const long long blocks = static_cast<long long>(a.n_blocks) * a.batch;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = a.d % 4 == 0 ? 16 : a.d % 2 == 0 ? 8 : 4;
+  constexpr int smem = DqSplitSmem<DP, NS>::kBytes;
+  auto kernel = a.kbias ? bsa_dq_split_kernel<DP, NS, true> : bsa_dq_split_kernel<DP, NS, false>;
+  if (int rc = prepare(kernel, dim3(1), smem)) return rc;
+  kernel<<<static_cast<unsigned>(blocks), kSplitThreads, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.o),
+      static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<float*>(a.delta), static_cast<float*>(a.out0), a.kbias, a.seq, a.heads, a.d,
+      a.batch, a.scale, vec, a.walk);
+  g_last = LaunchInfo{reinterpret_cast<const void*>(kernel), blocks, kSplitThreads, smem, NS,
+                      kRows, 0};
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DW>
-int bwd_dkv_simt(const Args& a, cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(kTile) * (2 * a.d + 2 * (a.d | 1) + 2) * sizeof(float);
-  auto kernel = bsa_bwd_dkv_simt_kernel<T, DW>;
-  if (int rc = prepare(kernel, grid_of(a), smem)) return rc;
-  kernel<<<grid_of(a), kSimtThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.out0), static_cast<T*>(a.out1),
-      a.kbias, a.seq, a.heads, a.d, a.lists);
+template <int DP>
+int bwd_dkv_split(const Args& a, cudaStream_t stream) {
+  constexpr int NS = SplitBwdTiles<DP>::kStages;
+  const long long blocks = static_cast<long long>(a.n_blocks) * a.batch;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = a.d % 4 == 0 ? 16 : a.d % 2 == 0 ? 8 : 4;
+  constexpr int smem = DkvSplitSmem<DP, NS>::kBytes;
+  auto kernel =
+      a.kbias ? bsa_dkv_split_kernel<DP, NS, true> : bsa_dkv_split_kernel<DP, NS, false>;
+  if (int rc = prepare(kernel, dim3(1), smem)) return rc;
+  kernel<<<static_cast<unsigned>(blocks), kSplitThreads, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.kbias, a.seq, a.heads, a.d,
+      a.batch, vec, a.walk);
+  g_last = LaunchInfo{reinterpret_cast<const void*>(kernel), blocks, kSplitThreads, smem, NS,
+                      kRows, 0};
   return static_cast<int>(cudaGetLastError());
 }
 
 // which: 0 forward, 1 dQ, 2 dK/dV.  bf16 / fp16 (d % 8 == 0) take the
-// tensor-core kernels; fp32 the split-TF32 forward on the same walk and the
-// general dQ and dK/dV.
+// tensor-core kernels, fp32 the split-TF32 ones; all walk the slice tables.
 template <typename T>
 int dispatch(int which, const Args& a, cudaStream_t s) {
   const int d = a.d;
+  if (a.walk.blocks == nullptr || a.walk.stages == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (std::is_same<T, float>::value) {
-    if (which == 0) {
-      if (a.walk.blocks == nullptr || a.walk.stages == nullptr)
-        return static_cast<int>(cudaErrorInvalidValue);
-      if (d <= 16) return fwd_split<16>(a, s);
-      if (d <= 32) return fwd_split<32>(a, s);
-      if (d <= 64) return fwd_split<64>(a, s);
-      return fwd_split<128>(a, s);
-    }
-#define DSTT_SIMT(DW)                                        \
-  return which == 1 ? bwd_dq_simt<T, DW>(a, s) : bwd_dkv_simt<T, DW>(a, s)
-    if (d <= 32) DSTT_SIMT(1);
-    if (d <= 64) DSTT_SIMT(2);
-    if (d <= 96) DSTT_SIMT(3);
-    DSTT_SIMT(4);
-#undef DSTT_SIMT
+#define DSTT_SPLIT(DP)                                       \
+  return which == 0 ? fwd_split<DP>(a, s)                    \
+         : which == 1 ? bwd_dq_split<DP>(a, s)               \
+                      : bwd_dkv_split<DP>(a, s)
+    if (d <= 16) DSTT_SPLIT(16);
+    if (d <= 32) DSTT_SPLIT(32);
+    if (d <= 64) DSTT_SPLIT(64);
+    DSTT_SPLIT(128);
+#undef DSTT_SPLIT
   } else {
     if (d % 8) return static_cast<int>(cudaErrorInvalidValue);
-    if (a.walk.blocks == nullptr || a.walk.stages == nullptr)
-      return static_cast<int>(cudaErrorInvalidValue);
 #define DSTT_MMA(DP)                                         \
   return which == 0 ? fwd<T, DP>(a, s)                       \
          : which == 1 ? bwd_dq<T, DP>(a, s)                  \
@@ -1963,28 +2209,27 @@ int run(int which, int dtype, const Args& a, void* stream) {
 }  // namespace
 
 // dtype: 0 = bf16, 1 = fp16 (the tensor-core kernels; d a multiple of 8),
-// 2 = fp32 (the split-TF32 forward, the general dQ and dK/dV).  d <= 128.  Tensors BHSD [batch,
-// heads, seq, d] contiguous, lse / delta fp32 [batch, heads, seq], kbias
-// fp32 [batch, seq] (added to every row's scores, key by key) or null.  Lists:
-// device int32 arrays (ptr of heads * ceil(seq / 64) + 1 entries, idx, mask)
-// of the query-major orientation for the forward and dQ, of the key-major
-// orientation for dK/dV (the general kernels).  The bf16 / fp16 kernels
-// and the fp32 forward walk `blocks` (n_blocks rows of 12 int32) and
-// `stages` (rows of 8 int32) of `bsa_tile_walk`, the query-major walk (the
-// forward and dQ) or the key-major one (dK/dV); `ws` holds the fp32
-// partials of its split lists (a (part, batch row): one [64 x DP] tile for
-// dQ, two for dK/dV, one and 512 floats of row maxima and sums for the
-// forward) and `counters` one int32 a (split group, batch row), zeroed by
-// the caller (both may be null when no list is split); the general kernels
-// ignore all five.
+// 2 = fp32 (the split-TF32 kernels).  d <= 128.  Tensors BHSD [batch, heads,
+// seq, d] contiguous, lse / delta fp32 [batch, heads, seq], kbias fp32
+// [batch, seq] (added to every row's scores, key by key) or null.  Every
+// kernel walks `blocks` (n_blocks rows of 12 int32) and `stages` (rows of 8
+// int32) of `bsa_tile_walk`, the query-major walk (the forward and dQ) or
+// the key-major one (dK/dV); `ws` holds the fp32 partials of its split
+// lists (a (part, batch row): one [64 x DP] tile for dQ, two for dK/dV, one
+// and 512 floats of row maxima and sums for the forward) and `counters` one
+// int32 a (split group, batch row), zeroed by the caller (both may be null
+// when no list is split).  `ptr`, `idx` and `mask` (the compacted 64 x 64
+// tile lists of the general fp32 kernels that came before the split ones)
+// are read by no kernel any more: the signatures keep them so that a caller
+// can drive either library through one interface.
 // Return: the CUDA error code (0 ok).
 extern "C" int dstt_bsa_fwd(int dtype, const void* q, const void* k, const void* v,
                             void* o, void* lse, const float* kbias, int batch, int heads,
-                            int seq, int d, const int* ptr, const int* idx, const int* mask,
-                            const int* blocks, const int* stages, int n_blocks, float* ws,
+                            int seq, int d, const int* /*ptr*/, const int* /*idx*/,
+                            const int* /*mask*/, const int* blocks, const int* stages, int n_blocks, float* ws,
                             int* counters, void* stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr, o, lse, nullptr, kbias, batch, heads, seq, d, 1.f,
-         Lists{ptr, idx, mask}, Walk{blocks, stages, ws, counters}, n_blocks};
+         Walk{blocks, stages, ws, counters}, n_blocks};
   return run(0, dtype, a, stream);
 }
 
@@ -1993,30 +2238,31 @@ extern "C" int dstt_bsa_bwd_dq(int dtype, const void* q, const void* k,
                                const void* v, const void* o, const void* dout,
                                const void* lse, void* delta, void* dq, const float* kbias,
                                int batch, int heads, int seq, int d, float scale,
-                               const int* ptr, const int* idx, const int* mask,
+                               const int* /*ptr*/, const int* /*idx*/, const int* /*mask*/,
                                const int* blocks, const int* stages, int n_blocks, float* ws,
                                int* counters, void* stream) {
   Args a{q, k, v, o, dout, lse, dq, nullptr, delta, kbias, batch, heads, seq, d, scale,
-         Lists{ptr, idx, mask}, Walk{blocks, stages, ws, counters}, n_blocks};
+         Walk{blocks, stages, ws, counters}, n_blocks};
   return run(1, dtype, a, stream);
 }
 
 extern "C" int dstt_bsa_bwd_dkv(int dtype, const void* q, const void* k,
                                 const void* v, const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv, const float* kbias,
-                                int batch, int heads, int seq, int d, const int* ptr,
-                                const int* idx, const int* mask, const int* blocks,
+                                int batch, int heads, int seq, int d, const int* /*ptr*/,
+                                const int* /*idx*/, const int* /*mask*/, const int* blocks,
                                 const int* stages, int n_blocks, float* ws, int* counters,
                                 void* stream) {
   Args a{q, k, v, nullptr, dout, lse, dk, dv, const_cast<void*>(delta), kbias, batch, heads,
-         seq, d, 1.f, Lists{ptr, idx, mask}, Walk{blocks, stages, ws, counters}, n_blocks};
+         seq, d, 1.f, Walk{blocks, stages, ws, counters}, n_blocks};
   return run(2, dtype, a, stream);
 }
 
-// The last bf16 / fp16 launch of this library, for reports:
+// The last launch of this library, for reports:
 // out[0..7] = blocks, threads a block, dynamic shared memory (bytes), ring
 // stages, streamed rows a step, registers a thread at launch, local memory
-// a thread (bytes: spills), and the host ns spent encoding its tensor maps.
+// a thread (bytes: spills), and the host ns spent encoding its tensor maps
+// (0 for the fp32 kernels, which use none).
 extern "C" int dstt_bsa_launch_info(long long* out) {
   cudaFuncAttributes attr{};
   if (g_last.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);

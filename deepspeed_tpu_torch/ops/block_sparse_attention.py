@@ -13,19 +13,16 @@ the forward pre-scales q once, rounds it to the input type and saves
 
 On CUDA tensors the three steps are the hand-written kernels of
 ``deepspeed_tpu_torch/csrc/block_sparse_attention.cu``: the tensor-core
-kernels for bf16 / fp16 with D a multiple of 8 up to 128; for fp32 up to
-D = 128 the split-TF32 forward and the general dQ and dK/dV.  The general
-kernels walk only the live 64 x 64 tiles of the layout (compacted lists
-per head that :class:`BlockSparseLayout` builds and keeps on the device)
-and, inside a tile, only its live 16 x 16 sub-blocks.  The bf16 / fp16
-kernels (forward, dQ and dK/dV on wgmma fed by TMA) and the fp32 forward
-(mma.sync in split TF32) walk 16-row slices instead: a block holds up to
-four slices of one side (query slices for the forward and dQ, key slices
-for dK/dV) and streams the live slices of the other side, four to a
-stage; :func:`bsa_tile_walk` builds those tables (groups, stages, the
-split of long lists, the longest-first order), and
-:func:`block_sparse_tiled_plain_fwd` (with ``split``, the fp32 forward's
-3xTF32 products) and :func:`block_sparse_tiled_plain_bwd` evaluate them in
+kernels for bf16 / fp16 with D a multiple of 8 up to 128 (forward, dQ and
+dK/dV on wgmma fed by TMA), the split-TF32 kernels for fp32 up to D = 128
+(``mma.sync``).  All of them walk 16-row slices: a block holds up to four
+slices of one side (query slices for the forward and dQ, key slices for
+dK/dV) and streams the live slices of the other side, four to a stage;
+:func:`bsa_tile_walk` builds those tables (groups, stages, the split of
+long lists, the longest-first order) from the 16 x 16 sub-block masks of
+the live 64 x 64 tiles that :class:`BlockSparseLayout` keeps, and
+:func:`block_sparse_tiled_plain_fwd` and :func:`block_sparse_tiled_plain_bwd`
+(with ``split``, the fp32 kernels' 3xTF32 products) evaluate them in
 fp32 on any device.  Other inputs on the card (another type, D > 128, a layout
 block that is not a multiple of 16) raise ``NotImplementedError`` naming
 ROADMAP C: a CUDA tensor never reaches the plain version.  On CPU tensors
@@ -317,10 +314,14 @@ class BlockSparseLayout:
         return int((m == 0).sum()), int(m.size)
 
     def kernel_lists(self, device) -> Dict[str, Tuple[torch.Tensor, ...]]:
-        """The kernels' compacted lists on ``device``: ``"q"`` (for each
-        query tile its live key tiles; the forward and dQ) and ``"k"`` (for
-        each key tile its live query tiles; dK/dV), each ``(ptr, idx,
-        mask)`` int32, uploaded as one tensor and cached per device."""
+        """The compacted tile lists on ``device``: ``"q"`` (for each query
+        tile its live key tiles) and ``"k"`` (for each key tile its live
+        query tiles), each ``(ptr, idx, mask)`` int32, uploaded as one
+        tensor and cached per device; the walks are kept beside them.  No
+        kernel reads the lists any more: the wrappers still pass them, so
+        that an older library whose general fp32 kernels walked them (as
+        ``tools/bsa_variants.py --parent`` times one) runs through these
+        wrappers."""
         device = torch.device(device)
         got = self._lists.get(device)
         if got is None:
@@ -342,30 +343,25 @@ class BlockSparseLayout:
         ``stages`` beside ``n_blocks``, ``groups``, ``parts`` and ``stats``
         (:func:`walk_stats`); kept with :meth:`kernel_lists`' lists, per
         device and batch."""
+        return self._walks(device, batch, "walk", None)
+
+    def fp32_walk(self, device, batch: int) -> Dict[str, Dict]:
+        """The fp32 kernels' walks: :meth:`walk_tables`' two with lists
+        split by ``FP32_SPLIT x WAVE``, kept beside them."""
+        return self._walks(device, batch, "walk_fp32", FP32_SPLIT * WAVE)
+
+    def _walks(self, device, batch: int, name: str, wave: Optional[int]
+               ) -> Dict[str, Dict]:
         lists = self.kernel_lists(device)
-        key = ("walk", int(batch))
+        key = (name, int(batch))
         got = lists.get(key)
         if got is None:
             dev = lists["q"][0].device
-            got = {name: _on_device(bsa_tile_walk(masks, self.seq_len,
-                                                  key_major, batch), dev)
-                   for name, masks, key_major in (
-                       ("dq", self._masks, False),
-                       ("dkv", self._masks_t, True))}
-            lists[key] = got
-        return got
-
-    def fp32_walk(self, device, batch: int) -> Dict[str, object]:
-        """The fp32 forward's walk on ``device`` for a batch of ``batch``:
-        the query-major walk with lists split by ``FP32_SPLIT x WAVE``, in
-        :meth:`walk_tables`' form; kept beside them."""
-        lists = self.kernel_lists(device)
-        key = ("walk_fp32", int(batch))
-        got = lists.get(key)
-        if got is None:
-            got = _on_device(bsa_tile_walk(self.kernel_masks, self.seq_len,
-                                           False, batch, FP32_SPLIT * WAVE),
-                             lists["q"][0].device)
+            got = {orient: _on_device(bsa_tile_walk(
+                masks, self.seq_len, key_major, batch, wave), dev)
+                for orient, masks, key_major in (
+                    ("dq", self._masks, False),
+                    ("dkv", self._masks_t, True))}
             lists[key] = got
         return got
 
@@ -560,14 +556,18 @@ def block_sparse_tiled_plain_fwd(qs, k, v, walk, bias=None,
 
 
 def block_sparse_tiled_plain_bwd(qs, k, v, o, lse, do, walks, scale: float,
-                                 bias=None):
-    """The bf16 / fp16 backward kernels' walk evaluated in fp32 on any
-    device: ``walks`` holds :func:`bsa_tile_walk`'s ``"dq"`` and ``"dkv"``
-    tables; each (block, stage) pair computes what the kernels compute on
-    its 64 x 64 slot pairs (dead pairs 0 by the mask, P and dS rounded to
-    the input type), and the pairs sum into their blocks' stationary rows,
-    split parts included.  Returns ``(dq, dk, dv, delta)``."""
+                                 bias=None, split: bool = False,
+                                 cross: bool = True):
+    """The backward kernels' walks evaluated in fp32 on any device:
+    ``walks`` holds :func:`bsa_tile_walk`'s ``"dq"`` and ``"dkv"`` tables;
+    each (block, stage) pair computes what the kernels compute on its 64 x
+    64 slot pairs (dead pairs 0 by the mask, P and dS rounded to the input
+    type), and the pairs sum into their blocks' stationary rows, split
+    parts included.  With ``split`` every product is the fp32 kernels'
+    3xTF32 (:func:`_split_mm`; ``cross=False`` drops its cross terms).
+    Returns ``(dq, dk, dv, delta)``."""
     dt, (b, h, s, d) = qs.dtype, qs.shape
+    mm = functools.partial(_split_mm, cross=cross) if split else torch.matmul
     f = [t.float() for t in (qs, k, v, do)]
     delta = (do.float() * o.float()).sum(-1)
 
@@ -575,27 +575,27 @@ def block_sparse_tiled_plain_bwd(qs, k, v, o, lse, do, walks, scale: float,
     blk, heads, stat, strm, m = _walk_pairs(walks["dq"], qs.device)
     q_t, do_t = _gather(f[0], heads, stat), _gather(f[3], heads, stat)
     k_t, v_t = _gather(f[1], heads, strm), _gather(f[2], heads, strm)
-    sc = q_t @ k_t.transpose(-1, -2)
+    sc = mm(q_t, k_t.transpose(-1, -2))
     if bias is not None:
         sc = sc + _key_bias(bias, qs.shape, heads, strm)[..., None, :]
     p = torch.where(m, torch.exp(sc - _gather(lse, heads, stat)[..., None]),
                     zero)
-    ds = p * (do_t @ v_t.transpose(-1, -2)
+    ds = p * (mm(do_t, v_t.transpose(-1, -2))
               - _gather(delta, heads, stat)[..., None])
-    dq = _scatter(ds.to(dt).float() @ k_t, walks["dq"], blk, h, s) * scale
+    dq = _scatter(mm(ds.to(dt).float(), k_t), walks["dq"], blk, h, s) * scale
 
     blk, heads, stat, strm, m = _walk_pairs(walks["dkv"], qs.device)
     k_t, v_t = _gather(f[1], heads, stat), _gather(f[2], heads, stat)
     q_t, do_t = _gather(f[0], heads, strm), _gather(f[3], heads, strm)
-    st = k_t @ q_t.transpose(-1, -2)
+    st = mm(k_t, q_t.transpose(-1, -2))
     if bias is not None:
         st = st + _key_bias(bias, qs.shape, heads, stat)[..., None]
     p = torch.where(m, torch.exp(st - _gather(lse, heads, strm)[..., None, :]),
                     zero)
-    dst = p * (v_t @ do_t.transpose(-1, -2)
+    dst = p * (mm(v_t, do_t.transpose(-1, -2))
                - _gather(delta, heads, strm)[..., None, :])
-    dv = _scatter(p.to(dt).float() @ do_t, walks["dkv"], blk, h, s)
-    dk = _scatter(dst.to(dt).float() @ q_t, walks["dkv"], blk, h, s)
+    dv = _scatter(mm(p.to(dt).float(), do_t), walks["dkv"], blk, h, s)
+    dk = _scatter(mm(dst.to(dt).float(), q_t), walks["dkv"], blk, h, s)
     return dq.to(dt), dk.to(dt), dv.to(dt), delta
 
 
@@ -678,20 +678,16 @@ _SLOT_FLOATS = {"fwd": lambda dp: KERNEL_TILE * dp + 512,
 def _walk_args(bs_layout: BlockSparseLayout, ref: torch.Tensor,
                kernel: str) -> Tuple:
     """The walk arguments of a launch of ``kernel`` ("fwd", "dq" or
-    "dkv"): (blocks, stages, n_blocks, partials, counters) for bf16 / fp16
-    and the fp32 forward (:meth:`BlockSparseLayout.fp32_walk`), where
-    ``partials`` holds the fp32 partials of split lists (a slot a part and
-    batch row, ``_SLOT_FLOATS`` long) and ``counters`` one zeroed int a
-    (split group, batch row), both None when no list is split; Nones for
-    fp32 dQ and dK/dV (the general kernels walk the tile lists)."""
+    "dkv"): (blocks, stages, n_blocks, partials, counters) of
+    :meth:`BlockSparseLayout.walk_tables` (bf16 / fp16) or
+    :meth:`BlockSparseLayout.fp32_walk` (fp32), where ``partials`` holds
+    the fp32 partials of split lists (a slot a part and batch row,
+    ``_SLOT_FLOATS`` long) and ``counters`` one zeroed int a (split group,
+    batch row), both None when no list is split."""
     b, d = ref.shape[0], ref.shape[-1]
-    if ref.dtype != torch.float32:
-        w = bs_layout.walk_tables(ref.device, b)[
-            "dkv" if kernel == "dkv" else "dq"]
-    elif kernel == "fwd":
-        w = bs_layout.fp32_walk(ref.device, b)
-    else:
-        return (None, None, 0, None, None), None
+    walks = (bs_layout.fp32_walk if ref.dtype == torch.float32
+             else bs_layout.walk_tables)(ref.device, b)
+    w = walks["dkv" if kernel == "dkv" else "dq"]
     ws = counters = None
     if w["groups"]:
         ws = torch.empty(w["parts"] * b * _SLOT_FLOATS[kernel](_padded_d(d)),
@@ -777,10 +773,9 @@ LAUNCH_INFO_KEYS = ("grid", "threads", "smem", "stages", "step_rows",
 
 
 def launch_info() -> dict:
-    """The last slice-walk launch (``dstt_bsa_launch_info``; bf16 / fp16,
-    and the fp32 forward): its kernel ("fwd", "dq" or "dkv"), blocks,
-    threads and shared bytes a block,
-    ring stages, streamed rows a step (64, or 32 for dK/dV at D > 64),
+    """The last launch (``dstt_bsa_launch_info``): its kernel ("fwd", "dq"
+    or "dkv"), blocks, threads and shared bytes a block, ring stages,
+    streamed rows a step (64, or 32 for bf16 / fp16 dK/dV at D > 64),
     registers a thread at launch, spill bytes, the host ns spent encoding
     its tensor maps, and its walk's packing and split figures
     (:func:`walk_stats`)."""

@@ -1,23 +1,25 @@
 """Variants of the block-sparse attention kernels (the bf16 / fp16
-forward, dQ and dK/dV on wgmma, the fp32 split-TF32 forward,
+forward, dQ and dK/dV on wgmma, the fp32 split-TF32 forward, dQ and dK/dV,
 ``csrc/block_sparse_attention.cu``) against each other on one card, and
 against a parent commit's kernels.
 
 Builds ``csrc/block_sparse_attention.cu`` as it stands and copies of it
 with the edits of each named library variant (``SliceTiles`` /
-``SplitTiles``: other ring stages), checks every library against the plain
-versions on small cases (the forward 3e-2 max and 1e-2 in norm, fp32
-1e-4, the gradients 5e-2 in norm, two runs bit-equal), then times phase
-23's cases (``chip_smoke.BSA_CASES``: BERT width, S = 4096 and 1040, six
-layouts, padded batches, fp32), forward, dQ and dK/dV, with
+``SplitTiles`` / ``SplitBwdTiles``: other ring stages, other blocks an SM),
+checks every library against the plain versions on small cases (the
+forward 3e-2 max and 1e-2 in norm, fp32 1e-4, the gradients 5e-2 in norm
+and fp32 ones ``chip_smoke.BSA_FP32_GRAD_TOL``, two runs bit-equal), then
+times phase 23's cases (``chip_smoke.BSA_CASES``: BERT width, S = 4096 and
+1040, six layouts, padded batches, fp32), forward, dQ and dK/dV, with
 ``chip_smoke.time_ms`` in ``--rounds`` turns: the libraries in order, then
 in reverse, and so on.  Walk variants run on the tree's library with other
 host tables (``bsa_tile_walk``'s split rule, set through the module's
 ``WAVE``, ``SPLIT_MIN`` and ``FP32_SPLIT``): ``nosplit`` never splits a
 list, ``split_half`` and ``split_double`` halve or double the rule's part
-length, ``fp32split1`` / ``fp32split16`` split the fp32 forward's lists as
-the bf16 ones / 16 times finer.  SDPA over the expanded mask, its forward
-and its backward alone, is timed once a case as the yardstick.
+length, ``fp32split1`` / ``fp32split2`` / ``fp32split16`` split the fp32
+walks' lists as the bf16 ones / 2 / 16 times finer.  SDPA over the
+expanded mask, its forward and its backward alone, is timed once a case as
+the yardstick.
 
     python3 deepspeed_tpu_torch/tools/bsa_variants.py \\
         [--variants f3,s2,s4,nosplit,split_half] [--parent DIR]
@@ -28,9 +30,10 @@ commit's source, from ``git archive <commit> deepspeed_tpu_torch/csrc``;
 headers from DIR first, then ``csrc/``) as the library "parent", called
 through the tree's wrappers (a parent whose C interface differs from the
 tree's, one whose forward took no walk tables, is not taken); a parent's
-fp32 forward may be the general kernel on the tile lists.  A summary JSON object is the last line of stdout;
-every timing is also written to ``chiprun_out/bsa_variants.json``.  Needs
-a CUDA device and ``nvcc``.
+fp32 kernels may be the general ones on the tile lists, which the wrappers
+still pass (their launches report no launch information).  A summary JSON
+object is the last line of stdout; every timing is also written to
+``chiprun_out/bsa_variants.json``.  Needs a CUDA device and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -48,10 +51,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 
 #: library variants: edits (old text, new text); the fp32 forward's "x3"
-#: (a 3-stage ring up to DP = 64); the wgmma kernels' "f2" / "f3" (the forward's ring
-#: at DP <= 64), "s2" / "s4" (the backward's)
+#: (a 3-stage ring up to DP = 64), the fp32 backward's "b3" (the same for
+#: dQ and dK/dV), "q1" / "k1" (dQ / dK/dV one block an SM at DP = 64),
+#: "ku1" (dK/dV's S^T / dP^T loop one k step a pass);
+#: the wgmma kernels' "f2" / "f3" (the forward's ring at DP <= 64), "s2" /
+#: "s4" (the backward's)
 LIB_VARIANTS = {
     "x3": [("kStages = DP <= 16 ? 3 : 2", "kStages = DP <= 64 ? 3 : 2")],
+    "b3": [("  static constexpr int kStages = 2;\n",
+            "  static constexpr int kStages = DP <= 64 ? 3 : 2;\n")],
+    "q1": [("kDqBlocks = DP <= 64 ? 2 : 1", "kDqBlocks = DP <= 32 ? 2 : 1")],
+    "k1": [("kDkvBlocks = DP <= 64 ? 2 : 1", "kDkvBlocks = DP <= 32 ? 2 : 1")],
+    "ku1": [("kDkvUnroll = DP == 128 ? 1 : 2", "kDkvUnroll = 1")],
     "f2": [("kFwdStages = DP == 128 ? 2 : 4", "kFwdStages = DP == 128 ? 2 : 2")],
     "f3": [("kFwdStages = DP == 128 ? 2 : 4", "kFwdStages = DP == 128 ? 2 : 3")],
     "s2": [("kDqStages = DP == 128 ? 2 : 3", "kDqStages = DP == 128 ? 2 : 2"),
@@ -68,6 +79,7 @@ WALK_VARIANTS = {"nosplit": {"SPLIT_MIN": 1 << 30},
                  "split_half": {"WAVE": 528, "SPLIT_MIN": 4},
                  "split_double": {"WAVE": 132, "SPLIT_MIN": 16},
                  "fp32split1": {"FP32_SPLIT": 1},
+                 "fp32split2": {"FP32_SPLIT": 2},
                  "fp32split16": {"FP32_SPLIT": 16}}
 
 #: small cases for the correctness check: layout, B, H, S, D, block, type,
@@ -79,6 +91,7 @@ CHECK_CASES = [
     ("dense", 1, 4, 512, 40, 64, "bf16", None),
     ("bslongformer", 2, 2, 1040, 20, 16, "fp32", "mul"),
     ("fixed", 1, 2, 512, 64, 16, "fp32", None),
+    ("bigbird", 1, 2, 512, 128, 16, "fp32", "add"),
 ]
 
 
@@ -129,7 +142,7 @@ def build_all(build_dir: Path, names, parent):
                            not in line)})
         logs[name] = {"registers": regs, "warnings": warn}
         print(f"[build] {name}: ok; {len(regs)} slice-walk kernels, the "
-              f"fp32 forward's {[r for r in regs if 'split' in r]}; "
+              f"fp32 kernels' {[r for r in regs if 'split' in r]}; "
               f"warnings / spills: {warn or 'none'}", flush=True)
         libs[name] = ctypes.CDLL(str(jobs[name][1]))
     return libs, logs
@@ -239,9 +252,13 @@ def main() -> int:
                 and all(torch.equal(a, b_) for a, b_ in zip(*fo))
             fwd_bad = fwd_err[0] > cs.BSA_FP32_TOL if c[6] == "fp32" else \
                 fwd_err[0] > cs.TOL or fwd_err[1] > cs.NORM_TOL
-            if not bit or max(errs) > cs.BSA_GRAD_NORM_TOL or fwd_bad:
-                failed.append(f"{name} {c}: norms {errs} forward "
-                              f"{fwd_err} bit-equal {bit}")
+            gerr = cs.fp32_grad_errs((got[0], got[2], got[3]),
+                                     (rdq, rdk, rdv))
+            grad_bad = max(errs) > cs.BSA_GRAD_NORM_TOL or (
+                c[6] == "fp32" and max(gerr.values()) > cs.BSA_FP32_GRAD_TOL)
+            if not bit or grad_bad or fwd_bad:
+                failed.append(f"{name} {c}: norms {errs} fp32 bar {gerr} "
+                              f"forward {fwd_err} bit-equal {bit}")
     print(f"[check] {len(CHECK_CASES)} cases x {len(names)}: "
           f"{failed or 'all within the bars and bit-equal'}", flush=True)
 
@@ -255,6 +272,22 @@ def main() -> int:
             layout, b, h, s, d, block, dtype, padding, seed=ci, extra=extra)
         delta = bsa.block_sparse_attention_bwd_dq(qs, k, v, o, lse, do, bsl,
                                                   scale, bias)[1]
+        bars = {}
+        if dtype == "fp32":
+            # each library's gradients under the fp32 gradient bar, from
+            # the same o and lse, against the plain fp32 backward
+            keep = bsl.element_mask(dev)
+            rdq, rdelta = bsa.block_sparse_plain_bwd_dq(
+                qs, k, v, o, lse, do, keep, scale, bias)
+            want = (rdq,) + bsa.block_sparse_plain_bwd_dkv(
+                qs, k, v, do, lse, rdelta, keep, bias)
+            del rdq, rdelta, keep
+            for name in names:
+                got = backward(name, qs, k, v, o, lse, do, bsl, scale, bias)
+                bars[name] = cs.fp32_grad_errs((got[0], got[2], got[3]), want)
+            del want, got
+            print(f"[bar] {name_c}: fp32 gradient bar (max |got - plain| / "
+                  f"max(1, max |plain|)) {bars}", flush=True)
         times = {n: {"fwd": [], "dq": [], "dkv": [], "sum": []}
                  for n in names}
         info = {}
@@ -271,8 +304,9 @@ def main() -> int:
                 for kname, fn in (("fwd", f_fwd), ("dq", f_dq),
                                   ("dkv", f_dkv)):
                     ms[kname] = cs.time_ms(fn, 1, args.iters)
-                    if r == 0 and (dtype != "fp32" or kname == "fwd") \
-                            and not (name == "parent" and dtype == "fp32"):
+                    # (the parent's general fp32 dQ and dK/dV report none)
+                    if r == 0 and not (name == "parent" and dtype == "fp32"
+                                       and kname != "fwd"):
                         info.setdefault(name, {})[kname] = bsa.launch_info()
                 ms["sum"] = ms["dq"] + ms["dkv"]
                 for key, x in ms.items():
@@ -291,7 +325,7 @@ def main() -> int:
                "sdpa_bwd_ms": sdpa,
                "best": {n: {k_: min(x) for k_, x in t.items()}
                         for n, t in times.items()},
-               "turns": times, "launch": info}
+               "turns": times, "launch": info, "fp32_grad_bar": bars}
         results.append(row)
         best = row["best"]
         print(f"[time] {name_c}: " + "; ".join(

@@ -21,15 +21,18 @@ and dQ one query-major walk, dK/dV a key-major one).
   dK/dV kernels in interpret mode, jitted once a shape) within 1e-4, at
   S 256 (block 32, the split rule) and 1040 (block 16, every list split
   into parts of two stages), d 32;
-* the fp32 forward kernel's products, 3xTF32 (``split``: the port's
+* the fp32 kernels' products, 3xTF32 (``split``: the port's
   ``tf32_split`` for the high part, the remainder truncated as the tensor
-  cores read it), on its walk (``FP32_SPLIT`` times finer splits) against
-  the same JAX ``_fwd`` within 1e-4 at D 64 and 20, with the split rule
-  and every list split into parts of one stage; with the split's cross
-  terms dropped the same evaluation misses 1e-4;
+  cores read it), on their walks (``fp32_walk``: ``FP32_SPLIT`` times finer
+  splits, the query-major walk for the forward and dQ, the key-major one
+  for dK/dV) against the same JAX ``_fwd`` and ``_bwd`` within 1e-4 (o and
+  lse; dq, dk and dv) at D 64 and 20, with the split rule and every list
+  split into parts of one stage; with the split's cross terms dropped the
+  same evaluations miss 1e-4; both fp32 walks visit every kept sub-block
+  once;
 * the planted faults of ``chip_smoke.py`` (edited masks, cleared lists)
-  reach their walks: the query-major one the forward's and dQ's, the
-  key-major one dK/dV's.
+  reach their walks, bf16's and fp32's: the query-major one the forward's
+  and dQ's, the key-major one dK/dV's.
 """
 
 import functools
@@ -263,6 +266,16 @@ def _split_inputs(name, d, seed):
     return bsl, (qs, k, v), np.asarray(jo), np.asarray(jlse)[..., 0]
 
 
+def _host_walk(dev_walk):
+    """A walk of :meth:`BlockSparseLayout.walk_tables` / ``fp32_walk`` as
+    the host tables of :func:`bsa_tile_walk`."""
+    w = {key: dev_walk[key].numpy().reshape(-1, width)
+         for key, width in (("blocks", tbsa.ITEM_INTS),
+                            ("stages", tbsa.STAGE_INTS))}
+    w.update(groups=dev_walk["groups"], parts=dev_walk["parts"])
+    return w
+
+
 @pytest.mark.parametrize("split_stages", [None, 1], ids=["rule", "split1"])
 @pytest.mark.parametrize("name,d", _SPLIT_CASES,
                          ids=[f"{n}-d{d}" for n, d in _SPLIT_CASES])
@@ -272,10 +285,8 @@ def test_split_tf32_fwd_matches_jax(name, d, split_stages, monkeypatch):
     mode) in fp32: o and lse within 1e-4."""
     bsl, ops, jo, jlse = _split_inputs(name, d, d + 7)
     _force_split(monkeypatch, split_stages)
-    got = bsl.fp32_walk("cpu", B)
-    walk = {key: got[key].numpy().reshape(-1, width)
-            for key, width in (("blocks", tbsa.ITEM_INTS),
-                               ("stages", tbsa.STAGE_INTS))}
+    got = bsl.fp32_walk("cpu", B)["dq"]
+    walk = _host_walk(got)
     if split_stages is not None:
         assert got["groups"] > 0
     o, lse = tbsa.block_sparse_tiled_plain_fwd(
@@ -297,6 +308,88 @@ def test_split_without_cross_terms_misses_the_bar():
                                            cross=False)[0]
     assert np.abs(full.numpy() - jo).max() <= TOL
     assert np.abs(hi.numpy() - jo).max() > TOL
+
+
+def _split_bwd(name, d, seed, cross=True):
+    """The fp32 backward kernels' walks (``fp32_walk``) evaluated with their
+    3xTF32 products, and the JAX package's ``_bwd`` (interpret mode) on the
+    same fp32 inputs (o and lse from the plain forward): ((dq, dk, dv),
+    JAX's (dq, dk, dv)) as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((B, H, 256, d)).astype(np.float32)
+                   for _ in range(4))
+    scale = 1.0 / np.sqrt(d)
+    bsl = _layout(name, 256, 16)
+    qs, k_t, v_t, do_t = (torch.from_numpy(x) for x in (q * scale, k, v, do))
+    o, lse = tbsa.block_sparse_plain_fwd(qs, k_t, v_t,
+                                         bsl.element_mask("cpu"))
+    walks = {key: _host_walk(w) for key, w in
+             bsl.fp32_walk("cpu", B).items()}
+    got = tbsa.block_sparse_tiled_plain_bwd(qs, k_t, v_t, o, lse, do_t, walks,
+                                            scale, split=True, cross=cross)
+    jl = jbsa.BlockSparseLayout(bsl.layout.astype(np.int32), 16, 256)
+    lse8 = jnp.broadcast_to(jnp.asarray(lse.numpy())[..., None],
+                            lse.shape + (8,))
+    want = _jax_bwd(16, jl.tile_q, jl.tile_k, float(scale))(
+        (jnp.asarray(qs.numpy()), jnp.asarray(k), jnp.asarray(v),
+         jnp.asarray(o.numpy()), lse8, jl.cells, jl.tile_any),
+        jnp.asarray(do))
+    return [g.numpy() for g in got[:3]], [np.asarray(w) for w in want], walks
+
+
+@pytest.mark.parametrize("split_stages", [None, 1], ids=["rule", "split1"])
+@pytest.mark.parametrize("name,d", _SPLIT_CASES,
+                         ids=[f"{n}-d{d}" for n, d in _SPLIT_CASES])
+def test_split_tf32_bwd_matches_jax(name, d, split_stages, monkeypatch):
+    """The fp32 dQ and dK/dV kernels' walks (``fp32_walk``'s query-major
+    and key-major tables) evaluated with their 3xTF32 products against the
+    JAX package's ``_bwd`` (interpret mode) in fp32: dq, dk and dv within
+    1e-4, under the split rule and with every list split into parts of one
+    stage."""
+    _force_split(monkeypatch, split_stages)
+    got, want, walks = _split_bwd(name, d, 3 * d + 1)
+    if split_stages is not None:
+        assert walks["dq"]["groups"] > 0 and walks["dkv"]["groups"] > 0
+    for g, w in zip(got, want):
+        assert np.abs(g - w).max() <= TOL
+
+
+def test_split_bwd_without_cross_terms_misses_the_bar():
+    """At BSLongformer, D 64, the backward's TF32 products alone (the
+    split's hi.lo and lo.hi dropped: the planted fault of chip_smoke.py,
+    which edits the kernels' shared ``mma_split``) put the gradients more
+    than 1e-4 off JAX's fp32 backward; with them they are within."""
+    got, want, _ = _split_bwd("bslongformer", 64, 72)
+    hi, _, _ = _split_bwd("bslongformer", 64, 72, cross=False)
+    assert max(np.abs(g - w).max() for g, w in zip(got, want)) <= TOL
+    assert max(np.abs(g - w).max() for g, w in zip(hi, want)) > TOL
+
+
+@pytest.mark.parametrize("split_stages", [None, 1], ids=["rule", "split1"])
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_fp32_walks_visit_each_kept_sub_block_once(name, split_stages,
+                                                   monkeypatch):
+    """``fp32_walk``: the query-major walk (the forward's and dQ's) and the
+    key-major one (dK/dV's), lists split ``FP32_SPLIT`` times finer, visit
+    every kept 16 x 16 sub-block of the layout exactly once, each slice in
+    one group, split parts in part order with their own partial slots."""
+    bsl = _layout(name, 1040, 16)
+    n = 1040 // 16
+    _force_split(monkeypatch, split_stages)
+    walks = bsl.fp32_walk("cpu", B)
+    for orient, want in (("dq", bsl.layout), ("dkv",
+                                              bsl.layout.transpose(0, 2, 1))):
+        w = _host_walk(walks[orient])
+        count, seen = _visits(w, H, n)
+        assert (count == want).all(), orient
+        assert (seen == 1).all(), orient
+        _check_splits(w)
+        if split_stages == 1:
+            assert w["groups"] > 0, orient
+    rule = tbsa.bsa_tile_walk(np.ascontiguousarray(
+        bsl.kernel_masks.transpose(0, 2, 1)), 1040, True, B,
+        tbsa.FP32_SPLIT * tbsa.WAVE)
+    assert (_host_walk(walks["dkv"])["blocks"] == rule["blocks"]).all()
 
 
 def _planted(bsl, side):
@@ -355,3 +448,30 @@ def test_planted_query_major_fault_reaches_the_forward_walk():
                    for w in walks)
     assert (good - want).abs().max() <= TOL
     assert (bad_o - want).abs().max() > 1e-2
+
+
+def test_planted_key_major_fault_reaches_the_fp32_dkv_walk():
+    """``bsa_planted_fault(side="k")`` reaches the fp32 walks as it reaches
+    the bf16 ones: the key-major walk (dK/dV's) loses a visit, the
+    query-major one (the forward's and dQ's) keeps every one, and the
+    split-TF32 evaluation of dK and dV moves off the layout's answer while
+    dQ stays on it."""
+    bsl = _layout("bigbird", 256, 16)
+    bad = _planted(bsl, "k")
+    good_t, bad_t = bsl.fp32_walk("cpu", B), bad.fp32_walk("cpu", B)
+    assert _visit_count(bad_t, "dkv") < _visit_count(good_t, "dkv")
+    assert _visit_count(bad_t, "dq") == _visit_count(good_t, "dq")
+    q, k, v, do = (torch.from_numpy(x) for x in _qkv(256, 9))
+    keep = bsl.element_mask("cpu")
+    o, lse = tbsa.block_sparse_plain_fwd(q, k, v, keep)
+    want_dq, delta = tbsa.block_sparse_plain_bwd_dq(q, k, v, o, lse, do,
+                                                    keep, 1.0)
+    want = (want_dq,) + tbsa.block_sparse_plain_bwd_dkv(q, k, v, do, lse,
+                                                        delta, keep)
+    good, bad_g = (tbsa.block_sparse_tiled_plain_bwd(
+        q, k, v, o, lse, do, {key: _host_walk(w) for key, w in t.items()},
+        1.0, split=True)[:3] for t in (good_t, bad_t))
+    assert all((g - w).abs().max() <= TOL for g, w in zip(good, want))
+    assert (bad_g[0] - want[0]).abs().max() <= TOL
+    assert all((g - w).abs().max() > 1e-2 for g, w in zip(bad_g[1:],
+                                                          want[1:]))

@@ -4,7 +4,8 @@ tolerance; flash attention, the int8, verify and tiled prefill paged
 kernels, the grouped expert GEMM and the training path also 1e-2 in norm,
 |got - want|_2 / |want|_2; the int8 quantizer bit for bit; Evoformer
 attention 3e-2 / 1e-2 forward and 5e-2 in norm for its gradients;
-block-sparse attention the same, and fp32 within 1e-4).  Every test here is
+block-sparse attention the same, and fp32 within 1e-4, its gradients
+1e-4 of max(1, max |plain|)).  Every test here is
 marked ``cuda`` and skips
 where ``torch.cuda.is_available()`` is false.  The file imports neither JAX
 nor ``deepspeed_tpu``, so on a GPU machine without the JAX package's
@@ -2120,7 +2121,8 @@ def test_evoformer_general_kernel(cuda_device, lead, s, h, d, biases, dtype):
 # --------------------------------------------------------------------- #
 #: (layout, heads, S, D, block, type, per-head layouts): the CPU parity
 #: tests' shapes (h 2, s 256, d 32, block 16; S = 1040: a tail tile), one
-#: BERT-width shape, fp32 (the general kernels), D = 128, blocks 32 / 64 / 128
+#: BERT-width shape, fp32 (the split-TF32 kernels), D = 128, blocks 32 / 64
+#: / 128
 _BSA_CASES = [
     ("bigbird", 2, 256, 32, 16, torch.bfloat16, False),
     ("fixed_uni", 2, 1040, 32, 16, torch.bfloat16, False),
@@ -2162,13 +2164,23 @@ def _bsa_errors(got, want):
             [_norm_rel(a, b) for a, b in zip([o] + gs, [ro] + rgs)])
 
 
+def _fp32_grad_bar(got, want):
+    """chip_smoke.py's fp32 gradient bar (``BSA_FP32_GRAD_TOL`` on max |got
+    - plain| / max(1, max |plain|) of dq, dk and dv): (its readings,
+    whether every one meets it)."""
+    smoke = _load_chip_smoke()
+    errs = smoke.fp32_grad_errs(got, want)
+    return errs, max(errs.values()) <= smoke.BSA_FP32_GRAD_TOL
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout,h,s,d,block,dtype,per_head", _BSA_CASES)
 def test_block_sparse_attention_kernels(cuda_device, layout, h, s, d, block,
                                         dtype, per_head):
     """Forward, dQ and dK/dV against the plain versions: bf16 / fp16 within
     3e-2 max and 1e-2 in norm forward, 5e-2 in norm for the gradients; fp32
-    (the general kernels) within 1e-4; one launch of each a call."""
+    (the split-TF32 kernels) within 1e-4 forward and 1e-4 of the fp32
+    gradient bar on dq, dk and dv; one launch of each a call."""
     from deepspeed_tpu_torch.ops import block_sparse_attention as tbsa
 
     bsl = tbsa.BlockSparseLayout(_bsa_layout(layout, h, s, block, per_head),
@@ -2186,7 +2198,9 @@ def test_block_sparse_attention_kernels(cuda_device, layout, h, s, d, block,
         before["block_sparse_attention_fwd"] + 1
     max_err, norms = _bsa_errors(got, want)
     if dtype == torch.float32:
+        gerr, ok = _fp32_grad_bar(got[1], want[1])
         assert max_err <= 1e-4, (max_err, norms)
+        assert ok, gerr
     else:
         assert max_err <= TOL and norms[0] <= NORM_TOL, (max_err, norms)
         assert all(n <= 5e-2 for n in norms[1:]), norms
@@ -2480,11 +2494,89 @@ def test_block_sparse_fp32_forward_on_the_card(cuda_device, monkeypatch,
 
 
 @pytest.mark.cuda
-def test_block_sparse_backward_first_on_the_autograd_thread(cuda_device):
+@pytest.mark.parametrize("layout,b,h,s,d,mode", [
+    ("bslongformer", 4, 12, 4096, 64, None),
+    ("fixed", 4, 12, 1040, 64, "mul"),
+    ("bslongformer", 2, 12, 1040, 20, None),
+    ("bigbird", 1, 6, 1024, 128, "add"),
+    ("variable", 2, 2, 4096, 64, None),
+    ("fixed_uni", 2, 4, 512, 37, "mul"),
+    ("dense", 1, 2, 512, 16, None),
+])
+def test_block_sparse_fp32_backward_on_the_card(cuda_device, monkeypatch,
+                                                layout, b, h, s, d, mode):
+    """The fp32 dQ and dK/dV (split TF32 on the fp32 walks) against the
+    plain fp32 backward within the fp32 gradient bar (1e-4 of max(1, max
+    |plain|)) and delta within 1e-5, two runs bit-equal, under the split
+    rule and with every list split into parts of two stages; one launch of
+    each a call, no spill."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as tbsa
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+
+    lay = _bsa_layout(layout, h, s, 16, False)
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d + b + 2)
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen,
+                               device=cuda_device) for _ in range(4))
+    bias = None
+    if mode is not None:
+        kpm = (torch.arange(s, device=cuda_device)[None]
+               < torch.tensor([[s - 37 * i - 5] for i in range(b)],
+                              device=cuda_device))
+        bias = tsa.key_padding_bias(
+            kpm.float() if mode == "mul" else torch.where(kpm, 0.0, -1e4),
+            mode)
+    scale = d ** -0.5
+    qs = q * scale
+    keep = tbsa.BlockSparseLayout(lay, 16, s).element_mask(cuda_device)
+    o, lse = tbsa.block_sparse_plain_fwd(qs, k, v, keep, bias)
+    rdq, rdelta = tbsa.block_sparse_plain_bwd_dq(qs, k, v, o, lse, do, keep,
+                                                 scale, bias)
+    want = (rdq,) + tbsa.block_sparse_plain_bwd_dkv(qs, k, v, do, lse, rdelta,
+                                                    keep, bias)
+    for split in (False, True):
+        if split:
+            monkeypatch.setattr(tbsa, "SPLIT_MIN", 2)
+            monkeypatch.setattr(tbsa, "WAVE", 1 << 40)
+        bsl = tbsa.BlockSparseLayout(lay, 16, s)
+        before = dict(tbsa.LAUNCHES)
+        runs, infos = [], []
+        for _ in range(2):
+            dq, delta = tbsa.block_sparse_attention_bwd_dq(
+                qs, k, v, o, lse, do, bsl, scale, bias)
+            infos.append(tbsa.launch_info())
+            runs.append((dq, delta) + tbsa.block_sparse_attention_bwd_dkv(
+                qs, k, v, do, lse, delta, bsl, bias))
+            infos.append(tbsa.launch_info())
+        torch.cuda.synchronize()
+        assert {key: tbsa.LAUNCHES[key] - before[key] for key in before} \
+            == {"block_sparse_attention_fwd": 0,
+                "block_sparse_attention_bwd_dq": 2,
+                "block_sparse_attention_bwd_dkv": 2}
+        gerr, ok = _fp32_grad_bar((runs[0][0], runs[0][2], runs[0][3]),
+                                  want)
+        derr = (runs[0][1] - rdelta).abs().max().item()
+        print(f"block-sparse fp32 bwd {layout} D{d} split {split}: {gerr} "
+              f"delta {derr:.3g}; dQ {infos[0]}; dK/dV {infos[1]}")
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
+        assert ok, gerr
+        assert derr <= 1e-5
+        assert [i["kernel"] for i in infos[:2]] == ["dq", "dkv"]
+        assert all(i["spill_bytes"] == 0 for i in infos), infos
+        if split:
+            assert infos[0]["split_groups"] > 0
+            assert infos[1]["split_groups"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_block_sparse_backward_first_on_the_autograd_thread(cuda_device,
+                                                            dtype):
     """In a fresh process whose first CUDA work on PyTorch's autograd thread
-    is the block-sparse backward, dQ encodes its tensor maps on that thread
-    before any runtime call there: the encode binds the context itself, so
-    the backward runs (it once failed there with error 1)."""
+    is the block-sparse backward, dQ runs there: bf16 encodes its tensor
+    maps on that thread before any runtime call there (the encode binds the
+    context itself; it once failed there with error 1), fp32 launches the
+    split-TF32 kernels there."""
     import sys
     from pathlib import Path
 
@@ -2493,7 +2585,7 @@ def test_block_sparse_backward_first_on_the_autograd_thread(cuda_device):
         "from deepspeed_tpu_torch.ops import block_sparse_attention as b\n"
         "bsl = b.BlockSparseLayout(np.ones((2, 16, 16), bool), 16, 256)\n"
         "q, k, v = (torch.randn((2, 2, 256, 32), device='cuda', "
-        "dtype=torch.bfloat16, requires_grad=True) for _ in range(3))\n"
+        f"dtype={dtype}, requires_grad=True) for _ in range(3))\n"
         "out = b.block_sparse_attention(q, k, v, bsl)\n"
         "out.backward(torch.randn_like(out))\n"
         "torch.cuda.synchronize()\n"
