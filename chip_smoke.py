@@ -262,7 +262,37 @@ Phases, each fatal on failure:
    ms per tick, the device idle share over a traced window of decode
    ticks, and the share of greedy tokens equal to an unscheduled ``put`` /
    ``decode_loop`` run of the same prompts (reported, not barred: bf16
-   near-ties flip across batch shapes).
+   near-ties flip across batch shapes);
+25. the cache-aware router (``CacheAwareRouter``) over two schedulers
+   sharing phase 5's int8 tree on the 32-layer Llama-2-7B geometry,
+   serving ``bench_serving.py`` ``measure_shared_prefix``'s traffic: 4
+   tenants, shared-prefix ratio 0.9, 256-token prompts, 16 greedy tokens,
+   8 clients, block 32, 64 requests: cold and warm TTFT, the cache-hit
+   rate, prefill tokens saved and requests by replica; every request
+   whose tenant's prefix is warm goes to a replica holding at least 224
+   cached tokens of it (probed just before placement), every generated
+   token meets phase 24's teacher-forced bar on its replica, uids are
+   unique across replicas, B2, B5 and B3 launch, and a planted router
+   that ignores the cache (``cache_weight=0``) misses the placement bar;
+26. the host KV tier under ``measure_session_mix``'s two arms at the same
+   width: bf16 KV without the tier against int8 KV with it, the same
+   device byte budget (56 bf16 blocks of 16 tokens), ``max_sessions`` 36
+   as in the bench: resident sessions per arm, spooled, restored and
+   dropped blocks, spool and restore ms p50 / p95 (and how much of a
+   spool waited for device work queued before it), bytes a block; the
+   mix restores from the tier, one ``gather_blocks`` call a spool and one
+   ``scatter_blocks`` call a restore, every restored block equal to its
+   spooled payload, and a
+   session evicted and restored on one engine continuing bit for bit as
+   on an engine that never evicted it;
+27. checkpoints: the 12-layer bench Llama 4 steps, ``save_checkpoint``
+   (``CheckpointEngine`` and ``AsyncCheckpointEngine``), fresh engines
+   through ``initialize`` that ``load_checkpoint`` and take 4 more steps
+   against 8 straight steps (bit-equal where two straight runs are), a
+   corrupted tag falling back to the newest verified one; and a 2-layer
+   7B-width int8 serving engine through ``serialize`` ->
+   ``load_serialized`` with bit-equal next-token logits.  Each of these
+   phases prints its own launch counts by kernel.
 
 The second-to-last lines are the ``kernels`` JSON record and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -4153,6 +4183,824 @@ def scheduler_failures(run) -> list:
 
 
 # --------------------------------------------------------------------- #
+# Phases 25-27: the router, the host tier and checkpoints
+# --------------------------------------------------------------------- #
+#: phase 25's placement bar: a request whose tenant's prefix is warm
+#: somewhere routes to a replica holding at least the prefix's whole blocks
+#: (floor(230 / 32) * 32 tokens of the 0.9 x 256-token system prompt)
+ROUTER_WARM_TOKENS = (230 // 32) * 32
+#: phase 25 and 26 serve through these kernels (B2, B5, B3)
+ROUTER_KERNELS = SCHEDULER_KERNELS
+TIER_KERNELS = {"bf16": SCHEDULER_KERNELS,
+                "int8": ("quantized_matmul", "paged_attention_int8",
+                         "paged_decode_attention_int8")}
+
+
+def router_served_run(torch, np, n_requests=64, tenants=4,
+                      shared_prefix_ratio=0.9, prompt_len=256,
+                      gen_tokens=16, clients=8, block=32, replicas=2):
+    """``bench_serving.py`` ``measure_shared_prefix``'s traffic on the
+    32-layer Llama-2-7B geometry with phase 5's int8 tree: ``replicas``
+    schedulers sharing one weight tree behind ``CacheAwareRouter``, each
+    tenant's system prompt 0.9 of a 256-token prompt.  Cold then warm
+    requests one at a time (TTFT), then the rest concurrently (counts set
+    to 0 just before, read just after).  Every placement is recorded
+    beside the replicas' warm prefixes probed just before it; every
+    generated token is re-scored on its replica (the teacher-forced bar);
+    and a planted router that ignores the cache (``cache_weight=0``)
+    places a second round of the same traffic."""
+    from deepspeed_tpu_torch.checkpoint import random_int8_llama_params
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.model_implementations import (
+        RaggedLlama)
+    from deepspeed_tpu_torch.models import LlamaConfig
+    from deepspeed_tpu_torch.serving import (CacheAwareRouter,
+                                             ContinuousBatchScheduler,
+                                             SamplingParams)
+
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig.llama2_7b(dtype=torch.bfloat16)     # 32 layers
+    params = random_int8_llama_params(cfg, groups=16, seed=SEED)
+    max_ctx = prompt_len + gen_tokens + 8
+    per_seq = -(-max_ctx // block)
+    prefix_blocks = -(-prompt_len // block)
+    num_blocks = clients * per_seq + tenants * prefix_blocks + 1
+    eng_cfg = RaggedInferenceEngineConfig.from_dict({
+        "state_manager": {"max_ragged_batch_size": 512,
+                          "max_ragged_sequence_count": clients,
+                          "max_context": max_ctx},
+        "kv_cache": {"block_size": block, "num_blocks": num_blocks,
+                     "enable_prefix_cache": True}})
+    engines = [InferenceEngineV2(RaggedLlama(cfg, block, use_kernels=True),
+                                 params, eng_cfg) for _ in range(replicas)]
+    shared = all(e.params["lm_head"]["kernel"]["q"].data_ptr()
+                 == engines[0].params["lm_head"]["kernel"]["q"].data_ptr()
+                 for e in engines)
+    rng = np.random.default_rng(SEED)
+    shared_len = int(shared_prefix_ratio * prompt_len)
+    pools = {f"t{i}": rng.integers(0, cfg.vocab_size,
+                                   size=(shared_len,)).tolist()
+             for i in range(tenants)}
+
+    def make_prompt(tenant):
+        tail = rng.integers(0, cfg.vocab_size,
+                            size=(prompt_len - shared_len,)).tolist()
+        return pools[tenant] + tail
+
+    sampling = SamplingParams(greedy=True, max_new_tokens=gen_tokens)
+    router = CacheAwareRouter([ContinuousBatchScheduler(e) for e in engines])
+    # warm-up, as measure_shared_prefix: a throwaway prompt, a tail-sized
+    # one and the warm path on each replica; their hits are not counted
+    for rep in router.replicas:
+        w = rep.scheduler.submit(
+            rng.integers(0, cfg.vocab_size, size=(prompt_len,)).tolist(),
+            sampling=sampling)
+        rep.scheduler.run_until_idle()
+        rep.scheduler.submit(
+            rng.integers(0, cfg.vocab_size,
+                         size=(prompt_len - shared_len + block,)).tolist(),
+            sampling=sampling)
+        rep.scheduler.run_until_idle()
+        rep.scheduler.submit(w.prompt, sampling=sampling)
+        rep.scheduler.run_until_idle()
+        pc = rep.scheduler.engine.state_manager.prefix_cache
+        pc.stats = type(pc.stats)()
+    placements = []
+
+    def submit(rt, prompt, tenant):
+        probes = {rep.name: rep.prefix_match_tokens(prompt)
+                  for rep in rt.replicas}
+        req = rt.submit(prompt, tenant=tenant, sampling=sampling)
+        placements.append((req, probes))
+        return req
+
+    # cold vs warm TTFT, one request at a time
+    cold, warm, used = [], [], 0
+    for tenant in pools:
+        for j in range(3):
+            req = submit(router, make_prompt(tenant), tenant)
+            router.run_until_idle()
+            used += 1
+            (cold if j == 0 else warm).append(1e3 * req.ttft)
+    # the concurrent mix over both replicas
+    reqs = []
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(max(n_requests - used, 0)):
+        tenant = f"t{i % tenants}"
+        reqs.append(submit(router, make_prompt(tenant), tenant))
+        router.step()
+    router.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    everything = [r for r, _ in placements]
+    agg = {}
+    for rep in router.replicas:
+        for k, v in rep.scheduler.engine.state_manager.prefix_cache.stats \
+                .as_dict().items():
+            agg[k] = agg.get(k, 0.0) + v
+    all_prompt_tokens = sum(len(r.prompt) for r in everything)
+
+    def placement_misses(placed):
+        """Requests whose tenant's prefix was warm somewhere but that went
+        to a replica holding less than ROUTER_WARM_TOKENS of it."""
+        return [(r.uid, r.replica, probes) for r, probes in placed
+                if max(probes.values()) >= ROUTER_WARM_TOKENS
+                and probes[r.replica] < ROUTER_WARM_TOKENS]
+
+    warm_placed = sum(int(max(p.values()) >= ROUTER_WARM_TOKENS)
+                      for _, p in placements)
+    misses = placement_misses(placements)
+    # the teacher-forced bar, each request re-scored on its replica
+    gaps = []
+    for rep in router.replicas:
+        mine = [r for r in everything if r.replica == rep.name]
+        gaps.append(teacher_forced_gaps(np, rep.scheduler.engine, mine,
+                                        clients, 1000))
+    teacher = gap_stats(np, np.concatenate(gaps))
+    # the planted fault: a router that ignores the cache, on the same warm
+    # schedulers, given the tenants warm on one replica (a cache-aware
+    # router keeps them there until the backlog outweighs the prefix)
+    home = {t: max(router.replicas,
+                   key=lambda rep: rep.prefix_match_tokens(pools[t])).name
+            for t in pools}
+    mine = [t for t in pools if home[t] == home["t0"]]
+    planted_from = len(placements)
+    blind = CacheAwareRouter([rep.scheduler for rep in router.replicas],
+                             cache_weight=0.0)
+    for i in range(2 * tenants):                 # one burst
+        tenant = mine[i % len(mine)]
+        submit(blind, make_prompt(tenant), tenant)
+    blind.run_until_idle()
+    planted = placements[planted_from:]
+    # where a cold and a warm first token's time goes: one request alone on
+    # a replica, traced from submission to its first token
+    traced = {}
+    for kind, tenant in (("cold", None), ("warm", "t0")):
+        rep = next(r for r in router.replicas
+                   if tenant is None or r.name == home[tenant])
+        prompt = (rng.integers(0, cfg.vocab_size, size=(prompt_len,))
+                  .tolist() if tenant is None else make_prompt(tenant))
+
+        def first_token(rep=rep, prompt=prompt):
+            req = rep.scheduler.submit(prompt, sampling=sampling)
+            while not req.generated:
+                rep.scheduler.step()
+            return req
+
+        traced[kind] = profile_window(torch, first_token, 1)
+        rep.scheduler.run_until_idle()
+    out = {
+        "layers": cfg.num_hidden_layers, "replicas": replicas,
+        "weights_shared": shared, "tenants": tenants,
+        "shared_prefix_ratio": shared_prefix_ratio,
+        "prompt_len": prompt_len, "gen_tokens": gen_tokens,
+        "clients": clients, "block": block, "kv_blocks": num_blocks,
+        "requests": len(everything),
+        "cold_ttft_ms_p50": float(np.percentile(cold, 50)),
+        "warm_ttft_ms_p50": float(np.percentile(warm, 50)),
+        "cold_ttft_ms": cold, "warm_ttft_ms": warm,
+        "cache_hit_rate": agg["hits"] / max(agg["lookups"], 1),
+        "prefill_tokens_saved": int(agg["hit_tokens"]),
+        "prefill_tokens_saved_pct": 100.0 * agg["hit_tokens"]
+        / max(all_prompt_tokens, 1),
+        "router": router.snapshot(),
+        "requests_by_replica": dict(router.routed),
+        "mix_wall_s": wall, "mix_requests": len(reqs),
+        "mix_tokens_per_s": gen_tokens * len(reqs) / wall,
+        "warm_placements": warm_placed, "placement_misses": misses,
+        "uids_unique": len({r.uid for r in everything})
+        == len(everything),
+        "states": sorted({r.state.value for r in everything}),
+        "generated": sorted({len(r.generated) for r in everything}),
+        "teacher_forced": teacher, "launches": launches,
+        "tenant_homes": home, "first_token_trace": traced,
+        "planted_cache_blind": {
+            "requests": len(planted), "tenants": mine,
+            "warm_placements": sum(int(max(p.values())
+                                       >= ROUTER_WARM_TOKENS)
+                                   for _, p in planted),
+            "placement_misses": len(placement_misses(planted))},
+        "free_blocks_end": [rep.scheduler.engine.state_manager
+                            .allocator.free_blocks
+                            + rep.scheduler.engine.state_manager
+                            .prefix_cache.evictable_blocks
+                            for rep in router.replicas],
+        "pool_blocks": num_blocks - 1,
+    }
+    del router, blind, engines, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def router_failures(run) -> list:
+    """The bars of phase 25 that ``run`` misses (empty when it passes)."""
+    bad = []
+    if run["states"] != ["finished"] or run["generated"] != [
+            run["gen_tokens"]]:
+        bad.append(f"states {run['states']} lengths {run['generated']}")
+    if not run["weights_shared"]:
+        bad.append("the replicas do not share one weight tree")
+    if run["warm_placements"] == 0 or run["placement_misses"]:
+        bad.append(f"placement: {len(run['placement_misses'])} of "
+                   f"{run['warm_placements']} warm requests placed off "
+                   f"their warm replica: {run['placement_misses'][:4]}")
+    if not run["uids_unique"]:
+        bad.append("request uids repeat across replicas")
+    if run["teacher_forced"]["over_margin"]:
+        bad.append(f"tokens off the teacher-forced re-score "
+                   f"{run['teacher_forced']}")
+    if not all(run["launches"][k] > 0 for k in ROUTER_KERNELS):
+        bad.append(f"launches {run['launches']}")
+    if not run["planted_cache_blind"]["placement_misses"]:
+        bad.append(f"the planted cache-blind router meets the placement "
+                   f"bar {run['planted_cache_blind']}")
+    if set(run["free_blocks_end"]) != {run["pool_blocks"]}:
+        bad.append(f"free + evictable blocks {run['free_blocks_end']} of "
+                   f"{run['pool_blocks']}")
+    return bad
+
+
+class GcClock:
+    """Seconds the interpreter's garbage collector has run since
+    :meth:`start` (a ``gc.callbacks`` hook, removed by :meth:`stop`)."""
+
+    def __init__(self):
+        self.total, self._t0 = 0.0, None
+
+    def _hook(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.total += time.perf_counter() - self._t0
+            self._t0 = None
+
+    def start(self):
+        import gc
+
+        gc.callbacks.append(self._hook)
+        return self
+
+    def stop(self):
+        import gc
+
+        gc.callbacks.remove(self._hook)
+
+
+def count_block_calls(kv, gc_clock=None):
+    """Wrap ``kv``'s ``gather_blocks`` / ``scatter_blocks`` to record each
+    call's block count; every scatter is checked on the spot: a gather of
+    the blocks just written equals the payload (the spooled copies of the
+    pre-eviction gather), and each gather's wait for the device work
+    queued before it is timed apart from the gather, as is the garbage
+    collection inside it (with ``gc_clock``); the first gather and the
+    first of 5 blocks or more are traced (the host calls that took the
+    most time; the profiler warmed up first).  Returns the record."""
+    import torch
+
+    calls = {"gather": [], "scatter": [], "scatter_mismatch": 0,
+             "drain_ms": [], "gather_ms": [], "gc_ms": [], "check_ms": [],
+             "traces": []}
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        pass
+    real_gather, real_scatter = kv.gather_blocks, kv.scatter_blocks
+
+    def gather(blocks, **kw):
+        # the device work queued before the spool drains first, timed on
+        # its own: the gather's own synchronization would wait for it
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gc0 = gc_clock.total if gc_clock else 0.0
+        traced = not calls["gather"] or (len(blocks) >= 5 and not any(
+            n >= 5 for n in calls["gather"]))
+        if traced:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                out = real_gather(blocks, **kw)
+            rows = sorted(prof.key_averages(),
+                          key=lambda e: -e.self_cpu_time_total)[:8]
+            calls["traces"].append({
+                "call": len(calls["gather"]), "blocks": len(blocks),
+                "top_host_ms": [(e.key, e.count, e.self_cpu_time_total / 1e3)
+                                for e in rows]})
+        else:
+            out = real_gather(blocks, **kw)
+        calls["gc_ms"].append(1e3 * ((gc_clock.total if gc_clock else 0.0)
+                                     - gc0))
+        calls["drain_ms"].append(1e3 * (t1 - t0))
+        calls["gather_ms"].append(1e3 * (time.perf_counter() - t1))
+        calls["gather"].append(len(blocks))
+        return out
+
+    def scatter(blocks, payload):
+        calls["scatter"].append(len(blocks))
+        real_scatter(blocks, payload)
+        t0 = time.perf_counter()
+        records = isinstance(payload, list)
+        back = real_gather(blocks, per_block=records)
+        pairs = zip(back, payload) if records else [(back, payload)]
+        calls["scatter_mismatch"] += sum(
+            int(not torch.equal(b[l][k], p[l][k].to(b[l][k])))
+            for b, p in pairs for l in b for k in b[l])
+        # inside the restore's timed window: reported apart
+        calls["check_ms"].append(1e3 * (time.perf_counter() - t0))
+
+    kv.gather_blocks, kv.scatter_blocks = gather, scatter
+    return calls
+
+
+def tier_session_mix(torch, np, idle_fraction=0.5, resume_cadence=3,
+                     max_sessions=36, prompt_len=88, turn_tail=16,
+                     turn_gen=8, block=16, budget_blocks_bf16=56,
+                     chatty_window=2, max_turns=4):
+    """``bench_serving.py`` ``measure_session_mix``'s two arms on the
+    32-layer Llama-2-7B geometry with phase 5's int8 tree: bf16 KV with no
+    tier against int8 KV with the host tier, the same device byte budget
+    (56 bf16 blocks of 16 tokens), ``max_sessions`` 36 as in the bench
+    (at 16 the treatment arm never read the tier back).  A session is resident while each of its resumes is served from
+    warm or restorable KV; each arm runs until the first resume that needs
+    recompute (or a preemption) or the cap.  Counts set to 0 before each
+    arm and read after it; the treatment arm's gathers and scatters are
+    counted and each scatter checked against its payload.  Then the
+    explicit round trip on two fresh treatment engines: a session grown
+    the same way on both, evicted and restored on one, attached from the
+    device on the other, and the next logits of each."""
+    from deepspeed_tpu_torch.checkpoint import random_int8_llama_params
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.inference.v2.model_implementations import (
+        RaggedLlama)
+    from deepspeed_tpu_torch.inference.v2.ragged import BlockedKVCache
+    from deepspeed_tpu_torch.models import LlamaConfig
+    from deepspeed_tpu_torch.serving import (ContinuousBatchScheduler,
+                                             SamplingParams)
+
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig.llama2_7b(dtype=torch.bfloat16)     # 32 layers
+    params = random_int8_llama_params(cfg, groups=16, seed=SEED)
+    max_ctx = prompt_len + max_turns * (turn_tail + turn_gen) + 16
+    per_tok = {dt: BlockedKVCache(cfg.num_hidden_layers, 1, block,
+                                  cfg.num_key_value_heads, cfg.head_dim,
+                                  dt, device="cpu").per_token_bytes
+               for dt in ("bf16", "int8")}
+    budget_bytes = budget_blocks_bf16 * block * per_tok["bf16"]
+
+    def make_engine(kv_dtype, host_tier):
+        num_blocks = budget_bytes // (block * per_tok[kv_dtype]) + 1
+        return InferenceEngineV2(
+            RaggedLlama(cfg, block, use_kernels=True), params,
+            RaggedInferenceEngineConfig.from_dict({
+                "state_manager": {"max_ragged_batch_size": 256,
+                                  "max_ragged_sequence_count": 4,
+                                  "max_context": max_ctx},
+                "kv_cache": {"block_size": block,
+                             "num_blocks": int(num_blocks),
+                             "dtype": kv_dtype,
+                             "enable_prefix_cache": True,
+                             "host_tier": host_tier}}))
+
+    sampling = SamplingParams(greedy=True, max_new_tokens=turn_gen)
+
+    def run_arm(kv_dtype, host_tier):
+        rng = np.random.default_rng(SEED)
+        eng = make_engine(kv_dtype, host_tier)
+        sm = eng.state_manager
+        sched = ContinuousBatchScheduler(eng)
+
+        def turn(prompt):
+            req = sched.submit(prompt, sampling=sampling)
+            sched.run_until_idle()
+            if req.state.value != "finished":
+                raise RuntimeError(f"a session turn did not finish: "
+                                   f"{req.state.value} {req.finish_reason}")
+            return list(req.prompt) + list(req.generated)
+
+        def hit_tokens():
+            return sm.prefix_cache.stats.hit_tokens
+
+        def session_prompt():
+            return rng.integers(0, cfg.vocab_size,
+                                size=(prompt_len,)).tolist()
+
+        turn(session_prompt())                      # warm-up session
+        gc_clock = GcClock().start()
+        calls = (count_block_calls(sm.kv_cache, gc_clock) if host_tier
+                 else None)
+        histories, turns_done, last_touch = {}, {}, {}
+        is_idle = {s: (s * 2654435761 % 100) < idle_fraction * 100
+                   for s in range(max_sessions)}
+        clean_through, recompute, stop = 0, 0, "cap"
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+
+        def resume(sid, round_no):
+            nonlocal recompute
+            prev = histories[sid]
+            expected = ((len(prev) - 1) // block) * block
+            tail = rng.integers(0, cfg.vocab_size,
+                                size=(turn_tail,)).tolist()
+            before = hit_tokens()
+            histories[sid] = turn(prev + tail)
+            turns_done[sid] += 1
+            last_touch[sid] = round_no
+            got = hit_tokens() - before
+            if got < expected:
+                recompute += expected - got
+                return False
+            return True
+
+        for s in range(max_sessions):
+            histories[s] = turn(session_prompt())
+            turns_done[s], last_touch[s] = 1, s
+            ok = True
+            for c in range(max(0, s - chatty_window + 1), s + 1):
+                if ok and not is_idle[c] and turns_done[c] < max_turns:
+                    ok = resume(c, s)
+            if ok and (s + 1) % resume_cadence == 0:
+                idle_live = [x for x in range(s + 1)
+                             if is_idle[x] and turns_done[x] < max_turns]
+                if idle_live:
+                    ok = resume(min(idle_live, key=lambda x: last_touch[x]),
+                                s)
+            if not ok:
+                stop = "recompute"
+                break
+            if sched.metrics.preemptions > 0:
+                stop = "preemption"
+                break
+            clean_through = s + 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gc_clock.stop()
+        out = {"kv_dtype": kv_dtype, "host_tier": host_tier,
+               "gc_s": gc_clock.total,
+               "kv_blocks": sm.allocator.num_blocks,
+               "block_bytes": block * per_tok[kv_dtype],
+               "max_resident_sessions": clean_through, "stop": stop,
+               "recompute_tokens": recompute, "wall_s": wall,
+               "launches": read_launches()}
+        if host_tier:
+            st = sm.host_tier.stats
+            out.update({
+                "spooled_blocks": st.spooled_blocks,
+                "restored_blocks": st.restored_blocks,
+                "dropped_blocks": st.dropped_blocks,
+                "tier_bytes": sm.host_tier.bytes,
+                "spool_ms_p50": 1e3 * st.spool_pct(50),
+                "spool_ms_p95": 1e3 * st.spool_pct(95),
+                "restore_ms_p50": 1e3 * st.restore_pct(50),
+                "restore_ms_p95": 1e3 * st.restore_pct(95),
+                "spool_ms": [1e3 * x for x in st.spool_s],
+                "spool_blocks": list(st.spool_blocks_per_call),
+                "spool_calls": len(st.spool_s),
+                "restore_calls": len(st.restore_s),
+                "spool_blocks_per_call_max": st.spool_blocks_pct(100),
+                "restore_blocks_per_call_max": st.restore_blocks_pct(100),
+                "gather_calls": len(calls["gather"]),
+                "gathered_blocks": sum(calls["gather"]),
+                "scatter_calls": len(calls["scatter"]),
+                "scattered_blocks": sum(calls["scatter"]),
+                "scatter_mismatches": calls["scatter_mismatch"],
+                "spool_drain_ms": calls["drain_ms"],
+                "spool_gather_ms": calls["gather_ms"],
+                "spool_gc_ms": calls["gc_ms"],
+                "spool_traces": calls["traces"],
+                "restore_ms": [1e3 * x for x in st.restore_s],
+                "restore_check_ms": calls["check_ms"]})
+        del sched, eng
+        torch.cuda.empty_cache()
+        return out
+
+    baseline = run_arm("bf16", False)
+    treatment = run_arm("int8", True)
+
+    # the explicit round trip: one session grown token by token on two
+    # fresh treatment engines
+    rng = np.random.default_rng(SEED + 26)
+    prompt = rng.integers(0, cfg.vocab_size, size=(prompt_len,)).tolist()
+    fed = rng.integers(0, cfg.vocab_size, size=(turn_gen,)).tolist()
+    tail = rng.integers(0, cfg.vocab_size, size=(turn_tail,)).tolist()
+    hist = prompt + fed
+    logits = {}
+    trip = {}
+    for side in ("restored", "never_evicted"):
+        eng = make_engine("int8", True)
+        sm = eng.state_manager
+        eng.put([1], [prompt])
+        for t in fed:
+            eng.put([1], [[t]])
+        n_full = len(hist) // block
+        pre = sm.kv_cache.gather_blocks(list(sm.get_sequence(1).blocks)
+                                        [:n_full])
+        eng.flush([1])
+        calls = count_block_calls(sm.kv_cache)
+        if side == "restored":
+            trip["evicted"] = sm.prefix_cache.evict(n_full)
+        attached = eng.attach_prefix(1, hist + tail)
+        post = sm.kv_cache.gather_blocks(list(sm.get_sequence(1).blocks)
+                                         [:n_full])
+        torch.cuda.synchronize()
+        row = eng.put([1], [(hist + tail)[attached:]])[1]
+        logits[side] = torch.as_tensor(np.asarray(row))
+        trip[side] = {
+            "attached": attached,
+            "gather_calls_before_check": calls["gather"][:-1],
+            "scatter_calls": calls["scatter"],
+            "scatter_mismatches": calls["scatter_mismatch"],
+            "round_trip_bit_exact": all(
+                torch.equal(pre[l][k], post[l][k])
+                for l in pre for k in pre[l]),
+            "restored_blocks": sm.host_tier.stats.restored_blocks,
+            "spool_ms": [1e3 * x for x in sm.host_tier.stats.spool_s],
+            "restore_ms": [1e3 * x for x in sm.host_tier.stats.restore_s],
+            "restore_check_ms": calls["check_ms"]}
+        eng.flush([1])
+        del eng
+        torch.cuda.empty_cache()
+    diff = (logits["restored"] - logits["never_evicted"]).abs()
+    trip["continuation_bit_equal"] = bool(torch.equal(
+        logits["restored"], logits["never_evicted"]))
+    trip["continuation_max_abs_diff"] = float(diff.max())
+    trip["blocks"] = len(hist) // block
+    del params
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_hidden_layers, "block": block,
+            "budget_bytes": budget_bytes, "max_sessions": max_sessions,
+            "per_token_bytes": per_tok, "baseline": baseline,
+            "treatment": treatment, "round_trip": trip}
+
+
+def tier_failures(run) -> list:
+    """The bars of phase 26 that ``run`` misses (empty when it passes)."""
+    bad = []
+    t, b, trip = run["treatment"], run["baseline"], run["round_trip"]
+    for arm in (b, t):
+        keys = TIER_KERNELS[arm["kv_dtype"]]
+        if not all(arm["launches"][k] > 0 for k in keys):
+            bad.append(f"{arm['kv_dtype']} arm launches {arm['launches']}")
+    # the mix reads the tier back: a resumed session's spooled blocks
+    if not (t["restored_blocks"] > 0 and t["restore_calls"] > 0):
+        bad.append(f"the session mix never restored from the tier "
+                   f"({t['spooled_blocks']} blocks spooled)")
+    # one gather a spool, one scatter a restore
+    if (t["gather_calls"], t["gathered_blocks"]) != (
+            t["spool_calls"], t["spooled_blocks"]) \
+            or (t["scatter_calls"], t["scattered_blocks"]) != (
+                t["restore_calls"], t["restored_blocks"]):
+        bad.append(f"calls: gathers {t['gather_calls']} ({t['gathered_blocks']}"
+                   f" blocks) for {t['spool_calls']} spools "
+                   f"({t['spooled_blocks']}), scatters {t['scatter_calls']} "
+                   f"({t['scattered_blocks']}) for {t['restore_calls']} "
+                   f"restores ({t['restored_blocks']})")
+    if t["scatter_mismatches"]:
+        bad.append(f"{t['scatter_mismatches']} restored leaves differ from "
+                   f"their spooled payload")
+    r = trip["restored"]
+    if trip["evicted"] != trip["blocks"] or r["restored_blocks"] \
+            != trip["blocks"] or r["gather_calls_before_check"] != [
+                trip["blocks"]] or r["scatter_calls"] != [trip["blocks"]]:
+        bad.append(f"round trip: evicted {trip['evicted']}, restored "
+                   f"{r['restored_blocks']} of {trip['blocks']} blocks, "
+                   f"spool gathers {r['gather_calls_before_check']}, "
+                   f"restore scatters {r['scatter_calls']}")
+    if not (r["round_trip_bit_exact"]
+            and trip["never_evicted"]["round_trip_bit_exact"]) \
+            or r["scatter_mismatches"]:
+        bad.append("the spool round trip is not bit-exact")
+    if r["attached"] != trip["never_evicted"]["attached"]:
+        bad.append(f"attached {r['attached']} vs "
+                   f"{trip['never_evicted']['attached']} tokens")
+    if not trip["continuation_bit_equal"]:
+        bad.append(f"the continuation after a restore differs from the "
+                   f"never-evicted run by {trip['continuation_max_abs_diff']}")
+    return bad
+
+
+CKPT_STEPS = 4
+
+
+def checkpoint_run(torch, np, dev):
+    """Phase 27.  Training: the 12-layer bench model (bench.py:84-100) for
+    4 steps, ``save_checkpoint`` (through ``CheckpointEngine`` and
+    ``AsyncCheckpointEngine``, two tags), 4 more steps: the straight run.
+    A second straight run of 8 steps says whether two straight runs are
+    bit-equal.  For each tag a fresh engine built through ``initialize``
+    (from another seed) loads it and takes the last 4 steps.  Then a tag
+    saved after step 8 is corrupted and ``load_checkpoint`` must fall back
+    to the newest verified tag.  Serving: Llama-2-7B width at 2 layers
+    with int8 records through ``serialize`` -> ``load_serialized``, the
+    next-token logits of both engines."""
+    import gc
+    import shutil
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.checkpoint import (AsyncCheckpointEngine,
+                                                CheckpointEngine,
+                                                random_int8_llama_params)
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.model_implementations import (
+        RaggedLlama)
+    from deepspeed_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = bench_llama(torch, 12)
+    rng = np.random.default_rng(SEED + 27)
+    batches = [torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(8, 1024)).astype(np.int32)).to(dev)
+        for _ in range(2 * CKPT_STEPS)]
+
+    def engine(seed):
+        model = LlamaForCausalLM(cfg, seed=seed, device=dev)
+        eng, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=model, config=BENCH_DS_CONFIG, device=dev)
+        return eng
+
+    def steps(eng, which):
+        return [float(train_step(eng, batches[i])) for i in which]
+
+    def masters(eng):
+        return [m.detach().clone() for m in eng.master]
+
+    def dir_bytes(path):
+        return sum(p.stat().st_size for p in Path(path).rglob("*")
+                   if p.is_file())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    straight = engine(SEED)
+    losses = steps(straight, range(CKPT_STEPS))
+    torch.cuda.synchronize()
+    saves = {}
+    for tag, ce in (("sync", CheckpointEngine()),
+                    ("async", AsyncCheckpointEngine())):
+        straight.checkpoint_engine = ce
+        t0 = time.perf_counter()
+        straight.save_checkpoint(str(root), tag=f"{tag}{CKPT_STEPS}")
+        saves[tag] = {"save_s": time.perf_counter() - t0,
+                      "bytes": dir_bytes(root / f"{tag}{CKPT_STEPS}")}
+    straight.checkpoint_engine = None
+    # where a save's time goes: the device -> host copy of the state and
+    # the CRC32 pass over the written tag
+    from deepspeed_tpu_torch.checkpoint.engine import engine_state_trees
+    from deepspeed_tpu_torch.resilience import manifest
+
+    t0 = time.perf_counter()
+    engine_state_trees(straight)
+    host_copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verified = manifest.verify_tag(str(root / f"sync{CKPT_STEPS}"), "full")
+    crc_s = time.perf_counter() - t0
+    reset_launches()
+    losses += steps(straight, range(CKPT_STEPS, 2 * CKPT_STEPS))
+    straight_launches = read_launches(TRAINING)
+    final = masters(straight)
+    # the tag the fallback walks back past
+    straight.save_checkpoint(str(root), tag=f"late{2 * CKPT_STEPS}")
+    del straight
+    gc.collect()
+    torch.cuda.empty_cache()
+    again = engine(SEED)
+    losses2 = steps(again, range(2 * CKPT_STEPS))
+    final2 = masters(again)
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def distance(a, b):
+        return max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(a, b))
+
+    straight_bit_equal = losses == losses2 and distance(final, final2) == 0
+    straight_distance = distance(final, final2)
+    resumed = {}
+    for tag in ("sync", "async"):
+        eng = engine(SEED + 1)
+        t0 = time.perf_counter()
+        path, client = eng.load_checkpoint(str(root), tag=f"{tag}{CKPT_STEPS}")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        on_device = all(m.device == dev for m in eng.master) and all(
+            t.device == dev for v in eng.opt_state.values() for t in v)
+        reset_launches()
+        tail = steps(eng, range(CKPT_STEPS, 2 * CKPT_STEPS))
+        launches = read_launches(TRAINING)
+        dist = distance(masters(eng), final)
+        resumed[tag] = {
+            **saves[tag], "load_s": load_s, "loaded": path is not None,
+            "global_steps_after_load": client.get("global_steps"),
+            "on_device": on_device, "losses": tail,
+            "loss_max_diff": max(abs(a - b) for a, b in
+                                 zip(tail, losses[CKPT_STEPS:])),
+            "bit_equal": tail == losses[CKPT_STEPS:] and dist == 0,
+            "master_distance": dist, "launches": launches}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    # a corrupted newest tag: the load falls back to the newest verified
+    # tag below it
+    shard = root / f"late{2 * CKPT_STEPS}" / \
+        "zero_pp_rank_0_mp_rank_00_states.npz"
+    with open(shard, "r+b") as f:
+        f.seek(shard.stat().st_size // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0xFF]))
+    eng = engine(SEED + 1)
+    t0 = time.perf_counter()
+    path, _ = eng.load_checkpoint(str(root))
+    fallback = {"loaded": None if path is None else Path(path).name,
+                "load_s": time.perf_counter() - t0,
+                "latest": (root / "latest").read_text().strip()}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serving: serialize -> load_serialized at 7B width, 2 layers, int8
+    scfg = LlamaConfig.llama2_7b(dtype=torch.bfloat16, num_hidden_layers=2)
+    params = random_int8_llama_params(scfg, groups=16, seed=SEED)
+    src = InferenceEngineV2(RaggedLlama(scfg, 128), params,
+                            serving_engine_config(512))
+    prompt = np.random.default_rng(SEED).integers(
+        0, scfg.vocab_size, size=200).tolist()
+    want = torch.as_tensor(np.asarray(src.put([1], [prompt])[1]))
+    t0 = time.perf_counter()
+    src.serialize(str(root / "serve"))
+    save_s = time.perf_counter() - t0
+    del src, params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dst = InferenceEngineV2.load_serialized(
+        str(root / "serve"), RaggedLlama(scfg, 128),
+        serving_engine_config(512))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got = torch.as_tensor(np.asarray(dst.put([1], [prompt])[1]))
+    serving = {"layers": 2, "save_s": save_s, "load_s": load_s,
+               "bytes": dir_bytes(root / "serve"),
+               "params_on_device": all(
+                   t.device == dev for t in _leaves(dst.params)),
+               "logits_bit_equal": bool(torch.equal(got, want)),
+               "logits_max_abs_diff": float((got - want).abs().max())}
+    del dst
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return {"training": {
+        "layers": cfg.num_hidden_layers, "batch": [8, 1024],
+        "steps": 2 * CKPT_STEPS, "losses": losses,
+        "straight_bit_equal": straight_bit_equal,
+        "straight_distance": straight_distance,
+        "straight_loss_max_diff": max(abs(a - b)
+                                      for a, b in zip(losses, losses2)),
+        "launches": straight_launches, "resumed": resumed,
+        "host_copy_s": host_copy_s, "crc_s": crc_s,
+        "verified": verified[0],
+        "fallback": fallback}, "serving": serving}
+
+
+def checkpoint_failures(run) -> list:
+    """The bars of phase 27 that ``run`` misses (empty when it passes)."""
+    bad = []
+    tr = run["training"]
+    if not all(math.isfinite(x) for x in tr["losses"]):
+        bad.append(f"losses {tr['losses']}")
+    for tag, r in tr["resumed"].items():
+        if not (r["loaded"] and r["on_device"]
+                and r["global_steps_after_load"] == CKPT_STEPS):
+            bad.append(f"{tag}: load {r}")
+        if tr["straight_bit_equal"]:
+            if not r["bit_equal"]:
+                bad.append(f"{tag}: the resumed run is not bit-equal to "
+                           f"the straight run (which repeats bit for bit): "
+                           f"loss diff {r['loss_max_diff']}, master "
+                           f"distance {r['master_distance']}")
+        elif r["loss_max_diff"] > LOSS_TOL \
+                or r["master_distance"] > tr["straight_distance"]:
+            bad.append(f"{tag}: the resumed run is off the straight run "
+                       f"by loss {r['loss_max_diff']} (bar {LOSS_TOL}) and "
+                       f"master {r['master_distance']} (two straight runs "
+                       f"{tr['straight_distance']})")
+        if not all(v > 0 for v in r["launches"].values()):
+            bad.append(f"{tag}: flash launches {r['launches']}")
+    if not tr["verified"]:
+        bad.append("a saved tag fails its own manifest")
+    if tr["fallback"]["loaded"] != f"sync{CKPT_STEPS}" \
+            and tr["fallback"]["loaded"] != f"async{CKPT_STEPS}":
+        bad.append(f"fallback past the corrupted tag: {tr['fallback']}")
+    sv = run["serving"]
+    if not (sv["logits_bit_equal"] and sv["params_on_device"]):
+        bad.append(f"serving: {sv}")
+    return bad
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     if not (ROOT / "deepspeed_tpu_torch" / "csrc").is_dir():
         return fail("deepspeed_tpu_torch/ not found beside chip_smoke.py: "
@@ -4719,6 +5567,68 @@ def main() -> int:
     if bad:
         return fail(f"phase 24: {bad}")
 
+    # 25. the cache-aware router over two replicas serving Llama-2-7B
+    routed = router_served_run(torch, np)
+    print(f"[router] {json.dumps(routed)}", flush=True)
+    print(f"[router] launches: {json.dumps(routed['launches'])}", flush=True)
+    print(f"[router] cold TTFT p50 {routed['cold_ttft_ms_p50']:.2f} ms, warm "
+          f"{routed['warm_ttft_ms_p50']:.2f} ms; hit rate "
+          f"{routed['cache_hit_rate']:.4f}; prefill tokens saved "
+          f"{routed['prefill_tokens_saved']} "
+          f"({routed['prefill_tokens_saved_pct']:.2f}%); by replica "
+          f"{routed['requests_by_replica']}; {smi}", flush=True)
+    bad = router_failures(routed)
+    if bad:
+        return fail(f"phase 25: {bad}")
+
+    # 26. the host KV tier under the session mix at Llama-2-7B width
+    tier = tier_session_mix(torch, np)
+    print(f"[tier] {json.dumps(tier)}", flush=True)
+    for arm in ("baseline", "treatment"):
+        print(f"[tier] {arm} launches: "
+              f"{json.dumps(tier[arm]['launches'])}", flush=True)
+    t = tier["treatment"]
+    print(f"[tier] max resident sessions bf16 "
+          f"{tier['baseline']['max_resident_sessions']} / int8 + tier "
+          f"{t['max_resident_sessions']} (max_sessions "
+          f"{tier['max_sessions']}); spooled {t['spooled_blocks']} "
+          f"restored {t['restored_blocks']} dropped {t['dropped_blocks']}; "
+          f"spool ms p50 {t['spool_ms_p50']:.3f} p95 {t['spool_ms_p95']:.3f} "
+          f"(drain of queued device work p50 "
+          f"{np.percentile(t['spool_drain_ms'], 50):.3f} p95 "
+          f"{np.percentile(t['spool_drain_ms'], 95):.3f}, gather p50 "
+          f"{np.percentile(t['spool_gather_ms'], 50):.3f} p95 "
+          f"{np.percentile(t['spool_gather_ms'], 95):.3f}); "
+          f"restore ms p50 {t['restore_ms_p50']:.3f} p95 "
+          f"{t['restore_ms_p95']:.3f} (the check's gather inside it p50 "
+          f"{np.percentile(t['restore_check_ms'], 50):.3f}); interpreter "
+          f"gc {t['gc_s']:.3f} s of the arm; bytes a block bf16 "
+          f"{tier['baseline']['block_bytes']} int8 {t['block_bytes']}; "
+          f"{smi}", flush=True)
+    bad = tier_failures(tier)
+    if bad:
+        return fail(f"phase 26: {bad}")
+
+    # 27. checkpoints: a resumed training run and a serialized engine
+    ckpt = checkpoint_run(torch, np, dev)
+    print(f"[checkpoint] {json.dumps(ckpt)}", flush=True)
+    tr = ckpt["training"]
+    print(f"[checkpoint] launches: straight "
+          f"{json.dumps(tr['launches'])}; resumed "
+          f"{json.dumps({k: r['launches'] for k, r in tr['resumed'].items()})}",
+          flush=True)
+    print(f"[checkpoint] straight runs bit-equal {tr['straight_bit_equal']}; "
+          + "; ".join(f"{k}: save {r['save_s']:.2f} s load {r['load_s']:.2f} s"
+                      f" {r['bytes']} bytes, bit-equal {r['bit_equal']}"
+                      for k, r in tr["resumed"].items())
+          + f"; fallback to {tr['fallback']['loaded']}; serialize "
+          f"{ckpt['serving']['save_s']:.2f} s load_serialized "
+          f"{ckpt['serving']['load_s']:.2f} s {ckpt['serving']['bytes']} "
+          f"bytes; {smi}", flush=True)
+    bad = checkpoint_failures(ckpt)
+    if bad:
+        return fail(f"phase 27: {bad}")
+
     src = "deepspeed_tpu_torch/csrc/"
     ref = "deepspeed_tpu/"
     bf_py = ref + "inference/v2/kernels/blocked_flash.py:"
@@ -4862,7 +5772,8 @@ def main() -> int:
          "quantizer": qcases, "from_hf": hf, "quantized_served": qserved,
          "evoformer": evo_cases, "evoformer_planted": evo_planted,
          "block_sparse": bsa_cases, "block_sparse_planted": bsa_faults,
-         "scheduler": sched_run},
+         "scheduler": sched_run, "router": routed, "host_tier": tier,
+         "checkpoint": ckpt},
         indent=1))
     print(json.dumps(record))
     print(smi)

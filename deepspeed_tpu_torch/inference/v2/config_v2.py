@@ -4,8 +4,8 @@ inference/v2/config_v2.py ``RaggedInferenceEngineConfig``,
 ``DSStateManagerConfig`` ragged/manager_configs.py).
 
 The same dict keys as the JAX package.  Options whose paths are not ported
-yet (tensor parallelism, the host cold tier) raise ``NotImplementedError``
-when set, rather than being ignored.
+yet (tensor parallelism) raise ``NotImplementedError`` when set, rather
+than being ignored.
 """
 
 from __future__ import annotations
@@ -47,7 +47,10 @@ class KVCacheConfig(DeepSpeedConfigModel):
     #: radix prefix cache over the block pool (ref-counted, LRU-evicted
     #: under pressure, copy-on-write on shared-block writes)
     enable_prefix_cache: bool = False
+    #: host-memory cold tier: LRU-evicted prefix-cache blocks spool to host
+    #: memory and restore bit-exact on resume (needs the prefix cache)
     host_tier: bool = False
+    #: the tier's byte budget (oldest entries drop first); None = unbounded
     host_tier_bytes: Optional[int] = None
 
     def _validate(self):
@@ -56,10 +59,6 @@ class KVCacheConfig(DeepSpeedConfigModel):
                 resolve_kv_dtype)
 
             resolve_kv_dtype(self.dtype)   # raises on an unknown dtype
-        if self.host_tier:
-            raise NotImplementedError(
-                "kv_cache.host_tier (host-memory cold tier) is not ported "
-                "to deepspeed_tpu_torch yet (ROADMAP A5b)")
 
 
 @dataclasses.dataclass

@@ -33,8 +33,12 @@ weight-only quantization on the device (``quantize_bits=8``).
 ``occupancy()`` reads the live KV-pool and weight-byte gauges the serving
 scheduler's registry provider scrapes.
 
-Not ported yet (each raises ``NotImplementedError``): ``serialize`` and the
-memory ledger (ROADMAP A11).
+``serialize`` writes the JAX package's flat inference checkpoint
+(``model.bin`` + ``metadata.json``, byte for byte the same for the same
+parameters) and ``load_serialized`` builds an engine from one, memory-mapped.
+
+Not ported yet (raises ``NotImplementedError``): the memory ledger
+(ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -705,9 +709,71 @@ class InferenceEngineV2:
             return self.put([uid], [list(tokens)[seen:]], sync=sync)
         return {}
 
+    # ------------------------------------------------------------------ #
+    # serialize (reference engine_v2.py:237 + flat_model_helpers.py —
+    # flattened inference checkpoints: one contiguous payload + a metadata
+    # manifest, so a serving replica restores with one sequential read)
+    # ------------------------------------------------------------------ #
     def serialize(self, save_path: str) -> None:
-        raise NotImplementedError(
-            "serialize is not ported to deepspeed_tpu_torch yet")
+        """Write ``model.bin`` (concatenated little-endian tensor payloads,
+        in the JAX package's leaf order: dict keys sorted at every level)
+        and ``metadata.json`` (name / shape / dtype / offset per tensor +
+        engine config) under ``save_path``."""
+        import dataclasses
+        import json
+        import os
+
+        from deepspeed_tpu_torch.utils.tensors import tree_to_flat_dict
+
+        os.makedirs(save_path, exist_ok=True)
+        manifest = []
+        offset = 0
+        with open(os.path.join(save_path, "model.bin"), "wb") as f:
+            for name, t in tree_to_flat_dict(self.params).items():
+                t = t.detach().contiguous().cpu()
+                if t.dtype == torch.bfloat16:
+                    dtype, raw = "bfloat16", t.view(torch.int16).numpy()
+                else:
+                    raw = t.numpy()
+                    dtype = raw.dtype.name
+                manifest.append({"name": name, "shape": list(t.shape),
+                                 "dtype": dtype, "offset": offset,
+                                 "nbytes": int(raw.nbytes)})
+                f.write(raw.tobytes())
+                offset += raw.nbytes
+        meta = {
+            "format_version": 1,
+            "tensors": manifest,
+            "engine_config": dataclasses.asdict(self.config),
+        }
+        with open(os.path.join(save_path, "metadata.json"), "w") as f:
+            json.dump(meta, f, indent=1, default=str)
+        log_dist(f"InferenceEngineV2: serialized {len(manifest)} tensors "
+                 f"({offset/1e6:.1f} MB) to {save_path}", ranks=[0])
+
+    @staticmethod
+    def deserialize_params(save_path: str) -> Dict[str, torch.Tensor]:
+        """The flat param dict ``{name: tensor}`` of :meth:`serialize`
+        output: CPU tensors viewing a copy-on-write memory map of
+        ``model.bin`` (no read until a tensor is touched; bf16 records
+        come back as bf16)."""
+        import json
+        import os
+
+        with open(os.path.join(save_path, "metadata.json")) as f:
+            meta = json.load(f)
+        data = np.memmap(os.path.join(save_path, "model.bin"), mode="c",
+                         dtype=np.uint8)
+        out = {}
+        for t in meta["tensors"]:
+            n = int(np.prod(t["shape"])) if t["shape"] else 1
+            bf16 = t["dtype"] == "bfloat16"
+            arr = np.frombuffer(data, dtype=np.int16 if bf16
+                                else np.dtype(t["dtype"]), count=n,
+                                offset=t["offset"]).reshape(t["shape"])
+            tensor = torch.from_numpy(arr)
+            out[t["name"]] = tensor.view(torch.bfloat16) if bf16 else tensor
+        return out
 
     @classmethod
     def from_hf(cls, model_path: str,
@@ -758,6 +824,22 @@ class InferenceEngineV2:
             log_dist(f"InferenceEngineV2: int{quantize_bits} weight-only "
                      f"quantization on {n} matrices", ranks=[0])
         return cls(model, params, cfg, device=dev)
+
+    @classmethod
+    def load_serialized(cls, save_path: str, model,
+                        config: Optional[RaggedInferenceEngineConfig] = None,
+                        device=None):
+        """An engine (on ``device``, default CUDA) from a serialized
+        checkpoint: the flat names re-nested into the model's param-tree
+        layout, each tensor copied from the memory map to the device."""
+        tree: Dict[str, Any] = {}
+        for name, t in cls.deserialize_params(save_path).items():
+            node = tree
+            parts = name.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = t
+        return cls(model, tree, config, device=device)
 
     # ------------------------------------------------------------------ #
     # Observability: live occupancy

@@ -3,6 +3,8 @@
 
 from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import (
     BlockedAllocator)
+from deepspeed_tpu_torch.inference.v2.ragged.host_tier import (
+    HostKVTier, HostTierStats)
 from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import (
     BlockedKVCache, dequantize_kv, quantize_kv)
 from deepspeed_tpu_torch.inference.v2.ragged.prefix_cache import (
@@ -16,5 +18,5 @@ from deepspeed_tpu_torch.inference.v2.ragged.sequence_descriptor import (
 )
 
 __all__ = ["BlockedAllocator", "BlockedKVCache", "DSStateManager",
-           "PrefixCacheStats", "RadixPrefixCache", "RaggedBatchWrapper",
+           "HostKVTier", "HostTierStats", "PrefixCacheStats", "RadixPrefixCache", "RaggedBatchWrapper",
            "DSSequenceDescriptor", "dequantize_kv", "quantize_kv"]

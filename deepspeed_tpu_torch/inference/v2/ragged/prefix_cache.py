@@ -117,6 +117,13 @@ class RadixPrefixCache:
         self._by_block: Dict[int, _Node] = {}
         self._evict_heap: List[Tuple[int, int, _Node]] = []
         allocator.rc1_listener = self._note_evictable
+        #: host cold tier hook (set by the state manager when
+        #: ``kv_cache.host_tier`` is on): called once per evict() with the
+        #: whole victim-node list before their blocks are freed, while the
+        #: device content and each node's parent chain (its token-path
+        #: key) are both still intact, so eviction demotes every victim to
+        #: host memory in one gather instead of destroying them
+        self.spool_fn = None
 
     def _note_evictable(self, block: int) -> None:
         """Allocator callback: ``block``'s refcount just dropped to 1
@@ -161,7 +168,7 @@ class RadixPrefixCache:
 
     def match_len(self, tokens: Sequence[int]) -> int:
         """Longest cached prefix of ``tokens`` in tokens, without touching
-        LRU state."""
+        LRU state (the router's placement probe)."""
         return len(self.match_blocks(tokens, touch=False)) * self.block_size
 
     def lookup_continuation(self, tokens: Sequence[int],
@@ -241,6 +248,44 @@ class RadixPrefixCache:
             registered += 1
         return registered, False
 
+    def node_tokens(self, node: _Node) -> Tuple[int, ...]:
+        """The full token prefix ``node``'s block completes (edge labels
+        root -> node, concatenated): the host tier's content key."""
+        parts = []
+        n = node
+        while n is not None and n.key is not None:
+            parts.append(n.key)
+            n = n.parent
+        return tuple(t for key in reversed(parts) for t in key)
+
+    def insert_restored(self, tokens: Sequence[int], block: int) -> None:
+        """Re-attach a host-restored block as the tree node covering
+        ``tokens`` (every parent block must already be cached: the state
+        manager restores root-outward, so tier hits always extend an
+        existing path).  The caller's freshly allocated refcount-1
+        reference becomes the tree's reference (no ``acquire``): the exact
+        inverse of :meth:`evict`'s unwatch and free."""
+        bs = self.block_size
+        if len(tokens) % bs != 0 or not tokens:
+            raise ValueError(
+                f"insert_restored: key of {len(tokens)} tokens is not a "
+                f"whole number of {bs}-token blocks")
+        node = self._root
+        for i in range(len(tokens) // bs - 1):
+            key = tuple(int(t) for t in tokens[i * bs:(i + 1) * bs])
+            node = node.children[key]
+        key = tuple(int(t) for t in tokens[-bs:])
+        if key in node.children:
+            raise ValueError(
+                "insert_restored: path already cached — a tier hit for "
+                "in-tree content means spool / restore accounting diverged")
+        child = _Node(key, int(block), node)
+        child.stamp = next(self._clock)
+        node.children[key] = child
+        self._by_block[int(block)] = child
+        self.allocator.watch(int(block))
+        self._n_nodes += 1
+
     # ------------------------------------------------------------------ #
     # Eviction
     # ------------------------------------------------------------------ #
@@ -260,6 +305,27 @@ class RadixPrefixCache:
         the scheduler's admission hot path via ``DSStateManager.free_blocks``."""
         return self.allocator.watched_refcount1
 
+    def _iter_nodes(self, node: Optional[_Node] = None):
+        node = node or self._root
+        for child in node.children.values():
+            yield child
+            yield from self._iter_nodes(child)
+
+    def clear(self) -> int:
+        """Drop every tree reference (e.g. after the KV pool itself was
+        reset: the cached content no longer exists).  Returns the number
+        of nodes released."""
+        n = 0
+        for node in list(self._iter_nodes()):
+            self.allocator.unwatch(node.block)
+            self.allocator.free([node.block])
+            n += 1
+        self._root.children.clear()
+        self._by_block.clear()
+        self._evict_heap.clear()
+        self._n_nodes = 0
+        return n
+
     def evict(self, want: int) -> int:
         """Free up to ``want`` blocks, least-recently-used leaves first
         (a freed leaf may expose its parent as the next candidate).
@@ -270,7 +336,12 @@ class RadixPrefixCache:
         here — so a call under steady KV pressure is O(want log nodes)
         plus lazy-deletion skips, never a tree walk (this runs on every
         block allocation once the pool is warm).  The victims' blocks are
-        freed in one allocator call."""
+        freed in one allocator call.
+
+        With a host tier attached, every victim of this call is handed to
+        ``spool_fn`` as one list, so one ``gather_blocks`` call and one
+        synchronization move the whole batch to host memory, before the
+        device blocks are freed."""
         freed = 0
         heap = self._evict_heap
         victims: List[_Node] = []
@@ -287,7 +358,8 @@ class RadixPrefixCache:
                 heapq.heappush(heap, (victim.stamp, id(victim), victim))
                 continue
             # detach from the tree now (victim.parent stays intact: the
-            # parent-exposure step below reads it)
+            # parent-exposure step below and the spool hook's token-path
+            # key read it)
             del victim.parent.children[victim.key]
             del self._by_block[victim.block]
             self.allocator.unwatch(victim.block)
@@ -302,5 +374,9 @@ class RadixPrefixCache:
                 parent.queued = True
                 heapq.heappush(heap, (parent.stamp, id(parent), parent))
         if victims:
+            if self.spool_fn is not None:
+                # demote the whole batch to the host tier before the
+                # device blocks are recycled
+                self.spool_fn(victims)
             self.allocator.free([v.block for v in victims])
         return freed

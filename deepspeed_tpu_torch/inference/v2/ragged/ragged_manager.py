@@ -13,18 +13,26 @@ their longest cached token prefix (:meth:`attach_prefix`), full blocks are
 registered back into the tree as prefill/decode advances
 (:meth:`register_prefix`), and allocation evicts cold cache entries under
 KV pressure — ``free_blocks`` counts evictable warm blocks as free, so the
-scheduler's admission view stays truthful.  The JAX package's host cold
-tier is not ported yet (its config key raises).
+scheduler's admission view stays truthful.
+
+With ``kv_cache.host_tier`` the prefix cache's LRU eviction spools cold
+blocks to a :class:`HostKVTier` in host memory, and ``attach_prefix``
+restores them (see ``_spool_nodes`` / ``_restore_blocks``).
 """
 
 from __future__ import annotations
 
+import logging
+import time
 from typing import Dict, Iterable, List, Optional, Sequence
+
+import torch
 
 from deepspeed_tpu_torch.inference.v2.config_v2 import (DSStateManagerConfig,
                                                         KVCacheConfig)
 from deepspeed_tpu_torch.inference.v2.ragged.blocked_allocator import (
     BlockedAllocator)
+from deepspeed_tpu_torch.inference.v2.ragged.host_tier import HostKVTier
 from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import BlockedKVCache
 from deepspeed_tpu_torch.inference.v2.ragged.prefix_cache import (
     RadixPrefixCache)
@@ -63,6 +71,26 @@ class DSStateManager:
         self.prefix_cache: Optional[RadixPrefixCache] = (
             RadixPrefixCache(self.allocator, self.block_size)
             if kv_config.enable_prefix_cache else None)
+        self.host_tier: Optional[HostKVTier] = None
+        if kv_config.host_tier:
+            if self.prefix_cache is None:
+                raise ValueError(
+                    "kv_cache.host_tier requires enable_prefix_cache — "
+                    "cold blocks spool from the radix tree's LRU "
+                    "eviction path")
+            tier_bytes = kv_config.host_tier_bytes
+            if tier_bytes is None:
+                from deepspeed_tpu_torch.utils.logging import log_dist
+
+                log_dist(
+                    "kv_cache.host_tier with host_tier_bytes unset: "
+                    "every LRU-evicted block spools to host memory and "
+                    "stays until resumed — a long-running server with "
+                    "non-repeating prompts grows host RSS without bound; "
+                    "set kv_cache.host_tier_bytes to cap it",
+                    level=logging.WARNING)
+            self.host_tier = HostKVTier(max_bytes=tier_bytes)
+            self.prefix_cache.spool_fn = self._spool_nodes
         self._seqs: Dict[int, DSSequenceDescriptor] = {}
 
     # ------------------------------------------------------------------ #
@@ -150,15 +178,25 @@ class DSStateManager:
         cache.stats.lookups += 1
         blocks = cache.match_blocks(tokens)
         usable = len(tokens) - 1
-        # Acquire the match BEFORE anything below can allocate (the cow
-        # fork): the matched blocks are tree-held at refcount 1, and an
-        # allocation under pressure evicts exactly such blocks.
+        # Acquire the match BEFORE anything below can allocate (tier
+        # restores, the cow fork): the matched blocks are tree-held at
+        # refcount 1, and an allocation under pressure evicts exactly such
+        # blocks — unprotected, a restore could recycle a block that is
+        # already in this match list.
         self.allocator.acquire(blocks)
+        if self.host_tier is not None:
+            # extend the in-device match through the host cold tier: the
+            # hits are restored (payload and scales, bit-exact) into fresh
+            # device blocks that re-enter the tree, already holding the
+            # sequence's reference
+            blocks = blocks + self._restore_blocks(tokens, len(blocks),
+                                                   usable)
         bs = self.block_size
         cached = min(len(blocks) * bs, usable)
         n_keep = -(-cached // bs)
-        # match_blocks covers only full blocks of `tokens`, so the match
-        # can never exceed n_keep — every acquired reference is kept
+        # match_blocks covers only full blocks of `tokens` and restores
+        # stop at ceil(usable/bs), so the match can never exceed n_keep —
+        # every acquired reference is kept
         if len(blocks) > n_keep:
             raise RuntimeError(
                 f"prefix match of {len(blocks)} blocks exceeds the "
@@ -226,3 +264,89 @@ class DSStateManager:
         if self.prefix_cache is None or seq.register_stopped:
             return
         seq.tokens.extend(int(t) for t in tokens)
+
+    # ------------------------------------------------------------------ #
+    # Host cold tier (kv_cache.host_tier): spool on LRU evict, restore on
+    # attach.  free_blocks stays truthful — tier entries are not device
+    # capacity; a restore consumes real free blocks through _allocate.
+    # ------------------------------------------------------------------ #
+    def _sync(self) -> None:
+        if self.kv_cache.device.type == "cuda":
+            torch.cuda.synchronize(self.kv_cache.device)
+
+    def _spool_nodes(self, nodes) -> None:
+        """Prefix-cache eviction hook: demote the whole victim batch to
+        host memory — one ``gather_blocks`` call and one synchronization
+        for every victim block — as one block record each, keyed by the
+        token prefix the block completes.  Each record is a buffer of its
+        own, not a view of a shared gather buffer, so the tier's byte
+        budget releases memory as it drops entries.  Runs on the
+        allocation path under KV pressure, never on a pressure-free
+        decode tick."""
+        cache = self.prefix_cache
+        tier = self.host_tier
+        # keys read the parent chains first — evict() guarantees they are
+        # intact when it calls the hook
+        keys = [cache.node_tokens(n) for n in nodes]
+        t0 = time.perf_counter()
+        records = self.kv_cache.gather_blocks([n.block for n in nodes],
+                                              per_block=True)
+        tier.stats.spool_s.append(time.perf_counter() - t0)
+        tier.stats.spool_blocks_per_call.append(len(nodes))
+        for key, record in zip(keys, records):
+            tier.put(key, record)
+
+    def _restore_blocks(self, tokens: Sequence[int], depth: int,
+                        usable: int) -> List[int]:
+        """Pull spooled continuation blocks of ``tokens`` (tree depth
+        ``depth`` onward) back to the device while they cover usable
+        prompt positions.  The whole contiguous run of tier hits restores
+        in one ``scatter_blocks`` call and one synchronization: the hits
+        are popped first, their device blocks allocated in one
+        :meth:`_allocate` call (which may itself evict and spool colder
+        blocks, batched too), the block records scattered together in one
+        host-to-device transfer, then each block re-enters the radix tree
+        holding the fresh refcount-1 reference as the tree's own, with the
+        attaching sequence's reference acquired on top.  Nothing allocates
+        between the scatter and those acquires, so no eviction can recycle
+        a block this match is about to use.  Hits the device cannot admit go back
+        to the tier (never recounted as spools)."""
+        tier = self.host_tier
+        cache = self.prefix_cache
+        bs = self.block_size
+        keys: List[tuple] = []
+        payloads: List[dict] = []
+        i = depth
+        while i * bs < usable:
+            key = tuple(int(t) for t in tokens[:(i + 1) * bs])
+            payload = tier.get(key)
+            if payload is None:
+                break
+            keys.append(key)
+            payloads.append(payload)
+            i += 1
+        if not keys:
+            return []
+        # allocate for as many hits as the device admits (deepest-first
+        # surrender keeps the restored span a contiguous prefix)
+        blks: List[int] = []
+        while keys:
+            try:
+                blks = self._allocate(len(keys))
+                break
+            except RuntimeError:
+                tier.put(keys.pop(), payloads.pop(), count_spool=False)
+        if not blks:
+            return []
+        t0 = time.perf_counter()
+        self.kv_cache.scatter_blocks(blks, payloads)
+        # the copies are asynchronous: synchronize so the restore latency
+        # measures the transfer, not the launch
+        self._sync()
+        tier.stats.restore_s.append(time.perf_counter() - t0)
+        tier.stats.restore_blocks_per_call.append(len(blks))
+        tier.stats.restored_blocks += len(blks)
+        for key, blk in zip(keys, blks):
+            cache.insert_restored(key, blk)
+            self.allocator.acquire([blk])
+        return blks

@@ -22,9 +22,9 @@ import torch
 def kv_occupancy(state_manager) -> Dict[str, float]:
     """KV-pool occupancy from allocator/refcount bookkeeping: blocks
     total/free/live, warm (radix-tree-held) and evictable counts, live
-    token occupancy, and the derived byte gauges.  Reads NO device
-    state.  (The JAX package adds the host cold tier's gauges here; that
-    tier is ROADMAP A5b.)"""
+    token occupancy, and the derived byte gauges, plus the host cold
+    tier's gauges when ``kv_cache.host_tier`` is on.  Reads NO device
+    state."""
     alloc = state_manager.allocator
     kv = state_manager.kv_cache
     total = alloc.num_blocks - 1                     # trash block reserved
@@ -52,6 +52,30 @@ def kv_occupancy(state_manager) -> Dict[str, float]:
         "observability/kv_sequences_live": float(
             state_manager.n_tracked_sequences),
     }
+    tier = getattr(state_manager, "host_tier", None)
+    if tier is not None:
+        st = tier.stats
+        out.update({
+            # device-resident and host-restorable capacity, gauged apart:
+            # tier entries never inflate kv_blocks_free — a restore
+            # consumes real free blocks
+            "observability/kv_host_tier_bytes": float(tier.bytes),
+            "observability/kv_host_tier_blocks": float(len(tier)),
+            "observability/kv_spooled_blocks": float(st.spooled_blocks),
+            "observability/kv_restored_blocks": float(st.restored_blocks),
+            "observability/kv_tier_dropped_blocks": float(
+                st.dropped_blocks),
+            "observability/kv_spool_p50_s": st.spool_pct(50),
+            "observability/kv_spool_p95_s": st.spool_pct(95),
+            "observability/kv_restore_p50_s": st.restore_pct(50),
+            "observability/kv_restore_p95_s": st.restore_pct(95),
+            # batched tier traffic: blocks moved per gather / scatter call
+            # (a p50 of ~1 means the batching never engages)
+            "observability/kv_spool_blocks_per_call_p50":
+                st.spool_blocks_pct(50),
+            "observability/kv_restore_blocks_per_call_p50":
+                st.restore_blocks_pct(50),
+        })
     return out
 
 

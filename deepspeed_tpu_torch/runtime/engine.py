@@ -22,6 +22,10 @@ State (the JAX engine's state tree, held here as tensors and host numbers):
   On overflow the masters and optimizer state are kept; ``global_steps``
   always advances, ``opt_step`` only without overflow.
 
+``save_checkpoint`` / ``load_checkpoint`` write and read the JAX engine's
+checkpoint directories (``checkpoint/engine.py``): the same files, names
+and Flax layouts, so either engine resumes from the other's checkpoint.
+
 What is not ported: the JAX engine runs a gas=1 micro step and its update
 as one XLA program with donated buffers; here they are separate PyTorch
 calls that compute the same state.  The overflow test reads one flag to
@@ -308,6 +312,14 @@ class DeepSpeedEngine:
             losses.append(loss.detach())
         return torch.stack(losses).mean()
 
+    def train_micro_batch(self, *args):
+        """Forward, backward and step over one micro-batch (the step
+        applies at a gradient-accumulation boundary); returns the loss."""
+        loss = self.forward(*args)
+        self.backward(loss)
+        self.step()
+        return loss
+
     def train(self, mode: bool = True):
         self.training = mode
         self.module.train(mode)
@@ -337,3 +349,63 @@ class DeepSpeedEngine:
     def module_state_dict(self) -> Dict[str, torch.Tensor]:
         """The fp32 master weights by parameter name."""
         return dict(zip(self._names, self.master))
+
+    # ------------------------------------------------------------------ #
+    # Checkpointing (reference engine.save_checkpoint:3021 /
+    # load_checkpoint:2672)
+    # ------------------------------------------------------------------ #
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[dict] = None,
+                        save_latest: bool = True):
+        """Write the engine's state under ``save_dir/tag`` (default tag
+        ``global_step{N}``) with ``client_state`` plus the engine's step
+        counters and LR schedule, and publish it as ``latest``."""
+        from deepspeed_tpu_torch.checkpoint.engine import save_engine_state
+
+        if not self._seen_backward:
+            raise RuntimeError(
+                "save_checkpoint called between forward() and backward(): "
+                "finish the micro-step first")
+        tag = tag or f"global_step{self.global_steps}"
+        client_state = dict(client_state or {})
+        client_state.update({
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "micro_steps": self.micro_steps,
+            "skipped_steps": self.skipped_steps,
+        })
+        if self.lr_scheduler is not None:
+            client_state["lr_scheduler"] = self.lr_scheduler.state_dict()
+        save_engine_state(self, save_dir, tag, client_state,
+                          save_latest=save_latest)
+        return True
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_module_strict: bool = True,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True,
+                        load_module_only: bool = False,
+                        verify: str = "full", fallback: bool = True,
+                        metrics=None):
+        """Load ``load_dir/tag`` (default: ``latest``, falling back to the
+        newest verified tag) into this engine's tensors on its device;
+        returns ``(path, client_state)`` or ``(None, {})``."""
+        from deepspeed_tpu_torch.checkpoint.engine import load_engine_state
+
+        path, client_state = load_engine_state(
+            self, load_dir, tag,
+            load_optimizer_states=load_optimizer_states
+            and not load_module_only,
+            verify=verify, fallback=fallback, metrics=metrics)
+        if path is None:
+            return None, {}
+        if client_state:
+            self.global_steps = int(client_state.get("global_steps", 0))
+            self.global_samples = int(client_state.get("global_samples", 0))
+            self.micro_steps = int(client_state.get("micro_steps", 0))
+            self.skipped_steps = int(client_state.get("skipped_steps", 0))
+            if (load_lr_scheduler_states and self.lr_scheduler is not None
+                    and "lr_scheduler" in client_state):
+                self.lr_scheduler.load_state_dict(
+                    client_state["lr_scheduler"])
+        return path, client_state

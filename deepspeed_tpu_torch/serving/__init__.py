@@ -1,7 +1,8 @@
 """Continuous-batching serving layer (counterpart of
 ``deepspeed_tpu/serving/``; reference: the DeepSpeed-MII request loop above
 FastGen — iteration-level Orca-style scheduling with Dynamic SplitFuse
-packing).  The multi-replica router (``serving/router.py``) is ROADMAP A5b.
+packing), and the cache-aware router over several replicas
+(``CacheAwareRouter``).
 
 Typical use::
 
@@ -21,6 +22,11 @@ from deepspeed_tpu_torch.inference.v2.speculative import (
     NgramDrafter, PrefixCacheDrafter, SmallModelDrafter, SpeculativeConfig,
     SpeculativeStats, make_self_drafter)
 from deepspeed_tpu_torch.serving.metrics import ServingMetrics
+from deepspeed_tpu_torch.serving.router import (AdmissionRejectedError,
+                                                CacheAwareRouter,
+                                                PriorityClass,
+                                                QuotaExceededError, Replica,
+                                                TenantQuota)
 from deepspeed_tpu_torch.serving.request import (Request, RequestSnapshot,
                                                  RequestState,
                                                  SamplingParams)
@@ -29,8 +35,11 @@ from deepspeed_tpu_torch.serving.scheduler import (ContinuousBatchScheduler,
                                                    QueueFullError,
                                                    TickDeadlineError)
 
-__all__ = ["ContinuousBatchScheduler", "NgramDrafter", "PrefixCacheDrafter",
-           "QueueFullError", "Request", "RequestSnapshot", "RequestState",
+__all__ = ["AdmissionRejectedError", "CacheAwareRouter",
+           "ContinuousBatchScheduler", "NgramDrafter", "PrefixCacheDrafter",
+           "PriorityClass", "QueueFullError", "QuotaExceededError",
+           "Replica", "Request", "RequestSnapshot", "RequestState",
            "SamplingParams", "ServingMetrics", "SmallModelDrafter",
-           "SpeculativeConfig", "SpeculativeStats", "TickDeadlineError",
-           "make_self_drafter", "sample_batch", "sample_one"]
+           "SpeculativeConfig", "SpeculativeStats", "TenantQuota",
+           "TickDeadlineError", "make_self_drafter", "sample_batch",
+           "sample_one"]

@@ -147,12 +147,12 @@ def test_unported_entry_points_raise():
     """What is still to port raises; speculative verify and the KV handoff
     (ported since) are covered in test_torch_speculative.py and
     test_torch_kv_quant.py, ``from_hf`` in test_torch_hf_loader.py (its
-    tensor-parallel landing is still to port)."""
+    tensor-parallel landing is still to port), ``serialize`` in
+    test_torch_checkpoint.py."""
     teng, _ = _engines(jax_side=False)
     teng.put([0], [[1, 2, 3]])
     teng.flush_to_host([0])
-    for call in (lambda: teng.serialize("unused"),
-                 lambda: TEngine.from_hf("unused", mesh=object()),
+    for call in (lambda: TEngine.from_hf("unused", mesh=object()),
                  teng.capture_memory_ledger):
         with pytest.raises(NotImplementedError):
             call()

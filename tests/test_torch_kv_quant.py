@@ -13,8 +13,9 @@
   sequences sharing prefix blocks; the disaggregated handoff
   (``flush_to_host(include_kv=True)`` → ``resume(kv_state=...)``) bitwise
   equal to the colocated run and within 2e-5 of the JAX engine's;
-* the int8 guards: a model without ``supports_quantized_kv`` is refused,
-  the host cold tier still raises naming its ROADMAP item.
+* the int8 guards: a model without ``supports_quantized_kv`` is refused
+  (the host cold tier, ported since, is held to JAX in
+  ``test_torch_host_tier.py``).
 """
 
 import jax
@@ -309,6 +310,3 @@ def test_int8_guards(jparams):
     assert KVCacheConfig.from_dict({"dtype": "int8"}).dtype == "int8"
     with pytest.raises(ValueError, match="not understood"):
         KVCacheConfig.from_dict({"dtype": "fp7"})
-    with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
-        KVCacheConfig.from_dict({"dtype": "int8", "host_tier": True,
-                                 "enable_prefix_cache": True})

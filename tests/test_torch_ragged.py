@@ -121,9 +121,6 @@ def test_state_manager_and_kv_cache():
 
 
 @pytest.mark.parametrize("cfg", [
-    {"kv_cache": {"dtype": "int8", "enable_prefix_cache": True,
-                  "host_tier": True}},
-    {"kv_cache": {"enable_prefix_cache": True, "host_tier": True}},
     {"tensor_parallel": {"tp_size": 2}},
 ])
 def test_unported_options_raise(cfg):
