@@ -292,7 +292,32 @@ Phases, each fatal on failure:
    corrupted tag falling back to the newest verified one; and a 2-layer
    7B-width int8 serving engine through ``serialize`` ->
    ``load_serialized`` with bit-equal next-token logits.  Each of these
-   phases prints its own launch counts by kernel.
+   phases prints its own launch counts by kernel;
+28. resilience: the bench Llama at 2 layers (``deepspeed_tpu_torch/tools/
+   chaos_smoke.py``'s card model), 12 steps, a save every 4, against an
+   in-process straight run (and a straight run in a worker process, which
+   says whether two processes give the same bits): (a) a worker killed by
+   ``DS_CHAOS=crash_after_shard_write:after=1,exit_code=43`` in the middle
+   of its second save leaves ``latest`` at a verified ``global_step4`` and
+   ``global_step8.tmp`` uncommitted, and a loop in this process resumes to
+   step 12; (b) a ``step_fn`` reporting NaN at step 6 after the real step
+   rolls the loop back to ``global_step4`` and skips step 6, against a
+   straight run without batch 6 (``rollbacks == 1``, ``skips == 1``); (c)
+   a ``JobSupervisor`` worker SIGKILLed once ``latest`` names
+   ``global_step4`` restarts exactly once and resumes; (d) a supervised
+   worker under ``DS_CHAOS=heartbeat_stall`` is flagged within 2x the
+   heartbeat interval, a stack dump naming the loop is captured before
+   the kill, and the worker restarts and resumes; (e) ``python -m
+   deepspeed_tpu_torch.launcher.runner --launcher local --num_gpus 1
+   --elastic_training --max_restarts 1`` relaunches a worker that kills
+   itself once after ``global_step4`` (one restart, world 1 -> 1,
+   ``RANK`` / ``LOCAL_RANK`` / ``WORLD_SIZE`` read by the worker).  Final
+   masters, Adam moments and post-resume losses bit-equal to the
+   reference (where two processes are; else to the worker's straight
+   run); no worker left running or on the card after a variant; a
+   relaunched worker finds the card's memory back; each worker's flash
+   launches exact on its ``LAUNCHES`` line; and the sentinel's cost: 12
+   warm steps with and without the loop's ``float(loss)``, traced.
 
 The second-to-last lines are the ``kernels`` JSON record and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -5000,6 +5025,327 @@ def checkpoint_failures(run) -> list:
     return bad
 
 
+def _tool(name):
+    """A module of ``deepspeed_tpu_torch/tools`` (scripts, not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"port_{name}", ROOT / "deepspeed_tpu_torch" / "tools" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module       # dataclasses look it up there
+    spec.loader.exec_module(module)
+    return module
+
+
+def gpu_pids() -> list:
+    """Processes holding a CUDA context on the card, as ``nvidia-smi``
+    lists them (its pid namespace may differ from this one's)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def pids_left(pids) -> dict:
+    """Which of ``pids`` still run, and which ``nvidia-smi`` still lists."""
+    import os
+
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    return {"alive": alive, "on_card": sorted(set(pids) & set(gpu_pids()))}
+
+
+#: after a wave of workers, the card's free memory must be back within
+#: this much of what it was before the wave
+MEM_BACK_SLACK = 512 << 20
+
+
+def resilience_run(torch, np, dev):
+    """Phase 28: the resilient loop, the supervisor and the launcher on the
+    bench Llama at 2 layers (``deepspeed_tpu_torch/tools/chaos_smoke.py``'s
+    card model), 12 steps, a save every 4.  An in-process straight run is
+    the reference; a straight run in a worker process says whether two
+    processes give the same bits (the workers are then held to the
+    reference, else to the worker's run).  (a) chaos: a worker dies (exit
+    43) in the middle of its second save, the parent resumes; (b) the
+    sentinel: NaN reported at step 6 after the real step, a rollback to
+    global_step4, step 6 skipped, against a straight run without batch 6;
+    (c) a supervised worker SIGKILLed once ``latest`` names global_step4;
+    (d) a supervised worker whose heartbeat stalls at its first save; (e)
+    ``python -m deepspeed_tpu_torch.launcher.runner --elastic_training``
+    over a worker that SIGKILLs itself once after global_step4.  First the
+    sentinel's cost on a quiet card: 12 warm steps with and without the
+    loop, traced.  Then two waves: the straight worker, (a)'s worker and
+    (b); then (c), (d) and (e) side by side.  Before and after each wave
+    this process reads the card's free memory, which must come back once
+    the wave's workers (killed ones too) are gone; each worker records what
+    it found at its start as well."""
+    import gc
+    import os
+    import shutil
+    import threading
+
+    from deepspeed_tpu_torch.resilience import ResilientTrainLoop
+
+    cs, ss = _tool("chaos_smoke"), _tool("supervisor_smoke")
+    timing = ss.CARD_TIMING
+    kind = dev.type             # the workers' --device
+    layers = cs.CARD_MODEL["num_hidden_layers"]
+    root = ROOT / "build" / "chip_smoke_resilience"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"steps": cs.TOTAL_STEPS, "save_interval": cs.SAVE_INTERVAL,
+           "layers": layers, "timing": dataclasses.asdict(timing),
+           "failures": []}
+    t_phase = time.perf_counter()
+
+    def free_memory():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        return torch.cuda.mem_get_info(dev)[0]
+
+    def fails(label, fn):
+        """Run a variant; a bar it misses, or an error, becomes a
+        failure of the phase."""
+        t0 = time.perf_counter()
+        try:
+            res = fn()
+        except Exception as e:  # noqa: BLE001 — reported, phase fails
+            out["failures"].append(f"{label}: {type(e).__name__}: "
+                                   f"{str(e)[:1500]}")
+            res = {}
+        res["wall_s"] = time.perf_counter() - t0
+        out[label] = res
+        return res
+
+    def stats(workdir, pids):
+        """Worker pids left behind, what each incarnation found on the
+        card, its startup timeline, the finishing worker's LAUNCHES line."""
+        incs = ss.read_incarnations(workdir)
+        pids = sorted(set(pids) | {i["pid"] for i in incs})
+        return {"left": pids_left(pids),
+                "mem_free_gb": [i.get("mem_free", 0) / 2**30 for i in incs],
+                "startup_s": [{k: i[k] - i["t_module"] for k in
+                               ("t_start", "t_device", "t_engine", "t_loop")}
+                              for i in incs],
+                "libs_prebuilt": all(i.get("libs_prebuilt", True)
+                                     for i in incs),
+                "last_log_line": ss.last_log_line(workdir)}
+
+    # the sentinel's cost on a quiet card: 12 warm steps bare and through
+    # the loop (its float(loss) each step), no saves; then each traced
+    engine = cs.make_engine(dev)
+    for s in range(3):
+        engine.train_micro_batch(*cs.batch_fn(s, dev))
+    torch.cuda.synchronize()
+
+    def bare():
+        for s in range(cs.TOTAL_STEPS):
+            engine.train_micro_batch(*cs.batch_fn(s, dev))
+
+    def looped():
+        ResilientTrainLoop(engine, lambda s: cs.batch_fn(s, dev),
+                           str(root / "sync"), save_interval=10**6,
+                           ).run(cs.TOTAL_STEPS, auto_resume=False)
+
+    walls = {"bare": [], "loop": []}
+    for _ in range(3):
+        for name, fn in (("bare", bare), ("loop", looped)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    out["sentinel_sync"] = {
+        "wall_s": walls,
+        "trace_bare": profile_window(torch, bare, cs.TOTAL_STEPS),
+        "trace_loop": profile_window(torch, looped, cs.TOTAL_STEPS)}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the in-process reference
+    t0 = time.perf_counter()
+    reference = cs.straight_run(dev)
+    out["reference_s"] = time.perf_counter() - t0
+    ref_losses = dict(reference[1])
+
+    # wave 1: a straight run in a worker and (a)'s worker, with (b) in this
+    # process meanwhile
+    t_wave = time.perf_counter()
+    out["free_gb"] = {"before_wave1": free_memory() / 2**30}
+    straight_dir = str(root / "straight")
+    straight = subprocess.Popen(ss.worker_cmd(straight_dir, kind))
+    crash_dir = str(root / "a")
+    crash_child = cs.start_crash_child(crash_dir, kind)
+
+    def sentinel():
+        skip_state, skip_losses = cs.straight_run(
+            dev, steps=[s for s in range(cs.TOTAL_STEPS) if s != 6])
+        engine = cs.make_engine(dev)
+        log = cs.LossLog()
+
+        def nan_at_6(eng, batch):
+            loss = log(eng, batch)
+            if loop.step == 6 and not loop._skipped:
+                return float("nan")
+            return loss
+
+        loop = ResilientTrainLoop(
+            engine, lambda step: cs.batch_fn(step, dev), str(root / "b"),
+            save_interval=cs.SAVE_INTERVAL, keep_last=2, step_fn=nan_at_6)
+        log.loop = loop
+        assert loop.run(cs.TOTAL_STEPS) == cs.TOTAL_STEPS
+        m = loop.metrics
+        assert (m.rollbacks, m.skipped_steps, m.resumes) == (1, 1, 0), \
+            m.snapshot()
+        assert sorted(loop._skipped) == [6], loop._skipped
+        bad = cs.state_mismatches(skip_state, cs.engine_state(engine))
+        assert not bad, f"{bad[:8]} differ from the run without batch 6"
+        want = dict(skip_losses)
+        replay = log.losses[7:]           # after steps 0-6
+        assert [s for s, _ in replay] == [4, 5, 7, 8, 9, 10, 11], replay
+        assert all(loss == want[s] for s, loss in log.losses if s != 6), \
+            (log.losses, skip_losses)
+        return {"rollbacks": m.rollbacks, "skips": m.skipped_steps,
+                "saves": m.saves, "mean_save_s": m.mean_save_latency_s(),
+                "replayed_steps": [s for s, _ in replay]}
+
+    fails("sentinel", sentinel)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rc = straight.wait(timeout=600)
+    cross = {"rc": rc, "bit_equal": False}
+    worker_ref = reference
+    if rc == 0:
+        s_result, s_state = ss.read_result(straight_dir)
+        cross.update(state_mismatches=cs.state_mismatches(
+            reference[0], s_state)[:8], loss_max_diff=max(
+            abs(a - ref_losses[s]) for s, a in s_result["losses"]))
+        cross["bit_equal"] = not cross["state_mismatches"] \
+            and s_result["losses"] == reference[1]
+        # the workers' reference: the in-process run where two processes
+        # agree bit for bit, else a worker's own straight run
+        if not cross["bit_equal"]:
+            worker_ref = (s_state, s_result["losses"])
+    out["cross_process"] = cross
+    # (a) chaos: exit 43 in the middle of the second save; the parent
+    # resumes (in process: held to the in-process reference)
+    fails("chaos", lambda: cs.resume_after_crash(crash_dir, dev, reference,
+                                                 crash_child))
+    out["wave1_s"] = time.perf_counter() - t_wave
+    out["free_gb"]["after_wave1"] = free_memory() / 2**30
+
+    # wave 2: (c), (d) and (e) side by side
+    def crash():
+        res = ss.run_crash_variant(str(root), kind, timing, worker_ref)
+        sup = res.pop("supervisor")
+        assert sup.metrics.restart_crash == 1 and sup.metrics.resumes == 0
+        res.update(stats(res["workdir"], sum(res["pids"], [])))
+        return res
+
+    def hang():
+        res = ss.run_hang_variant(str(root), kind, timing, worker_ref)
+        res.pop("supervisor")
+        res.update(stats(res["workdir"], sum(res["pids"], [])))
+        return res
+
+    def launcher():
+        workdir = str(root / "e")
+        cmd = [sys.executable, "-u", "-m",
+               "deepspeed_tpu_torch.launcher.runner", "--launcher", "local",
+               "--num_gpus", "1", "--elastic_training", "--max_restarts",
+               "1", "--restart_backoff_s", "0.1",
+               str(ROOT / "deepspeed_tpu_torch" / "tools" /
+                   "supervisor_smoke.py"),
+               "--worker", workdir, str(cs.TOTAL_STEPS), "--device", kind,
+               "--die_after_tag", f"global_step{cs.SAVE_INTERVAL}",
+               "--marker", str(root / "e.marker")]
+        log_path = root / "e_runner.log"
+        t_run = time.time()
+        with open(log_path, "w") as f:
+            rc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=ROOT, timeout=600).returncode
+        text = log_path.read_text()
+        restarts = re.findall(r"worker group failed rc=(-?\d+); restart "
+                              r"(\d+)", text)
+        launches = re.findall(r"launch rank (\d+)/(\d+) \(local (\d+)\)",
+                              text)
+        assert rc == 0, f"runner exit {rc}: {text[-3000:]}"
+        assert len(restarts) == 1, restarts
+        assert launches == [("0", "1", "0")] * 2, launches
+        result, state = ss.read_result(workdir)
+        assert result["ranks"] == {"RANK": "0", "LOCAL_RANK": "0",
+                                   "WORLD_SIZE": "1"}, result["ranks"]
+        ss.check_resumed(result, state, worker_ref, "launcher")
+        res = {"restarts": len(restarts), "failed_rc": int(restarts[0][0]),
+               "world": [f"{n}/{w}" for _, w, n in launches],
+               "resume_step": result["start_step"],
+               "kill_to_first_resumed_step_s": result["first_step_wall"]
+               - os.path.getmtime(root / "e.marker"),
+               "runner_start_to_first_beat_s": [
+                   i["t_loop"] - t_run for i in ss.read_incarnations(
+                       workdir)],
+               "launches": result["launches"], "load_s": result["load_s"]}
+        res.update(stats(workdir, []))
+        return res
+
+    t_wave = time.perf_counter()
+    threads = [threading.Thread(target=fails, args=(label, fn))
+               for label, fn in (("supervisor_crash", crash),
+                                 ("supervisor_hang", hang),
+                                 ("launcher", launcher))]
+    for t in threads:
+        t.start()
+    threads[0].join(timeout=20)
+    # what nvidia-smi lists while the wave's workers run
+    out["smi_pids_during_wave2"] = gpu_pids()
+    for t in threads:
+        t.join()
+    out["wave2_s"] = time.perf_counter() - t_wave
+    out["free_gb"]["after_wave2"] = free_memory() / 2**30
+    out["phase_s"] = time.perf_counter() - t_phase
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def resilience_failures(run) -> list:
+    """The bars of phase 28 that ``run`` misses (empty when it passes)."""
+    bad = list(run["failures"])
+    layers = run["layers"]
+    for label in ("supervisor_crash", "supervisor_hang", "launcher"):
+        r = run.get(label) or {}
+        if not r:
+            continue
+        if r["left"]["alive"] or r["left"]["on_card"]:
+            bad.append(f"{label}: worker processes left {r['left']}")
+        if not r["libs_prebuilt"]:
+            bad.append(f"{label}: a worker found a kernel library unbuilt")
+        trained = run["steps"] - r["resume_step"]
+        want = {k: layers * trained for k in TRAINING}
+        if r["launches"] != want or not r["last_log_line"].startswith(
+                "LAUNCHES"):
+            bad.append(f"{label}: flash launches {r['launches']} (want "
+                       f"{want}), last log line {r['last_log_line']!r}")
+    if not run["cross_process"]["rc"] == 0:
+        bad.append(f"the straight worker: {run['cross_process']}")
+    free = run["free_gb"]
+    for wave in ("wave1", "wave2"):
+        before = free["before_wave1" if wave == "wave1" else "after_wave1"]
+        if free.get(f"after_{wave}", 0) < before - MEM_BACK_SLACK / 2**30:
+            bad.append(f"{wave}: the card's free memory did not come back: "
+                       f"{free}")
+    return bad
+
+
 # --------------------------------------------------------------------- #
 def main() -> int:
     if not (ROOT / "deepspeed_tpu_torch" / "csrc").is_dir():
@@ -5629,6 +5975,37 @@ def main() -> int:
     if bad:
         return fail(f"phase 27: {bad}")
 
+    # 28. the resilient loop, the supervisor and the launcher
+    resil = resilience_run(torch, np, dev)
+    print(f"[resilience] {json.dumps(resil)}", flush=True)
+    sync = resil["sentinel_sync"]
+    print(f"[resilience] straight runs in two processes bit-equal "
+          f"{resil['cross_process']['bit_equal']}; 12 steps bare "
+          f"{min(sync['wall_s']['bare']):.4f} s, through the loop "
+          f"{min(sync['wall_s']['loop']):.4f} s (best of 3), device idle "
+          + "; ".join(f"{k} {v['device_idle_share']:.3f}" for k, v in
+                      (("bare", sync["trace_bare"]),
+                       ("loop", sync["trace_loop"])) if v)
+          + f"; phase {resil['phase_s']:.1f} s (wave 1 "
+          f"{resil['wave1_s']:.1f} s, wave 2 {resil['wave2_s']:.1f} s); "
+          f"free GB {json.dumps(resil['free_gb'])}; nvidia-smi pids while "
+          f"workers ran {resil['smi_pids_during_wave2']}; {smi}", flush=True)
+    for label in ("chaos", "sentinel", "supervisor_crash",
+                  "supervisor_hang", "launcher"):
+        r = resil.get(label) or {}
+        keys = ("resumed_from", "resume_step", "restarts", "rollbacks",
+                "skips", "mean_save_s", "load_s", "crash_detect_latency_s",
+                "kill_to_first_resumed_step_s", "hang_detect_age_s",
+                "hang_to_first_resumed_step_s", "longest_beat_gap_s",
+                "first_beat_s", "dump_chars", "world", "launches",
+                "last_log_line", "mem_free_gb", "left", "startup_s",
+                "runner_start_to_first_beat_s", "wall_s")
+        print(f"[resilience {label}] "
+              + json.dumps({k: r[k] for k in keys if k in r}), flush=True)
+    bad = resilience_failures(resil)
+    if bad:
+        return fail(f"phase 28: {bad}")
+
     src = "deepspeed_tpu_torch/csrc/"
     ref = "deepspeed_tpu/"
     bf_py = ref + "inference/v2/kernels/blocked_flash.py:"
@@ -5773,7 +6150,7 @@ def main() -> int:
          "evoformer": evo_cases, "evoformer_planted": evo_planted,
          "block_sparse": bsa_cases, "block_sparse_planted": bsa_faults,
          "scheduler": sched_run, "router": routed, "host_tier": tier,
-         "checkpoint": ckpt},
+         "checkpoint": ckpt, "resilience": resil},
         indent=1))
     print(json.dumps(record))
     print(smi)

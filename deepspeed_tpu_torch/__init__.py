@@ -14,26 +14,42 @@ Llama and Mixtral) and single-device training (:func:`initialize` ->
 ``DeepSpeedEngine``) of Llama (``models.LlamaForCausalLM``), GPT-2
 (``models.GPT2LMHeadModel``) and MoE models
 (``models.MixtralForCausalLM``; ``moe.MoE``, capacity or dropless), under
-every ``attention_layout`` ("bshd", "folded", "paired").
+every ``attention_layout`` ("bshd", "folded", "paired"), with checkpoints,
+the resilient train loop and the job supervisor (``resilience``), the
+launcher (``launcher``) and the elastic batch algebra (``elasticity``).
 """
 
 from __future__ import annotations
 
+import importlib
 import os
 from typing import Any, Callable, Optional, Tuple
 
-from deepspeed_tpu_torch.accelerator import get_accelerator
-from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
-from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
-                                                    RepeatingLoader)
-from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
-from deepspeed_tpu_torch.utils.logging import log_dist, logger
-
-__version__ = "0.1.0"
+from deepspeed_tpu_torch.version import __version__  # noqa: F401
 
 __all__ = ["DeepSpeedConfig", "DeepSpeedDataLoader", "DeepSpeedEngine",
            "RepeatingLoader", "add_config_arguments", "get_accelerator",
            "init_distributed", "initialize", "log_dist", "logger"]
+
+#: names imported at first use, so that importing the package (as the
+#: launcher's processes do, which never touch a tensor) does not import
+#: torch
+_LAZY = {"get_accelerator": "deepspeed_tpu_torch.accelerator",
+         "DeepSpeedConfig": "deepspeed_tpu_torch.runtime.config",
+         "DeepSpeedDataLoader": "deepspeed_tpu_torch.runtime.dataloader",
+         "RepeatingLoader": "deepspeed_tpu_torch.runtime.dataloader",
+         "DeepSpeedEngine": "deepspeed_tpu_torch.runtime.engine",
+         "log_dist": "deepspeed_tpu_torch.utils.logging",
+         "logger": "deepspeed_tpu_torch.utils.logging"}
+
+
+def __getattr__(name: str):
+    if name not in _LAZY:
+        raise AttributeError(
+            f"module 'deepspeed_tpu_torch' has no attribute {name!r}")
+    value = getattr(importlib.import_module(_LAZY[name]), name)
+    globals()[name] = value
+    return value
 
 
 def _one_device_only(what: str):
@@ -87,6 +103,9 @@ def initialize(args=None,
         raise NotImplementedError(
             "initialize(loss_fn=...): the port's model forward returns the "
             "loss (ROADMAP A6)")
+    from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+
     init_distributed(dist_init_required=dist_init_required,
                      distributed_port=distributed_port)
     cfg = config if config is not None else config_params

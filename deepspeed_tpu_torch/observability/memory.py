@@ -16,8 +16,6 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-import torch
-
 
 def kv_occupancy(state_manager) -> Dict[str, float]:
     """KV-pool occupancy from allocator/refcount bookkeeping: blocks
@@ -82,6 +80,8 @@ def kv_occupancy(state_manager) -> Dict[str, float]:
 def tree_bytes(tree) -> float:
     """Bytes a tree (nested dicts / lists / tuples) of tensors occupies —
     metadata arithmetic only, no transfer."""
+    import torch          # a serving engine's tree: torch is loaded
+
     if isinstance(tree, torch.Tensor):
         return float(tree.numel() * tree.element_size())
     if isinstance(tree, dict):

@@ -10,7 +10,8 @@ and the chaos smoke tool arm faults to prove the crash-recovery invariants
 verified tag; silent corruption is detected at load) instead of asserting
 them.
 
-Checkpoint-path fault points (in the JAX package's ``checkpoint/engine.py``):
+Checkpoint-path fault points (in ``checkpoint/sharded.py`` and
+``resilience/manifest.py``):
 
 ``slow_io``
     before a shard file's bytes are written (default action: ``sleep``).
@@ -25,7 +26,7 @@ Checkpoint-path fault points (in the JAX package's ``checkpoint/engine.py``):
     ``latest`` pointer is republished (default: ``crash``).
 
 Supervision fault points (the failure modes
-the JAX package's ``JobSupervisor`` exists to
+:class:`~deepspeed_tpu_torch.resilience.supervisor.JobSupervisor` exists to
 survive; fired per step by :class:`ResilientTrainLoop`, per beat by
 :class:`~deepspeed_tpu_torch.resilience.heartbeat.Heartbeat`):
 

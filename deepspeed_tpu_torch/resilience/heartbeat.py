@@ -23,7 +23,7 @@ Wiring: the supervisor exports :data:`ENV_FILE` (path),
 :data:`ENV_INTERVAL` (expected beat cadence) and :data:`ENV_DUMP` (stack
 dump target) into each worker's environment;
 :meth:`Heartbeat.from_env` picks them up — both
-the JAX package's ``ResilientTrainLoop`` and the serving
+:class:`~deepspeed_tpu_torch.resilience.loop.ResilientTrainLoop` and the serving
 :class:`~deepspeed_tpu_torch.serving.scheduler.ContinuousBatchScheduler` call it
 and then beat automatically, so user code needs no changes to become
 supervisable.

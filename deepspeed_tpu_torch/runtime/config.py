@@ -4,11 +4,12 @@
 The same JSON keys are read.  What the port's engine runs: the batch trio,
 ``optimizer`` / ``scheduler``, ``fp16`` / ``bf16``, ZeRO stage 0 or 1 (one
 device: nothing to shard), ``gradient_clipping``, ``attention_layout``,
-``activation_checkpointing``, ``wall_clock_breakdown`` and
-``steps_per_print``.  A key that turns on a path the port has not ported
-raises ``NotImplementedError`` naming its ROADMAP item; a key with no
-meaning on one device (communication bucket sizes and the like) is
-ignored, as the JAX package ignores unknown keys.
+``activation_checkpointing``, ``wall_clock_breakdown``,
+``steps_per_print`` and ``elasticity`` (the batch trio it chooses).  A key
+that turns on a path the port has not ported raises
+``NotImplementedError`` naming its ROADMAP item; a key with no meaning on
+one device (communication bucket sizes and the like) is ignored, as the
+JAX package ignores unknown keys.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from deepspeed_tpu_torch.ops.attention import ATTENTION_LAYOUTS
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel
+from deepspeed_tpu_torch.utils.logging import logger
 
 
 @dataclasses.dataclass
@@ -103,7 +105,7 @@ _ZERO_UNPORTED = {
 
 # top-level blocks whose path is not ported, and the ROADMAP item of each
 _UNPORTED_BLOCKS = {
-    "pipeline": "A6", "elasticity": "A7", "hybrid_engine": "A9",
+    "pipeline": "A6", "hybrid_engine": "A9",
     "curriculum_learning": "A9", "data_efficiency": "A9",
     "progressive_layer_drop": "A9", "compression_training": "A9",
     "flops_profiler": "A11", "comms_logger": "A11", "tensorboard": "A11",
@@ -158,6 +160,7 @@ class DeepSpeedConfig:
                                               C.GRADIENT_CLIPPING_DEFAULT))
         self.wall_clock_breakdown = pd.get("wall_clock_breakdown", False)
         self.dataloader_drop_last = pd.get("dataloader_drop_last", False)
+        self.elasticity = pd.get("elasticity", {})
         self.attention_layout = pd.get("attention_layout", "bshd")
         self.attention_layout_explicit = "attention_layout" in pd
         if self.attention_layout not in ATTENTION_LAYOUTS:
@@ -201,9 +204,16 @@ class DeepSpeedConfig:
     def dynamic_loss_scale(self) -> bool:
         return self.fp16.enabled and self.fp16.loss_scale == 0
 
-    def resolve_batch_size(self, dp_world_size: int = 1) -> None:
+    def resolve_batch_size(self, dp_world_size: int = 1,
+                           world_size: int = 0) -> None:
         """Batch trio algebra: any two of {train_batch_size, micro_batch,
-        gas} determine the third.  The port runs at world size 1."""
+        gas} determine the third.  The port runs at world size 1.
+
+        An enabled ``elasticity`` block overrides the trio through
+        :func:`~deepspeed_tpu_torch.elasticity.compute_elastic_config`, as
+        the JAX package's ``resolve_batch_size`` does; ``world_size`` (the
+        total device count elasticity v0.2 reads) defaults to
+        ``dp_world_size``."""
         if dp_world_size > 1:
             raise NotImplementedError(
                 f"world size {dp_world_size}: the port's engine runs on one "
@@ -211,6 +221,33 @@ class DeepSpeedConfig:
         tb, mb, gas = (self.train_batch_size,
                        self.train_micro_batch_size_per_gpu,
                        self.gradient_accumulation_steps)
+        if self.elasticity.get("enabled", False):
+            from deepspeed_tpu_torch.elasticity import (
+                compute_elastic_config, ensure_immutable_elastic_config)
+            from deepspeed_tpu_torch.version import __version__
+
+            if (tb is not None or mb is not None or gas is not None) and \
+                    not self.elasticity.get("ignore_non_elastic_batch_info",
+                                            False):
+                raise ValueError(
+                    "elasticity is enabled but batch sizes / gradient "
+                    "accumulation are also set; remove them or set "
+                    "elasticity.ignore_non_elastic_batch_info")
+            ensure_immutable_elastic_config(self.elasticity)
+            tb, _valid, mb = compute_elastic_config(
+                {"elasticity": self.elasticity}, __version__,
+                world_size=world_size or dp_world_size,
+                return_microbatch=True)
+            if mb is None:
+                raise ValueError(
+                    f"elasticity: batch size {tb} is not reachable with any "
+                    f"declared micro_batch_sizes "
+                    f"{self.elasticity.get('micro_batch_sizes')} at "
+                    f"dp={dp_world_size}; change the world size or widen "
+                    f"micro_batch_sizes")
+            gas = tb // (mb * dp_world_size)
+            logger.info(f"elasticity: train_batch_size={tb} "
+                        f"micro_batch={mb} gas={gas}")
         dp = dp_world_size
         if tb is not None and mb is not None and gas is not None:
             if tb != mb * gas * dp:
